@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON line:
+
+1. build: compiles ``pytorch_distributed_tpu_torch/csrc/*.cu`` with nvcc
+   (one process per source, all at once) and times it;
+2. per_sample: kernel B1 (the PER draw) against its plain PyTorch version
+   on the card, at config 12's shapes (a 50,000-row priority vector, 128
+   draws), with kernel, plain and library (cumsum + searchsorted) times;
+3. torso_gemm: kernel B2 (the torso GEMM) against its plain version on
+   the card, at each of the 19 GEMM shapes of one config-12 update
+   (forward in bf16, backward in fp32), with kernel, plain and library
+   (``torch.matmul``) times;
+4. torso_apply: the kernel torso against the ``nn.Module`` forward, and
+   its gradients against autograd through the module, on a small batch;
+5. learner_alone: the CUDA-graph replay of the fused update against the
+   eager update (identical results), then the update on a full random
+   ring with no actors, with the kernel torso and with the module's
+   forward, graphed and eager, with the profiler's device time per update;
+6. train: config 12 at full width through the port's entry point
+   (``pytorch_distributed_tpu_torch.main``) with the kernel torso on; the
+   kernels' launch counters are zeroed just before and read just after.
+
+Then a ``kernels`` line (the table PERF.md is written from), the card's
+name and power limit, and the verdict as the last line.  Exits non-zero,
+with no verdict, if there is no GPU, if the package is missing, or if any
+phase fails.  TF32 is off throughout, so fp32 references are full fp32.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+
+import torch
+
+if not torch.cuda.is_available():
+    print("chip_smoke: torch sees no CUDA device; nothing to run",
+          file=sys.stderr)
+    sys.exit(2)
+
+from pytorch_distributed_tpu_torch.ops import cuda_sampling, cuda_torso  # noqa: E402
+from pytorch_distributed_tpu_torch.ops import kernels  # noqa: E402
+
+DEV = torch.device("cuda", 0)
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# config 12 (dqn/pong-sim/device-per/dqn-cnn) at full width
+RING_ROWS, BATCH, FRAME, ACTIONS = 50_000, 128, (4, 84, 84), 6
+TRAIN_STEPS = 2000
+# (layer, M, K, N) of each forward GEMM at batch 128 (im2col'd convs)
+TORSO_GEMMS = (("Conv_0", BATCH * 20 * 20, 8 * 8 * 4, 32),
+               ("Conv_1", BATCH * 9 * 9, 4 * 4 * 32, 64),
+               ("Conv_2", BATCH * 7 * 7, 3 * 3 * 64, 64),
+               ("Dense_0", BATCH, 7 * 7 * 64, 512),
+               ("Dense_1", BATCH, 512, ACTIONS))
+
+RESULTS: dict = {}
+FAILED: list = []
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def phase(fn):
+    """Run one phase; a failure is printed and remembered, and the later
+    phases still run."""
+    t0 = time.monotonic()
+    try:
+        out = fn()
+        emit({"phase": fn.__name__, "ok": True,
+              "seconds": time.monotonic() - t0, **(out or {})})
+    except Exception:  # noqa: BLE001 - reported, and fails the run
+        FAILED.append(fn.__name__)
+        traceback.print_exc()
+        emit({"phase": fn.__name__, "ok": False,
+              "seconds": time.monotonic() - t0})
+
+
+def time_ms(fn, iters: int = 50, graph: bool = True) -> float:
+    """Mean device time of one call of ``fn`` over ``iters`` back-to-back
+    calls, replayed from a CUDA graph (as the learner's main path runs
+    it), or with ``graph=False`` called eagerly, which adds the host's
+    launch overhead wherever it exceeds the device time."""
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    cur.wait_stream(side)
+    torch.cuda.synchronize()
+    run = fn
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        run = g.replay
+        run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+    """(least time in ms, what bounds it): bytes over the memory rate or
+    operations over the peak rate for the operand type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def card_name_and_power_limit() -> str:
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable: {e}"
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if lines else f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
+# ---------------------------------------------------------------------------
+
+def build():
+    t0 = time.monotonic()
+    took = kernels.build()
+    return {"build_s": time.monotonic() - t0,
+            "per_source_s": took, "flags": " ".join(kernels.NVCC_FLAGS)}
+
+
+def per_sample():
+    """B1 at the ring's full size: kernel vs plain version, same inputs."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    p = torch.rand(RING_ROWS, generator=gen, device=DEV)
+    p = torch.where(torch.rand(RING_ROWS, generator=gen, device=DEV) < 0.1,
+                    torch.zeros_like(p), p)  # some empty rows
+    u = torch.rand(BATCH, generator=gen, device=DEV)
+    worst_err, mismatches = 0.0, 0
+    for _ in range(20):  # 20 draws of 128 uniforms each
+        us = torch.rand(BATCH, generator=gen, device=DEV)
+        idx_k, pr_k = cuda_sampling.hierarchical_sample(p, us)
+        idx_p, pr_p = cuda_sampling.sample_plain(p, us)
+        same = idx_k == idx_p
+        mismatches += int((~same).sum())
+        worst_err = max(worst_err,
+                        float((pr_k - pr_p)[same].abs().max()))
+        if not bool((p[idx_k] > 0).all()):
+            raise AssertionError("kernel drew an empty row")
+    # tolerance: the two versions sum each superblock in another order, so
+    # a draw whose target sits within fp32 rounding of a prefix boundary
+    # may land one row over; allow at most 2 such draws of 2,560
+    if mismatches > 2 or worst_err > 1e-6:
+        raise AssertionError(f"B1 disagrees: {mismatches} index "
+                             f"mismatches, probs err {worst_err}")
+
+    def library():
+        cdf = torch.cumsum(p, 0)
+        idx = torch.searchsorted(cdf, u * cdf[-1], right=True).clamp_(
+            max=RING_ROWS - 1)
+        return idx, p[idx] / cdf[-1]
+
+    ms = time_ms(lambda: cuda_sampling.hierarchical_sample(p, u), 200)
+    eager = time_ms(lambda: cuda_sampling.hierarchical_sample(p, u), 200,
+                    graph=False)
+    plain = time_ms(lambda: cuda_sampling.sample_plain(p, u), 200)
+    lib = time_ms(library, 200)
+    nblocks = -(-RING_ROWS // cuda_sampling.BLOCK)
+    # priority read once, uniforms read, idx (int64) and probs written;
+    # one add per priority for the block sums, a scan and a compare per
+    # priority of each drawn superblock
+    nbytes = RING_ROWS * 4 + BATCH * 4 + BATCH * (8 + 4)
+    flops = RING_ROWS + 2 * BATCH * cuda_sampling.BLOCK + 2 * nblocks
+    b, by = bound_ms(nbytes, flops, torch.float32)
+    RESULTS["per_sample"] = dict(max_abs_err=worst_err, ms=ms,
+                                 plain_ms=plain, bound_ms=b, bound_by=by,
+                                 library_ms=lib)
+    return {"n": RING_ROWS, "batch": BATCH, "index_mismatches": mismatches,
+            "eager_ms": eager,
+            "draws": 20 * BATCH, "tolerance": "probs 1e-6 abs, <= 2 index "
+            "mismatches at fp32 prefix boundaries", **RESULTS["per_sample"]}
+
+
+def _update_gemms():
+    """The 19 GEMMs of one update: (label, a, b, calls per update), with
+    operands laid out (and strided) as the main path hands them over."""
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    out = []
+    for i, (name, m, k, n) in enumerate(TORSO_GEMMS):
+        x = torch.randn(m, k, generator=gen, device=DEV).to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=gen, device=DEV)
+             / math.sqrt(k)).to(torch.bfloat16)
+        g = torch.randn(m, n, generator=gen, device=DEV) / m
+        # forward: online and target nets
+        out.append((f"{name}.fwd", x, w, 2))
+        # dw = x^T g (x as a transposed view of an fp32 copy)
+        out.append((f"{name}.dw", x.float().t(), g, 1))
+        if i > 0:  # Conv_0's input is the observation: no dx
+            out.append((f"{name}.dx", g, w.float().t(), 1))
+    return out
+
+
+def torso_gemm():
+    rows, totals = [], dict(ms=0.0, eager_ms=0.0, plain_ms=0.0,
+                            library_ms=0.0, bound_ms=0.0, t_bytes=0.0,
+                            t_ops=0.0)
+    worst_rel = worst_abs = 0.0
+    calls = 0
+    for label, a, b, count in _update_gemms():
+        c_k = cuda_torso.gemm(a, b)
+        c_p = cuda_torso.gemm_plain(a, b)
+        torch.cuda.synchronize()
+        err = float((c_k - c_p).abs().max())
+        scale = float(c_p.abs().max())
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / max(scale, 1e-30))
+        (m, k), n = a.shape, b.shape[1]
+        es = a.element_size()
+        nbytes = (m * k + k * n) * es + m * n * 4
+        bd, by = bound_ms(nbytes, 2.0 * m * n * k, a.dtype)
+        iters = 20 if m * n * k > 1e8 else 100
+        row = dict(gemm=label, m=m, k=k, n=n, dtype=str(a.dtype)[6:],
+                   calls_per_update=count, max_abs_err=err,
+                   ms=time_ms(lambda: cuda_torso.gemm(a, b), iters),
+                   eager_ms=time_ms(lambda: cuda_torso.gemm(a, b), iters,
+                                    graph=False),
+                   plain_ms=time_ms(lambda: cuda_torso.gemm_plain(a, b),
+                                    iters),
+                   library_ms=time_ms(lambda: torch.matmul(a, b), iters),
+                   bound_ms=bd, bound_by=by)
+        emit({"torso_gemm_shape": row})
+        rows.append(row)
+        calls += count
+        for key in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms"):
+            totals[key] += count * row[key]
+        totals["t_bytes" if by == "bytes" else "t_ops"] += count * bd
+    # tolerance: same products, fp32 sums in another order
+    if worst_rel > 1e-4:
+        raise AssertionError(f"B2 disagrees: max error {worst_abs} "
+                             f"({worst_rel:.2e} of the output scale)")
+    RESULTS["torso_gemm"] = dict(
+        max_abs_err=worst_abs, ms=totals["ms"], plain_ms=totals["plain_ms"],
+        bound_ms=totals["bound_ms"],
+        bound_by="bytes" if totals["t_bytes"] >= totals["t_ops"]
+        else "operations", library_ms=totals["library_ms"])
+    return {"gemms_per_update": calls, "max_rel_err": worst_rel,
+            "eager_ms_per_update": totals["eager_ms"],
+            "tolerance": "max |kernel - plain| <= 1e-4 x max |plain|",
+            "per_update": RESULTS["torso_gemm"]}
+
+
+def torso_apply():
+    """The kernel torso against the module forward and autograd on the
+    same weights (batch 2, 84x84), fp32 and bf16."""
+    from pytorch_distributed_tpu_torch.models.dqn_cnn import DqnCnnModel
+
+    obs = torch.randint(0, 255, (2, *FRAME), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(2)).to(DEV)
+    out = {}
+    for cd, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        model = DqnCnnModel(ACTIONS, FRAME, compute_dtype=cd,
+                            generator=torch.Generator().manual_seed(3))
+        model = model.to(DEV)
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in model.named_parameters()}
+        apply_fn = cuda_torso.build_torso_apply(255.0, cd)
+        q_k = apply_fn(params, obs)
+        q_m = model(obs)
+        err = float((q_k - q_m).detach().abs().max())
+        if not (q_k.shape == (2, ACTIONS) and torch.isfinite(q_k).all()
+                and err <= tol * (1 + float(q_m.detach().abs().max()))):
+            raise AssertionError(f"{cd} torso forward err {err}")
+        out[f"{str(cd)[6:]}_fwd_err"] = err
+        g_k = torch.autograd.grad(q_k.square().mean(), list(params.values()))
+        g_m = torch.autograd.grad(q_m.square().mean(),
+                                  list(model.parameters()))
+        fk = torch.cat([g.flatten() for g in g_k])
+        fm = torch.cat([g.flatten() for g in g_m])
+        cos = float(fk @ fm / (fk.norm() * fm.norm()))
+        out[f"{str(cd)[6:]}_grad_cos"] = cos
+        if cos < 0.999:
+            raise AssertionError(f"{cd} torso grads disagree, cos {cos}")
+    return out
+
+
+def _graph_matches_eager() -> float:
+    """Six dispatches of four updates each replayed from the CUDA graph
+    against six eager ones, from the same state, ring and uniforms: the
+    largest difference over params and priorities (the same kernels in
+    the same order: 0 in every run so far)."""
+    from pytorch_distributed_tpu_torch import bench_learner
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.factory import (
+        EnvSpec, build_model, build_train_state_and_step, init_params,
+    )
+    from pytorch_distributed_tpu_torch.memory.device_per import (
+        DevicePerReplay, GraphedFusedStep,
+    )
+
+    opt = build_options(12, device="cuda", pallas_torso=True)
+    spec = EnvSpec(FRAME, ACTIONS, 255.0)
+    runs = []
+    for graphed in (False, True):
+        ring = DevicePerReplay(4096, FRAME, device=DEV)
+        bench_learner.fill_ring(ring, ACTIONS,
+                                torch.Generator(device=DEV).manual_seed(5))
+        state, step = build_train_state_and_step(
+            opt, build_model(opt, spec),
+            init_params(opt, spec, seed=0, device=DEV))
+        fused = ring.build_fused_step(step, BATCH, steps_per_call=4)
+        if graphed:
+            fused = GraphedFusedStep(fused, ring.state)
+        gen = torch.Generator(device=DEV).manual_seed(6)
+        for _ in range(6):
+            us = torch.rand((4, BATCH), generator=gen, device=DEV)
+            state, _m = fused(state, ring.state, us, 0.4)
+        torch.cuda.synchronize()
+        runs.append((state, ring.state.priority.clone()))
+    (s_e, p_e), (s_g, p_g) = runs
+    diffs = [float((s_e.params[k] - s_g.params[k]).abs().max())
+             for k in s_e.params] + [float((p_e - p_g).abs().max())]
+    return max(diffs)
+
+
+def learner_alone():
+    """The fused PER update at config 12's full width on a full random
+    ring with no actors (bench_learner): updates/s with the kernel torso
+    and with the module's (cuDNN) forward, replayed from a CUDA graph and
+    eager, and the profiler's device time per update by kernel."""
+    from pytorch_distributed_tpu_torch import bench_learner
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    diff = _graph_matches_eager()
+    if diff > 1e-6:  # tolerance: fp32 rounding noise at most
+        raise AssertionError(f"graph replay differs from eager by {diff}")
+    out = {"graph_vs_eager_max_abs_diff": diff}
+    for torso in ("kernel", "module"):
+        for graph in (True, False):
+            r = bench_learner.run(
+                build_options(12, device="cuda",
+                              pallas_torso=torso == "kernel"),
+                updates=100, profile=torso == "kernel", graph=graph)
+            emit({"learner_alone": r})
+            out[f"{torso}_{'graph' if graph else 'eager'}_updates_per_sec"] \
+                = r["updates_per_sec"]
+    return out
+
+
+def train():
+    """Config 12 at full width through the port's entry point."""
+    from pytorch_distributed_tpu_torch import main as port_main
+
+    argv = ["--config", "12", "--backend", "thread", "--device", "cuda",
+            "--num-actors", "2", "--num-envs-per-actor", "16",
+            "--memory-size", str(RING_ROWS), "--batch-size", str(BATCH),
+            "--steps", str(TRAIN_STEPS),
+            "--set", "learn_start=2000", "--set", "pallas_torso=true",
+            "--set", "learner_freq=100"]
+    cuda_sampling.hierarchical_sample.launches = 0
+    cuda_torso.gemm.launches = 0
+    summary = port_main.main(argv)
+    launches = {"per_sample": cuda_sampling.hierarchical_sample.launches,
+                "torso_gemm": cuda_torso.gemm.launches}
+    RESULTS["launches"] = launches
+    steps = summary["learner/steps"]
+    if steps < TRAIN_STEPS or not math.isfinite(
+            summary["learner/critic_loss"]):
+        raise AssertionError(f"train phase: {summary}")
+    # one draw and 19 GEMMs per update with double-DQN off
+    if (launches["per_sample"] != steps
+            or launches["torso_gemm"] != 19 * steps):
+        raise AssertionError(f"launch counts {launches} for {steps} steps")
+    return {"argv": " ".join(argv), "launches": launches,
+            "updates_per_sec": summary["learner/updates_per_sec"],
+            "critic_loss": summary["learner/critic_loss"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated(DEV) / 1e9,
+            "summary": summary}
+
+
+KERNELS = (
+    ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
+     "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
+    ("torso_gemm", "pytorch_distributed_tpu_torch/csrc/torso_gemm.cu",
+     "pytorch_distributed_tpu/ops/pallas_torso.py:104"),
+)
+
+
+def main() -> int:
+    t0 = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0)})
+    for fn in (build, per_sample, torso_gemm, torso_apply, learner_alone,
+               train):
+        if fn is not build and "build" in FAILED:
+            break
+        phase(fn)
+    table = []
+    for name, source, replaces in KERNELS:
+        r = RESULTS.get(name, {})
+        table.append(dict(name=name, route="cuda", source=source,
+                          replaces=replaces,
+                          launches=RESULTS.get("launches", {}).get(name, 0),
+                          **{k: r.get(k) for k in (
+                              "max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}))
+    emit({"kernels": table})
+    print(card_name_and_power_limit(), flush=True)
+    print(f"chip_smoke: {time.monotonic() - t0:.1f} s", file=sys.stderr)
+    if FAILED:
+        print(f"chip_smoke: failed phases {FAILED}", file=sys.stderr)
+        return 1
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,200 @@
+"""Configuration for the port (counterpart of pytorch_distributed_tpu/config.py).
+
+The CONFIGS table is the reference's, row for row, so ``--config N`` names
+the same component bundle in both packages.  The dataclasses carry the
+fields the port's slice reads, under the reference's names, so the same
+``--set k=v`` lines work on both packages; a ``--set`` naming a field the
+port does not carry yet raises instead of being dropped.
+
+Port-only field: ``Options.device`` (``cuda`` by default; ``cpu`` is what
+the tests pass).  There is no ``pallas_interpret``: on a CPU tensor the
+kernel wrappers take their plain versions by rule, and on a CUDA tensor
+they launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Tuple
+
+# [agent_type, env_type, game, memory_type, model_type] — the reference's
+# table (pytorch_distributed_tpu/config.py:37-59); this slice runs row 12
+CONFIGS = [
+    ["dqn",  "atari",    "pong",        "shared",          "dqn-cnn"],      # 0
+    ["dqn",  "fake",     "chain",       "shared",          "dqn-mlp"],      # 1
+    ["ddpg", "classic",  "pendulum",    "shared",          "ddpg-mlp"],     # 2
+    ["dqn",  "classic",  "cartpole",    "shared",          "dqn-mlp"],      # 3
+    ["dqn",  "pong-sim", "pong",        "shared",          "dqn-cnn"],      # 4
+    ["dqn",  "atari",    "breakout",    "shared",          "dqn-cnn"],      # 5
+    ["dqn",  "pong-sim", "pong",        "prioritized",     "dqn-cnn"],      # 6
+    ["dqn",  "atari",    "pong",        "prioritized",     "dqn-cnn"],      # 7
+    ["dqn",  "pong-sim", "pong",        "device",          "dqn-cnn"],      # 8
+    ["ddpg", "gym",      "halfcheetah", "shared",          "ddpg-mlp"],     # 9
+    ["ddpg", "gym",      "humanoid",    "shared",          "ddpg-mlp"],     # 10
+    ["dqn",  "atari",    "breakout",    "device",          "dqn-cnn"],      # 11
+    ["dqn",  "pong-sim", "pong",        "device-per",      "dqn-cnn"],      # 12
+    ["r2d2", "fake",     "chain",       "sequence",        "drqn-mlp"],     # 13
+    ["r2d2", "pong-sim", "pong",        "device-sequence", "drqn-cnn"],     # 14
+    ["r2d2", "fake",     "chain",       "sequence",        "dtqn-mlp"],     # 15
+    ["ddpg", "classic",  "reacher",     "shared",          "ddpg-mlp"],     # 16
+    ["r2d2", "fake",     "chain",       "sequence",        "dtqn-moe"],     # 17
+    ["r2d2", "fake",     "chain",       "sequence",        "dtqn-pipe"],    # 18
+    ["dqn",  "pong-sim", "pong",        "device-per",      "dqn-cnn-wide"], # 19
+]
+
+# the rows this port runs end to end so far
+PORTED_CONFIGS = (12,)
+
+
+@dataclass
+class EnvParams:
+    env_type: str = "pong-sim"
+    game: str = "pong"
+    seed: int = 100
+    state_cha: int = 4
+    state_hei: int = 84
+    state_wid: int = 84
+    early_stop: int = 12500
+    action_repetition: int = 4
+    num_envs_per_actor: int = 1
+    # "pipelined" (default) and "inline" run the same inline loop here;
+    # "batched", "device" and "anakin" are not ported yet (ROADMAP.md)
+    actor_backend: str = "pipelined"
+
+    @property
+    def state_shape(self) -> Tuple[int, ...]:
+        return (self.state_cha, self.state_hei, self.state_wid)
+
+
+@dataclass
+class MemoryParams:
+    memory_type: str = "device-per"
+    memory_size: int = 50000
+    state_dtype: str = "uint8"
+    priority_exponent: float = 0.6
+    priority_weight: float = 0.4
+
+
+@dataclass
+class ModelParams:
+    model_type: str = "dqn-cnn"
+    orthogonal_init: bool = True
+    compute_dtype: str = "bfloat16"
+
+
+@dataclass
+class AgentParams:
+    agent_type: str = "dqn"
+    steps: int = 500000
+    max_seconds: float = 0.0
+    gamma: float = 0.99
+    clip_grad: float = float("inf")
+    lr: float = 1e-4
+    actor_sync_freq: int = 100
+    actor_freq: int = 250
+    learner_freq: int = 100
+    param_publish_freq: int = 10
+    learn_start: int = 5000
+    batch_size: int = 128
+    max_replay_ratio: float = 0.0
+    # 0 = auto: 1 sub-step per dispatch.  On the GPU a dispatch is one
+    # CUDA-graph replay; 32 per dispatch measured slower end to end in the
+    # thread backend (PERF.md)
+    steps_per_dispatch: int = 0
+    target_model_update: float = 250
+    nstep: int = 5
+    enable_double: bool = False
+    eps: float = 0.4
+    eps_alpha: float = 7.0
+
+
+@dataclass
+class HealthParams:
+    # the in-step finite check (ops/losses.finite_guard): a non-finite
+    # step is skipped and reported as learner/skipped
+    numeric_guards: bool = True
+
+
+@dataclass
+class LearnerPerfParams:
+    # the learner's train apply runs the dqn-cnn torso through the
+    # hand-written GEMM kernel (ops/cuda_torso.py)
+    pallas_torso: bool = False
+
+
+_SUBS = ("env_params", "memory_params", "model_params", "agent_params",
+         "health_params", "learner_perf_params")
+_SELECTORS = ("agent_type", "env_type", "game", "memory_type", "model_type")
+
+
+@dataclass
+class Options:
+    config: int = 12
+    seed: int = 100
+    num_actors: int = 8
+    device: str = "cuda"
+
+    agent_type: str = "dqn"
+    env_type: str = "pong-sim"
+    game: str = "pong"
+    memory_type: str = "device-per"
+    model_type: str = "dqn-cnn"
+
+    env_params: EnvParams = field(default_factory=EnvParams)
+    memory_params: MemoryParams = field(default_factory=MemoryParams)
+    model_params: ModelParams = field(default_factory=ModelParams)
+    agent_params: AgentParams = field(default_factory=AgentParams)
+    health_params: HealthParams = field(default_factory=HealthParams)
+    learner_perf_params: LearnerPerfParams = field(
+        default_factory=LearnerPerfParams)
+
+
+def parse_set_overrides(pairs) -> dict:
+    """Parse repeatable CLI ``--set key=value`` pairs (bool, int, float,
+    else string) — the reference's parser (config.py:990-1007)."""
+    out = {}
+    for kv in pairs:
+        k, _, v = kv.partition("=")
+        if v.lower() in ("true", "false"):
+            v = v.lower() == "true"
+        else:
+            for cast in (int, float):
+                try:
+                    v = cast(v)
+                    break
+                except ValueError:
+                    continue
+        out[k] = v
+    return out
+
+
+def build_options(config: int = 12, **overrides: Any) -> Options:
+    """Options from a CONFIGS row plus keyword overrides, routed to the
+    sub-dataclass that owns each key (reference config.py:1010-1098).
+    Raises for a row the port does not run yet and for unknown keys."""
+    if config not in PORTED_CONFIGS:
+        raise NotImplementedError(
+            f"config {config} ({'/'.join(CONFIGS[config])}) is not ported "
+            f"yet; this slice runs {PORTED_CONFIGS} (ROADMAP.md Queue A)")
+    agent_type, env_type, game, memory_type, model_type = CONFIGS[config]
+    opt = Options(
+        config=config, agent_type=agent_type, env_type=env_type, game=game,
+        memory_type=memory_type, model_type=model_type,
+        env_params=EnvParams(env_type=env_type, game=game),
+        memory_params=MemoryParams(memory_type=memory_type),
+        model_params=ModelParams(model_type=model_type),
+        agent_params=AgentParams(agent_type=agent_type),
+    )
+    for key, val in overrides.items():
+        if key in _SELECTORS or key in _SUBS:
+            raise ValueError(f"option {key!r} is fixed by the CONFIGS row")
+        # a top-level field wins (``seed`` is mirrored into env_params
+        # below); otherwise exactly one sub-dataclass owns the key
+        owner = opt if hasattr(opt, key) else next(
+            (getattr(opt, s) for s in _SUBS
+             if hasattr(getattr(opt, s), key)), None)
+        if owner is None:
+            raise ValueError(f"unknown option: {key}")
+        setattr(owner, key, val)
+    opt.env_params.seed = opt.seed
+    return opt

@@ -1,0 +1,51 @@
+"""Reference ``DqnCnnModel`` params -> the port's ``state_dict``.
+
+Takes the flax param tree of pytorch_distributed_tpu/models/dqn_cnn.py as
+nested dicts of array-likes (numpy, or anything ``np.asarray`` reads) and
+returns the port's ``DqnCnnModel`` state_dict as fp32 tensors.  Three
+layout traps:
+
+- conv kernels are HWIO in flax and OIHW in torch;
+- a flax ``Dense`` kernel is (in, out), a torch ``Linear`` weight (out, in);
+- flax flattens the last conv's NHWC activations in (h, w, c) order before
+  ``Dense_0`` (reference dqn_cnn.py:64) where the port's NCHW flatten is
+  (c, h, w), so ``Dense_0``'s input rows are permuted.
+
+The transform is linear and per-leaf, so Adam moments (and gradients) of
+the same tree go through it unchanged in meaning.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from pytorch_distributed_tpu_torch.models.dqn_cnn import (
+    CONV_LAYERS, torso_out_hw,
+)
+
+
+def convert_dqn_cnn(params: Mapping, state_shape: Sequence[int]
+                    ) -> Dict[str, torch.Tensor]:
+    """``params`` is ``{"params": {...}}`` or the inner tree;
+    ``state_shape`` is the (C, H, W) observation shape (it fixes the
+    ``Dense_0`` permutation)."""
+    p = params["params"] if "params" in params else params
+    out: Dict[str, np.ndarray] = {}
+    for i, (name, _cout, _k, _s) in enumerate(CONV_LAYERS):
+        scope = p[f"Conv_{i}"]
+        out[f"{name}.weight"] = np.asarray(scope["kernel"]).transpose(
+            3, 2, 0, 1)
+        out[f"{name}.bias"] = np.asarray(scope["bias"])
+    oh, ow = torso_out_hw(*state_shape[1:])
+    k0 = np.asarray(p["Dense_0"]["kernel"])           # rows (h, w, c)
+    c = k0.shape[0] // (oh * ow)
+    out["fc.weight"] = k0.reshape(oh, ow, c, -1).transpose(
+        3, 2, 0, 1).reshape(k0.shape[1], -1)          # cols (c, h, w)
+    out["fc.bias"] = np.asarray(p["Dense_0"]["bias"])
+    out["head.weight"] = np.asarray(p["Dense_1"]["kernel"]).T
+    out["head.bias"] = np.asarray(p["Dense_1"]["bias"])
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in out.items()}

@@ -1,0 +1,148 @@
+"""ALE-free Pong simulator — the port's copy of
+pytorch_distributed_tpu/envs/pong_sim.py, bit-identical in behaviour.
+
+The game of Pong (ball, two paddles, first to 21) as a small numpy
+simulation run through the Atari preprocessing contract: 84x84 grayscale
+uint8 frames, action-repeat 4 with a max-pool over the last two raw
+frames, a 4-frame history stack, norm_val 255.  Six actions, as ALE Pong's
+minimal set (FIRE variants act like their move).
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Any, Dict, Tuple
+
+import numpy as np
+
+from pytorch_distributed_tpu_torch.envs.base import DiscreteSpace, Env
+
+H, W = 84.0, 84.0
+PADDLE_H = 10.0
+PADDLE_W = 2.0
+BALL = 2.0
+PLAYER_X = W - 6.0          # right paddle (the agent)
+ENEMY_X = 4.0
+PLAYER_SPEED = 2.0          # units per raw frame
+ENEMY_SPEED = 0.9
+BALL_SPEED_X = 1.4
+WIN_SCORE = 21
+
+ACTIONS = ("NOOP", "FIRE", "UP", "DOWN", "UPFIRE", "DOWNFIRE")
+_MOVE = {0: 0.0, 1: 0.0, 2: -PLAYER_SPEED, 3: +PLAYER_SPEED,
+         4: -PLAYER_SPEED, 5: +PLAYER_SPEED}
+
+
+class PongSimEnv(Env):
+    def __init__(self, env_params, process_ind: int = 0):
+        super().__init__(env_params, process_ind)
+        self.norm_val = 255.0
+        self.hist_len = env_params.state_cha
+        self.frame_stack: deque = deque(maxlen=self.hist_len)
+        self._score = [0, 0]  # [enemy, player]
+        self._reset_ball(direction=1)
+        self.player_y = H / 2
+        self.enemy_y = H / 2
+
+    @property
+    def state_shape(self) -> Tuple[int, ...]:
+        return (self.hist_len, 84, 84)
+
+    @property
+    def action_space(self) -> DiscreteSpace:
+        return DiscreteSpace(len(ACTIONS))
+
+    def _reset_ball(self, direction: int) -> None:
+        self.ball_x = W / 2
+        self.ball_y = float(self.rng.uniform(20.0, H - 20.0))
+        self.ball_vx = BALL_SPEED_X * direction
+        self.ball_vy = float(self.rng.uniform(-1.2, 1.2))
+
+    def _tick(self, move: float) -> float:
+        """Advance one raw frame; returns the player's scoring reward."""
+        self.player_y = float(np.clip(self.player_y + move,
+                                      PADDLE_H / 2, H - PADDLE_H / 2))
+        err = self.ball_y - self.enemy_y  # rate-limited tracking enemy
+        self.enemy_y = float(np.clip(
+            self.enemy_y + np.clip(err, -ENEMY_SPEED, ENEMY_SPEED),
+            PADDLE_H / 2, H - PADDLE_H / 2))
+
+        self.ball_x += self.ball_vx
+        self.ball_y += self.ball_vy
+        if self.ball_y < BALL / 2:
+            self.ball_y = BALL - self.ball_y
+            self.ball_vy = -self.ball_vy
+        elif self.ball_y > H - BALL / 2:
+            self.ball_y = 2 * (H - BALL / 2) - self.ball_y
+            self.ball_vy = -self.ball_vy
+
+        if (self.ball_vx > 0
+                and self.ball_x >= PLAYER_X - PADDLE_W
+                and abs(self.ball_y - self.player_y)
+                <= PADDLE_H / 2 + BALL / 2):
+            self.ball_x = PLAYER_X - PADDLE_W
+            self.ball_vx = -self.ball_vx
+            self.ball_vy += 0.5 * (self.ball_y - self.player_y) / (PADDLE_H / 2)
+            self.ball_vy = float(np.clip(self.ball_vy, -2.0, 2.0))
+        elif (self.ball_vx < 0
+                and self.ball_x <= ENEMY_X + PADDLE_W
+                and abs(self.ball_y - self.enemy_y)
+                <= PADDLE_H / 2 + BALL / 2):
+            self.ball_x = ENEMY_X + PADDLE_W
+            self.ball_vx = -self.ball_vx
+            self.ball_vy += 0.5 * (self.ball_y - self.enemy_y) / (PADDLE_H / 2)
+            self.ball_vy = float(np.clip(self.ball_vy, -2.0, 2.0))
+
+        if self.ball_x < 0:
+            self._score[1] += 1
+            self._reset_ball(direction=-1)
+            return 1.0
+        if self.ball_x > W:
+            self._score[0] += 1
+            self._reset_ball(direction=1)
+            return -1.0
+        return 0.0
+
+    def _draw(self) -> np.ndarray:
+        f = np.zeros((84, 84), dtype=np.uint8)
+        f[:] = 35
+
+        def vspan(y):
+            lo = int(max(0, round(y - PADDLE_H / 2)))
+            hi = int(min(84, round(y + PADDLE_H / 2)))
+            return lo, hi
+        lo, hi = vspan(self.enemy_y)
+        f[lo:hi, int(ENEMY_X - PADDLE_W):int(ENEMY_X)] = 130
+        lo, hi = vspan(self.player_y)
+        f[lo:hi, int(PLAYER_X):int(PLAYER_X + PADDLE_W)] = 150
+        by, bx = int(round(self.ball_y)), int(round(self.ball_x))
+        f[max(0, by - 1):by + 1, max(0, bx - 1):bx + 1] = 236
+        return f
+
+    def _reset(self) -> np.ndarray:
+        self._score = [0, 0]
+        self.player_y = H / 2
+        self.enemy_y = H / 2
+        self._reset_ball(direction=1 if self.rng.random() < 0.5 else -1)
+        self.frame_stack.clear()
+        first = self._draw()
+        for _ in range(self.hist_len):
+            self.frame_stack.append(first)
+        return np.stack(self.frame_stack)
+
+    def _step(self, action) -> Tuple[np.ndarray, float, bool, Dict[str, Any]]:
+        move = _MOVE[int(action)]
+        reward = 0.0
+        prev = None
+        # action-repeat + max-pool of the last two raw frames
+        for k in range(self.params.action_repetition):
+            reward += self._tick(move)
+            if k == self.params.action_repetition - 2:
+                prev = self._draw()
+        frame = self._draw()
+        if prev is not None:
+            frame = np.maximum(frame, prev)
+        self.frame_stack.append(frame)
+        terminal = max(self._score) >= WIN_SCORE
+        return np.stack(self.frame_stack), reward, terminal, {
+            "score": tuple(self._score)}

@@ -1,0 +1,178 @@
+"""Builders shared by the port's workers — the port of
+pytorch_distributed_tpu/factory.py: the env probe and ``EnvSpec`` (:239),
+the dqn branch of ``build_train_state_and_step`` (:636-647), the learner's
+train apply gate ``_dqn_train_apply`` (:674-723) and the device-PER branch
+of ``build_memory`` (:887).
+
+Only CONFIGS row 12 runs in this slice: the pong-sim env, the ``dqn-cnn``
+model and the ``device-per`` ring.  Anything else raises
+``NotImplementedError`` naming the ROADMAP queue that will bring it.
+"""
+
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from pytorch_distributed_tpu_torch.config import Options
+from pytorch_distributed_tpu_torch.envs.pong_sim import PongSimEnv
+from pytorch_distributed_tpu_torch.envs.vector import VectorEnv
+from pytorch_distributed_tpu_torch.memory.device_replay import (
+    DevicePerIngest,
+)
+from pytorch_distributed_tpu_torch.models.dqn_cnn import DqnCnnModel
+from pytorch_distributed_tpu_torch.ops.cuda_torso import build_torso_apply
+from pytorch_distributed_tpu_torch.ops.losses import (
+    TrainState, build_dqn_train_step, init_train_state,
+)
+
+ENVS = {"pong-sim": PongSimEnv}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
+                               f"Queue A)")
+
+
+def resolve_device(opt: Options) -> torch.device:
+    """The run's device.  ``cuda`` (the default) needs a visible GPU and
+    raises without one: the port never carries on on the CPU unless the
+    caller asked for it."""
+    dev = torch.device(opt.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch sees no GPU; "
+                           "pass --device cpu to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {opt.device!r}")
+    return dev
+
+
+def role_seed(seed: int, role: str, index: int = 0) -> int:
+    """A distinct, reproducible seed per (run seed, role, worker index)."""
+    return (seed * 1_000_003 + zlib.crc32(role.encode()) * 7919
+            + index) % (2 ** 63)
+
+
+def compute_dtype(opt: Options) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16,
+            "float32": torch.float32}[opt.model_params.compute_dtype]
+
+
+@dataclass(frozen=True)
+class EnvSpec:
+    """What the model and the ring need to know about the env."""
+
+    state_shape: Tuple[int, ...]
+    num_actions: int
+    norm_val: float
+
+    @property
+    def action_shape(self) -> Tuple[int, ...]:
+        return ()
+
+    @property
+    def action_dtype(self):
+        return np.int32
+
+
+def build_env(opt: Options, process_ind: int = 0):
+    if opt.env_type not in ENVS:
+        raise _not_ported(f"env_type {opt.env_type!r}")
+    return ENVS[opt.env_type](opt.env_params, process_ind)
+
+
+def build_env_vector(opt: Options, process_ind: int,
+                     num_envs: int) -> VectorEnv:
+    """Env j of actor i takes the seed slot i*N + j (reference :291)."""
+    return VectorEnv([build_env(opt, process_ind * num_envs + j)
+                      for j in range(num_envs)])
+
+
+def probe_env(opt: Options) -> EnvSpec:
+    env = build_env(opt, process_ind=0)
+    return EnvSpec(state_shape=tuple(env.state_shape),
+                   num_actions=env.action_space.n,
+                   norm_val=float(env.norm_val))
+
+
+def build_model(opt: Options, spec: EnvSpec, device=None,
+                generator: Optional[torch.Generator] = None) -> DqnCnnModel:
+    """The configured model on ``device``, initialised from
+    ``generator``."""
+    if opt.model_type != "dqn-cnn":
+        raise _not_ported(f"model_type {opt.model_type!r}")
+    model = DqnCnnModel(spec.num_actions, spec.state_shape,
+                        norm_val=spec.norm_val,
+                        orthogonal_init=opt.model_params.orthogonal_init,
+                        compute_dtype=compute_dtype(opt),
+                        generator=generator)
+    return model.to(device) if device is not None else model
+
+
+def init_params(opt: Options, spec: EnvSpec, seed: int,
+                device=None) -> Dict[str, torch.Tensor]:
+    """A fresh parameter dict (the model's state_dict) from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model(opt, spec, generator=gen)
+    return {k: v.to(device) if device is not None else v
+            for k, v in model.state_dict().items()}
+
+
+def module_apply(model: torch.nn.Module) -> Callable:
+    """``apply(params, obs) -> q`` through the module's own forward."""
+    return lambda params, obs: functional_call(model, params, (obs,))
+
+
+def dqn_train_apply(opt: Options, model: DqnCnnModel) -> Callable:
+    """The learner's train apply: the module's forward, or — with
+    ``learner_perf_params.pallas_torso`` on and the ``dqn-cnn`` model —
+    the torso through the GEMM kernel (ops/cuda_torso.py).  Actors never
+    route through this; the parameters are the same either way."""
+    if opt.learner_perf_params.pallas_torso and opt.model_type == "dqn-cnn":
+        return build_torso_apply(model.norm_val, model.compute_dtype)
+    return module_apply(model)
+
+
+def build_train_state_and_step(opt: Options, model: DqnCnnModel,
+                               params: Dict[str, torch.Tensor]
+                               ) -> Tuple[TrainState, Callable]:
+    if opt.agent_type != "dqn":
+        raise _not_ported(f"agent_type {opt.agent_type!r}")
+    ap = opt.agent_params
+    state = init_train_state(params)
+    step = build_dqn_train_step(
+        dqn_train_apply(opt, model), lr=ap.lr, clip_grad=ap.clip_grad,
+        enable_double=ap.enable_double,
+        target_model_update=ap.target_model_update,
+        guard=opt.health_params.numeric_guards)
+    return state, step
+
+
+@dataclass
+class MemoryHandles:
+    """``actor_side`` is what actors feed; ``learner_side`` what the
+    learner attaches, drains and samples."""
+
+    actor_side: Any
+    learner_side: Any
+
+
+def build_memory(opt: Options, spec: EnvSpec) -> MemoryHandles:
+    if opt.memory_type != "device-per":
+        raise _not_ported(f"memory_type {opt.memory_type!r}")
+    mp_ = opt.memory_params
+    if mp_.state_dtype != "uint8":
+        raise _not_ported(f"state_dtype {mp_.state_dtype!r}")
+    ingest = DevicePerIngest(
+        capacity=mp_.memory_size, state_shape=spec.state_shape,
+        action_shape=spec.action_shape, state_dtype=np.uint8,
+        action_dtype=spec.action_dtype,
+        priority_exponent=mp_.priority_exponent,
+        importance_weight=mp_.priority_weight,
+        importance_anneal_steps=opt.agent_params.steps)
+    return MemoryHandles(actor_side=ingest.make_feeder(), learner_side=ingest)

@@ -1,0 +1,75 @@
+"""Entry point of the port — the counterpart of the repository's root
+``main.py`` (:22-121) for the rows this port runs.
+
+    python -m pytorch_distributed_tpu_torch.main --config 12 --backend thread \\
+        [--device cuda|cpu] [--set k=v ...]
+
+Trains on the GPU unless ``--device cpu`` is given; with no GPU visible
+and no ``--device cpu`` it raises.  The last line printed is the run's
+summary as one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from pytorch_distributed_tpu_torch.config import (
+    CONFIGS, build_options, parse_set_overrides,
+)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", type=int, default=12,
+                   help=f"CONFIGS row 0..{len(CONFIGS) - 1}")
+    p.add_argument("--seed", type=int, default=100)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--num-actors", type=int, default=None)
+    p.add_argument("--num-envs-per-actor", type=int, default=None)
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--memory-size", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--nstep", type=int, default=None)
+    p.add_argument("--enable-double", action="store_true")
+    p.add_argument("--publish-freq", type=int, default=None,
+                   help="learner steps between param publications")
+    p.add_argument("--backend", choices=("process", "thread"),
+                   default="thread")
+    p.add_argument("--set", action="append", default=[], metavar="K=V",
+                   help="any Options override, e.g. --set lr=2e-3 "
+                        "(repeatable)")
+    return p.parse_args(argv)
+
+
+def options_from_args(args):
+    overrides = dict(seed=args.seed, device=args.device)
+    overrides.update(parse_set_overrides(args.set))
+    flags = dict(num_actors=args.num_actors,
+                 num_envs_per_actor=args.num_envs_per_actor,
+                 steps=args.steps, memory_size=args.memory_size,
+                 batch_size=args.batch_size, nstep=args.nstep,
+                 param_publish_freq=args.publish_freq)
+    overrides.update({k: v for k, v in flags.items() if v is not None})
+    if args.enable_double:
+        overrides["enable_double"] = True
+    return build_options(config=args.config, **overrides)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    opt = options_from_args(args)
+    from pytorch_distributed_tpu_torch import runtime
+
+    print(f"[main] training config {args.config} ({opt.agent_type}/"
+          f"{opt.env_type}/{opt.game}/{opt.memory_type}/{opt.model_type}) "
+          f"on {opt.device}", flush=True)
+    summary = runtime.train(opt, backend=args.backend)
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,258 @@
+"""Prioritized replay in device memory, fused into the learner step — the
+port of pytorch_distributed_tpu/memory/device_per.py: ``per_feed``
+(:59-64), ``per_sample`` (:86-120), ``per_update_priorities`` (:153-161),
+``DevicePerReplay`` (:203-257) and the sequential ``build_fused_step``
+(:327-351).
+
+Priorities are stored pre-exponentiated (``p = (|td| + eps) ** alpha``);
+new rows enter at the running max priority so every row is replayed at
+least once.  IS weights are normalised by the weight of the
+minimum-probability valid row and annealed by ``beta``.
+
+The fused step runs K sub-steps of sample -> train -> priority write-back
+as a Python loop (the reference's ``lax.scan``), each sub-step sampling
+from the priorities the previous one wrote.  It takes the uniforms of all
+K draws as one (K, B) tensor, which the learner draws from its device
+generator and the tests hand in.  The draw is kernel B1
+(``ops/cuda_sampling.hierarchical_sample``): the kernel on a CUDA ring, its
+plain version on a CPU ring.  Ring and priorities are updated in place.
+
+On a CUDA ring the learner replays the fused step from a CUDA graph
+(``GraphedFusedStep``), the counterpart of the reference's one jitted XLA
+program per dispatch: one replay launches every kernel of the K sub-steps,
+so the host pays one call per dispatch instead of several hundred small
+ones.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from pytorch_distributed_tpu_torch.memory.device_replay import (
+    DeviceReplay, ReplayState, ring_write,
+)
+from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
+    hierarchical_sample,
+)
+from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY
+from pytorch_distributed_tpu_torch.utils.experience import Batch, Transition
+
+
+@dataclass
+class PerReplayState(ReplayState):
+    priority: Optional[torch.Tensor] = None      # (N,) f32 p**alpha; 0 = empty
+    max_priority: Optional[torch.Tensor] = None  # () f32 running max
+    fill_rows: Optional[torch.Tensor] = None     # () f32 copy of ``fill``
+
+
+def per_feed(state: PerReplayState, chunk: Transition, capacity: int) -> None:
+    """Ring write at the cursor; the new rows take the running max."""
+    for start, stop in ring_write(state, chunk, capacity):
+        state.priority[start:stop] = state.max_priority
+    state.fill_rows.fill_(float(state.fill))
+
+
+def per_sample(state: PerReplayState, u: torch.Tensor, beta,
+               sample_fn: Callable = hierarchical_sample) -> Batch:
+    """Proportional sample of ``len(u)`` rows plus IS weights.
+    ``sample_fn(priority, u) -> (idx, probs)`` is the draw hook; ``beta``
+    is a float or a () tensor."""
+    p = state.priority
+    idx, probs = sample_fn(p, u)
+    total = torch.sum(p)
+    fill = torch.clamp(state.fill_rows, min=1.0)
+    weights = (fill * torch.clamp(probs, min=1e-12)) ** (-beta)
+    min_p = (torch.min(torch.where(p > 0, p, torch.full_like(p, torch.inf)))
+             / torch.clamp(total, min=1e-12))
+    max_w = (fill * torch.clamp(min_p, min=1e-12)) ** (-beta)
+    weights = weights / torch.clamp(max_w, min=1e-12)
+    return Batch(
+        state0=state.state0[idx], action=state.action[idx],
+        reward=state.reward[idx], gamma_n=state.gamma_n[idx],
+        state1=state.state1[idx], terminal1=state.terminal1[idx],
+        weight=weights.float(), index=idx)
+
+
+def per_update_priorities(state: PerReplayState, idx: torch.Tensor,
+                          td_abs: torch.Tensor, alpha: float,
+                          skipped: Optional[torch.Tensor] = None,
+                          epsilon: float = 1e-6) -> None:
+    """|TD| write-back (pre-exponentiated) and running-max update, in place.
+
+    Duplicate indices resolve deterministically as last-in-batch wins (the
+    reference's scatter order): every position of a duplicated index writes
+    the value of that index's last position, so which write lands does not
+    matter.  With ``skipped`` >= 0.5 (the guard's flag) the old values are
+    written back and the max is kept, with no host sync."""
+    pr = ((torch.abs(td_abs) + epsilon) ** alpha).float()
+    pos = torch.arange(idx.numel(), device=idx.device)
+    last = torch.where(idx[:, None] == idx[None, :], pos[None, :],
+                       -1).amax(1)
+    vals = pr[last]
+    new_max = torch.maximum(state.max_priority, torch.max(pr))
+    if skipped is not None:
+        keep = skipped >= 0.5
+        vals = torch.where(keep, state.priority[idx], vals)
+        new_max = torch.where(keep, state.max_priority, new_max)
+    state.priority[idx] = vals
+    state.max_priority.copy_(new_max)
+
+
+class DevicePerReplay(DeviceReplay):
+    """The device ring extended with priorities and their running max."""
+
+    def __init__(self, capacity: int, state_shape, action_shape=(),
+                 state_dtype=torch.uint8, action_dtype=torch.int32,
+                 device="cpu", priority_exponent: float = 0.6,
+                 importance_weight: float = 0.4,
+                 importance_anneal_steps: int = 500000):
+        self.alpha = priority_exponent
+        self.beta0 = importance_weight
+        self.beta_steps = importance_anneal_steps
+        super().__init__(capacity, state_shape, action_shape, state_dtype,
+                         action_dtype, device)
+
+    def _extend(self, columns: dict) -> PerReplayState:
+        return PerReplayState(
+            **columns,
+            priority=torch.zeros(self.capacity, dtype=torch.float32,
+                                 device=self.device),
+            max_priority=torch.ones((), dtype=torch.float32,
+                                    device=self.device),
+            fill_rows=torch.zeros((), dtype=torch.float32,
+                                  device=self.device))
+
+    def feed_chunk(self, chunk: Transition) -> None:
+        per_feed(self.state, chunk, self.capacity)
+
+    def beta(self, step: int) -> float:
+        frac = min(1.0, step / max(1, self.beta_steps))
+        return self.beta0 + (1.0 - self.beta0) * frac
+
+    def build_fused_step(self, train_step, batch_size: int,
+                         steps_per_call: int = 1,
+                         sample_fn: Callable = hierarchical_sample):
+        """``fused(ts, rs, us (K, B), beta) -> (ts', metrics)``: K sub-steps
+        of sample -> train -> write-back on the ring state ``rs`` (updated
+        in place); ``beta`` is a float or a () tensor.  Metrics are the last
+        sub-step's, except ``learner/skipped``, which sums over the K
+        sub-steps."""
+        alpha, K = self.alpha, steps_per_call
+
+        def fused(ts, rs: PerReplayState, us: torch.Tensor, beta):
+            if tuple(us.shape) != (K, batch_size):
+                raise ValueError(f"uniforms {tuple(us.shape)}, expected "
+                                 f"({K}, {batch_size})")
+            skipped = None
+            for k in range(K):
+                batch = per_sample(rs, us[k], beta, sample_fn)
+                ts, metrics, td_abs = train_step(ts, batch)
+                sk = metrics.get(SKIPPED_KEY)
+                per_update_priorities(rs, batch.index, td_abs, alpha, sk)
+                if sk is not None:
+                    skipped = sk if skipped is None else skipped + sk
+            if skipped is not None:
+                metrics = dict(metrics, **{SKIPPED_KEY: skipped})
+            return ts, metrics
+
+        return fused
+
+
+def _copy_tree_(dst, src) -> None:
+    """Copy every tensor of ``src`` into the same place of ``dst``."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            _copy_tree_(dst[k], src[k])
+    else:
+        for d, s_ in zip(dst, src):
+            _copy_tree_(d, s_)
+
+
+def _clone_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return type(tree)(*(_clone_tree(v) for v in tree))
+
+
+class GraphedFusedStep:
+    """A fused step (``build_fused_step``) replayed from a CUDA graph, with
+    the same call: ``(ts, rs, us (K, B), beta) -> (ts', metrics)``.
+
+    The first ``warmup`` calls run the step eagerly on a side stream (lazy
+    initialisation must not happen under capture); the next call copies
+    its train state into static buffers, captures one step that reads
+    those buffers and writes its result back into them, and replays it.
+    From then on a call copies the uniforms and ``beta`` into their static
+    buffers and replays: every call is exactly one real update of ``rs``
+    (which must be the ring the graph was captured on; its tensors are
+    updated in place, so ingest between calls is seen) and of the train
+    state.  The returned train state and metrics are the static buffers,
+    overwritten by the next call.
+
+    ``counters`` are the kernel wrappers whose ``launches`` count the
+    kernels they launch: capture records their launches without running
+    them, so the counts are put back after capture, and each replay adds
+    the launches the captured step holds."""
+
+    def __init__(self, fused: Callable, ring: PerReplayState,
+                 counters: Sequence = (), warmup: int = 2):
+        self._fused = fused
+        self._ring = ring
+        self._counters = tuple(counters)
+        self._warmup = warmup
+        self._graph = None
+        self._deltas = ()
+        self._static = self._metrics = self._us = self._beta = None
+
+    def _eager(self, ts, us, beta):
+        cur = torch.cuda.current_stream(us.device)
+        side = torch.cuda.Stream(us.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self._fused(ts, self._ring, us, beta)
+        cur.wait_stream(side)
+        torch.cuda.synchronize(us.device)  # no side-stream block outlives
+        return out
+
+    def _capture(self, ts, us, beta) -> None:
+        self._static = _clone_tree(ts)
+        self._us = us.clone()
+        self._beta = torch.full((), float(beta), device=us.device)
+        before = [c.launches for c in self._counters]
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: actor threads go on launching work on their own
+        # streams and synchronising with it while this thread captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            new_ts, self._metrics = self._fused(self._static, self._ring,
+                                                self._us, self._beta)
+            _copy_tree_(self._static, new_ts)
+        self._deltas = tuple(c.launches - b
+                             for c, b in zip(self._counters, before))
+        for c, b in zip(self._counters, before):
+            c.launches = b
+        self._graph = graph
+
+    def __call__(self, ts, rs: PerReplayState, us: torch.Tensor, beta):
+        if rs is not self._ring:
+            raise ValueError("the graph replays the ring it was captured on")
+        if self._warmup > 0:
+            self._warmup -= 1
+            return self._eager(ts, us, beta)
+        if self._graph is None:
+            self._capture(ts, us, beta)
+        else:
+            if ts is not self._static:
+                _copy_tree_(self._static, ts)
+            self._us.copy_(us)
+            self._beta.fill_(float(beta))
+        self._graph.replay()
+        for c, d in zip(self._counters, self._deltas):
+            c.launches += d
+        return self._static, self._metrics

@@ -1,0 +1,230 @@
+"""Replay ring in device memory — the port of
+pytorch_distributed_tpu/memory/device_replay.py: ``ReplayState`` and
+``ring_write`` (:34-85), ``DeviceReplay`` (:265-388), and the queue front
+end ``DeviceReplayIngest`` / ``drain`` (:389-611) without the flow-shed and
+quarantine planes, plus ``DevicePerIngest`` (:614-638).
+
+The six transition columns live as tensors on the learner's device.  Where
+the reference's functional ring returns a new state from every write, the
+port writes in place (a copy into the ring's slice): at config 12's 50,000
+rows the two uint8 frame columns hold 2 x 50,000 x 28,224 B (about
+2.8 GB), and a copy per ingest would double that.  The write cursor and the fill count are host
+integers: ingest is driven from the host, so the host always knows them.
+"""
+
+from __future__ import annotations
+
+import queue
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pytorch_distributed_tpu_torch.utils.experience import (
+    REPLAY_FIELDS, Transition, transition_dtypes,
+)
+
+
+@dataclass
+class ReplayState:
+    state0: torch.Tensor     # (N, *state_shape)
+    action: torch.Tensor     # (N, *action_shape)
+    reward: torch.Tensor     # (N,) float32
+    gamma_n: torch.Tensor    # (N,) float32
+    state1: torch.Tensor     # (N, *state_shape)
+    terminal1: torch.Tensor  # (N,) float32
+    pos: int = 0             # write cursor
+    fill: int = 0            # valid rows
+
+
+def ring_write(state: ReplayState, chunk: Transition,
+               capacity: int) -> List[Tuple[int, int]]:
+    """Write a chunk (host numpy columns, ``n <= capacity`` rows) at the
+    cursor, in place: one host-to-device copy per column into the ring's
+    slice, or two where the chunk wraps.  Returns the written ``(start,
+    stop)`` spans so extended schemas (the PER ring) can set their per-row
+    fields at the same places."""
+    n = int(np.shape(chunk.reward)[0])
+    if not 0 < n <= capacity:
+        raise ValueError(f"chunk of {n} rows for a ring of {capacity}")
+    first = min(n, capacity - state.pos)
+    spans = [(state.pos, state.pos + first)]
+    if first < n:
+        spans.append((0, n - first))
+    for f in REPLAY_FIELDS:
+        col = getattr(state, f)
+        host = torch.as_tensor(np.asarray(getattr(chunk, f)))
+        col[spans[0][0]:spans[0][1]].copy_(host[:first])
+        if first < n:
+            col[:n - first].copy_(host[first:])
+    state.pos = (state.pos + n) % capacity
+    state.fill = min(state.fill + n, capacity)
+    return spans
+
+
+class DeviceReplay:
+    """Owner of the ring tensors (learner side only)."""
+
+    def __init__(self, capacity: int, state_shape: Tuple[int, ...],
+                 action_shape: Tuple[int, ...] = (),
+                 state_dtype=torch.uint8, action_dtype=torch.int32,
+                 device="cpu"):
+        self.capacity = capacity
+        self.state_shape = tuple(state_shape)
+        self.action_shape = tuple(action_shape)
+        self.device = torch.device(device)
+        z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=self.device)
+        self.state = self._extend(dict(
+            state0=z((capacity, *self.state_shape), state_dtype),
+            action=z((capacity, *self.action_shape), action_dtype),
+            reward=z((capacity,), torch.float32),
+            gamma_n=z((capacity,), torch.float32),
+            state1=z((capacity, *self.state_shape), state_dtype),
+            terminal1=z((capacity,), torch.float32)))
+
+    def _extend(self, columns: dict) -> ReplayState:
+        return ReplayState(**columns)
+
+    def feed_chunk(self, chunk: Transition) -> None:
+        ring_write(self.state, chunk, self.capacity)
+
+
+class QueueFeeder:
+    """Actor-side feed endpoint (reference memory/feeder.py QueueFeeder,
+    thread backend): buffers ``chunk`` transitions, then puts them on the
+    ingest queue as one list.  A put blocked on a full queue gives up once
+    the run's stop event is set."""
+
+    def __init__(self, q: queue.Queue, chunk: int = 16):
+        self._q = q
+        self._chunk = chunk
+        self._buf: List[Transition] = []
+        self._stop = None
+
+    def clone(self) -> "QueueFeeder":
+        """Same queue, own buffer: one per actor thread."""
+        f = QueueFeeder(self._q, self._chunk)
+        f._stop = self._stop
+        return f
+
+    def set_stop(self, event) -> None:
+        self._stop = event
+
+    def feed(self, transition: Transition) -> None:
+        self._buf.append(transition)
+        if len(self._buf) >= self._chunk:
+            self.flush()
+
+    def flush(self) -> None:
+        if not self._buf:
+            return
+        while True:
+            if self._stop is not None and self._stop.is_set():
+                break  # shutdown: the learner no longer drains
+            try:
+                self._q.put(self._buf, timeout=0.2)
+                break
+            except queue.Full:
+                continue
+        self._buf = []
+
+
+class DeviceReplayIngest:
+    """Queue front end of the device ring: actors feed through
+    ``make_feeder()``; the learner calls ``attach(device)`` and then
+    ``drain()`` between dispatches, which stacks pending rows on the host
+    and writes them with one host-to-device copy per column."""
+
+    def __init__(self, capacity: int, state_shape: Tuple[int, ...],
+                 action_shape: Tuple[int, ...] = (),
+                 state_dtype=np.uint8, action_dtype=np.int32,
+                 max_queue_chunks: int = 4096):
+        self.capacity = capacity
+        self.state_shape = tuple(state_shape)
+        self.action_shape = tuple(action_shape)
+        self.state_dtype = np.dtype(state_dtype)
+        self.action_dtype = np.dtype(action_dtype)
+        self.max_queue_chunks = max_queue_chunks  # backpressure bound
+        self._q: queue.Queue = queue.Queue(max_queue_chunks)
+        self.replay: Optional[DeviceReplay] = None
+        self._pending: List[Transition] = []
+        self._fed_total = 0
+
+    def make_feeder(self, chunk: int = 16) -> QueueFeeder:
+        return QueueFeeder(self._q, chunk)
+
+    def _ring_kwargs(self, device) -> dict:
+        return dict(capacity=self.capacity, state_shape=self.state_shape,
+                    action_shape=self.action_shape,
+                    state_dtype=_torch_dtype(self.state_dtype),
+                    action_dtype=_torch_dtype(self.action_dtype),
+                    device=device)
+
+    def _make_replay(self, device) -> DeviceReplay:
+        return DeviceReplay(**self._ring_kwargs(device))
+
+    def attach(self, device) -> DeviceReplay:
+        """Allocate the ring on the learner's device."""
+        self.replay = self._make_replay(device)
+        return self.replay
+
+    @property
+    def size(self) -> int:
+        if self.replay is None:
+            raise RuntimeError("attach() first")
+        return min(self._fed_total, self.replay.capacity)
+
+    def drain(self, max_chunks: int = 1024, max_rows: int = 32768) -> int:
+        """Move queued transitions into the ring, at most ``max_rows`` per
+        call (the rest stays pending for the next drain).  Returns rows
+        written."""
+        if self.replay is None:
+            raise RuntimeError("attach() first")
+        if not self._pending and self._q.empty():
+            return 0
+        for _ in range(max_chunks):
+            try:
+                self._pending.extend(self._q.get_nowait())
+            except queue.Empty:
+                break
+        dt = transition_dtypes(self.state_dtype, self.action_dtype)
+        fed = 0
+        while self._pending and fed < max_rows:
+            n = min(len(self._pending), self.capacity, max_rows - fed)
+            rows, self._pending = self._pending[:n], self._pending[n:]
+            self.replay.feed_chunk(Transition(*(
+                np.asarray(np.stack([getattr(r, f) for r in rows]), dt[f])
+                for f in REPLAY_FIELDS)))
+            fed += n
+        self._fed_total += fed
+        return fed
+
+
+class DevicePerIngest(DeviceReplayIngest):
+    """Queue front end of the prioritized device ring (memory/device_per.py):
+    new rows enter at the running max priority; priorities live and update
+    on the device only."""
+
+    def __init__(self, *args, priority_exponent: float = 0.6,
+                 importance_weight: float = 0.4,
+                 importance_anneal_steps: int = 500000, **kw):
+        super().__init__(*args, **kw)
+        self.priority_exponent = priority_exponent
+        self.importance_weight = importance_weight
+        self.importance_anneal_steps = importance_anneal_steps
+
+    def _make_replay(self, device):
+        from pytorch_distributed_tpu_torch.memory.device_per import (
+            DevicePerReplay,
+        )
+
+        return DevicePerReplay(
+            priority_exponent=self.priority_exponent,
+            importance_weight=self.importance_weight,
+            importance_anneal_steps=self.importance_anneal_steps,
+            **self._ring_kwargs(device))
+
+
+def _torch_dtype(dt: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, dtype=dt)).dtype

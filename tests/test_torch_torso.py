@@ -1,0 +1,271 @@
+"""Kernel B2 (the torso GEMM) and the port's dqn-cnn: CPU tensors take the
+kernel's plain version, held here against the JAX package's Pallas
+``make_mxu_matmul`` / ``build_pallas_torso_apply`` run in interpret mode
+and against the flax ``DqnCnnModel``, on converted weights
+(``convert.convert_dqn_cnn``) and the same numpy inputs.
+
+Tolerances: fp32 rtol/atol 1e-4 on values and 1e-3 on gradients, as
+tests/test_pallas_torso.py; bf16 2e-2 relative to the output scale (the
+two frameworks round to bf16 at other points), and gradient direction
+(cosine > 0.999) for bf16 gradients.  Frames are 84x84 and one smaller
+non-square frame, batch 2.  Compiling the interpret-mode JAX torso and
+the flax init is what costs time here, so the weights are drawn with
+numpy in flax's layout and the interpret-mode torso runs at the small
+frame only; torch runs one intra-op thread, since the tier-1 run shares
+the cores among its workers."""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from pytorch_distributed_tpu.models import DqnCnnModel as JaxDqnCnn
+from pytorch_distributed_tpu.ops.pallas_torso import (
+    build_pallas_torso_apply, make_mxu_matmul,
+)
+from pytorch_distributed_tpu_torch.convert import convert_dqn_cnn
+from pytorch_distributed_tpu_torch.models.dqn_cnn import (
+    DqnCnnModel, torso_out_hw,
+)
+from pytorch_distributed_tpu_torch.ops import cuda_torso
+from pytorch_distributed_tpu_torch.ops.cuda_torso import (
+    build_torso_apply, gemm, gemm_plain, matmul,
+)
+
+_JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+SMALL = (44, 52)  # conv stack 10x12 -> 4x5 -> 2x3
+torch.set_num_threads(1)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().numpy()
+
+
+class TestGemm:
+    @pytest.mark.parametrize("shape", [(100, 70, 33), (16, 40, 24),
+                                       (128, 512, 6)])
+    def test_plain_matches_jax_kernel(self, shape):
+        m, k, n = shape
+        rng = np.random.default_rng(1)
+        x = rng.normal(size=(m, k)).astype(np.float32)
+        w = rng.normal(size=(k, n)).astype(np.float32)
+        ref = np.asarray(make_mxu_matmul(interpret=True)(x, w))
+        out = gemm(torch.from_numpy(x), torch.from_numpy(w))
+        assert out.dtype == torch.float32 and out.shape == (m, n)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+    def test_bf16_operands_accumulate_in_fp32(self):
+        rng = np.random.default_rng(2)
+        x = rng.normal(size=(64, 300)).astype(np.float32)
+        w = rng.normal(size=(300, 32)).astype(np.float32)
+        xb = jnp.asarray(x, jnp.bfloat16)
+        wb = jnp.asarray(w, jnp.bfloat16)
+        ref = np.asarray(make_mxu_matmul(interpret=True)(xb, wb))
+        out = gemm(torch.from_numpy(x).bfloat16(),
+                   torch.from_numpy(w).bfloat16())
+        assert out.dtype == torch.float32
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-3)
+
+    def test_strided_operands(self):
+        # the backward hands transposed views over; no copy is needed
+        a = torch.randn(40, 70, generator=torch.Generator().manual_seed(3))
+        b = torch.randn(33, 70, generator=torch.Generator().manual_seed(4))
+        np.testing.assert_allclose(gemm(a, b.t()).numpy(),
+                                   (a @ b.t()).numpy(), rtol=1e-5, atol=1e-5)
+
+    def test_autograd_matches_jax_custom_vjp(self):
+        rng = np.random.default_rng(5)
+        x = rng.normal(size=(16, 40)).astype(np.float32)
+        w = rng.normal(size=(40, 24)).astype(np.float32)
+        mm = make_mxu_matmul(interpret=True)
+        gx_j, gw_j = jax.grad(lambda a, b: jnp.sum(mm(a, b) ** 2),
+                              argnums=(0, 1))(x, w)
+        xt = torch.from_numpy(x).requires_grad_(True)
+        wt = torch.from_numpy(w).requires_grad_(True)
+        gx_t, gw_t = torch.autograd.grad(matmul(xt, wt).square().sum(),
+                                         (xt, wt))
+        np.testing.assert_allclose(gx_t.numpy(), np.asarray(gx_j),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(gw_t.numpy(), np.asarray(gw_j),
+                                   rtol=1e-4, atol=1e-4)
+
+    def test_backward_casts_and_skips_input_grad(self):
+        x = torch.randn(8, 16).bfloat16()  # an observation: no grad
+        w = torch.randn(16, 4).bfloat16().requires_grad_(True)
+        (gw,) = torch.autograd.grad(matmul(x, w).sum(), (w,))
+        assert gw.dtype == torch.bfloat16
+        xg = torch.randn(8, 16).bfloat16().requires_grad_(True)
+        gx, gw = torch.autograd.grad(matmul(xg, w).sum(), (xg, w))
+        assert gx.dtype == torch.bfloat16 and gw.dtype == torch.bfloat16
+
+    def test_cpu_counts_no_launch(self):
+        before = gemm.launches
+        a, b = torch.randn(5, 7), torch.randn(7, 3)
+        assert torch.equal(gemm(a, b), gemm_plain(a, b))
+        assert gemm.launches == before
+
+    @pytest.mark.parametrize("bad", ["mixed", "int", "shape", "device",
+                                     "rank"])
+    def test_rejects_what_the_kernel_does_not_take(self, bad):
+        a, b = torch.randn(4, 6), torch.randn(6, 3)
+        if bad == "mixed":
+            b = b.bfloat16()
+        elif bad == "int":
+            a, b = a.int(), b.int()
+        elif bad == "shape":
+            b = torch.randn(5, 3)
+        elif bad == "device":
+            a, b = a.to("meta"), b.to("meta")
+        else:
+            a = a[None]
+        with pytest.raises(ValueError):
+            cuda_torso.gemm(a, b)
+
+    def test_split_k_covers_the_contraction(self):
+        for m, n, k in [(256, 32, 51200), (128, 512, 3136), (51200, 32, 256),
+                        (512, 6, 128)]:
+            chunk, splits = cuda_torso.split_k(m, n, k)
+            assert chunk % cuda_torso.TILE_K == 0
+            assert (splits - 1) * chunk < k <= splits * chunk
+        assert cuda_torso.split_k(256, 32, 51200)[1] > 1  # Conv_0's dw
+        assert cuda_torso.split_k(51200, 32, 256)[1] == 1  # many tiles
+
+
+def _flax_params(frame, actions: int, rng) -> dict:
+    """A ``DqnCnnModel`` param tree in flax's layout (HWIO convs, (in, out)
+    denses), fan-in scaled, with non-zero biases."""
+    shapes, cin = {}, 4
+    for i, (cout, k) in enumerate(((32, 8), (64, 4), (64, 3))):
+        shapes[f"Conv_{i}"] = ((k, k, cin, cout), cout)
+        cin = cout
+    oh, ow = torso_out_hw(*frame)
+    shapes["Dense_0"] = ((oh * ow * cin, 512), 512)
+    shapes["Dense_1"] = ((512, actions), actions)
+    tree = {}
+    for name, (kshape, width) in shapes.items():
+        fan_in = int(np.prod(kshape[:-1]))
+        tree[name] = {
+            "kernel": (rng.normal(size=kshape) * np.sqrt(2.0 / fan_in)
+                       ).astype(np.float32),
+            "bias": rng.normal(scale=0.05, size=width).astype(np.float32)}
+    return {"params": tree}
+
+
+def _jax_and_port(cd: torch.dtype, frame=(84, 84), actions=6, seed=0):
+    jmodel = JaxDqnCnn(action_space=actions, norm_val=255.0,
+                       compute_dtype=_JNP[cd])
+    rng = np.random.default_rng(seed)
+    obs = rng.integers(0, 255, (2, 4, *frame)).astype(np.uint8)
+    jparams = _flax_params(frame, actions, rng)
+    state_shape = (4, *frame)
+    sd = convert_dqn_cnn(jax.device_get(jparams), state_shape)
+    model = DqnCnnModel(actions, state_shape, compute_dtype=cd)
+    model.load_state_dict(sd)
+    return jmodel, jparams, model, sd, obs
+
+
+def _grad_tree_to_port(grads, state_shape):
+    return {k: v.numpy() for k, v in
+            convert_dqn_cnn(jax.device_get(grads), state_shape).items()}
+
+
+class TestTorso:
+    @pytest.mark.parametrize("frame", [(84, 84), SMALL])
+    def test_forward_fp32(self, frame):
+        jmodel, jparams, model, sd, obs = _jax_and_port(torch.float32, frame)
+        q_ref = np.asarray(jmodel.apply(jparams, obs))
+        obs_t = torch.from_numpy(obs)
+        q_mod = model(obs_t)
+        q_kern = build_torso_apply(255.0, torch.float32)(sd, obs_t)
+        for q in (q_mod, q_kern):
+            assert q.dtype == torch.float32 and q.shape == (2, 6)
+            np.testing.assert_allclose(_np(q), q_ref, rtol=1e-4, atol=1e-4)
+        if frame == SMALL:
+            q_pal = np.asarray(build_pallas_torso_apply(
+                255.0, jnp.float32, interpret=True)(jparams, obs))
+            np.testing.assert_allclose(_np(q_kern), q_pal, rtol=1e-4,
+                                       atol=1e-4)
+
+    def test_gradients_fp32(self):
+        jmodel, jparams, model, sd, obs = _jax_and_port(torch.float32,
+                                                        SMALL, seed=1)
+        g_ref = _grad_tree_to_port(jax.grad(
+            lambda p: jnp.sum(jmodel.apply(p, obs) ** 2))(jparams),
+            (4, *SMALL))
+        g_pal = _grad_tree_to_port(jax.grad(
+            lambda p: jnp.sum(build_pallas_torso_apply(
+                255.0, jnp.float32, interpret=True)(p, obs) ** 2))(jparams),
+            (4, *SMALL))
+        params = {k: v.clone().requires_grad_(True) for k, v in sd.items()}
+        q = build_torso_apply(255.0, torch.float32)(params,
+                                                    torch.from_numpy(obs))
+        g_kern = dict(zip(params, torch.autograd.grad(
+            q.square().sum(), list(params.values()))))
+        g_mod = dict(zip(sd, torch.autograd.grad(
+            model(torch.from_numpy(obs)).square().sum(),
+            [dict(model.named_parameters())[k] for k in sd])))
+        for name in sd:
+            for g, ref in ((g_kern, g_pal), (g_kern, g_ref), (g_mod, g_ref)):
+                np.testing.assert_allclose(_np(g[name]), ref[name],
+                                           rtol=1e-3, atol=1e-3,
+                                           err_msg=name)
+
+    def test_forward_bf16(self):
+        jmodel, jparams, model, sd, obs = _jax_and_port(torch.bfloat16,
+                                                        seed=3)
+        q_ref = np.asarray(jmodel.apply(jparams, obs))
+        obs_t = torch.from_numpy(obs)
+        scale = max(1.0, float(np.abs(q_ref).max()))
+        for q in (model(obs_t),
+                  build_torso_apply(255.0, torch.bfloat16)(sd, obs_t)):
+            assert q.dtype == torch.float32
+            np.testing.assert_allclose(_np(q), q_ref, rtol=2e-2,
+                                       atol=2e-2 * scale)
+
+    def test_gradients_bf16_direction(self):
+        jmodel, jparams, model, sd, obs = _jax_and_port(torch.bfloat16,
+                                                        seed=4)
+        g_ref = _grad_tree_to_port(jax.grad(
+            lambda p: jnp.mean(jmodel.apply(p, obs) ** 2))(jparams),
+            (4, 84, 84))
+        params = {k: v.clone().requires_grad_(True) for k, v in sd.items()}
+        q = build_torso_apply(255.0, torch.bfloat16)(params,
+                                                     torch.from_numpy(obs))
+        grads = torch.autograd.grad(q.square().mean(), list(params.values()))
+        flat_t = np.concatenate([_np(g).ravel() for g in grads])
+        flat_r = np.concatenate([g_ref[k].ravel() for k in params])
+        cos = flat_t @ flat_r / (np.linalg.norm(flat_t)
+                                 * np.linalg.norm(flat_r))
+        assert cos > 0.999, cos
+
+
+class TestConvert:
+    def test_dense0_permutation_and_layouts(self):
+        _jm, jparams, _m, sd, _obs = _jax_and_port(torch.float32, (84, 108))
+        p = jparams["params"]
+        assert sd["conv0.weight"].shape == (32, 4, 8, 8)
+        np.testing.assert_array_equal(
+            sd["conv1.weight"].numpy(),
+            np.asarray(p["Conv_1"]["kernel"]).transpose(3, 2, 0, 1))
+        np.testing.assert_array_equal(sd["head.weight"].numpy(),
+                                      np.asarray(p["Dense_1"]["kernel"]).T)
+        # flax row (h, w, c) of Dense_0 lands at the port's column
+        # (c, h, w): oh 7, ow 10, c 64 at a 84x108 frame
+        k0 = np.asarray(p["Dense_0"]["kernel"])
+        h, w, c = 3, 8, 17
+        np.testing.assert_array_equal(
+            sd["fc.weight"][:, c * 70 + h * 10 + w].numpy(),
+            k0[(h * 10 + w) * 64 + c])
+
+    def test_orthogonal_init_gains(self):
+        model = DqnCnnModel(6, generator=torch.Generator().manual_seed(0))
+        w = model.head.weight.detach()
+        np.testing.assert_allclose((w @ w.t()).numpy(), np.eye(6),
+                                   atol=1e-5)
+        fc = model.fc.weight.detach()
+        np.testing.assert_allclose((fc @ fc.t()).numpy(), 2 * np.eye(512),
+                                   atol=1e-4)
+        assert all(float(b.detach().abs().max()) == 0.0
+                   for n, b in model.named_parameters() if n.endswith("bias"))

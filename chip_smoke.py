@@ -6,14 +6,19 @@
 Phases, each printed as one JSON line:
 
 1. build: compiles ``pytorch_distributed_tpu_torch/csrc/*.cu`` with nvcc
-   (one process per source, all at once) and times it;
+   (one process per source, all at once) and times it, then reads the
+   forward GEMM's SASS (``cuobjdump``): it must hold wgmma (``HGMMA``) and
+   TMA loads (``UTMALDG``);
 2. per_sample: kernel B1 (the PER draw) against its plain PyTorch version
    on the card, at config 12's shapes (a 50,000-row priority vector, 128
    draws), with kernel, plain and library (cumsum + searchsorted) times;
-3. torso_gemm: kernel B2 (the torso GEMM) against its plain version on
-   the card, at each of the 19 GEMM shapes of one config-12 update
-   (forward in bf16, backward in fp32), with kernel, plain and library
-   (``torch.matmul``) times;
+3. torso_gemm: kernel B2 (the torso GEMM: ``torso_gemm_sm90.cu`` forward
+   in bf16, ``torso_gemm.cu`` backward in fp32) against its plain version
+   on the card, at each of the 19 GEMM shapes of one config-12 update,
+   with kernel, plain and library (``torch.matmul``) times; then the
+   forward kernel alone on a sweep of ragged shapes, every tile width,
+   split and unsplit, and an operand no TMA descriptor reads (it must
+   raise);
 4. torso_apply: the kernel torso against the ``nn.Module`` forward, and
    its gradients against autograd through the module, on a small batch;
 5. learner_alone: the CUDA-graph replay of the fused update against the
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -63,6 +69,17 @@ TORSO_GEMMS = (("Conv_0", BATCH * 20 * 20, 8 * 8 * 4, 32),
                ("Conv_2", BATCH * 7 * 7, 3 * 3 * 64, 64),
                ("Dense_0", BATCH, 7 * 7 * 64, 512),
                ("Dense_1", BATCH, 512, ACTIONS))
+# (M, K, N) of the forward kernel's sweep: ragged M, N 6 to 512, K from 64
+# to 3,136 (136, 200 and 1,096 ragged against the K tile), split and
+# unsplit plans, every (row tile, tile width) of the kernel's dispatch
+# (64 x 8, 32, 64, 128 and 128 x 8, 32, 64, 128: the last four only where
+# 128-row tiles alone cover the SMs), and 49 K tiles unsplit (9,000 x
+# 3,136 x 64), which wraps the 4-stage ring 12 times
+FWD_SWEEP = ((100, 64, 6), (100, 136, 6), (2000, 512, 6), (800, 576, 32),
+             (300, 1096, 32), (25650, 256, 32), (6437, 200, 64),
+             (800, 3136, 64), (800, 512, 128), (100, 3136, 512),
+             (12800, 256, 64), (9000, 3136, 64), (20000, 512, 6),
+             (20000, 256, 64), (5000, 512, 512))
 
 RESULTS: dict = {}
 FAILED: list = []
@@ -91,7 +108,8 @@ def time_ms(fn, iters: int = 50, graph: bool = True) -> float:
     """Mean device time of one call of ``fn`` over ``iters`` back-to-back
     calls, replayed from a CUDA graph (as the learner's main path runs
     it), or with ``graph=False`` called eagerly, which adds the host's
-    launch overhead wherever it exceeds the device time."""
+    launch overhead wherever it exceeds the device time.  Twenty
+    untimed calls first bring the clocks up."""
     cur = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(cur)
@@ -106,6 +124,7 @@ def time_ms(fn, iters: int = 50, graph: bool = True) -> float:
         with torch.cuda.graph(g):
             fn()
         run = g.replay
+    for _ in range(20):
         run()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -144,8 +163,21 @@ def card_name_and_power_limit() -> str:
 def build():
     t0 = time.monotonic()
     took = kernels.build()
-    return {"build_s": time.monotonic() - t0,
-            "per_source_s": took, "flags": " ".join(kernels.NVCC_FLAGS)}
+    out = {"build_s": time.monotonic() - t0,
+           "per_source_s": took, "flags": " ".join(kernels.NVCC_FLAGS)}
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = kernels.library_path("torso_gemm_sm90")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out["sass_counts"] = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    if not all(out["sass_counts"].values()):
+        raise AssertionError(f"forward GEMM SASS lacks wgmma or TMA: "
+                             f"{out['sass_counts']}")
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                         text=True, timeout=300).stdout
+    out["res_usage"] = [ln.strip() for ln in res.splitlines()
+                        if "REG" in ln][:12]
+    return out
 
 
 def per_sample():
@@ -207,8 +239,9 @@ def _update_gemms():
     out = []
     for i, (name, m, k, n) in enumerate(TORSO_GEMMS):
         x = torch.randn(m, k, generator=gen, device=DEV).to(torch.bfloat16)
-        w = (torch.randn(k, n, generator=gen, device=DEV)
-             / math.sqrt(k)).to(torch.bfloat16)
+        # the weight is stored (N, K) and handed over K-major
+        w = (torch.randn(n, k, generator=gen, device=DEV)
+             / math.sqrt(k)).to(torch.bfloat16).t()
         g = torch.randn(m, n, generator=gen, device=DEV) / m
         # forward: online and target nets
         out.append((f"{name}.fwd", x, w, 2))
@@ -219,25 +252,28 @@ def _update_gemms():
     return out
 
 
+def _rel_err(c_k, c_p) -> tuple:
+    torch.cuda.synchronize()
+    err = float((c_k - c_p).abs().max())
+    return err, err / max(float(c_p.abs().max()), 1e-30)
+
+
 def torso_gemm():
-    rows, totals = [], dict(ms=0.0, eager_ms=0.0, plain_ms=0.0,
-                            library_ms=0.0, bound_ms=0.0, t_bytes=0.0,
-                            t_ops=0.0)
-    worst_rel = worst_abs = 0.0
-    calls = 0
+    rows = []
+    totals = {part: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                         bound_ms=0.0, t_bytes=0.0, t_ops=0.0, calls=0,
+                         max_abs_err=0.0, max_rel_err=0.0)
+              for part in ("fwd", "bwd")}
     for label, a, b, count in _update_gemms():
-        c_k = cuda_torso.gemm(a, b)
-        c_p = cuda_torso.gemm_plain(a, b)
-        torch.cuda.synchronize()
-        err = float((c_k - c_p).abs().max())
-        scale = float(c_p.abs().max())
-        worst_abs = max(worst_abs, err)
-        worst_rel = max(worst_rel, err / max(scale, 1e-30))
+        err, rel = _rel_err(cuda_torso.gemm(a, b), cuda_torso.gemm_plain(a, b))
+        part = totals["fwd" if a.dtype == torch.bfloat16 else "bwd"]
+        part["max_abs_err"] = max(part["max_abs_err"], err)
+        part["max_rel_err"] = max(part["max_rel_err"], rel)
         (m, k), n = a.shape, b.shape[1]
         es = a.element_size()
         nbytes = (m * k + k * n) * es + m * n * 4
         bd, by = bound_ms(nbytes, 2.0 * m * n * k, a.dtype)
-        iters = 20 if m * n * k > 1e8 else 100
+        iters = 200
         row = dict(gemm=label, m=m, k=k, n=n, dtype=str(a.dtype)[6:],
                    calls_per_update=count, max_abs_err=err,
                    ms=time_ms(lambda: cuda_torso.gemm(a, b), iters),
@@ -247,25 +283,59 @@ def torso_gemm():
                                     iters),
                    library_ms=time_ms(lambda: torch.matmul(a, b), iters),
                    bound_ms=bd, bound_by=by)
+        if a.dtype == torch.bfloat16:
+            row["plan"] = cuda_torso.plan_bf16(m, n, k)
         emit({"torso_gemm_shape": row})
         rows.append(row)
-        calls += count
+        part["calls"] += count
         for key in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms"):
-            totals[key] += count * row[key]
-        totals["t_bytes" if by == "bytes" else "t_ops"] += count * bd
-    # tolerance: same products, fp32 sums in another order
-    if worst_rel > 1e-4:
-        raise AssertionError(f"B2 disagrees: max error {worst_abs} "
-                             f"({worst_rel:.2e} of the output scale)")
-    RESULTS["torso_gemm"] = dict(
-        max_abs_err=worst_abs, ms=totals["ms"], plain_ms=totals["plain_ms"],
-        bound_ms=totals["bound_ms"],
-        bound_by="bytes" if totals["t_bytes"] >= totals["t_ops"]
-        else "operations", library_ms=totals["library_ms"])
-    return {"gemms_per_update": calls, "max_rel_err": worst_rel,
-            "eager_ms_per_update": totals["eager_ms"],
+            part[key] += count * row[key]
+        part["t_bytes" if by == "bytes" else "t_ops"] += count * bd
+    sweep_rel, sweep = 0.0, []
+    for m, k, n in FWD_SWEEP:
+        gen = torch.Generator(device=DEV).manual_seed(m * 7 + k * 3 + n)
+        a = torch.randn(m, k, generator=gen, device=DEV).to(torch.bfloat16)
+        b = torch.randn(n, k, generator=gen, device=DEV).to(
+            torch.bfloat16).t()
+        err, rel = _rel_err(cuda_torso.gemm(a, b), cuda_torso.gemm_plain(a, b))
+        sweep_rel = max(sweep_rel, rel)
+        sweep.append(dict(m=m, k=k, n=n, plan=cuda_torso.plan_bf16(m, n, k),
+                          max_rel_err=rel))
+    tiles = {tuple(s["plan"][:2]) for s in sweep}
+    if len(tiles) != len(cuda_torso.BF16_TILE_M) * len(
+            cuda_torso.BF16_TILE_N):
+        raise AssertionError(f"the sweep reaches only the tiles {tiles}")
+    # K = 100: rows 200 bytes apart, which no TMA descriptor takes
+    a = torch.ones(64, 100, device=DEV, dtype=torch.bfloat16)
+    launches = cuda_torso.gemm_bf16.launches
+    try:
+        cuda_torso.gemm(a, a[:6].t())
+        raise AssertionError("an operand with 200-byte rows did not raise")
+    except ValueError as e:
+        refused = str(e)
+    if cuda_torso.gemm_bf16.launches != launches:
+        raise AssertionError("a refused operand counted a launch")
+    # tolerance: the same bf16 products (exact in fp32), fp32 sums in
+    # another order
+    worst = max(sweep_rel, *(p["max_rel_err"] for p in totals.values()))
+    if worst > 1e-4:
+        raise AssertionError(f"B2 disagrees: {worst:.2e} of the output "
+                             f"scale (sweep {sweep})")
+    for name, part in (("torso_gemm_fwd", totals["fwd"]),
+                       ("torso_gemm_bwd", totals["bwd"])):
+        RESULTS[name] = dict(
+            max_abs_err=part["max_abs_err"], ms=part["ms"],
+            plain_ms=part["plain_ms"], bound_ms=part["bound_ms"],
+            bound_by="bytes" if part["t_bytes"] >= part["t_ops"]
+            else "operations", library_ms=part["library_ms"])
+    return {"gemms_per_update": {p: t["calls"] for p, t in totals.items()},
+            "max_rel_err": worst,
+            "eager_ms_per_update": {p: t["eager_ms"]
+                                    for p, t in totals.items()},
             "tolerance": "max |kernel - plain| <= 1e-4 x max |plain|",
-            "per_update": RESULTS["torso_gemm"]}
+            "fwd_sweep": sweep, "refused": refused,
+            "per_update": {"fwd": RESULTS["torso_gemm_fwd"],
+                           "bwd": RESULTS["torso_gemm_bwd"]}}
 
 
 def torso_apply():
@@ -376,18 +446,23 @@ def train():
             "--set", "learn_start=2000", "--set", "pallas_torso=true",
             "--set", "learner_freq=100"]
     cuda_sampling.hierarchical_sample.launches = 0
-    cuda_torso.gemm.launches = 0
+    cuda_torso.gemm_bf16.launches = 0
+    cuda_torso.gemm_f32.launches = 0
     summary = port_main.main(argv)
     launches = {"per_sample": cuda_sampling.hierarchical_sample.launches,
-                "torso_gemm": cuda_torso.gemm.launches}
+                "torso_gemm_fwd": cuda_torso.gemm_bf16.launches,
+                "torso_gemm_bwd": cuda_torso.gemm_f32.launches}
     RESULTS["launches"] = launches
     steps = summary["learner/steps"]
     if steps < TRAIN_STEPS or not math.isfinite(
             summary["learner/critic_loss"]):
         raise AssertionError(f"train phase: {summary}")
-    # one draw and 19 GEMMs per update with double-DQN off
+    # per update with double-DQN off: one draw; 10 bf16 forward GEMMs (5
+    # layers, online and target nets) and 9 fp32 backward GEMMs (5 dw, 4
+    # dx)
     if (launches["per_sample"] != steps
-            or launches["torso_gemm"] != 19 * steps):
+            or launches["torso_gemm_fwd"] != 10 * steps
+            or launches["torso_gemm_bwd"] != 9 * steps):
         raise AssertionError(f"launch counts {launches} for {steps} steps")
     return {"argv": " ".join(argv), "launches": launches,
             "updates_per_sec": summary["learner/updates_per_sec"],
@@ -399,7 +474,9 @@ def train():
 KERNELS = (
     ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
      "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
-    ("torso_gemm", "pytorch_distributed_tpu_torch/csrc/torso_gemm.cu",
+    ("torso_gemm_fwd", "pytorch_distributed_tpu_torch/csrc/torso_gemm_sm90.cu",
+     "pytorch_distributed_tpu/ops/pallas_torso.py:104"),
+    ("torso_gemm_bwd", "pytorch_distributed_tpu_torch/csrc/torso_gemm.cu",
      "pytorch_distributed_tpu/ops/pallas_torso.py:104"),
 )
 

@@ -11,7 +11,8 @@ end: actors step the numpy Pong simulator, the learner owns a prioritized
 ring in device memory, and each learner dispatch runs K sub-steps of
 sample -> forward/backward -> Adam -> target update -> priority
 write-back.  Both TPU kernels of that learner are hand-written Hopper
-kernels here (``csrc/per_sample.cu``, ``csrc/torso_gemm.cu``).
+kernels here (``csrc/per_sample.cu``; the torso GEMM as
+``csrc/torso_gemm_sm90.cu`` forward and ``csrc/torso_gemm.cu`` backward).
 
 Entry point::
 

@@ -41,7 +41,7 @@ from pytorch_distributed_tpu_torch.memory.device_replay import (
 from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
 )
-from pytorch_distributed_tpu_torch.ops.cuda_torso import gemm
+from pytorch_distributed_tpu_torch.ops.cuda_torso import gemm_bf16, gemm_f32
 from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY
 
 
@@ -61,7 +61,8 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                                     steps_per_call=K)
     if device.type == "cuda":
         fused = GraphedFusedStep(fused, replay.state,
-                                 counters=(hierarchical_sample, gemm))
+                                 counters=(hierarchical_sample, gemm_bf16,
+                                           gemm_f32))
     gen = torch.Generator(device=device).manual_seed(
         role_seed(opt.seed, "learner", process_ind))
 

@@ -14,7 +14,8 @@ back, as an actor does.  On a GPU the update is
 replayed from a CUDA graph, as the learner runs it, unless ``--eager``.
 Prints one JSON object: wall milliseconds and updates per second over
 ``--updates`` updates (ending in a device synchronise), and with
-``--profile`` the profiler's device milliseconds per update by kernel.
+``--profile`` the profiler's device milliseconds per update by kernel, and
+summed for each of the port's kernels (``kernel_device_ms``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,15 @@ from pytorch_distributed_tpu_torch.memory.device_per import (
 from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
 )
-from pytorch_distributed_tpu_torch.ops.cuda_torso import gemm
+from pytorch_distributed_tpu_torch.ops.cuda_torso import gemm_bf16, gemm_f32
+
+
+# the port's kernels as the profiler names them, by the row of PERF.md's
+# kernel table they belong to
+KERNEL_NAMES = {"per_sample": ("block_sums_kernel", "draw_kernel"),
+                "torso_gemm_fwd": ("gemm_bf16_sm90", "splitk_reduce_sm90"),
+                "torso_gemm_bwd": ("gemm_kernel<float>",
+                                   "splitk_reduce_kernel")}
 
 
 def fill_ring(ring: DevicePerReplay, num_actions: int,
@@ -97,7 +106,8 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     fused = ring.build_fused_step(step, ap.batch_size, steps_per_call=K)
     if device.type == "cuda" and graph:
         fused = GraphedFusedStep(fused, ring.state,
-                                 counters=(hierarchical_sample, gemm))
+                                 counters=(hierarchical_sample, gemm_bf16,
+                                           gemm_f32))
 
     def updates_of(n: int) -> None:
         """``n`` updates, rounded up to whole dispatches of K."""
@@ -146,7 +156,10 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
                        if e.self_device_time_total > 0),
                       key=lambda r: -r[1])
         out["device_ms_per_update"] = sum(r[1] for r in rows)
-        out["top_device_ms"] = [(k[:60], round(v, 5)) for k, v in rows[:12]]
+        out["kernel_device_ms"] = {
+            label: sum(v for k, v in rows if any(n in k for n in names))
+            for label, names in KERNEL_NAMES.items()}
+        out["top_device_ms"] = [(k[:64], round(v, 5)) for k, v in rows[:24]]
     stop.set()
     for t in threads:
         t.join(timeout=30.0)

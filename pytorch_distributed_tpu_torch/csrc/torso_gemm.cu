@@ -1,23 +1,22 @@
-// Torso GEMM: the Hopper port of the TPU kernel
-// pytorch_distributed_tpu/ops/pallas_torso.py _mm / _mm_kernel.  Wrapper,
-// autograd Function and plain version: ops/cuda_torso.py.
+// Torso GEMM, backward: the Hopper port of the TPU kernel
+// pytorch_distributed_tpu/ops/pallas_torso.py _mm / _mm_kernel as the
+// backward of make_mxu_matmul's custom VJP.  Wrapper, autograd Function
+// and plain version: ops/cuda_torso.py (gemm_f32).  The bf16 forward is
+// csrc/torso_gemm_sm90.cu.
 //
-// Contract: C (M, N) fp32 = A (M, K) @ B (K, N) with fp32 accumulation,
-// templated on the operand type — bf16 for the forward, fp32 for the
-// backward (dx = g w^T, dw = x^T g), as the reference's custom VJP.  A and B
-// are addressed through element strides, so a transposed operand is a
-// stride swap and the backward materialises no transpose.  C is written
-// row-major and contiguous.
+// Contract: C (M, N) fp32 = A (M, K) @ B (K, N) with fp32 operands and
+// fp32 accumulation (dx = g w^T, dw = x^T g, as the reference's custom
+// VJP).  A and B are addressed through element strides, so a transposed
+// operand is a stride swap and the backward materialises no transpose.  C
+// is written row-major and contiguous.
 //
 // Design (a simple, correct first kernel): one 128-thread block computes a
 // 64x64 output tile, walking K in 32-deep tiles staged through shared
 // memory.  The tile loaders read along whichever operand dimension has
 // stride 1, so neighbouring threads read neighbouring addresses, and fill
 // out-of-range rows/columns/depth with zeros: the ragged edges of N = 6
-// (Q head) and N = 32 (Conv_0) are masked here and in the store.
-//   - bf16: four warps in a 2x2 layout, each owning a 32x32 sub-tile as
-//     2x2 WMMA 16x16x16 fragments (tensor cores, fp32 accumulators).
-//   - fp32: FMA, each thread accumulating an 8x4 register tile.
+// (Q head) and N = 32 (Conv_0) are masked here and in the store.  Each
+// thread accumulates an 8x4 register tile with FMA.
 // Split K: a GEMM with few output tiles and a long contraction (the dw of
 // Conv_0 contracts 51,200 rows into 256x32 — 4 tiles for 132 SMs) runs
 // ``splits`` blocks per tile over disjoint K chunks, each writing its own
@@ -26,12 +25,10 @@
 //
 // What bounds it on the card: at the main path's shapes most of these
 // GEMMs are small or skinny (N of 6, 32 or 64), so memory traffic and
-// launch latency dominate and the bf16 tensor cores are far from busy; the
-// fp32 backward runs on the FMA units.  PERF.md holds the measured times
-// beside the bound.  Not yet used: TMA, wgmma, multi-stage pipelining.
-#include <cuda_bf16.h>
+// launch latency dominate, and it runs on the FMA units, not the tensor
+// cores.  PERF.md holds the measured times beside the bound.  Not yet
+// used: TMA, wgmma, multi-stage pipelining.
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "common.cuh"
 
@@ -43,10 +40,6 @@ template <typename T>
 __device__ __forceinline__ T from_float(float v);
 template <>
 __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // As[r][c] = A[m0 + r, k0 + c] (zero outside M x [.., k_end))
 template <typename T>
@@ -91,60 +84,6 @@ __device__ __forceinline__ void load_b(T (*Bs)[BN + PAD],
 // the per-type inner product over one staged K tile, and the tile store
 template <typename T>
 struct TileMma;
-
-template <>
-struct TileMma<__nv_bfloat16> {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[2][2];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-  }
-
-  __device__ void step(__nv_bfloat16 (*As)[BK + PAD],
-                       __nv_bfloat16 (*Bs)[BN + PAD]) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[wm * 32 + i * 16][kk], BK + PAD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[kk][wn * 32 + j * 16], BN + PAD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-
-  __device__ void store(float* __restrict__ C, int m0, int n0, int M,
-                        int N) {
-    using namespace nvcuda;
-    __shared__ __align__(32) float Cs[BM][BN + 4];
-    const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(&Cs[wm * 32 + i * 16][wn * 32 + j * 16],
-                                acc[i][j], BN + 4, wmma::mem_row_major);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN, m = m0 + r, n = n0 + c;
-      if (m < M && n < N) C[static_cast<long long>(m) * N + n] = Cs[r][c];
-    }
-  }
-};
 
 template <>
 struct TileMma<float> {
@@ -245,16 +184,6 @@ int launch(const void* A, long long sam, long long sak, const void* B,
 }
 
 }  // namespace
-
-// C = A @ B with bf16 operands; ``ws`` holds splits*M*N floats when
-// splits > 1 (unused otherwise)
-extern "C" int pdt_gemm_bf16(const void* A, long long sam, long long sak,
-                             const void* B, long long sbk, long long sbn,
-                             void* C, void* ws, int M, int N, int K,
-                             int k_chunk, int splits, void* stream) {
-  return launch<__nv_bfloat16>(A, sam, sak, B, sbk, sbn, C, ws, M, N, K,
-                               k_chunk, splits, stream);
-}
 
 // C = A @ B with fp32 operands (FMA)
 extern "C" int pdt_gemm_f32(const void* A, long long sam, long long sak,

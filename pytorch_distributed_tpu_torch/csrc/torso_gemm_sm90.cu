@@ -1,0 +1,428 @@
+// Torso GEMM, forward: the Hopper port of the TPU kernel
+// pytorch_distributed_tpu/ops/pallas_torso.py _mm (the pl.pallas_call at
+// :104) as the forward of make_mxu_matmul.  Wrapper, tile plan and plain
+// version: ops/cuda_torso.py (gemm_bf16, plan_bf16).  The backward's fp32
+// GEMMs stay in csrc/torso_gemm.cu.
+//
+// Contract: C (M, N) fp32 = A (M, K) bf16 @ B (K, N) bf16 with fp32
+// accumulation.  Both operands are K-major: A row-major with row stride
+// lda, B handed over as the transpose of a row-major (N, K) matrix with
+// row stride ldb (the learner's weights are stored that way), so neither
+// needs a transpose in shared memory.  Base addresses and row strides are
+// 16-byte aligned (the wrapper checks, and raises otherwise).
+// M, N and K may be ragged.
+//
+// What bounds it on the card: bytes, at every config-12 shape.  The five
+// forward GEMMs of the dqn-cnn torso do 2*M*N*K operations for the bytes
+// of their operands and fp32 output, about 6 (the Q head) to 100
+// (Dense_0) operations per byte, far below the ~295 at which the bf16
+// tensor cores become the limit; and the smallest (the Q head,
+// 128x512x6) is launch-bound.  So the design moves
+// each byte once, keeps loads in flight, and fills the SMs:
+//   - TMA: one thread per block copies whole 64-deep K tiles of A and B
+//     (128-byte rows, 128-byte swizzle) from device to shared memory; the
+//     hardware zero-fills past the ragged edges of M, N and K.
+//   - A ring of STAGES tiles with a full and an empty mbarrier per stage:
+//     the producer warp keeps up to STAGES tiles in flight while the
+//     consumer warpgroups multiply the ones that have landed.
+//   - wgmma m64nBNk16 on the tensor cores, fp32 accumulators in
+//     registers; one consumer warpgroup per 64 rows of the block tile (BM
+//     64 or 128), and BN in {8, 32, 64, 128} picked per GEMM so a narrow
+//     N (6, 32) does not pay for a 64-wide tile.
+//   - Split K: when the output has fewer tiles than the card has SMs
+//     (Dense_0: 8 tiles over 49 K tiles), ``splits`` blocks per tile sum
+//     disjoint K chunks into their own fp32 slabs, and a second kernel
+//     sums the slabs in a fixed order: deterministic, no atomics.
+//   - Masked fp32 stores straight from the accumulator registers.
+// TMA descriptors are built on the host per call (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint: no -lcuda) and passed by value
+// as __grid_constant__ parameters, so a captured CUDA graph replays them
+// with the addresses it captured.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int BK = 64;      // 64 bf16: one 128-byte swizzled row
+constexpr int STAGES = 4;   // tiles in flight
+constexpr int WG = 128;     // threads of a warpgroup
+
+template <int BM, int BN>
+struct Tile {
+  static constexpr int kWarpgroups = BM / 64;
+  static constexpr int kThreads = kWarpgroups * WG + 32;  // + producer warp
+  static constexpr int kABytes = BM * BK * 2;
+  static constexpr int kBBytes = BN * BK * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  // the ring, 2 * STAGES mbarriers, and slack to align the ring to 1024
+  static constexpr int kSmemBytes =
+      STAGES * kStageBytes + 2 * STAGES * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the barrier's phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// box {BK, rows} at element (c0 along K, c1 along rows) -> shared ``dst``
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile that TMA wrote with the 128-byte
+// swizzle: 128-byte rows, 8-row groups 1024 bytes apart (SBO), LBO unused
+// by swizzled K-major layouts (1), layout type 1 (128B) in bits 62-63
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma and its wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N, fp32, wgmma's fragment layout) += A (64 x 16) B (16 x N),
+// both read from shared memory through their descriptors
+template <int N>
+__device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma<8>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      " %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      " %16, %17, %18, %19, %20, %21, %22, %23,\n"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      " %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      " %16, %17, %18, %19, %20, %21, %22, %23,\n"
+      " %24, %25, %26, %27, %28, %29, %30, %31,\n"
+      " %32, %33, %34, %35, %36, %37, %38, %39,\n"
+      " %40, %41, %42, %43, %44, %45, %46, %47,\n"
+      " %48, %49, %50, %51, %52, %53, %54, %55,\n"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
+// grid (ceil(N/BN), ceil(M/BM), splits); block z sums K range
+// [z*k_chunk, min(K, (z+1)*k_chunk)) into slab z of ``out`` (M x N)
+template <int BM, int BN>
+__global__ void __launch_bounds__(Tile<BM, BN>::kThreads)
+    gemm_bf16_sm90(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b,
+                   float* __restrict__ out, int M, int N, int K,
+                   int k_chunk) {
+  using T = Tile<BM, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle pattern repeats every 1024 bytes of the shared
+  // window, and wgmma's descriptors assume a ring aligned to it
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = ring + STAGES * T::kStageBytes;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
+
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
+  const int nk = (k_end - k_begin + BK - 1) / BK;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);                          // the producer
+      mbar_init(empty(s), T::kWarpgroups * 4);        // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == T::kWarpgroups * 4) {  // the producer warp: one thread
+    if (threadIdx.x % 32 == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        // round r reuses stage s after the consumers released round r-1;
+        // round 0 passes at once (parity 1 of a fresh barrier)
+        mbar_wait(empty(s), ((kt / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), T::kStageBytes);
+        const uint32_t stage = ring + s * T::kStageBytes;
+        const int k0 = k_begin + kt * BK;
+        tma_load(stage, &map_a, full(s), k0, m0);
+        tma_load(stage + T::kABytes, &map_b, full(s), k0, n0);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup ``wg`` owns rows [wg*64, wg*64 + 64) of the tile
+  const int wg = warp / 4;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(full(s), (kt / STAGES) & 1);
+    const uint32_t a = ring + s * T::kStageBytes + wg * 64 * (BK * 2);
+    const uint32_t b = ring + s * T::kStageBytes + T::kABytes;
+    fence_regs<BN / 2>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)  // 16 bf16 = 32 bytes along K
+      wgmma<BN>(acc, smem_desc(a + 32 * j), smem_desc(b + 32 * j));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<BN / 2>(acc);
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(empty(s));
+  }
+
+  // acc[j*4 + i] holds row w*16 + lane/4 + 8*(i/2), column
+  // j*8 + (lane%4)*2 + i%2 of the warpgroup's 64 x BN tile
+  float* slab = out + static_cast<long long>(blockIdx.z) * M * N;
+  const int lane = threadIdx.x % 32, w = warp % 4;
+  const int row0 = m0 + wg * 64 + w * 16 + lane / 4;
+  const bool pairs = (N % 2) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = n0 + j * 8 + (lane % 4) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      if (r >= M || c >= N) continue;
+      float* p = slab + static_cast<long long>(r) * N + c;
+      const float v0 = acc[j * 4 + 2 * h], v1 = acc[j * 4 + 2 * h + 1];
+      if (pairs) {
+        *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+      } else {
+        p[0] = v0;
+        if (c + 1 < N) p[1] = v1;
+      }
+    }
+  }
+}
+
+// C[i] = sum over z of ws[z][i], in z order (deterministic)
+__global__ void splitk_reduce_sm90(const float* __restrict__ ws, int splits,
+                                   long long mn, float* __restrict__ C) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
+  C[i] = s;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+EncodeTiled g_encode = nullptr;
+
+// a K-major bf16 matrix of ``rows`` rows of ``k`` values, ``ld`` elements
+// apart, read in boxes of BK x box_rows with the 128-byte swizzle;
+// out-of-range elements read as zero
+cudaError_t encode(CUtensorMap* map, const void* base, long long k,
+                   long long rows, long long ld, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = g_encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BM, int BN>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(gemm_bf16_sm90<BM, BN>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Tile<BM, BN>::kSmemBytes);
+}
+
+template <int BM, int BN>
+cudaError_t launch(const void* A, long long lda, const void* B, long long ldb,
+                   float* out, int M, int N, int K, int k_chunk, int splits,
+                   cudaStream_t s) {
+  CUtensorMap map_a, map_b;
+  cudaError_t err = encode(&map_a, A, K, M, lda, BM);
+  if (err == cudaSuccess) err = encode(&map_b, B, K, N, ldb, BN);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  gemm_bf16_sm90<BM, BN><<<grid, Tile<BM, BN>::kThreads,
+                           Tile<BM, BN>::kSmemBytes, s>>>(map_a, map_b, out,
+                                                          M, N, K, k_chunk);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Once per process, before the first launch and before any CUDA graph
+// capture: finds cuTensorMapEncodeTiled and lets every tile shape use its
+// dynamic shared memory (above the 48 KB default).
+extern "C" int pdt_gemm_bf16_init() {
+  if (g_encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    g_encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cudaError_t errs[] = {allow_smem<64, 8>(),   allow_smem<64, 32>(),
+                              allow_smem<64, 64>(),  allow_smem<64, 128>(),
+                              allow_smem<128, 8>(),  allow_smem<128, 32>(),
+                              allow_smem<128, 64>(), allow_smem<128, 128>()};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return static_cast<int>(e);
+  return 0;
+}
+
+// C = A @ B, A (M, K) bf16 with row stride lda, B (K, N) bf16 whose column
+// n starts at B + n*ldb (K-major), tile bm x bn (bm in {64, 128}, bn in
+// {8, 32, 64, 128}); ``ws`` holds splits*M*N floats when splits > 1
+extern "C" int pdt_gemm_bf16(const void* A, long long lda, const void* B,
+                             long long ldb, void* C, void* ws, int M, int N,
+                             int K, int bm, int bn, int k_chunk, int splits,
+                             void* stream) {
+  if (g_encode == nullptr) return static_cast<int>(cudaErrorInitializationError);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(splits > 1 ? ws : C);
+  cudaError_t err = cudaErrorInvalidValue;
+#define PDT_TILE(TM, TN)                                                   \
+  if (bm == TM && bn == TN)                                                \
+    err = launch<TM, TN>(A, lda, B, ldb, out, M, N, K, k_chunk, splits, s);
+  PDT_TILE(64, 8) PDT_TILE(64, 32) PDT_TILE(64, 64) PDT_TILE(64, 128)
+  PDT_TILE(128, 8) PDT_TILE(128, 32) PDT_TILE(128, 64) PDT_TILE(128, 128)
+#undef PDT_TILE
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long mn = static_cast<long long>(M) * N;
+  splitk_reduce_sm90<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(ws), splits, mn, static_cast<float*>(C));
+  return static_cast<int>(cudaGetLastError());
+}

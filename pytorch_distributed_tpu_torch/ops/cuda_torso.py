@@ -1,16 +1,21 @@
-"""Kernel B2: the dqn-cnn torso GEMM, as a Hopper kernel.
+"""Kernel B2: the dqn-cnn torso GEMM, as two Hopper kernels.
 
 Port of pytorch_distributed_tpu/ops/pallas_torso.py: ``_mm`` (the
 ``pl.pallas_call`` at :104, body ``_mm_kernel`` :64-74), ``make_mxu_matmul``
-(:118-140, custom VJP) and ``build_pallas_torso_apply`` (:165-205).  The
-kernel is ``csrc/torso_gemm.cu``; its note says what bounds it on the card.
+(:118-140, custom VJP) and ``build_pallas_torso_apply`` (:165-205).  Each
+kernel's source note says what bounds it on the card.
 
 - ``gemm(a, b)``: ``a (M, K) @ b (K, N) -> fp32 (M, N)`` with fp32
-  accumulation, for bf16 or fp32 operands of any strides.  CPU tensors take
-  ``gemm_plain``; CUDA tensors launch the kernel, or raise.
-  ``gemm.launches`` counts kernel launches.
-- ``matmul(x, w)``: the differentiable product.  Its backward calls the
-  same kernel for ``dx = g w^T`` and ``dw = x^T g`` with fp32 operands (the
+  accumulation, for bf16 or fp32 operands.  CPU tensors take
+  ``gemm_plain``; CUDA tensors launch a kernel, or raise: bf16 operands
+  ``gemm_bf16`` (``csrc/torso_gemm_sm90.cu``: TMA, an mbarrier ring and
+  wgmma; the forward), fp32 operands of any strides ``gemm_f32``
+  (``csrc/torso_gemm.cu``: FMA; the backward).  Each of the two counts its
+  launches in ``.launches``.  The bf16 kernel reads both operands K-major
+  through TMA descriptors (``tma_operand_ok``); it raises, with the
+  reason, for an operand that no descriptor can describe.
+- ``matmul(x, w)``: the differentiable product.  Its backward calls
+  ``gemm`` for ``dx = g w^T`` and ``dw = x^T g`` with fp32 operands (the
   reference's bwd, :132-137), skips ``dx`` when ``x`` needs no gradient,
   and casts ``dx``/``dw`` to ``x``'s/``w``'s dtype.
 - ``build_torso_apply``: the learner's ``(params, obs) -> q`` running the
@@ -28,22 +33,36 @@ import torch.nn.functional as F
 from pytorch_distributed_tpu_torch.models.dqn_cnn import CONV_LAYERS
 from pytorch_distributed_tpu_torch.ops import kernels
 
-# the kernel's output tile and K tile (csrc/torso_gemm.cu BM/BN/BK)
+# the fp32 kernel's output tile and K tile (csrc/torso_gemm.cu BM/BN/BK)
 TILE_M, TILE_N, TILE_K = 64, 64, 32
+# the bf16 kernel's K tile, row tiles (64 rows per consumer warpgroup) and
+# tile widths (csrc/torso_gemm_sm90.cu BK, BM, BN)
+BF16_TILE_K = 64
+BF16_TILE_M = (64, 128)
+BF16_TILE_N = (8, 32, 64, 128)
+# split K only for a contraction of at least BF16_SPLIT_K_TILES K tiles
+# over fewer output tiles than half the SMs, in chunks of at least
+# BF16_MIN_K_TILES: a split costs a second launch and the fp32 slabs'
+# traffic (chip_smoke.py on an H100 SXM: config 12's Conv_2, 98 tiles of
+# 9 K tiles, and the Q head each ran in about half the time unsplit; see
+# PERF.md)
+BF16_SPLIT_K_TILES = 16
+BF16_MIN_K_TILES = 2
 NUM_SMS = 132  # H100 SXM
 
-_ENTRY = {torch.bfloat16: "pdt_gemm_bf16", torch.float32: "pdt_gemm_f32"}
-_GEMM_ARGS = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-_SIGNATURES = {name: _GEMM_ARGS for name in _ENTRY.values()}
+_VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_F32_SIGNATURES = {"pdt_gemm_f32": (_VP, _LL, _LL, _VP, _LL, _LL, _VP, _VP,
+                                    _INT, _INT, _INT, _INT, _INT, _VP)}
+_BF16_SIGNATURES = {"pdt_gemm_bf16_init": (),
+                    "pdt_gemm_bf16": (_VP, _LL, _VP, _LL, _VP, _VP, _INT,
+                                      _INT, _INT, _INT, _INT, _INT, _INT,
+                                      _VP)}
 
 
 def split_k(m: int, n: int, k: int):
-    """``(k_chunk, splits)``: enough blocks for about two waves over the
-    SMs when the output has few tiles, each chunk at least four K tiles
-    deep; ``k_chunk`` is a multiple of the K tile."""
+    """``(k_chunk, splits)`` of the fp32 kernel: enough blocks for about two
+    waves over the SMs when the output has few tiles, each chunk at least
+    four K tiles deep; ``k_chunk`` is a multiple of the K tile."""
     tiles = -(-m // TILE_M) * -(-n // TILE_N)
     want = 1
     if tiles < NUM_SMS:
@@ -53,10 +72,55 @@ def split_k(m: int, n: int, k: int):
     return chunk, -(-k // chunk)
 
 
+def plan_bf16(m: int, n: int, k: int):
+    """``(tile_m, tile_n, k_chunk, splits)`` of the bf16 kernel.  The tile
+    width is the narrowest of ``BF16_TILE_N`` that holds N (the widest past
+    it); 128-row tiles when they alone cover the SMs, else 64; and a long
+    contraction over too few output tiles is split into about one block
+    per SM (``BF16_SPLIT_K_TILES``, ``BF16_MIN_K_TILES``).  ``k_chunk`` is a
+    multiple of the K tile."""
+    tn = next((t for t in BF16_TILE_N if t >= n), BF16_TILE_N[-1])
+    n_tiles = -(-n // tn)
+    tm = 128 if -(-m // 128) * n_tiles >= NUM_SMS else 64
+    tiles = -(-m // tm) * n_tiles
+    k_tiles = -(-k // BF16_TILE_K)
+    want = 1
+    if 2 * tiles <= NUM_SMS and k_tiles >= BF16_SPLIT_K_TILES:
+        want = min(-(-NUM_SMS // tiles), k_tiles // BF16_MIN_K_TILES)
+    chunk = -(-k_tiles // want) * BF16_TILE_K
+    return tm, tn, chunk, -(-k // chunk)
+
+
+def tma_operand_ok(t: torch.Tensor, k_dim: int) -> bool:
+    """Whether a TMA descriptor can read the 2-D bf16 operand ``t`` as a
+    K-major matrix, where ``k_dim`` is its contraction dimension (1 for
+    ``a``, 0 for ``b``): unit stride along K, rows that do not overlap and
+    start a multiple of 16 bytes apart, and a 16-byte-aligned base."""
+    row = 1 - k_dim
+    return (t.dtype == torch.bfloat16 and t.dim() == 2
+            and t.stride(k_dim) == 1
+            and t.stride(row) >= t.shape[k_dim]
+            and t.stride(row) * t.element_size() % 16 == 0
+            and t.data_ptr() % 16 == 0)
+
+
+def check_tma_operands(a: torch.Tensor, b: torch.Tensor) -> None:
+    """Raise, with the reason, unless ``tma_operand_ok`` takes both bf16
+    operands of ``a @ b``."""
+    for name, t, k_dim in (("a", a, 1), ("b", b, 0)):
+        if not tma_operand_ok(t, k_dim):
+            raise ValueError(
+                f"gemm_bf16: no TMA descriptor reads operand {name} "
+                f"(shape {tuple(t.shape)}, strides {t.stride()}, base "
+                f"{t.data_ptr() % 16} bytes past 16-byte alignment); it "
+                f"must be K-major (stride 1 along dim {k_dim}) with rows a "
+                f"multiple of 16 bytes apart")
+
+
 def _check_args(a: torch.Tensor, b: torch.Tensor) -> None:
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm shapes {tuple(a.shape)} @ {tuple(b.shape)}")
-    if a.dtype != b.dtype or a.dtype not in _ENTRY:
+    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"gemm takes two bf16 or two fp32 operands, got "
                          f"{a.dtype} and {b.dtype}")
     if a.device != b.device:
@@ -78,24 +142,65 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return gemm_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
-    (m, k), n = a.shape, b.shape[1]
+    if a.dtype == torch.bfloat16:
+        return gemm_bf16(a, b)
+    return gemm_f32(a, b)
+
+
+def _output(a, m, n, splits):
     c = torch.empty(m, n, dtype=torch.float32, device=a.device)
-    chunk, splits = split_k(m, n, k)
     ws = (torch.empty(splits, m, n, dtype=torch.float32, device=a.device)
           if splits > 1 else None)
-    lib = kernels.library("torso_gemm", _SIGNATURES)
-    entry = _ENTRY[a.dtype]
-    err = getattr(lib, entry)(
+    return c, ws
+
+
+def gemm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel on CUDA operands that TMA can read, tiled by
+    ``plan_bf16``."""
+    _check_args(a, b)
+    if a.device.type != "cuda" or a.dtype != torch.bfloat16:
+        raise ValueError(f"gemm_bf16 takes bf16 CUDA operands, got "
+                         f"{a.dtype} on {a.device}")
+    check_tma_operands(a, b)
+    (m, k), n = a.shape, b.shape[1]
+    tm, tn, chunk, splits = plan_bf16(m, n, k)
+    if -(-m // tm) > 65535:
+        raise ValueError(f"gemm_bf16: {m} rows exceed the grid's 65,535 "
+                         f"row tiles of {tm}")
+    c, ws = _output(a, m, n, splits)
+    lib = kernels.library("torso_gemm_sm90", _BF16_SIGNATURES,
+                          init="pdt_gemm_bf16_init")
+    err = lib.pdt_gemm_bf16(
+        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(1), c.data_ptr(),
+        ws.data_ptr() if ws is not None else None, m, n, k, tm, tn, chunk,
+        splits, kernels.stream_ptr(a.device))
+    kernels.check(lib, err, "pdt_gemm_bf16")
+    gemm_bf16.launches += 1
+    return c
+
+
+def gemm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernel on CUDA operands of any strides."""
+    _check_args(a, b)
+    if a.device.type != "cuda" or a.dtype != torch.float32:
+        raise ValueError(f"gemm_f32 takes fp32 CUDA operands, got "
+                         f"{a.dtype} on {a.device}")
+    (m, k), n = a.shape, b.shape[1]
+    chunk, splits = split_k(m, n, k)
+    c, ws = _output(a, m, n, splits)
+    lib = kernels.library("torso_gemm", _F32_SIGNATURES)
+    err = lib.pdt_gemm_f32(
         a.data_ptr(), a.stride(0), a.stride(1),
         b.data_ptr(), b.stride(0), b.stride(1),
         c.data_ptr(), ws.data_ptr() if ws is not None else None,
         m, n, k, chunk, splits, kernels.stream_ptr(a.device))
-    kernels.check(lib, err, entry)
-    gemm.launches += 1
+    kernels.check(lib, err, "pdt_gemm_f32")
+    gemm_f32.launches += 1
     return c
 
 
-gemm.launches = 0
+gemm_bf16.launches = 0
+gemm_f32.launches = 0
 
 
 class _Matmul(torch.autograd.Function):
@@ -134,14 +239,16 @@ def build_torso_apply(norm_val: float = 255.0,
                       compute_dtype: torch.dtype = torch.bfloat16
                       ) -> Callable[[Dict[str, torch.Tensor], torch.Tensor],
                                     torch.Tensor]:
-    """``apply(params, obs) -> q`` through the GEMM kernel, on the port's
+    """``apply(params, obs) -> q`` through the GEMM kernels, on the port's
     ``DqnCnnModel`` state_dict and NCHW uint8 ``obs``.  Rounds to
     ``compute_dtype`` where the reference does (:193-203): inputs and
     weights before each GEMM, the GEMM output before the bias add.  The
     im2col runs NHWC with (kh, kw, c) features, so each OIHW conv weight
-    is permuted to (kh, kw, c) rows, and ``fc``'s (c, h, w) columns to the
-    (h, w, c) order of the NHWC flatten — the same function as the
-    module's NCHW forward."""
+    is permuted to (kh, kw, c) columns, and ``fc``'s (c, h, w) columns to
+    the (h, w, c) order of the NHWC flatten — the same function as the
+    module's NCHW forward.  Every weight is laid out (N, K), row-major, and
+    handed over as its transpose: each forward GEMM reads both operands
+    K-major, as the bf16 kernel's descriptors take them."""
     cd = compute_dtype
 
     def apply_fn(params: Dict[str, torch.Tensor],
@@ -150,18 +257,18 @@ def build_torso_apply(norm_val: float = 255.0,
         for name, cout, k, stride in CONV_LAYERS:
             pat = _patches(x, k, stride)
             b, oh, ow, feat = pat.shape
-            w = params[f"{name}.weight"].permute(2, 3, 1, 0).reshape(
-                feat, cout)
-            y = matmul(pat.reshape(-1, feat), w.to(cd))
+            w = params[f"{name}.weight"].permute(0, 2, 3, 1).reshape(
+                cout, feat)
+            y = matmul(pat.reshape(-1, feat), w.to(cd).t())
             y = y.to(cd) + params[f"{name}.bias"].to(cd)
             x = F.relu(y).reshape(b, oh, ow, cout)
         b, oh, ow, c = x.shape
         w0 = params["fc.weight"]
-        w0 = w0.reshape(-1, c, oh, ow).permute(2, 3, 1, 0).reshape(
-            oh * ow * c, -1)
-        y = matmul(x.reshape(b, -1), w0.to(cd))
+        w0 = w0.reshape(w0.shape[0], c, oh, ow).permute(0, 2, 3, 1).reshape(
+            w0.shape[0], oh * ow * c)
+        y = matmul(x.reshape(b, -1), w0.to(cd).t())
         x = F.relu(y.to(cd) + params["fc.bias"].to(cd))
-        q = matmul(x, params["head.weight"].t().to(cd))
+        q = matmul(x, params["head.weight"].to(cd).t())
         return (q.to(cd) + params["head.bias"].to(cd)).float()
 
     return apply_fn

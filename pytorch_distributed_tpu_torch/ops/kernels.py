@@ -26,12 +26,12 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("per_sample", "torso_gemm")
+SOURCES = ("per_sample", "torso_gemm", "torso_gemm_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -91,9 +91,13 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     return took
 
 
-def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.PyDLL:
+def library(name: str, signatures: Dict[str, Sequence],
+            init: Optional[str] = None) -> ctypes.PyDLL:
     """The loaded library ``name``, built first if needed, with every entry
-    in ``signatures`` (``{fn: argtypes}``) declared to return ``c_int``."""
+    in ``signatures`` (``{fn: argtypes}``) declared to return ``c_int``.
+    ``init`` names an entry of ``signatures`` without arguments that is
+    called once, when the library is loaded (so before any CUDA graph
+    capture); it raises if that returns non-zero."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -104,6 +108,8 @@ def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.PyDLL:
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = list(argtypes)
                 getattr(lib, fn).restype = ctypes.c_int
+            if init is not None:
+                check(lib, getattr(lib, init)(), init)
             _libs[name] = lib
         return lib
 

@@ -31,11 +31,17 @@ from pytorch_distributed_tpu_torch.models.dqn_cnn import (
 )
 from pytorch_distributed_tpu_torch.ops import cuda_torso
 from pytorch_distributed_tpu_torch.ops.cuda_torso import (
-    build_torso_apply, gemm, gemm_plain, matmul,
+    build_torso_apply, gemm, gemm_bf16, gemm_f32, gemm_plain, matmul,
 )
 
 _JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 SMALL = (44, 52)  # conv stack 10x12 -> 4x5 -> 2x3
+# (M, N, K) of the fp32 kernel's split test, and of config 12's five
+# forward GEMMs at batch 128 (im2col'd convs, Dense_0, the Q head)
+SPLIT_K_SHAPES = [(256, 32, 51200), (128, 512, 3136), (51200, 32, 256),
+                  (512, 6, 128)]
+FORWARD_SHAPES = [(128 * 20 * 20, 32, 256), (128 * 9 * 9, 64, 512),
+                  (128 * 7 * 7, 64, 576), (128, 512, 3136), (128, 6, 512)]
 torch.set_num_threads(1)
 
 
@@ -101,10 +107,20 @@ class TestGemm:
         assert gx.dtype == torch.bfloat16 and gw.dtype == torch.bfloat16
 
     def test_cpu_counts_no_launch(self):
-        before = gemm.launches
+        before = (gemm_bf16.launches, gemm_f32.launches)
         a, b = torch.randn(5, 7), torch.randn(7, 3)
         assert torch.equal(gemm(a, b), gemm_plain(a, b))
-        assert gemm.launches == before
+        assert torch.equal(gemm(a.bfloat16(), b.bfloat16()),
+                           gemm_plain(a.bfloat16(), b.bfloat16()))
+        assert (gemm_bf16.launches, gemm_f32.launches) == before
+
+    @pytest.mark.parametrize("launcher", [gemm_bf16, gemm_f32])
+    def test_kernel_launchers_take_cuda_operands_only(self, launcher):
+        a, b = torch.randn(4, 8), torch.randn(8, 3)
+        if launcher is gemm_bf16:
+            a, b = a.bfloat16(), b.bfloat16()
+        with pytest.raises(ValueError):
+            launcher(a, b)
 
     @pytest.mark.parametrize("bad", ["mixed", "int", "shape", "device",
                                      "rank"])
@@ -124,13 +140,87 @@ class TestGemm:
             cuda_torso.gemm(a, b)
 
     def test_split_k_covers_the_contraction(self):
-        for m, n, k in [(256, 32, 51200), (128, 512, 3136), (51200, 32, 256),
-                        (512, 6, 128)]:
+        for m, n, k in SPLIT_K_SHAPES:
             chunk, splits = cuda_torso.split_k(m, n, k)
             assert chunk % cuda_torso.TILE_K == 0
             assert (splits - 1) * chunk < k <= splits * chunk
         assert cuda_torso.split_k(256, 32, 51200)[1] > 1  # Conv_0's dw
         assert cuda_torso.split_k(51200, 32, 256)[1] == 1  # many tiles
+
+    @pytest.mark.parametrize("m, n, k", SPLIT_K_SHAPES + FORWARD_SHAPES)
+    def test_plan_bf16_covers_the_contraction(self, m, n, k):
+        tm, tn, chunk, splits = cuda_torso.plan_bf16(m, n, k)
+        assert tm in cuda_torso.BF16_TILE_M
+        assert chunk % cuda_torso.BF16_TILE_K == 0
+        assert (splits - 1) * chunk < k <= splits * chunk
+        # the narrowest tile width that holds N, the widest past it
+        wide = [t for t in cuda_torso.BF16_TILE_N if t >= n]
+        assert tn == (min(wide) if wide else max(cuda_torso.BF16_TILE_N))
+
+    @pytest.mark.parametrize("m, n, k, tile", [
+        (100, 6, 64, (64, 8)), (800, 32, 576, (64, 32)),
+        (800, 64, 3136, (64, 64)), (800, 128, 512, (64, 128)),
+        (20000, 6, 512, (128, 8)), (25650, 32, 256, (128, 32)),
+        (20000, 64, 256, (128, 64)), (5000, 512, 512, (128, 128))])
+    def test_plan_bf16_reaches_every_tile(self, m, n, k, tile):
+        # each (tile_m, tile_n) the kernel instantiates, at a shape of
+        # chip_smoke.py's forward sweep
+        assert cuda_torso.plan_bf16(m, n, k)[:2] == tile
+
+    def test_plan_bf16_splits_only_a_short_grid(self):
+        plan = cuda_torso.plan_bf16
+        assert plan(128, 512, 7 * 7 * 64)[3] > 1  # Dense_0: 8 output tiles
+        assert plan(128 * 20 * 20, 32, 256)[3] == 1  # Conv_0: 400 tiles
+        assert plan(128 * 20 * 20, 32, 256)[:2] == (128, 32)
+        tm, tn, _chunk, splits = plan(128, 512, 7 * 7 * 64)
+        blocks = -(-128 // tm) * -(-512 // tn) * splits
+        assert cuda_torso.NUM_SMS <= blocks < 2 * cuda_torso.NUM_SMS
+
+    def test_torso_hands_over_tma_ready_operands(self, monkeypatch):
+        # every forward GEMM of the bf16 torso, as build_torso_apply calls
+        # it: both operands K-major, 16-byte rows, no copy needed
+        seen = []
+
+        def record(a, b):
+            seen.append((a, b))
+            return gemm_plain(a, b)
+
+        monkeypatch.setattr(cuda_torso, "gemm", record)
+        _jm, _jp, _m, sd, obs = _jax_and_port(torch.bfloat16)
+        build_torso_apply(255.0, torch.bfloat16)(sd, torch.from_numpy(obs))
+        assert [(a.shape[1], b.shape[1]) for a, b in seen] == [
+            (256, 32), (512, 64), (576, 64), (3136, 512), (512, 6)]
+        for a, b in seen:
+            assert cuda_torso.tma_operand_ok(a, 1), (a.shape, a.stride())
+            assert cuda_torso.tma_operand_ok(b, 0), (b.shape, b.stride())
+            assert b.stride(0) == 1  # a view of an (N, K) weight
+
+    def test_tma_predicate_rejects_what_no_descriptor_reads(self):
+        ok = cuda_torso.tma_operand_ok
+        head = torch.randn(6, 512).bfloat16()
+        assert ok(head.t(), 0)  # K-major (512, 6): rows 1,024 bytes apart
+        n_major = head.t().contiguous()  # (512, 6): rows 12 bytes apart
+        assert not ok(n_major, 0)
+        assert not ok(torch.randn(64, 100).bfloat16(), 1)  # 200-byte rows
+        assert not ok(torch.randn(64, 128).bfloat16()[:, 1:], 1)  # base + 2
+        assert not ok(torch.randn(64, 128), 1)  # fp32
+
+    @pytest.mark.parametrize("bad", ["a_n_major", "a_row_12_bytes",
+                                     "b_n_major", "b_misaligned"])
+    def test_check_tma_operands_raises_with_the_reason(self, bad):
+        a = torch.randn(64, 512).bfloat16()
+        b = torch.randn(6, 512).bfloat16().t()  # the head, K-major
+        cuda_torso.check_tma_operands(a, b)
+        if bad == "a_n_major":
+            a = torch.randn(512, 64).bfloat16().t()
+        elif bad == "a_row_12_bytes":
+            a, b = torch.randn(64, 6).bfloat16(), torch.randn(6, 6).bfloat16()
+        elif bad == "b_n_major":
+            b = b.contiguous()  # (512, 6): rows 12 bytes apart
+        else:
+            b = torch.randn(6, 520).bfloat16()[:, 1:513].t()  # base + 2
+        with pytest.raises(ValueError, match="no TMA descriptor"):
+            cuda_torso.check_tma_operands(a, b)
 
 
 def _flax_params(frame, actions: int, rng) -> dict:

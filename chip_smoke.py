@@ -7,18 +7,23 @@ Phases, each printed as one JSON line:
 
 1. build: compiles ``pytorch_distributed_tpu_torch/csrc/*.cu`` with nvcc
    (one process per source, all at once) and times it, then reads the
-   forward GEMM's SASS (``cuobjdump``): it must hold wgmma (``HGMMA``) and
-   TMA loads (``UTMALDG``);
-2. per_sample: kernel B1 (the PER draw) against its plain PyTorch version
-   on the card, at config 12's shapes (a 50,000-row priority vector, 128
-   draws), with kernel, plain and library (cumsum + searchsorted) times;
-3. torso_gemm: kernel B2 (the torso GEMM: ``torso_gemm_sm90.cu`` forward
-   in bf16, ``torso_gemm.cu`` backward in fp32) against its plain version
-   on the card, at each of the 19 GEMM shapes of one config-12 update,
-   with kernel, plain and library (``torch.matmul``) times; then the
-   forward kernel alone on a sweep of ragged shapes, every tile width,
-   split and unsplit, and an operand no TMA descriptor reads (it must
-   raise);
+   bf16 GEMM's SASS (``cuobjdump``): the instantiations of every operand
+   layout, K-major and transposed, must hold wgmma (``HGMMA``) and TMA
+   loads (``UTMALDG``);
+2. per_sample: kernel B1 (the PER draw, one launch) against its plain
+   PyTorch version on the card, at config 12's shapes (a 50,000-row
+   priority vector, 128 draws), on random priorities and on a case forced
+   onto the zero-row remap; the profiler's count of kernels per eager
+   call; kernel, plain and library (cumsum + searchsorted) times;
+3. torso_gemm: kernel B2 (the torso GEMM: ``torso_gemm_sm90.cu`` for the
+   bf16 torso's 10 forward and 9 backward GEMMs, the backward's operands
+   transposed views as ``backward`` hands them over; ``torso_gemm.cu``
+   for the fp32 torso, ``compute_dtype`` float32) against its plain
+   version on the card, at each GEMM shape of one config-12 update, with
+   kernel, plain and library (``torch.matmul``) times; then the bf16
+   kernel alone on a sweep of ragged shapes in each of the four operand
+   layouts, every tile, split and unsplit, and an operand no TMA
+   descriptor reads (it must raise);
 4. torso_apply: the kernel torso against the ``nn.Module`` forward, and
    its gradients against autograd through the module, on a small batch;
 5. learner_alone: the CUDA-graph replay of the fused update against the
@@ -27,7 +32,8 @@ Phases, each printed as one JSON line:
    forward, graphed and eager, with the profiler's device time per update;
 6. train: config 12 at full width through the port's entry point
    (``pytorch_distributed_tpu_torch.main``) with the kernel torso on; the
-   kernels' launch counters are zeroed just before and read just after.
+   kernels' launch counters are zeroed just before and read just after:
+   per update 1 draw, 10 forward and 9 backward bf16 GEMMs, no fp32 GEMM.
 
 Then a ``kernels`` line (the table PERF.md is written from), the card's
 name and power limit, and the verdict as the last line.  Exits non-zero,
@@ -39,6 +45,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -69,17 +76,21 @@ TORSO_GEMMS = (("Conv_0", BATCH * 20 * 20, 8 * 8 * 4, 32),
                ("Conv_2", BATCH * 7 * 7, 3 * 3 * 64, 64),
                ("Dense_0", BATCH, 7 * 7 * 64, 512),
                ("Dense_1", BATCH, 512, ACTIONS))
-# (M, K, N) of the forward kernel's sweep: ragged M, N 6 to 512, K from 64
-# to 3,136 (136, 200 and 1,096 ragged against the K tile), split and
-# unsplit plans, every (row tile, tile width) of the kernel's dispatch
-# (64 x 8, 32, 64, 128 and 128 x 8, 32, 64, 128: the last four only where
-# 128-row tiles alone cover the SMs), and 49 K tiles unsplit (9,000 x
-# 3,136 x 64), which wraps the 4-stage ring 12 times
-FWD_SWEEP = ((100, 64, 6), (100, 136, 6), (2000, 512, 6), (800, 576, 32),
-             (300, 1096, 32), (25650, 256, 32), (6437, 200, 64),
-             (800, 3136, 64), (800, 512, 128), (100, 3136, 512),
-             (12800, 256, 64), (9000, 3136, 64), (20000, 512, 6),
-             (20000, 256, 64), (5000, 512, 512))
+# (M, K, N) of the bf16 kernel's sweep, each run in all four operand
+# layouts: ragged M, N 6 to 512, K from 64 to 51,200 (136, 200 and 1,096
+# ragged against the K tile), split and unsplit plans, every (row tile,
+# tile width) of the kernel's dispatch (64 x 8, 32, 64, 128 and 128 x 8,
+# 32, 64, 128: the last four only where 128-row tiles alone cover the
+# SMs), 49 K tiles unsplit (9,000 x 3,136 x 64), which wraps the 4-stage
+# ring 12 times, and Conv_0's dw contraction of 800 K tiles (256 x 51,200
+# x 32)
+GEMM_SWEEP = ((100, 64, 6), (100, 136, 6), (2000, 512, 6), (800, 576, 32),
+              (300, 1096, 32), (25650, 256, 32), (6437, 200, 64),
+              (800, 3136, 64), (800, 512, 128), (100, 3136, 512),
+              (12800, 256, 64), (9000, 3136, 64), (20000, 512, 6),
+              (20000, 256, 64), (5000, 512, 512), (256, 51200, 32),
+              (577, 6270, 70))
+LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 
 RESULTS: dict = {}
 FAILED: list = []
@@ -169,15 +180,77 @@ def build():
     lib = kernels.library_path("torso_gemm_sm90")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    out["sass_counts"] = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    if not all(out["sass_counts"].values()):
-        raise AssertionError(f"forward GEMM SASS lacks wgmma or TMA: "
-                             f"{out['sass_counts']}")
+    # per operand layout: the mangled template arguments of
+    # gemm_bf16_sm90<BM, BN, a_mn, b_mn> end in Lb<a_mn>ELb<b_mn>E
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split(None, 1)[0]
+        if "gemm_bf16_sm90" not in name:
+            continue
+        layout = re.search(r"Lb([01])ELb([01])E", name)
+        key = f"a_mn={layout[1]},b_mn={layout[2]}"
+        c = counts.setdefault(key, {"functions": 0, "HGMMA": 0,
+                                    "UTMALDG": 0})
+        c["functions"] += 1
+        for op in ("HGMMA", "UTMALDG"):
+            c[op] += fn.count(op)
+    out["sass_counts"] = counts
+    if len(counts) != 4 or not all(c["HGMMA"] and c["UTMALDG"]
+                                   for c in counts.values()):
+        raise AssertionError(f"bf16 GEMM SASS lacks wgmma or TMA in some "
+                             f"operand layout: {counts}")
     res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
                          text=True, timeout=300).stdout
     out["res_usage"] = [ln.strip() for ln in res.splitlines()
                         if "REG" in ln][:12]
     return out
+
+
+def _kernels_per_call(fn, calls: int = 10) -> dict:
+    """The profiler's device kernels over ``calls`` eager calls of ``fn``:
+    ``{kernel name: launches per call}``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.count / calls for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def _forced_remap(gen) -> dict:
+    """B1 on a draw forced onto the zero-row remap: integer priorities (so
+    every sum is exact in any order) on rows below 45,000, a tie at the
+    maximum (rows 1,000 and 30,000), zeros after, and ``u = 1``, whose
+    target is the total and so lands past the last nonzero row; beside it
+    the largest float32 below 1, 0 and random uniforms."""
+    p = torch.randint(1, 4, (RING_ROWS,), generator=gen, device=DEV).float()
+    p[45_000:] = 0.0
+    p[[1_000, 30_000]] = 5.0
+    u = torch.rand(BATCH, generator=gen, device=DEV)
+    u[:4] = torch.tensor([1.0, 1.0 - 2.0 ** -24, 0.0, 1.0])
+    idx_k, pr_k = cuda_sampling.hierarchical_sample(p, u)
+    idx_p, pr_p = cuda_sampling.sample_plain(p, u)
+    torch.cuda.synchronize()
+    # the flat inverse-CDF row before the remap (exact: integer sums)
+    cdf = torch.cumsum(p.double(), 0)
+    raw = torch.searchsorted(cdf, u.double() * cdf[-1], right=True).clamp_(
+        max=RING_ROWS - 1)
+    forced = p[raw] == 0
+    if not (bool(forced[0]) and bool(forced[3])):
+        raise AssertionError("u = 1 did not reach the zero rows")
+    if not (torch.equal(idx_k, idx_p) and torch.equal(pr_k, pr_p)):
+        raise AssertionError(f"B1 forced case: kernel {idx_k[:4].tolist()} "
+                             f"plain {idx_p[:4].tolist()}")
+    if not bool((idx_k[forced] == 1_000).all()):
+        raise AssertionError(f"remap did not pick the first maximum: "
+                             f"{idx_k[forced].tolist()}")
+    return {"forced_draws": int(forced.sum()),
+            "forced_idx": idx_k[:4].tolist()}
 
 
 def per_sample():
@@ -198,12 +271,19 @@ def per_sample():
                         float((pr_k - pr_p)[same].abs().max()))
         if not bool((p[idx_k] > 0).all()):
             raise AssertionError("kernel drew an empty row")
-    # tolerance: the two versions sum each superblock in another order, so
-    # a draw whose target sits within fp32 rounding of a prefix boundary
-    # may land one row over; allow at most 2 such draws of 2,560
-    if mismatches > 2 or worst_err > 1e-6:
+    # tolerance: none.  The plain version takes the kernel's fp32 sums in
+    # the kernel's order (and no fused multiply-add on either side), so the
+    # two agree to the bit
+    if mismatches or worst_err:
         raise AssertionError(f"B1 disagrees: {mismatches} index "
                              f"mismatches, probs err {worst_err}")
+    forced = _forced_remap(gen)
+    per_call = _kernels_per_call(
+        lambda: cuda_sampling.hierarchical_sample(p, u))
+    if sum(per_call.values()) != 1 or not all(
+            "sample_kernel" in k for k in per_call):
+        raise AssertionError(f"B1 launched {per_call} per call, not one "
+                             f"kernel")
 
     def library():
         cdf = torch.cumsum(p, 0)
@@ -227,14 +307,18 @@ def per_sample():
                                  plain_ms=plain, bound_ms=b, bound_by=by,
                                  library_ms=lib)
     return {"n": RING_ROWS, "batch": BATCH, "index_mismatches": mismatches,
-            "eager_ms": eager,
-            "draws": 20 * BATCH, "tolerance": "probs 1e-6 abs, <= 2 index "
-            "mismatches at fp32 prefix boundaries", **RESULTS["per_sample"]}
+            "eager_ms": eager, "kernels_per_eager_call": per_call,
+            # each block reads every priority for its block sums, from L2
+            "l2_bytes_read": BATCH * RING_ROWS * 4, **forced,
+            "draws": 20 * BATCH, "tolerance": "identical indices and probs",
+            **RESULTS["per_sample"]}
 
 
 def _update_gemms():
-    """The 19 GEMMs of one update: (label, a, b, calls per update), with
-    operands laid out (and strided) as the main path hands them over."""
+    """The GEMMs of one update: (part, label, a, b, calls per update), with
+    operands laid out (and strided) as the main path hands them over:
+    ``fwd`` and ``bwd`` are the bf16 torso's, ``f32`` the backward of the
+    torso with ``compute_dtype`` float32."""
     gen = torch.Generator(device=DEV).manual_seed(1)
     out = []
     for i, (name, m, k, n) in enumerate(TORSO_GEMMS):
@@ -242,14 +326,32 @@ def _update_gemms():
         # the weight is stored (N, K) and handed over K-major
         w = (torch.randn(n, k, generator=gen, device=DEV)
              / math.sqrt(k)).to(torch.bfloat16).t()
-        g = torch.randn(m, n, generator=gen, device=DEV) / m
+        # the cotangent is bf16, its rows aligned as backward aligns them
+        g = (torch.randn(m, n, generator=gen, device=DEV) / m).to(
+            torch.bfloat16)
+        g = cuda_torso.tma_rows(g)
         # forward: online and target nets
-        out.append((f"{name}.fwd", x, w, 2))
-        # dw = x^T g (x as a transposed view of an fp32 copy)
-        out.append((f"{name}.dw", x.float().t(), g, 1))
-        if i > 0:  # Conv_0's input is the observation: no dx
-            out.append((f"{name}.dx", g, w.float().t(), 1))
+        out.append(("fwd", f"{name}.fwd", x, w, 2))
+        # dw = x^T g and dx = g w^T (Conv_0's input is the observation: no
+        # dx), bf16 and, for the fp32 torso, fp32
+        out.append(("bwd", f"{name}.dw", x.t(), g, 1))
+        out.append(("f32", f"{name}.dw", x.float().t(), g.float(), 1))
+        if i > 0:
+            out.append(("bwd", f"{name}.dx", g, w.t(), 1))
+            out.append(("f32", f"{name}.dx", g.float(), w.float().t(), 1))
     return out
+
+
+def _sweep_operand(rows: int, cols: int, unit_dim: int, gen):
+    """A bf16 (rows, cols) operand with stride 1 along ``unit_dim``, its
+    lines padded to 16 bytes."""
+    if unit_dim == 1:
+        pad = -(-cols // 8) * 8
+        return torch.randn(rows, pad, generator=gen, device=DEV).to(
+            torch.bfloat16)[:, :cols]
+    pad = -(-rows // 8) * 8
+    return torch.randn(cols, pad, generator=gen, device=DEV).to(
+        torch.bfloat16)[:, :rows].t()
 
 
 def _rel_err(c_k, c_p) -> tuple:
@@ -263,10 +365,12 @@ def torso_gemm():
     totals = {part: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, library_ms=0.0,
                          bound_ms=0.0, t_bytes=0.0, t_ops=0.0, calls=0,
                          max_abs_err=0.0, max_rel_err=0.0)
-              for part in ("fwd", "bwd")}
-    for label, a, b, count in _update_gemms():
-        err, rel = _rel_err(cuda_torso.gemm(a, b), cuda_torso.gemm_plain(a, b))
-        part = totals["fwd" if a.dtype == torch.bfloat16 else "bwd"]
+              for part in ("fwd", "bwd", "f32")}
+    for part_name, label, a, b, count in _update_gemms():
+        grad = part_name != "fwd"
+        err, rel = _rel_err(cuda_torso.gemm(a, b, grad=grad),
+                            cuda_torso.gemm_plain(a, b))
+        part = totals[part_name]
         part["max_abs_err"] = max(part["max_abs_err"], err)
         part["max_rel_err"] = max(part["max_rel_err"], rel)
         (m, k), n = a.shape, b.shape[1]
@@ -274,56 +378,75 @@ def torso_gemm():
         nbytes = (m * k + k * n) * es + m * n * 4
         bd, by = bound_ms(nbytes, 2.0 * m * n * k, a.dtype)
         iters = 200
-        row = dict(gemm=label, m=m, k=k, n=n, dtype=str(a.dtype)[6:],
-                   calls_per_update=count, max_abs_err=err,
-                   ms=time_ms(lambda: cuda_torso.gemm(a, b), iters),
-                   eager_ms=time_ms(lambda: cuda_torso.gemm(a, b), iters,
-                                    graph=False),
+        row = dict(part=part_name, gemm=label, m=m, k=k, n=n,
+                   dtype=str(a.dtype)[6:], calls_per_update=count,
+                   max_abs_err=err,
+                   ms=time_ms(lambda: cuda_torso.gemm(a, b, grad=grad),
+                              iters),
+                   eager_ms=time_ms(lambda: cuda_torso.gemm(a, b, grad=grad),
+                                    iters, graph=False),
                    plain_ms=time_ms(lambda: cuda_torso.gemm_plain(a, b),
                                     iters),
                    library_ms=time_ms(lambda: torch.matmul(a, b), iters),
                    bound_ms=bd, bound_by=by)
         if a.dtype == torch.bfloat16:
             row["plan"] = cuda_torso.plan_bf16(m, n, k)
+            row["layout"] = (cuda_torso.tma_major(a, 1),
+                             cuda_torso.tma_major(b, 0))
         emit({"torso_gemm_shape": row})
         rows.append(row)
         part["calls"] += count
         for key in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms"):
             part[key] += count * row[key]
         part["t_bytes" if by == "bytes" else "t_ops"] += count * bd
+    if any(r["layout"][0] != "mn" or r["layout"][1] != "mn"
+           for r in rows if r["part"] == "bwd" and r["gemm"].endswith("dw")):
+        raise AssertionError("a dw GEMM did not read x and g transposed")
     sweep_rel, sweep = 0.0, []
-    for m, k, n in FWD_SWEEP:
-        gen = torch.Generator(device=DEV).manual_seed(m * 7 + k * 3 + n)
-        a = torch.randn(m, k, generator=gen, device=DEV).to(torch.bfloat16)
-        b = torch.randn(n, k, generator=gen, device=DEV).to(
-            torch.bfloat16).t()
-        err, rel = _rel_err(cuda_torso.gemm(a, b), cuda_torso.gemm_plain(a, b))
-        sweep_rel = max(sweep_rel, rel)
-        sweep.append(dict(m=m, k=k, n=n, plan=cuda_torso.plan_bf16(m, n, k),
-                          max_rel_err=rel))
-    tiles = {tuple(s["plan"][:2]) for s in sweep}
-    if len(tiles) != len(cuda_torso.BF16_TILE_M) * len(
-            cuda_torso.BF16_TILE_N):
-        raise AssertionError(f"the sweep reaches only the tiles {tiles}")
+    for m, k, n in GEMM_SWEEP:
+        for a_mn, b_mn in LAYOUTS:
+            gen = torch.Generator(device=DEV).manual_seed(m * 7 + k * 3 + n)
+            a = _sweep_operand(m, k, 0 if a_mn else 1, gen)
+            b = _sweep_operand(k, n, 1 if b_mn else 0, gen)
+            layout = (cuda_torso.tma_major(a, 1), cuda_torso.tma_major(b, 0))
+            if layout != ("mn" if a_mn else "k", "mn" if b_mn else "k"):
+                raise AssertionError(f"sweep operand read as {layout}")
+            err, rel = _rel_err(cuda_torso.gemm(a, b, grad=True),
+                                cuda_torso.gemm_plain(a, b))
+            sweep_rel = max(sweep_rel, rel)
+            sweep.append(dict(m=m, k=k, n=n, layout=layout,
+                              plan=cuda_torso.plan_bf16(m, n, k),
+                              max_rel_err=rel))
+    reached = {(*s["plan"][:2], *s["layout"]) for s in sweep}
+    if len(reached) != len(cuda_torso.BF16_TILE_M) * len(
+            cuda_torso.BF16_TILE_N) * len(LAYOUTS):
+        raise AssertionError(f"the sweep reaches only {sorted(reached)}")
+    if not any(s["plan"][3] > 1 and s["k"] >= 800 * cuda_torso.BF16_TILE_K
+               for s in sweep):
+        raise AssertionError("the sweep has no split 800-K-tile contraction")
     # K = 100: rows 200 bytes apart, which no TMA descriptor takes
     a = torch.ones(64, 100, device=DEV, dtype=torch.bfloat16)
-    launches = cuda_torso.gemm_bf16.launches
-    try:
-        cuda_torso.gemm(a, a[:6].t())
-        raise AssertionError("an operand with 200-byte rows did not raise")
-    except ValueError as e:
-        refused = str(e)
-    if cuda_torso.gemm_bf16.launches != launches:
+    launches = (cuda_torso.gemm_bf16.launches,
+                cuda_torso.gemm_bf16_grad.launches)
+    refused = []
+    for x, y in ((a, a[:6].t()), (a.t(), a[:, :6])):
+        try:
+            cuda_torso.gemm(x, y, grad=True)
+            raise AssertionError(f"an operand with 200-byte lines did not "
+                                 f"raise: {tuple(x.stride())}")
+        except ValueError as e:
+            refused.append(str(e))
+    if (cuda_torso.gemm_bf16.launches,
+            cuda_torso.gemm_bf16_grad.launches) != launches:
         raise AssertionError("a refused operand counted a launch")
-    # tolerance: the same bf16 products (exact in fp32), fp32 sums in
+    # tolerance: the same bf16 (or fp32) products, exact in fp32, summed in
     # another order
     worst = max(sweep_rel, *(p["max_rel_err"] for p in totals.values()))
     if worst > 1e-4:
         raise AssertionError(f"B2 disagrees: {worst:.2e} of the output "
                              f"scale (sweep {sweep})")
-    for name, part in (("torso_gemm_fwd", totals["fwd"]),
-                       ("torso_gemm_bwd", totals["bwd"])):
-        RESULTS[name] = dict(
+    for part_name, part in totals.items():
+        RESULTS[f"torso_gemm_{part_name}"] = dict(
             max_abs_err=part["max_abs_err"], ms=part["ms"],
             plain_ms=part["plain_ms"], bound_ms=part["bound_ms"],
             bound_by="bytes" if part["t_bytes"] >= part["t_ops"]
@@ -333,9 +456,8 @@ def torso_gemm():
             "eager_ms_per_update": {p: t["eager_ms"]
                                     for p, t in totals.items()},
             "tolerance": "max |kernel - plain| <= 1e-4 x max |plain|",
-            "fwd_sweep": sweep, "refused": refused,
-            "per_update": {"fwd": RESULTS["torso_gemm_fwd"],
-                           "bwd": RESULTS["torso_gemm_bwd"]}}
+            "sweep": sweep, "refused": refused,
+            "per_update": {p: RESULTS[f"torso_gemm_{p}"] for p in totals}}
 
 
 def torso_apply():
@@ -447,22 +569,25 @@ def train():
             "--set", "learner_freq=100"]
     cuda_sampling.hierarchical_sample.launches = 0
     cuda_torso.gemm_bf16.launches = 0
+    cuda_torso.gemm_bf16_grad.launches = 0
     cuda_torso.gemm_f32.launches = 0
     summary = port_main.main(argv)
     launches = {"per_sample": cuda_sampling.hierarchical_sample.launches,
                 "torso_gemm_fwd": cuda_torso.gemm_bf16.launches,
-                "torso_gemm_bwd": cuda_torso.gemm_f32.launches}
+                "torso_gemm_bwd": cuda_torso.gemm_bf16_grad.launches,
+                "torso_gemm_f32": cuda_torso.gemm_f32.launches}
     RESULTS["launches"] = launches
     steps = summary["learner/steps"]
     if steps < TRAIN_STEPS or not math.isfinite(
             summary["learner/critic_loss"]):
         raise AssertionError(f"train phase: {summary}")
     # per update with double-DQN off: one draw; 10 bf16 forward GEMMs (5
-    # layers, online and target nets) and 9 fp32 backward GEMMs (5 dw, 4
-    # dx)
+    # layers, online and target nets) and 9 bf16 backward GEMMs (5 dw, 4
+    # dx); the fp32 kernel is off the bf16 torso's path
     if (launches["per_sample"] != steps
             or launches["torso_gemm_fwd"] != 10 * steps
-            or launches["torso_gemm_bwd"] != 9 * steps):
+            or launches["torso_gemm_bwd"] != 9 * steps
+            or launches["torso_gemm_f32"] != 0):
         raise AssertionError(f"launch counts {launches} for {steps} steps")
     return {"argv": " ".join(argv), "launches": launches,
             "updates_per_sec": summary["learner/updates_per_sec"],
@@ -476,7 +601,9 @@ KERNELS = (
      "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
     ("torso_gemm_fwd", "pytorch_distributed_tpu_torch/csrc/torso_gemm_sm90.cu",
      "pytorch_distributed_tpu/ops/pallas_torso.py:104"),
-    ("torso_gemm_bwd", "pytorch_distributed_tpu_torch/csrc/torso_gemm.cu",
+    ("torso_gemm_bwd", "pytorch_distributed_tpu_torch/csrc/torso_gemm_sm90.cu",
+     "pytorch_distributed_tpu/ops/pallas_torso.py:104"),
+    ("torso_gemm_f32", "pytorch_distributed_tpu_torch/csrc/torso_gemm.cu",
      "pytorch_distributed_tpu/ops/pallas_torso.py:104"),
 )
 

@@ -41,7 +41,9 @@ from pytorch_distributed_tpu_torch.memory.device_replay import (
 from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
 )
-from pytorch_distributed_tpu_torch.ops.cuda_torso import gemm_bf16, gemm_f32
+from pytorch_distributed_tpu_torch.ops.cuda_torso import (
+    gemm_bf16, gemm_bf16_grad, gemm_f32,
+)
 from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY
 
 
@@ -62,7 +64,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     if device.type == "cuda":
         fused = GraphedFusedStep(fused, replay.state,
                                  counters=(hierarchical_sample, gemm_bf16,
-                                           gemm_f32))
+                                           gemm_bf16_grad, gemm_f32))
     gen = torch.Generator(device=device).manual_seed(
         role_seed(opt.seed, "learner", process_ind))
 

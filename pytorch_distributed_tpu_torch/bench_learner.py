@@ -41,15 +41,26 @@ from pytorch_distributed_tpu_torch.memory.device_per import (
 from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
 )
-from pytorch_distributed_tpu_torch.ops.cuda_torso import gemm_bf16, gemm_f32
+from pytorch_distributed_tpu_torch.ops.cuda_torso import (
+    gemm_bf16, gemm_bf16_grad, gemm_f32,
+)
 
 
-# the port's kernels as the profiler names them, by the row of PERF.md's
-# kernel table they belong to
-KERNEL_NAMES = {"per_sample": ("block_sums_kernel", "draw_kernel"),
-                "torso_gemm_fwd": ("gemm_bf16_sm90", "splitk_reduce_sm90"),
-                "torso_gemm_bwd": ("gemm_kernel<float>",
-                                   "splitk_reduce_kernel")}
+def kernel_label(name: str):
+    """The row of PERF.md's kernel table that the profiler's kernel
+    ``name`` belongs to, or None.  The bf16 GEMM's forward instantiations
+    read both operands K-major (``<BM, BN, false, false>``); the split-K
+    reduce is shared by all the GEMMs."""
+    if "sample_kernel" in name:
+        return "per_sample"
+    if "gemm_bf16_sm90" in name:
+        return ("torso_gemm_fwd" if "false, false>" in name
+                else "torso_gemm_bwd")
+    if "gemm_kernel<float>" in name:
+        return "torso_gemm_f32"
+    if "splitk_reduce_kernel" in name:
+        return "splitk_reduce"
+    return None
 
 
 def fill_ring(ring: DevicePerReplay, num_actions: int,
@@ -107,7 +118,7 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     if device.type == "cuda" and graph:
         fused = GraphedFusedStep(fused, ring.state,
                                  counters=(hierarchical_sample, gemm_bf16,
-                                           gemm_f32))
+                                           gemm_bf16_grad, gemm_f32))
 
     def updates_of(n: int) -> None:
         """``n`` updates, rounded up to whole dispatches of K."""
@@ -156,9 +167,12 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
                        if e.self_device_time_total > 0),
                       key=lambda r: -r[1])
         out["device_ms_per_update"] = sum(r[1] for r in rows)
-        out["kernel_device_ms"] = {
-            label: sum(v for k, v in rows if any(n in k for n in names))
-            for label, names in KERNEL_NAMES.items()}
+        out["kernel_device_ms"] = {}
+        for k, v in rows:
+            label = kernel_label(k)
+            if label is not None:
+                out["kernel_device_ms"][label] = (
+                    out["kernel_device_ms"].get(label, 0.0) + v)
         out["top_device_ms"] = [(k[:64], round(v, 5)) for k, v in rows[:24]]
     stop.set()
     for t in threads:

@@ -1,8 +1,9 @@
-// Torso GEMM, backward: the Hopper port of the TPU kernel
-// pytorch_distributed_tpu/ops/pallas_torso.py _mm / _mm_kernel as the
+// Torso GEMM on fp32 operands: the Hopper port of the TPU kernel
+// pytorch_distributed_tpu/ops/pallas_torso.py _mm / _mm_kernel for the
+// torso with compute_dtype float32 (a config option), forward and the
 // backward of make_mxu_matmul's custom VJP.  Wrapper, autograd Function
-// and plain version: ops/cuda_torso.py (gemm_f32).  The bf16 forward is
-// csrc/torso_gemm_sm90.cu.
+// and plain version: ops/cuda_torso.py (gemm_f32).  Every GEMM of the
+// bf16 torso, forward and backward, is csrc/torso_gemm_sm90.cu.
 //
 // Contract: C (M, N) fp32 = A (M, K) @ B (K, N) with fp32 operands and
 // fp32 accumulation (dx = g w^T, dw = x^T g, as the reference's custom
@@ -20,8 +21,8 @@
 // Split K: a GEMM with few output tiles and a long contraction (the dw of
 // Conv_0 contracts 51,200 rows into 256x32 — 4 tiles for 132 SMs) runs
 // ``splits`` blocks per tile over disjoint K chunks, each writing its own
-// fp32 partial slab; a second kernel sums the slabs in a fixed order, so
-// the result is deterministic (no atomics).
+// fp32 partial slab; common.cuh's reduce sums the slabs in a fixed order,
+// so the result is deterministic (no atomics).
 //
 // What bounds it on the card: at the main path's shapes most of these
 // GEMMs are small or skinny (N of 6, 32 or 64), so memory traffic and
@@ -154,17 +155,6 @@ gemm_kernel(const T* __restrict__ A, long long sam, long long sak,
   mma.store(slab, m0, n0, M, N);
 }
 
-// C[i] = sum over z of ws[z][i], in z order (deterministic)
-__global__ void splitk_reduce_kernel(const float* __restrict__ ws, int splits,
-                                     long long mn, float* __restrict__ C) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
-  C[i] = s;
-}
-
 template <typename T>
 int launch(const void* A, long long sam, long long sak, const void* B,
            long long sbk, long long sbn, void* C, void* ws, int M, int N,
@@ -177,10 +167,9 @@ int launch(const void* A, long long sam, long long sak, const void* B,
       out, M, N, K, k_chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long mn = static_cast<long long>(M) * N;
-  splitk_reduce_kernel<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(ws), splits, mn, static_cast<float*>(C));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(pdt_splitk_reduce(
+      static_cast<const float*>(ws), splits, static_cast<long long>(M) * N,
+      static_cast<float*>(C), s));
 }
 
 }  // namespace

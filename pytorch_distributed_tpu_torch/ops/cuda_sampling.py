@@ -1,24 +1,29 @@
-"""Kernel B1: the proportional PER draw, as a Hopper kernel.
+"""Kernel B1: the proportional PER draw, as one Hopper kernel.
 
 Port of pytorch_distributed_tpu/ops/pallas_sampling.py
 ``hierarchical_sample`` (the ``pl.pallas_call`` at :141, body
-``_draw_kernel`` :52-80).  The kernel is ``csrc/per_sample.cu``; its note
-says what bounds it on the card.  The reference draws its uniforms from a
-JAX key inside the function; here the caller passes the uniforms ``u``
-(B,) in [0, 1), so the tests can hand both implementations the same
+``_draw_kernel`` :52-80, and the XLA block sums, cumsum and searchsorted
+around it).  The kernel is ``csrc/per_sample.cu``, one launch per call
+with no torch op around it, so it stays capturable in a CUDA graph; its
+note says what bounds it on the card.  The reference draws its uniforms
+from a JAX key inside the function; here the caller passes the uniforms
+``u`` (B,) in [0, 1], so the tests can hand both implementations the same
 numbers.
 
 Semantics, kept from the reference: the (N,) priority vector (zeros are
 empty rows) is cut into 1024-row superblocks; each draw's target
-``u * total`` picks a superblock through the cumulative block sums and
-then the in-block index ``count(prefix <= residual)``, clamped to 1023 and
+``u * total`` picks a superblock through the cumulative block sums
+(``count(block_cdf <= target)``, clamped to the last superblock) and then
+the in-block index ``count(prefix <= residual)``, clamped to 1023 and
 then to N-1.  A draw that lands on a zero-priority row (fp-order
-disagreement at a block's upper CDF edge) is remapped to the ``argmax``
-row, and ``probs = p[idx] / max(total, 1e-12)``.
+disagreement at a block's upper CDF edge, or ``u = 1``, which reaches
+past the last nonzero row) is remapped to the ``argmax`` row, the first
+of a tie, and ``probs = p[idx] / max(total, 1e-12)``.
 
-Dispatch rule: a priority vector on the CPU takes ``sample_plain`` (a
-blocked torch version of the same phases); one on a CUDA device launches
-the kernel, or raises.  ``hierarchical_sample.launches`` counts the calls
+Dispatch rule: a priority vector on the CPU takes ``sample_plain`` (the
+same steps as torch ops, with the fp32 sums taken in the kernel's order,
+so the two agree to the bit); one on a CUDA device launches the kernel,
+or raises.  ``hierarchical_sample.launches`` counts the calls
 that launched the kernel.
 """
 
@@ -33,14 +38,12 @@ import torch.nn.functional as F
 from pytorch_distributed_tpu_torch.ops import kernels
 
 BLOCK = 1024  # priorities per superblock (the reference's DEFAULT_BLOCK)
+# the kernel keeps the superblock CDF in 48 KB of shared memory
+MAX_ROWS = 48 * 1024 // 4 * BLOCK
 
-_SIGNATURES = {
-    "pdt_block_sums": (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p),
-    "pdt_draw": (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                 ctypes.c_void_p),
-}
+_VP = ctypes.c_void_p
+_SIGNATURES = {"pdt_sample": (_VP, ctypes.c_longlong, _VP, ctypes.c_int, _VP,
+                              _VP, _VP)}
 
 
 def _check_args(priority: torch.Tensor, u: torch.Tensor) -> None:
@@ -52,46 +55,67 @@ def _check_args(priority: torch.Tensor, u: torch.Tensor) -> None:
                          f"{tuple(u.shape)} {u.dtype}")
     if priority.device != u.device:
         raise ValueError(f"priority on {priority.device}, u on {u.device}")
-    if not priority.is_contiguous():
-        raise ValueError("priority must be contiguous")
+    if not priority.is_contiguous() or not u.is_contiguous():
+        raise ValueError("priority and u must be contiguous")
     if priority.numel() == 0 or u.numel() == 0:
         raise ValueError("empty priority vector or batch")
 
 
-def _targets(block_sums: torch.Tensor, u: torch.Tensor):
-    """Phase 2 (torch in both versions): the superblock and residual target
-    of each draw, and the total mass."""
-    block_cdf = torch.cumsum(block_sums, 0)
-    total = block_cdf[-1]
-    target = u * total
-    bid = torch.searchsorted(block_cdf, target, right=True).clamp_(
-        0, block_sums.numel() - 1)
-    prev = torch.where(bid > 0, block_cdf[(bid - 1).clamp_(min=0)],
-                       torch.zeros_like(target))
-    return bid, (target - prev).contiguous(), total
-
-
-def _finish(priority: torch.Tensor, bid: torch.Tensor, local: torch.Tensor,
-            total: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Clamp, zero-row remap and probabilities (reference :148-157)."""
-    idx = torch.clamp(bid.long() * BLOCK + local.long(),
-                      max=priority.numel() - 1)
-    idx = torch.where(priority[idx] > 0, idx, torch.argmax(priority))
-    probs = priority[idx] / torch.clamp(total, min=1e-12)
-    return idx, probs
+def _warp_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan along the last dimension (32 lanes), in the kernel's
+    order: five shifted adds, as its warp shuffles."""
+    for o in (1, 2, 4, 8, 16):
+        x = x + F.pad(x[..., :-o], (o, 0))
+    return x
 
 
 def sample_plain(priority: torch.Tensor, u: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version: the same three phases as blocked torch ops."""
+    """The plain version: the reference's steps (:131-157) as torch ops, its
+    fp32 sums taken in the kernel's order, so both give the same bits."""
     _check_args(priority, u)
-    n = priority.numel()
+    n, batch = priority.numel(), u.numel()
     nb = -(-n // BLOCK)
     blocks = F.pad(priority, (0, nb * BLOCK - n)).view(nb, BLOCK)
-    bid, targets, total = _targets(blocks.sum(1), u)
-    prefix = torch.cumsum(blocks[bid], 1)
-    local = (prefix <= targets[:, None]).sum(1).clamp_(max=BLOCK - 1)
-    return _finish(priority, bid, local, total)
+    # block sums: each lane adds its eight float4 in turn, then the warp's
+    # butterfly over the 32 lanes
+    v = blocks.view(nb, 8, 32, 4)
+    lanes = torch.zeros(nb, 32, dtype=torch.float32, device=u.device)
+    for j in range(8):
+        lanes = lanes + ((v[:, j, :, 0] + v[:, j, :, 1])
+                         + (v[:, j, :, 2] + v[:, j, :, 3]))
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, torch.arange(32, device=u.device) ^ o]
+    # the superblock CDF: 32 sums at a time, each chunk carried into the next
+    chunks = _warp_scan(F.pad(lanes[:, 0], (0, -nb % 32)).view(-1, 32))
+    carry, parts = torch.zeros((), device=u.device), []
+    for row in chunks:
+        parts.append(row + carry)
+        carry = parts[-1][31]
+    block_cdf = torch.cat(parts)[:nb]
+    total = block_cdf[-1]
+    target = u * total
+    bid = (block_cdf <= target[:, None]).sum(1).clamp_(max=nb - 1)
+    prev = torch.where(bid > 0, block_cdf[(bid - 1).clamp(min=0)],
+                       torch.zeros_like(target))
+    residual = (target - prev)[:, None, None]
+    # the in-block search: four rows a lane, the lanes' scan, then the
+    # warps' totals added in warp order
+    v = blocks[bid].view(batch, 8, 32, 4)
+    q = [v[..., 0]]
+    for i in (1, 2, 3):
+        q.append(q[-1] + v[..., i])
+    q = torch.stack(q, 3)
+    incl = _warp_scan(q[..., 3])
+    warp_tot = incl[..., 31]
+    off = [torch.zeros(batch, device=u.device)]
+    for w in range(7):
+        off.append(off[-1] + warp_tot[:, w])
+    off = torch.stack(off, 1)[..., None] + F.pad(incl[..., :-1], (1, 0))
+    local = ((off[..., None] + q) <= residual[..., None]).sum((1, 2, 3))
+    idx = torch.clamp(bid * BLOCK + local.clamp(max=BLOCK - 1), max=n - 1)
+    idx = torch.where(priority[idx] > 0, idx, torch.argmax(priority))
+    return idx, priority[idx] / torch.clamp(total, min=1e-12)
 
 
 def hierarchical_sample(priority: torch.Tensor, u: torch.Tensor
@@ -105,22 +129,18 @@ def hierarchical_sample(priority: torch.Tensor, u: torch.Tensor
         raise ValueError(f"no kernel for device {priority.device}")
     if priority.data_ptr() % 16:
         raise ValueError("priority must be 16-byte aligned (float4 loads)")
+    n, batch = priority.numel(), u.numel()
+    if n > MAX_ROWS:
+        raise ValueError(f"{n} priorities: the kernel's superblock CDF "
+                         f"holds at most {MAX_ROWS} rows")
+    idx = torch.empty(batch, dtype=torch.int64, device=priority.device)
+    probs = torch.empty(batch, dtype=torch.float32, device=priority.device)
     lib = kernels.library("per_sample", _SIGNATURES)
-    stream = kernels.stream_ptr(priority.device)
-    n = priority.numel()
-    nb = -(-n // BLOCK)
-    sums = torch.empty(nb, dtype=torch.float32, device=priority.device)
-    kernels.check(lib, lib.pdt_block_sums(priority.data_ptr(), n,
-                                          sums.data_ptr(), nb, stream),
-                  "pdt_block_sums")
-    bid, targets, total = _targets(sums, u)
-    bid32 = bid.to(torch.int32)
-    local = torch.empty(u.numel(), dtype=torch.int32, device=u.device)
-    kernels.check(lib, lib.pdt_draw(priority.data_ptr(), n, bid32.data_ptr(),
-                                    targets.data_ptr(), local.data_ptr(),
-                                    u.numel(), stream), "pdt_draw")
+    kernels.check(lib, lib.pdt_sample(
+        priority.data_ptr(), n, u.data_ptr(), batch, idx.data_ptr(),
+        probs.data_ptr(), kernels.stream_ptr(priority.device)), "pdt_sample")
     hierarchical_sample.launches += 1
-    return _finish(priority, bid, local, total)
+    return idx, probs
 
 
 hierarchical_sample.launches = 0

@@ -9,15 +9,24 @@ kernel's source note says what bounds it on the card.
   accumulation, for bf16 or fp32 operands.  CPU tensors take
   ``gemm_plain``; CUDA tensors launch a kernel, or raise: bf16 operands
   ``gemm_bf16`` (``csrc/torso_gemm_sm90.cu``: TMA, an mbarrier ring and
-  wgmma; the forward), fp32 operands of any strides ``gemm_f32``
-  (``csrc/torso_gemm.cu``: FMA; the backward).  Each of the two counts its
-  launches in ``.launches``.  The bf16 kernel reads both operands K-major
-  through TMA descriptors (``tma_operand_ok``); it raises, with the
-  reason, for an operand that no descriptor can describe.
-- ``matmul(x, w)``: the differentiable product.  Its backward calls
-  ``gemm`` for ``dx = g w^T`` and ``dw = x^T g`` with fp32 operands (the
-  reference's bwd, :132-137), skips ``dx`` when ``x`` needs no gradient,
-  and casts ``dx``/``dw`` to ``x``'s/``w``'s dtype.
+  wgmma), fp32 operands of any strides ``gemm_f32``
+  (``csrc/torso_gemm.cu``: FMA; the torso with ``compute_dtype``
+  float32).  The bf16 kernel reads each operand through a TMA descriptor,
+  K-major or, for the backward's transposed operands, M- or N-major
+  (``tma_major``); it raises, with the reason, for an operand that no
+  descriptor can describe.  ``gemm_bf16.launches`` counts the bf16
+  launches of forward products, ``gemm_bf16_grad.launches`` those of
+  gradients (``grad=True``), ``gemm_f32.launches`` the fp32 ones.
+- ``matmul(x, w, out_dtype)``: the differentiable product, returned in
+  fp32 (the reference's ``mm``) or, with ``out_dtype=bf16``, already
+  rounded to bf16, as the reference's torso rounds each ``mm``
+  (:193-201).  Its backward computes ``dx = g w^T`` and ``dw = x^T g``
+  (the reference's bwd, :132-137), skips ``dx`` when ``x`` needs no
+  gradient, and casts ``dx``/``dw`` to ``x``'s/``w``'s dtype.  A bf16
+  cotangent with bf16 ``x`` and ``w`` goes to the bf16 kernel as it lies:
+  every operand is bf16-exact, so the same products summed in fp32 are
+  the reference's fp32 backward.  Otherwise the operands are fp32, as in
+  the reference.
 - ``build_torso_apply``: the learner's ``(params, obs) -> q`` running the
   whole torso through ``matmul``, on the port's own ``state_dict``.
 """
@@ -25,7 +34,7 @@ kernel's source note says what bounds it on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -54,9 +63,9 @@ _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _F32_SIGNATURES = {"pdt_gemm_f32": (_VP, _LL, _LL, _VP, _LL, _LL, _VP, _VP,
                                     _INT, _INT, _INT, _INT, _INT, _VP)}
 _BF16_SIGNATURES = {"pdt_gemm_bf16_init": (),
-                    "pdt_gemm_bf16": (_VP, _LL, _VP, _LL, _VP, _VP, _INT,
-                                      _INT, _INT, _INT, _INT, _INT, _INT,
-                                      _VP)}
+                    "pdt_gemm_bf16": (_VP, _LL, _INT, _VP, _LL, _INT, _VP,
+                                      _VP, _INT, _INT, _INT, _INT, _INT,
+                                      _INT, _INT, _VP)}
 
 
 def split_k(m: int, n: int, k: int):
@@ -91,30 +100,50 @@ def plan_bf16(m: int, n: int, k: int):
     return tm, tn, chunk, -(-k // chunk)
 
 
-def tma_operand_ok(t: torch.Tensor, k_dim: int) -> bool:
-    """Whether a TMA descriptor can read the 2-D bf16 operand ``t`` as a
-    K-major matrix, where ``k_dim`` is its contraction dimension (1 for
-    ``a``, 0 for ``b``): unit stride along K, rows that do not overlap and
-    start a multiple of 16 bytes apart, and a 16-byte-aligned base."""
-    row = 1 - k_dim
-    return (t.dtype == torch.bfloat16 and t.dim() == 2
-            and t.stride(k_dim) == 1
-            and t.stride(row) >= t.shape[k_dim]
-            and t.stride(row) * t.element_size() % 16 == 0
-            and t.data_ptr() % 16 == 0)
+def tma_major(t: torch.Tensor, k_dim: int) -> Optional[str]:
+    """Which way a TMA descriptor reads the 2-D bf16 operand ``t``, where
+    ``k_dim`` is its contraction dimension (1 for ``a``, 0 for ``b``):
+    ``"k"`` (K-major: unit stride along K) or ``"mn"`` (M- or N-major: unit
+    stride along the other dimension), or ``None`` when no descriptor can.
+    Either way the lines along the unit-stride dimension must not overlap
+    and must start a multiple of 16 bytes apart, from a 16-byte-aligned
+    base."""
+    if (t.dtype != torch.bfloat16 or t.dim() != 2
+            or t.data_ptr() % 16 != 0):
+        return None
+    for major, unit in (("k", k_dim), ("mn", 1 - k_dim)):
+        line = t.stride(1 - unit)
+        if (t.stride(unit) == 1 and line >= t.shape[unit]
+                and line * t.element_size() % 16 == 0):
+            return major
+    return None
 
 
 def check_tma_operands(a: torch.Tensor, b: torch.Tensor) -> None:
-    """Raise, with the reason, unless ``tma_operand_ok`` takes both bf16
+    """Raise, with the reason, unless ``tma_major`` takes both bf16
     operands of ``a @ b``."""
     for name, t, k_dim in (("a", a, 1), ("b", b, 0)):
-        if not tma_operand_ok(t, k_dim):
+        if tma_major(t, k_dim) is None:
             raise ValueError(
                 f"gemm_bf16: no TMA descriptor reads operand {name} "
                 f"(shape {tuple(t.shape)}, strides {t.stride()}, base "
                 f"{t.data_ptr() % 16} bytes past 16-byte alignment); it "
-                f"must be K-major (stride 1 along dim {k_dim}) with rows a "
-                f"multiple of 16 bytes apart")
+                f"must have stride 1 along one dimension, with lines along "
+                f"it a multiple of 16 bytes apart and a 16-byte-aligned "
+                f"base")
+
+
+def tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (2-D, unit stride along its last dimension), or a copy of it
+    whose rows start a multiple of 16 bytes apart when its own do not: the
+    Q head's (B, 6) bf16 cotangent has 12-byte rows, which no TMA
+    descriptor reads."""
+    rows, cols = t.shape
+    if t.stride(1) == 1 and t.stride(0) * t.element_size() % 16 == 0:
+        return t
+    per = 16 // t.element_size()
+    out = t.new_empty(rows, -(-cols // per) * per)[:, :cols]
+    return out.copy_(t)
 
 
 def _check_args(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -136,14 +165,17 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def gemm(a: torch.Tensor, b: torch.Tensor, grad: bool = False
+         ) -> torch.Tensor:
+    """``a @ b -> fp32`` through the kernel for the operands' device and
+    type; ``grad`` marks a gradient's product, counted apart."""
     _check_args(a, b)
     if a.device.type == "cpu":
         return gemm_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
     if a.dtype == torch.bfloat16:
-        return gemm_bf16(a, b)
+        return gemm_bf16_grad(a, b) if grad else gemm_bf16(a, b)
     return gemm_f32(a, b)
 
 
@@ -154,9 +186,9 @@ def _output(a, m, n, splits):
     return c, ws
 
 
-def gemm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The bf16 kernel on CUDA operands that TMA can read, tiled by
-    ``plan_bf16``."""
+def _launch_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel on CUDA operands that TMA can read, in the layout
+    ``tma_major`` finds, tiled by ``plan_bf16``."""
     _check_args(a, b)
     if a.device.type != "cuda" or a.dtype != torch.bfloat16:
         raise ValueError(f"gemm_bf16 takes bf16 CUDA operands, got "
@@ -167,15 +199,30 @@ def gemm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if -(-m // tm) > 65535:
         raise ValueError(f"gemm_bf16: {m} rows exceed the grid's 65,535 "
                          f"row tiles of {tm}")
+    a_mn, b_mn = tma_major(a, 1) == "mn", tma_major(b, 0) == "mn"
     c, ws = _output(a, m, n, splits)
     lib = kernels.library("torso_gemm_sm90", _BF16_SIGNATURES,
                           init="pdt_gemm_bf16_init")
     err = lib.pdt_gemm_bf16(
-        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(1), c.data_ptr(),
+        a.data_ptr(), a.stride(1 if a_mn else 0), int(a_mn),
+        b.data_ptr(), b.stride(0 if b_mn else 1), int(b_mn), c.data_ptr(),
         ws.data_ptr() if ws is not None else None, m, n, k, tm, tn, chunk,
         splits, kernels.stream_ptr(a.device))
     kernels.check(lib, err, "pdt_gemm_bf16")
+    return c
+
+
+def gemm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel for a forward product."""
+    c = _launch_bf16(a, b)
     gemm_bf16.launches += 1
+    return c
+
+
+def gemm_bf16_grad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel for a gradient's product (transposed operands)."""
+    c = _launch_bf16(a, b)
+    gemm_bf16_grad.launches += 1
     return c
 
 
@@ -200,31 +247,40 @@ def gemm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 gemm_bf16.launches = 0
+gemm_bf16_grad.launches = 0
 gemm_f32.launches = 0
 
 
 class _Matmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, out_dtype):
         ctx.save_for_backward(x, w)
-        return gemm(x, w)
+        return gemm(x, w).to(out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        g = g.float()
+        x_dtype, w_dtype = x.dtype, w.dtype
+        if g.dtype == x_dtype == w_dtype == torch.bfloat16:
+            # bf16 operands as they lie (w^T and x^T are transposed views
+            # of the stored w and x); only g's rows may need aligning
+            g = tma_rows(g)
+        else:
+            g, x, w = g.float(), x.float(), w.float()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = gemm(g, w.float().t()).to(x.dtype)
+            dx = gemm(g, w.t(), grad=True).to(x_dtype)
         if ctx.needs_input_grad[1]:
-            dw = gemm(x.float().t(), g).to(w.dtype)
-        return dx, dw
+            dw = gemm(x.t(), g, grad=True).to(w_dtype)
+        return dx, dw, None
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Differentiable ``x @ w -> fp32`` whose forward and backward GEMMs
-    all run through ``gemm``."""
-    return _Matmul.apply(x, w)
+def matmul(x: torch.Tensor, w: torch.Tensor,
+           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Differentiable ``x @ w``, summed in fp32 and returned as
+    ``out_dtype``, whose forward and backward GEMMs all run through
+    ``gemm``."""
+    return _Matmul.apply(x, w, out_dtype)
 
 
 def _patches(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
@@ -242,13 +298,14 @@ def build_torso_apply(norm_val: float = 255.0,
     """``apply(params, obs) -> q`` through the GEMM kernels, on the port's
     ``DqnCnnModel`` state_dict and NCHW uint8 ``obs``.  Rounds to
     ``compute_dtype`` where the reference does (:193-203): inputs and
-    weights before each GEMM, the GEMM output before the bias add.  The
+    weights before each GEMM, the GEMM output (``out_dtype``) before the
+    bias add, so a bf16 torso's backward gets bf16 cotangents.  The
     im2col runs NHWC with (kh, kw, c) features, so each OIHW conv weight
     is permuted to (kh, kw, c) columns, and ``fc``'s (c, h, w) columns to
     the (h, w, c) order of the NHWC flatten — the same function as the
     module's NCHW forward.  Every weight is laid out (N, K), row-major, and
     handed over as its transpose: each forward GEMM reads both operands
-    K-major, as the bf16 kernel's descriptors take them."""
+    K-major, and the backward reads the same tensors M- or N-major."""
     cd = compute_dtype
 
     def apply_fn(params: Dict[str, torch.Tensor],
@@ -259,16 +316,16 @@ def build_torso_apply(norm_val: float = 255.0,
             b, oh, ow, feat = pat.shape
             w = params[f"{name}.weight"].permute(0, 2, 3, 1).reshape(
                 cout, feat)
-            y = matmul(pat.reshape(-1, feat), w.to(cd).t())
-            y = y.to(cd) + params[f"{name}.bias"].to(cd)
+            y = matmul(pat.reshape(-1, feat), w.to(cd).t(), out_dtype=cd)
+            y = y + params[f"{name}.bias"].to(cd)
             x = F.relu(y).reshape(b, oh, ow, cout)
         b, oh, ow, c = x.shape
         w0 = params["fc.weight"]
         w0 = w0.reshape(w0.shape[0], c, oh, ow).permute(0, 2, 3, 1).reshape(
             w0.shape[0], oh * ow * c)
-        y = matmul(x.reshape(b, -1), w0.to(cd).t())
-        x = F.relu(y.to(cd) + params["fc.bias"].to(cd))
-        q = matmul(x, params["head.weight"].to(cd).t())
-        return (q.to(cd) + params["head.bias"].to(cd)).float()
+        y = matmul(x.reshape(b, -1), w0.to(cd).t(), out_dtype=cd)
+        x = F.relu(y + params["fc.bias"].to(cd))
+        q = matmul(x, params["head.weight"].to(cd).t(), out_dtype=cd)
+        return (q + params["head.bias"].to(cd)).float()
 
     return apply_fn

@@ -4,7 +4,11 @@ blocked torch version — against the JAX package's Pallas
 the same uniforms (``jax.random.uniform(key, (B,))``, exactly what the
 JAX function draws from its key).  The cases of tests/test_pallas_sampling.py
 follow.  Indices must be equal and probabilities agree to rtol 1e-6 (the
-same fp32 sums, taken in another order)."""
+same fp32 sums, taken in another order).  The zero-row remap is forced
+where every implementation must take it: an empty vector (total 0), and
+``u = 1``, whose target is the total and so lands past the last nonzero
+row; a uniform below 1 cannot force it when the sums are exact, since
+``u * total`` then stays below the last nonzero row's prefix."""
 
 import numpy as np
 import pytest
@@ -35,6 +39,52 @@ def _both(prio: np.ndarray, key, batch: int):
     idx_t, p_t = hierarchical_sample(torch.from_numpy(prio),
                                      torch.from_numpy(u))
     return (np.asarray(idx_j), np.asarray(p_j), idx_t.numpy(), p_t.numpy())
+
+
+def _jax_on_uniforms(monkeypatch, prio: np.ndarray, u: np.ndarray):
+    """The JAX function on the uniforms ``u``: its own uniform draw is
+    replaced by ``u``, and it runs unjitted so no cached trace keeps the
+    real draw."""
+    monkeypatch.setattr(jax.random, "uniform",
+                        lambda key, shape: jnp.asarray(u))
+    idx, p = jax_hierarchical_sample.__wrapped__(
+        jnp.asarray(prio), jax.random.PRNGKey(0), len(u), interpret=True)
+    return np.asarray(idx), np.asarray(p)
+
+
+def _raw_inverse_cdf(prio: np.ndarray, u: np.ndarray) -> np.ndarray:
+    """The flat inverse-CDF row of each draw before the remap, in float64."""
+    cdf = np.cumsum(prio.astype(np.float64))
+    return np.minimum(np.searchsorted(cdf, u * cdf[-1], side="right"),
+                      len(prio) - 1)
+
+
+@pytest.mark.parametrize("case", ["empty", "past_last_row"])
+def test_forced_zero_row_remap_matches_jax(monkeypatch, case):
+    n = 3000  # 3 superblocks, the last one ragged
+    prio = np.zeros(n, np.float32)
+    if case == "empty":
+        key = jax.random.PRNGKey(11)
+        u = np.array(jax.random.uniform(key, (32,)))
+        idx_j, p_j = jax_hierarchical_sample(jnp.asarray(prio), key, 32,
+                                             interpret=True)
+        first_max = 0  # every row ties at 0
+    else:
+        # trailing zero rows from 1,500, and a tie at the maximum
+        prio[:1500] = _priorities(1500, zero_frac=0.0, seed=5)
+        prio[[700, 1499]] = 2.0
+        first_max = 700
+        u = np.concatenate([
+            [1.0, np.nextafter(np.float32(1), np.float32(0)), 0.0],
+            np.random.default_rng(6).random(29)]).astype(np.float32)
+        idx_j, p_j = _jax_on_uniforms(monkeypatch, prio, u)
+    forced = prio[_raw_inverse_cdf(prio, u)] == 0
+    assert forced.any()  # the remap fired
+    idx_t, p_t = sample_plain(torch.from_numpy(prio), torch.from_numpy(u))
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=1e-6)
+    assert (idx_t.numpy()[forced] == first_max).all()
+    assert (prio[idx_t.numpy()] > 0).all() or case == "empty"
 
 
 @pytest.mark.parametrize("n", [1000, 4096, 131072])

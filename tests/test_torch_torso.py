@@ -6,8 +6,10 @@ and against the flax ``DqnCnnModel``, on converted weights
 
 Tolerances: fp32 rtol/atol 1e-4 on values and 1e-3 on gradients, as
 tests/test_pallas_torso.py; bf16 2e-2 relative to the output scale (the
-two frameworks round to bf16 at other points), and gradient direction
-(cosine > 0.999) for bf16 gradients.  Frames are 84x84 and one smaller
+two frameworks round to bf16 at other points), for bf16 gradients their
+direction (cosine > 0.999) and each element within 2e-2 of its tensor's
+largest, and bitwise equality between the bf16 backward and fp32 copies
+of its operands.  Frames are 84x84 and one smaller
 non-square frame, batch 2.  Compiling the interpret-mode JAX torso and
 the flax init is what costs time here, so the weights are drawn with
 numpy in flax's layout and the interpret-mode torso runs at the small
@@ -42,6 +44,10 @@ SPLIT_K_SHAPES = [(256, 32, 51200), (128, 512, 3136), (51200, 32, 256),
                   (512, 6, 128)]
 FORWARD_SHAPES = [(128 * 20 * 20, 32, 256), (128 * 9 * 9, 64, 512),
                   (128 * 7 * 7, 64, 576), (128, 512, 3136), (128, 6, 512)]
+# (M, N, K) of config 12's nine backward GEMMs: dw = x^T g of each layer,
+# dx = g w^T of all but Conv_0
+BACKWARD_SHAPES = [(k, n, m) for m, n, k in FORWARD_SHAPES] + [
+    (m, k, n) for m, n, k in FORWARD_SHAPES[1:]]
 torch.set_num_threads(1)
 
 
@@ -147,7 +153,8 @@ class TestGemm:
         assert cuda_torso.split_k(256, 32, 51200)[1] > 1  # Conv_0's dw
         assert cuda_torso.split_k(51200, 32, 256)[1] == 1  # many tiles
 
-    @pytest.mark.parametrize("m, n, k", SPLIT_K_SHAPES + FORWARD_SHAPES)
+    @pytest.mark.parametrize("m, n, k", SPLIT_K_SHAPES + FORWARD_SHAPES
+                             + BACKWARD_SHAPES)
     def test_plan_bf16_covers_the_contraction(self, m, n, k):
         tm, tn, chunk, splits = cuda_torso.plan_bf16(m, n, k)
         assert tm in cuda_torso.BF16_TILE_M
@@ -176,6 +183,20 @@ class TestGemm:
         blocks = -(-128 // tm) * -(-512 // tn) * splits
         assert cuda_torso.NUM_SMS <= blocks < 2 * cuda_torso.NUM_SMS
 
+    def test_plan_bf16_splits_the_long_backward_contractions(self):
+        # the backward shares the forward's plan: Conv_0's dw (800 K tiles
+        # over 4 output tiles) is split into about one block per SM, each
+        # chunk whole K tiles
+        tm, tn, chunk, splits = cuda_torso.plan_bf16(256, 32, 51200)
+        assert (tm, tn) == (64, 32) and splits > 1
+        blocks = -(-256 // tm) * splits
+        assert cuda_torso.NUM_SMS // 2 <= blocks <= cuda_torso.NUM_SMS
+        assert chunk // cuda_torso.BF16_TILE_K >= cuda_torso.BF16_MIN_K_TILES
+        for m, n, k in BACKWARD_SHAPES:
+            tm, tn, _chunk, splits = cuda_torso.plan_bf16(m, n, k)
+            tiles = -(-m // tm) * -(-n // tn)
+            assert tiles * splits < 4 * cuda_torso.NUM_SMS or splits == 1
+
     def test_torso_hands_over_tma_ready_operands(self, monkeypatch):
         # every forward GEMM of the bf16 torso, as build_torso_apply calls
         # it: both operands K-major, 16-byte rows, no copy needed
@@ -191,12 +212,35 @@ class TestGemm:
         assert [(a.shape[1], b.shape[1]) for a, b in seen] == [
             (256, 32), (512, 64), (576, 64), (3136, 512), (512, 6)]
         for a, b in seen:
-            assert cuda_torso.tma_operand_ok(a, 1), (a.shape, a.stride())
-            assert cuda_torso.tma_operand_ok(b, 0), (b.shape, b.stride())
+            assert cuda_torso.tma_major(a, 1) == "k", (a.shape, a.stride())
+            assert cuda_torso.tma_major(b, 0) == "k", (b.shape, b.stride())
             assert b.stride(0) == 1  # a view of an (N, K) weight
 
+    def test_tma_major_reads_the_backward_operands_as_they_lie(self):
+        major = cuda_torso.tma_major
+        x = torch.randn(200, 256).bfloat16()  # patches (rows, features)
+        w = torch.randn(32, 256).bfloat16()  # a weight, stored (N, K)
+        g = torch.randn(200, 32).bfloat16()  # a cotangent (rows, N)
+        assert major(x, 1) == "k" and major(w.t(), 0) == "k"  # forward
+        assert major(x.t(), 1) == "mn" and major(g, 0) == "mn"  # dw
+        assert major(g, 1) == "k" and major(w, 0) == "mn"  # dx
+        # a ragged line padded to 16 bytes reads MN-major too
+        assert major(torch.randn(64, 72).bfloat16()[:, :70], 0) == "mn"
+        assert major(torch.randn(64, 70).bfloat16(), 0) is None
+
+    def test_tma_rows_aligns_only_what_needs_it(self):
+        g = torch.randn(128, 6).bfloat16()  # the Q head's cotangent
+        a = cuda_torso.tma_rows(g)
+        assert a.stride() == (8, 1) and torch.equal(a, g)
+        assert cuda_torso.tma_major(a, 1) == "k"
+        assert cuda_torso.tma_major(a, 0) == "mn"
+        ok = torch.randn(128, 64).bfloat16()
+        assert cuda_torso.tma_rows(ok) is ok
+
     def test_tma_predicate_rejects_what_no_descriptor_reads(self):
-        ok = cuda_torso.tma_operand_ok
+        def ok(t, k_dim):
+            return cuda_torso.tma_major(t, k_dim) is not None
+
         head = torch.randn(6, 512).bfloat16()
         assert ok(head.t(), 0)  # K-major (512, 6): rows 1,024 bytes apart
         n_major = head.t().contiguous()  # (512, 6): rows 12 bytes apart
@@ -212,7 +256,8 @@ class TestGemm:
         b = torch.randn(6, 512).bfloat16().t()  # the head, K-major
         cuda_torso.check_tma_operands(a, b)
         if bad == "a_n_major":
-            a = torch.randn(512, 64).bfloat16().t()
+            # M-major, but its K lines 136 bytes apart
+            a = torch.randn(512, 68).bfloat16()[:, :64].t()
         elif bad == "a_row_12_bytes":
             a, b = torch.randn(64, 6).bfloat16(), torch.randn(6, 6).bfloat16()
         elif bad == "b_n_major":
@@ -254,6 +299,24 @@ def _jax_and_port(cd: torch.dtype, frame=(84, 84), actions=6, seed=0):
     model = DqnCnnModel(actions, state_shape, compute_dtype=cd)
     model.load_state_dict(sd)
     return jmodel, jparams, model, sd, obs
+
+
+class _Fp32OperandMatmul(torch.autograd.Function):
+    """The bf16 torso's product as it stood before bf16 cotangents: the
+    fp32 product is rounded outside, so the cotangent arrives fp32, and the
+    backward multiplies fp32 copies of x and w."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return gemm_plain(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.float()
+        return (gemm_plain(g, w.float().t()).to(x.dtype),
+                gemm_plain(x.float().t(), g).to(w.dtype))
 
 
 def _grad_tree_to_port(grads, state_shape):
@@ -329,6 +392,62 @@ class TestTorso:
         cos = flat_t @ flat_r / (np.linalg.norm(flat_t)
                                  * np.linalg.norm(flat_r))
         assert cos > 0.999, cos
+
+
+    def test_bf16_backward_equals_the_fp32_operand_formulation(
+            self, monkeypatch):
+        # every operand of the backward is bf16-exact, so the bf16 backward
+        # (bf16 cotangent, x and w as they lie, through the plain version
+        # here) computes the same products and sums as fp32 copies do:
+        # bitwise equal gradients
+        _jm, _jp, _m, sd, obs = _jax_and_port(torch.bfloat16, SMALL, seed=6)
+        obs_t = torch.from_numpy(obs)
+
+        def grads():
+            params = {k: v.clone().requires_grad_(True)
+                      for k, v in sd.items()}
+            q = build_torso_apply(255.0, torch.bfloat16)(params, obs_t)
+            return torch.autograd.grad(q.square().mean(),
+                                       list(params.values()))
+
+        cotangents = []
+        backward = cuda_torso._Matmul.backward
+
+        def spy(ctx, g):
+            cotangents.append(g.dtype)
+            return backward(ctx, g)
+
+        monkeypatch.setattr(cuda_torso._Matmul, "backward",
+                            staticmethod(spy))
+        new = grads()
+        assert cotangents == [torch.bfloat16] * 5
+        monkeypatch.setattr(
+            cuda_torso, "matmul",
+            lambda x, w, out_dtype: _Fp32OperandMatmul.apply(x, w).to(
+                out_dtype))
+        for name, a, b in zip(sd, new, grads()):
+            assert torch.equal(a, b), name
+
+    def test_gradients_bf16_elementwise_against_the_pallas_torso(self):
+        # tolerance: 2e-2 of each gradient's largest entry.  bf16 keeps 8
+        # significant bits (3.9e-3 per rounding), and the two frameworks
+        # round activations and cotangents to bf16 at other points of the
+        # im2col, bias and relu (6.8e-3 at most on these inputs)
+        _jm, jparams, _m, sd, obs = _jax_and_port(torch.bfloat16, SMALL,
+                                                  seed=7)
+        g_pal = _grad_tree_to_port(jax.grad(
+            lambda p: jnp.mean(build_pallas_torso_apply(
+                255.0, jnp.bfloat16, interpret=True)(p, obs) ** 2))(jparams),
+            (4, *SMALL))
+        params = {k: v.clone().requires_grad_(True) for k, v in sd.items()}
+        q = build_torso_apply(255.0, torch.bfloat16)(params,
+                                                     torch.from_numpy(obs))
+        grads = torch.autograd.grad(q.square().mean(), list(params.values()))
+        for name, g in zip(params, grads):
+            ref = g_pal[name]
+            np.testing.assert_allclose(_np(g), ref, rtol=0,
+                                       atol=2e-2 * np.abs(ref).max(),
+                                       err_msg=name)
 
 
 class TestConvert:

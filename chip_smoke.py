@@ -7,38 +7,49 @@ Phases, each printed as one JSON line:
 
 1. build: compiles ``pytorch_distributed_tpu_torch/csrc/*.cu`` with nvcc
    (one process per source, all at once) and times it, then reads the
-   bf16 GEMM's SASS (``cuobjdump``): the instantiations of every operand
-   layout, K-major and transposed, must hold wgmma (``HGMMA``) and TMA
-   loads (``UTMALDG``);
+   GEMMs' SASS (``cuobjdump``): the bf16 GEMM's instantiations of every
+   operand layout, K-major and transposed, must hold wgmma (``HGMMA``) and
+   TMA loads (``UTMALDG``); every instantiation of the fp32 GEMM must hold
+   ``UTMALDG``, ``FFMA`` and 128-bit shared loads (``LDS.128``) and no
+   local memory (``LDL``/``STL``); prints the registers per thread;
 2. per_sample: kernel B1 (the PER draw, one launch) against its plain
    PyTorch version on the card, at config 12's shapes (a 50,000-row
    priority vector, 128 draws), on random priorities and on a case forced
    onto the zero-row remap; the profiler's count of kernels per eager
    call; kernel, plain and library (cumsum + searchsorted) times;
 3. torso_gemm: kernel B2 (the torso GEMM: ``torso_gemm_sm90.cu`` for the
-   bf16 torso's 10 forward and 9 backward GEMMs, the backward's operands
-   transposed views as ``backward`` hands them over; ``torso_gemm.cu``
-   for the fp32 torso, ``compute_dtype`` float32) against its plain
-   version on the card, at each GEMM shape of one config-12 update, with
-   kernel, plain and library (``torch.matmul``) times; then the bf16
+   bf16 torso, ``torso_gemm.cu`` for the torso with ``compute_dtype``
+   float32) against its plain version on the card, at each GEMM shape of
+   one config-12 update, 10 forward and 9 backward GEMMs for each type,
+   the forward's operands both K-major and the backward's transposed
+   views, as the main path hands them over (``bench_gemm.update_gemms``),
+   with kernel, plain and library (``torch.matmul``) times; then each
    kernel alone on a sweep of ragged shapes in each of the four operand
-   layouts, every tile, split and unsplit, and an operand no TMA
-   descriptor reads (it must raise);
+   layouts, every tile of its plan, split and unsplit, and operands with
+   200-byte lines, which no TMA descriptor reads (they must raise, with
+   no launch);
 4. torso_apply: the kernel torso against the ``nn.Module`` forward, and
    its gradients against autograd through the module, on a small batch;
-5. learner_alone: the CUDA-graph replay of the fused update against the
-   eager update (identical results), then the update on a full random
-   ring with no actors, with the kernel torso and with the module's
-   forward, graphed and eager, with the profiler's device time per update;
+5. learner_alone: for the bf16 torso and for the torso with
+   ``compute_dtype`` float32, the CUDA-graph replay of the fused update
+   against the eager update (identical results), then the update on a
+   full random ring with no actors (``bench_learner.run``), with the
+   kernel torso and with the module's forward, graphed and eager, with
+   the profiler's device time per update; the launch counters are zeroed
+   just before each timed window and read just after: per update 1 draw
+   and, for the kernel torso, 10 forward and 9 backward GEMMs of the
+   torso's type and none of the other;
 6. train: config 12 at full width through the port's entry point
    (``pytorch_distributed_tpu_torch.main``) with the kernel torso on; the
    kernels' launch counters are zeroed just before and read just after:
    per update 1 draw, 10 forward and 9 backward bf16 GEMMs, no fp32 GEMM.
 
-Then a ``kernels`` line (the table PERF.md is written from), the card's
-name and power limit, and the verdict as the last line.  Exits non-zero,
-with no verdict, if there is no GPU, if the package is missing, or if any
-phase fails.  TF32 is off throughout, so fp32 references are full fp32.
+Then a ``kernels`` line (the table PERF.md is written from: the bf16
+GEMM's launches from the train phase, the fp32 GEMM's from the fp32
+learner run), the card's name and power limit, and the verdict as the
+last line.  Exits non-zero, with no verdict, if there is no GPU, if the
+package is missing, or if any phase fails.  TF32 is off throughout, so
+fp32 references are full fp32.
 """
 
 from __future__ import annotations
@@ -59,6 +70,9 @@ if not torch.cuda.is_available():
           file=sys.stderr)
     sys.exit(2)
 
+from pytorch_distributed_tpu_torch.bench_gemm import (  # noqa: E402
+    time_ms, update_gemms,
+)
 from pytorch_distributed_tpu_torch.ops import cuda_sampling, cuda_torso  # noqa: E402
 from pytorch_distributed_tpu_torch.ops import kernels  # noqa: E402
 
@@ -70,26 +84,23 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # config 12 (dqn/pong-sim/device-per/dqn-cnn) at full width
 RING_ROWS, BATCH, FRAME, ACTIONS = 50_000, 128, (4, 84, 84), 6
 TRAIN_STEPS = 2000
-# (layer, M, K, N) of each forward GEMM at batch 128 (im2col'd convs)
-TORSO_GEMMS = (("Conv_0", BATCH * 20 * 20, 8 * 8 * 4, 32),
-               ("Conv_1", BATCH * 9 * 9, 4 * 4 * 32, 64),
-               ("Conv_2", BATCH * 7 * 7, 3 * 3 * 64, 64),
-               ("Dense_0", BATCH, 7 * 7 * 64, 512),
-               ("Dense_1", BATCH, 512, ACTIONS))
-# (M, K, N) of the bf16 kernel's sweep, each run in all four operand
-# layouts: ragged M, N 6 to 512, K from 64 to 51,200 (136, 200 and 1,096
-# ragged against the K tile), split and unsplit plans, every (row tile,
-# tile width) of the kernel's dispatch (64 x 8, 32, 64, 128 and 128 x 8,
-# 32, 64, 128: the last four only where 128-row tiles alone cover the
-# SMs), 49 K tiles unsplit (9,000 x 3,136 x 64), which wraps the 4-stage
-# ring 12 times, and Conv_0's dw contraction of 800 K tiles (256 x 51,200
-# x 32)
+# (M, K, N) of each kernel's sweep, each run in all four operand layouts:
+# ragged M, N 6 to 512, K from 64 to 51,200 (136, 200 and 1,096 ragged
+# against either K tile), split and unsplit plans, every (row tile, tile
+# width) of either kernel's dispatch (bf16: 64 x 8, 32, 64, 128 and 128 x
+# 8, 32, 64, 128; fp32: 64 and 128 x 32, 64, 128; the 128-row tiles only
+# where they alone give 1 (bf16) or 4 (fp32) blocks a SM: M of 70,000 and
+# 20,000 x N 512 for fp32), 49 bf16 and 98 fp32 K tiles unsplit
+# (9,000 x 3,136 x 64), which wraps the 4-stage ring 12 and 24 times, and
+# Conv_0's dw contraction of 800 bf16 and 1,600 fp32 K tiles (256 x
+# 51,200 x 32), split
 GEMM_SWEEP = ((100, 64, 6), (100, 136, 6), (2000, 512, 6), (800, 576, 32),
               (300, 1096, 32), (25650, 256, 32), (6437, 200, 64),
               (800, 3136, 64), (800, 512, 128), (100, 3136, 512),
               (12800, 256, 64), (9000, 3136, 64), (20000, 512, 6),
               (20000, 256, 64), (5000, 512, 512), (256, 51200, 32),
-              (577, 6270, 70))
+              (577, 6270, 70), (70000, 256, 32), (70000, 256, 64),
+              (20000, 256, 512))
 LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 
 RESULTS: dict = {}
@@ -113,39 +124,6 @@ def phase(fn):
         traceback.print_exc()
         emit({"phase": fn.__name__, "ok": False,
               "seconds": time.monotonic() - t0})
-
-
-def time_ms(fn, iters: int = 50, graph: bool = True) -> float:
-    """Mean device time of one call of ``fn`` over ``iters`` back-to-back
-    calls, replayed from a CUDA graph (as the learner's main path runs
-    it), or with ``graph=False`` called eagerly, which adds the host's
-    launch overhead wherever it exceeds the device time.  Twenty
-    untimed calls first bring the clocks up."""
-    cur = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
-    side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    cur.wait_stream(side)
-    torch.cuda.synchronize()
-    run = fn
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            fn()
-        run = g.replay
-    for _ in range(20):
-        run()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        run()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -199,11 +177,65 @@ def build():
                                    for c in counts.values()):
         raise AssertionError(f"bf16 GEMM SASS lacks wgmma or TMA in some "
                              f"operand layout: {counts}")
-    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
-                         text=True, timeout=300).stdout
-    out["res_usage"] = [ln.strip() for ln in res.splitlines()
-                        if "REG" in ln][:12]
+    out["f32_sass"] = _f32_sass(tool)
+    # per GEMM kernel, from "Function <name>:" and "REG:n STACK:n ...
+    # LOCAL:n ...", on one line or two (cuobjdump reads one file a run)
+    usage = {}
+    for path in (lib, kernels.library_path("torso_gemm")):
+        res = subprocess.run([tool, "-res-usage", path], capture_output=True,
+                             text=True, timeout=300, check=True).stdout
+        name, parsed = None, False
+        for ln in res.splitlines():
+            if "Function" in ln:
+                name = ln.split("Function", 1)[1]
+            found = re.findall(r"\b(REG|STACK|LOCAL):(\d+)", ln)
+            if found and name and "gemm_" in name:
+                usage[_gemm_key(name)] = {k: int(v) for k, v in found}
+                parsed = True
+        if not parsed:  # a layout not parsed above: its lines as printed
+            usage[path.rsplit("/", 1)[-1]] = [
+                ln.strip()[:200] for ln in res.splitlines() if "REG" in ln]
+    out["res_usage"] = usage
     return out
+
+
+def _gemm_key(name: str) -> str:
+    """``bf16 128x64 a_mn=0 b_mn=1`` from a GEMM kernel's mangled
+    (``...ILi128ELi64ELb0ELb1E...``) or demangled (``...<128, 64, false,
+    true>...``) name; the name itself if it is neither."""
+    t = (re.search(r"ILi(\d+)ELi(\d+)ELb([01])ELb([01])E", name)
+         or re.search(r"<(\d+), (\d+), (false|true), (false|true)>", name))
+    if t is None:
+        return name.strip()[:120]
+    flag = {"0": 0, "1": 1, "false": 0, "true": 1}
+    kind = "bf16" if "gemm_bf16" in name else "f32"
+    return f"{kind} {t[1]}x{t[2]} a_mn={flag[t[3]]} b_mn={flag[t[4]]}"
+
+
+def _f32_sass(tool: str) -> dict:
+    """Per instantiation of the fp32 GEMM (``gemm_f32_sm90<BM, BN, a_mn,
+    b_mn>``): its counts of TMA loads, FFMA and 128-bit shared loads, which
+    must all be there, and of local loads and stores, which must not."""
+    sass = subprocess.run([tool, "-sass",
+                           kernels.library_path("torso_gemm")],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    ops = {"UTMALDG": r"\bUTMALDG\b", "FFMA": r"\bFFMA\b",
+           "LDS.128": r"\bLDS(?:\.U)?\.128\b", "LDL": r"\bLDL\b",
+           "STL": r"\bSTL\b"}
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split(None, 1)[0]
+        if "gemm_f32_sm90" in name:
+            counts[_gemm_key(name)] = {op: len(re.findall(rx, fn))
+                                       for op, rx in ops.items()}
+    bad = {n: c for n, c in counts.items()
+           if not (c["UTMALDG"] and c["FFMA"] and c["LDS.128"])
+           or c["LDL"] or c["STL"]}
+    if len(counts) != 24 or bad:
+        raise AssertionError(f"fp32 GEMM SASS: {len(counts)} "
+                             f"instantiations, failing {bad}")
+    return counts
 
 
 def _kernels_per_call(fn, calls: int = 10) -> dict:
@@ -314,44 +346,17 @@ def per_sample():
             **RESULTS["per_sample"]}
 
 
-def _update_gemms():
-    """The GEMMs of one update: (part, label, a, b, calls per update), with
-    operands laid out (and strided) as the main path hands them over:
-    ``fwd`` and ``bwd`` are the bf16 torso's, ``f32`` the backward of the
-    torso with ``compute_dtype`` float32."""
-    gen = torch.Generator(device=DEV).manual_seed(1)
-    out = []
-    for i, (name, m, k, n) in enumerate(TORSO_GEMMS):
-        x = torch.randn(m, k, generator=gen, device=DEV).to(torch.bfloat16)
-        # the weight is stored (N, K) and handed over K-major
-        w = (torch.randn(n, k, generator=gen, device=DEV)
-             / math.sqrt(k)).to(torch.bfloat16).t()
-        # the cotangent is bf16, its rows aligned as backward aligns them
-        g = (torch.randn(m, n, generator=gen, device=DEV) / m).to(
-            torch.bfloat16)
-        g = cuda_torso.tma_rows(g)
-        # forward: online and target nets
-        out.append(("fwd", f"{name}.fwd", x, w, 2))
-        # dw = x^T g and dx = g w^T (Conv_0's input is the observation: no
-        # dx), bf16 and, for the fp32 torso, fp32
-        out.append(("bwd", f"{name}.dw", x.t(), g, 1))
-        out.append(("f32", f"{name}.dw", x.float().t(), g.float(), 1))
-        if i > 0:
-            out.append(("bwd", f"{name}.dx", g, w.t(), 1))
-            out.append(("f32", f"{name}.dx", g.float(), w.float().t(), 1))
-    return out
-
-
-def _sweep_operand(rows: int, cols: int, unit_dim: int, gen):
-    """A bf16 (rows, cols) operand with stride 1 along ``unit_dim``, its
-    lines padded to 16 bytes."""
+def _sweep_operand(rows: int, cols: int, unit_dim: int, dtype, gen):
+    """A (rows, cols) operand of ``dtype`` with stride 1 along
+    ``unit_dim``, its lines padded to 16 bytes."""
+    per = 16 // (torch.finfo(dtype).bits // 8)
     if unit_dim == 1:
-        pad = -(-cols // 8) * 8
+        pad = -(-cols // per) * per
         return torch.randn(rows, pad, generator=gen, device=DEV).to(
-            torch.bfloat16)[:, :cols]
-    pad = -(-rows // 8) * 8
+            dtype)[:, :cols]
+    pad = -(-rows // per) * per
     return torch.randn(cols, pad, generator=gen, device=DEV).to(
-        torch.bfloat16)[:, :rows].t()
+        dtype)[:, :rows].t()
 
 
 def _rel_err(c_k, c_p) -> tuple:
@@ -360,14 +365,73 @@ def _rel_err(c_k, c_p) -> tuple:
     return err, err / max(float(c_p.abs().max()), 1e-30)
 
 
+# per operand type: the kernel's plan, its tiles and K tile, and its
+# forward and gradient launch counters
+GEMM_KINDS = {
+    torch.bfloat16: (cuda_torso.plan_bf16, cuda_torso.BF16_TILE_M,
+                     cuda_torso.BF16_TILE_N, cuda_torso.BF16_TILE_K,
+                     (cuda_torso.gemm_bf16, cuda_torso.gemm_bf16_grad)),
+    torch.float32: (cuda_torso.plan_f32, cuda_torso.F32_TILE_M,
+                    cuda_torso.F32_TILE_N, cuda_torso.F32_TILE_K,
+                    (cuda_torso.gemm_f32, cuda_torso.gemm_f32_grad)),
+}
+
+
+def _sweep(dtype) -> tuple:
+    """The kernel for ``dtype`` on GEMM_SWEEP in all four layouts, against
+    its plain version: (rows, worst error relative to the output scale);
+    raises unless every (row tile, tile width) of its plan and a split
+    800-K-tile contraction were reached, or if an operand with 200-byte
+    lines does not raise or counts a launch."""
+    plan, tiles_m, tiles_n, tile_k, counters = GEMM_KINDS[dtype]
+    worst, sweep = 0.0, []
+    for m, k, n in GEMM_SWEEP:
+        for a_mn, b_mn in LAYOUTS:
+            gen = torch.Generator(device=DEV).manual_seed(m * 7 + k * 3 + n)
+            a = _sweep_operand(m, k, 0 if a_mn else 1, dtype, gen)
+            b = _sweep_operand(k, n, 1 if b_mn else 0, dtype, gen)
+            layout = (cuda_torso.tma_major(a, 1), cuda_torso.tma_major(b, 0))
+            if layout != ("mn" if a_mn else "k", "mn" if b_mn else "k"):
+                raise AssertionError(f"sweep operand read as {layout}")
+            err, rel = _rel_err(cuda_torso.gemm(a, b, grad=True),
+                                cuda_torso.gemm_plain(a, b))
+            worst = max(worst, rel)
+            sweep.append(dict(m=m, k=k, n=n, layout=layout,
+                              plan=plan(m, n, k), max_rel_err=rel))
+    reached = {(*r["plan"][:2], *r["layout"]) for r in sweep}
+    if len(reached) != len(tiles_m) * len(tiles_n) * len(LAYOUTS):
+        raise AssertionError(f"the {dtype} sweep reaches only "
+                             f"{sorted(reached)}")
+    if not any(r["plan"][3] > 1 and r["k"] >= 800 * tile_k for r in sweep):
+        raise AssertionError(f"the {dtype} sweep has no split 800-K-tile "
+                             f"contraction")
+    # K = 200 bytes of bf16 or fp32: lines 200 bytes apart, which no TMA
+    # descriptor takes
+    a = torch.ones(64, 200 // (torch.finfo(dtype).bits // 8), device=DEV,
+                   dtype=dtype)
+    launches = [c.launches for c in counters]
+    refused = []
+    for x, y in ((a, a[:6].t()), (a.t(), a[:, :6])):
+        try:
+            cuda_torso.gemm(x, y, grad=True)
+            raise AssertionError(f"an operand with 200-byte lines did not "
+                                 f"raise: {tuple(x.stride())}")
+        except ValueError as e:
+            refused.append(str(e))
+    if [c.launches for c in counters] != launches:
+        raise AssertionError("a refused operand counted a launch")
+    return sweep, worst, refused
+
+
 def torso_gemm():
     rows = []
+    parts = ("fwd", "bwd", "f32_fwd", "f32_bwd")
     totals = {part: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, library_ms=0.0,
                          bound_ms=0.0, t_bytes=0.0, t_ops=0.0, calls=0,
                          max_abs_err=0.0, max_rel_err=0.0)
-              for part in ("fwd", "bwd", "f32")}
-    for part_name, label, a, b, count in _update_gemms():
-        grad = part_name != "fwd"
+              for part in parts}
+    for part_name, label, a, b, count in update_gemms(DEV):
+        grad = part_name.endswith("bwd")
         err, rel = _rel_err(cuda_torso.gemm(a, b, grad=grad),
                             cuda_torso.gemm_plain(a, b))
         part = totals[part_name]
@@ -388,76 +452,52 @@ def torso_gemm():
                    plain_ms=time_ms(lambda: cuda_torso.gemm_plain(a, b),
                                     iters),
                    library_ms=time_ms(lambda: torch.matmul(a, b), iters),
-                   bound_ms=bd, bound_by=by)
-        if a.dtype == torch.bfloat16:
-            row["plan"] = cuda_torso.plan_bf16(m, n, k)
-            row["layout"] = (cuda_torso.tma_major(a, 1),
-                             cuda_torso.tma_major(b, 0))
+                   bound_ms=bd, bound_by=by,
+                   plan=GEMM_KINDS[a.dtype][0](m, n, k),
+                   layout=(cuda_torso.tma_major(a, 1),
+                           cuda_torso.tma_major(b, 0)))
         emit({"torso_gemm_shape": row})
         rows.append(row)
         part["calls"] += count
         for key in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms"):
             part[key] += count * row[key]
         part["t_bytes" if by == "bytes" else "t_ops"] += count * bd
-    if any(r["layout"][0] != "mn" or r["layout"][1] != "mn"
-           for r in rows if r["part"] == "bwd" and r["gemm"].endswith("dw")):
-        raise AssertionError("a dw GEMM did not read x and g transposed")
-    sweep_rel, sweep = 0.0, []
-    for m, k, n in GEMM_SWEEP:
-        for a_mn, b_mn in LAYOUTS:
-            gen = torch.Generator(device=DEV).manual_seed(m * 7 + k * 3 + n)
-            a = _sweep_operand(m, k, 0 if a_mn else 1, gen)
-            b = _sweep_operand(k, n, 1 if b_mn else 0, gen)
-            layout = (cuda_torso.tma_major(a, 1), cuda_torso.tma_major(b, 0))
-            if layout != ("mn" if a_mn else "k", "mn" if b_mn else "k"):
-                raise AssertionError(f"sweep operand read as {layout}")
-            err, rel = _rel_err(cuda_torso.gemm(a, b, grad=True),
-                                cuda_torso.gemm_plain(a, b))
-            sweep_rel = max(sweep_rel, rel)
-            sweep.append(dict(m=m, k=k, n=n, layout=layout,
-                              plan=cuda_torso.plan_bf16(m, n, k),
-                              max_rel_err=rel))
-    reached = {(*s["plan"][:2], *s["layout"]) for s in sweep}
-    if len(reached) != len(cuda_torso.BF16_TILE_M) * len(
-            cuda_torso.BF16_TILE_N) * len(LAYOUTS):
-        raise AssertionError(f"the sweep reaches only {sorted(reached)}")
-    if not any(s["plan"][3] > 1 and s["k"] >= 800 * cuda_torso.BF16_TILE_K
-               for s in sweep):
-        raise AssertionError("the sweep has no split 800-K-tile contraction")
-    # K = 100: rows 200 bytes apart, which no TMA descriptor takes
-    a = torch.ones(64, 100, device=DEV, dtype=torch.bfloat16)
-    launches = (cuda_torso.gemm_bf16.launches,
-                cuda_torso.gemm_bf16_grad.launches)
-    refused = []
-    for x, y in ((a, a[:6].t()), (a.t(), a[:, :6])):
-        try:
-            cuda_torso.gemm(x, y, grad=True)
-            raise AssertionError(f"an operand with 200-byte lines did not "
-                                 f"raise: {tuple(x.stride())}")
-        except ValueError as e:
-            refused.append(str(e))
-    if (cuda_torso.gemm_bf16.launches,
-            cuda_torso.gemm_bf16_grad.launches) != launches:
-        raise AssertionError("a refused operand counted a launch")
+    if any(r["layout"] != (("k", "k") if r["part"].endswith("fwd")
+                           else ("mn", "mn") if r["gemm"].endswith("dw")
+                           else ("k", "mn")) for r in rows):
+        raise AssertionError("a GEMM did not read its operands as the main "
+                             "path lays them out")
+    sweeps = {str(dt)[6:]: _sweep(dt) for dt in GEMM_KINDS}
     # tolerance: the same bf16 (or fp32) products, exact in fp32, summed in
     # another order
-    worst = max(sweep_rel, *(p["max_rel_err"] for p in totals.values()))
+    worst = max(*(w for _s, w, _r in sweeps.values()),
+                *(p["max_rel_err"] for p in totals.values()))
     if worst > 1e-4:
         raise AssertionError(f"B2 disagrees: {worst:.2e} of the output "
-                             f"scale (sweep {sweep})")
-    for part_name, part in totals.items():
-        RESULTS[f"torso_gemm_{part_name}"] = dict(
-            max_abs_err=part["max_abs_err"], ms=part["ms"],
-            plain_ms=part["plain_ms"], bound_ms=part["bound_ms"],
-            bound_by="bytes" if part["t_bytes"] >= part["t_ops"]
-            else "operations", library_ms=part["library_ms"])
+                             f"scale (sweeps {sweeps})")
+
+    def result(names):
+        ps = [totals[p] for p in names]
+        return dict(max_abs_err=max(p["max_abs_err"] for p in ps),
+                    **{k: sum(p[k] for p in ps) for k in (
+                        "ms", "plain_ms", "bound_ms", "library_ms")},
+                    bound_by="bytes" if sum(p["t_bytes"] for p in ps)
+                    >= sum(p["t_ops"] for p in ps) else "operations")
+
+    RESULTS["torso_gemm_fwd"] = result(["fwd"])
+    RESULTS["torso_gemm_bwd"] = result(["bwd"])
+    RESULTS["torso_gemm_f32"] = dict(
+        result(["f32_fwd", "f32_bwd"]),
+        parts={p: result([p]) for p in ("f32_fwd", "f32_bwd")})
     return {"gemms_per_update": {p: t["calls"] for p, t in totals.items()},
             "max_rel_err": worst,
             "eager_ms_per_update": {p: t["eager_ms"]
                                     for p, t in totals.items()},
             "tolerance": "max |kernel - plain| <= 1e-4 x max |plain|",
-            "sweep": sweep, "refused": refused,
-            "per_update": {p: RESULTS[f"torso_gemm_{p}"] for p in totals}}
+            "sweeps": {dt: {"worst_rel_err": w, "gemms": len(sw),
+                            "refused": r, "sweep": sw}
+                       for dt, (sw, w, r) in sweeps.items()},
+            "per_update": {p: result([p]) for p in parts}}
 
 
 def torso_apply():
@@ -494,11 +534,12 @@ def torso_apply():
     return out
 
 
-def _graph_matches_eager() -> float:
+def _graph_matches_eager(compute_dtype: str) -> float:
     """Six dispatches of four updates each replayed from the CUDA graph
-    against six eager ones, from the same state, ring and uniforms: the
-    largest difference over params and priorities (the same kernels in
-    the same order: 0 in every run so far)."""
+    against six eager ones, from the same state, ring and uniforms, with
+    the kernel torso in ``compute_dtype``: the largest difference over
+    params and priorities (the same kernels in the same order: 0 in every
+    run so far)."""
     from pytorch_distributed_tpu_torch import bench_learner
     from pytorch_distributed_tpu_torch.config import build_options
     from pytorch_distributed_tpu_torch.factory import (
@@ -508,7 +549,8 @@ def _graph_matches_eager() -> float:
         DevicePerReplay, GraphedFusedStep,
     )
 
-    opt = build_options(12, device="cuda", pallas_torso=True)
+    opt = build_options(12, device="cuda", pallas_torso=True,
+                        compute_dtype=compute_dtype)
     spec = EnvSpec(FRAME, ACTIONS, 255.0)
     runs = []
     for graphed in (False, True):
@@ -535,25 +577,45 @@ def _graph_matches_eager() -> float:
 
 def learner_alone():
     """The fused PER update at config 12's full width on a full random
-    ring with no actors (bench_learner): updates/s with the kernel torso
+    ring with no actors (bench_learner), for the bf16 torso and for the
+    torso with ``compute_dtype`` float32: updates/s with the kernel torso
     and with the module's (cuDNN) forward, replayed from a CUDA graph and
-    eager, and the profiler's device time per update by kernel."""
+    eager, the profiler's device time per update by kernel, and the
+    kernels' launches per update in each timed window."""
     from pytorch_distributed_tpu_torch import bench_learner
     from pytorch_distributed_tpu_torch.config import build_options
 
-    diff = _graph_matches_eager()
-    if diff > 1e-6:  # tolerance: fp32 rounding noise at most
-        raise AssertionError(f"graph replay differs from eager by {diff}")
-    out = {"graph_vs_eager_max_abs_diff": diff}
-    for torso in ("kernel", "module"):
-        for graph in (True, False):
-            r = bench_learner.run(
-                build_options(12, device="cuda",
-                              pallas_torso=torso == "kernel"),
-                updates=100, profile=torso == "kernel", graph=graph)
-            emit({"learner_alone": r})
-            out[f"{torso}_{'graph' if graph else 'eager'}_updates_per_sec"] \
-                = r["updates_per_sec"]
+    out = {}
+    for cd, own, other in (("bfloat16", "gemm_bf16", "gemm_f32"),
+                           ("float32", "gemm_f32", "gemm_bf16")):
+        diff = _graph_matches_eager(cd)
+        if diff > 1e-6:  # tolerance: fp32 rounding noise at most
+            raise AssertionError(f"{cd}: graph replay differs from eager "
+                                 f"by {diff}")
+        out[f"{cd}_graph_vs_eager_max_abs_diff"] = diff
+        for torso in ("kernel", "module"):
+            for graph in (True, False):
+                r = bench_learner.run(
+                    build_options(12, device="cuda",
+                                  pallas_torso=torso == "kernel",
+                                  compute_dtype=cd),
+                    updates=100, profile=torso == "kernel", graph=graph)
+                emit({"learner_alone": r})
+                run = f"{cd}_{torso}_{'graph' if graph else 'eager'}"
+                out[f"{run}_updates_per_sec"] = r["updates_per_sec"]
+                # per update: one draw; the kernel torso's 10 forward and
+                # 9 backward GEMMs of its type, none of the other type
+                n = 10 if torso == "kernel" else 0
+                want = {"hierarchical_sample": 1, own: n, f"{own}_grad":
+                        9 * n // 10, other: 0, f"{other}_grad": 0}
+                if r["launches_per_update"] != want:
+                    raise AssertionError(f"{run}: launches per update "
+                                         f"{r['launches_per_update']}")
+                if cd == "float32" and torso == "kernel" and graph:
+                    RESULTS["f32_launches"] = {
+                        "launches": (n + 9 * n // 10) * r["updates"],
+                        "per_update": r["launches_per_update"],
+                        "device_ms_per_update": r["kernel_device_ms"]}
     return out
 
 
@@ -620,14 +682,20 @@ def main() -> int:
             break
         phase(fn)
     table = []
+    # the bf16 kernels' launches from the train phase, the fp32 GEMM's from
+    # the fp32 learner run
+    launches = dict(RESULTS.get("launches", {}), torso_gemm_f32=RESULTS.get(
+        "f32_launches", {}).get("launches", 0))
     for name, source, replaces in KERNELS:
         r = RESULTS.get(name, {})
         table.append(dict(name=name, route="cuda", source=source,
-                          replaces=replaces,
-                          launches=RESULTS.get("launches", {}).get(name, 0),
+                          replaces=replaces, launches=launches.get(name, 0),
                           **{k: r.get(k) for k in (
                               "max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}))
+        if name == "torso_gemm_f32":
+            table[-1].update(parts=r.get("parts"),
+                             fp32_run=RESULTS.get("f32_launches"))
     emit({"kernels": table})
     print(card_name_and_power_limit(), flush=True)
     print(f"chip_smoke: {time.monotonic() - t0:.1f} s", file=sys.stderr)

@@ -42,7 +42,7 @@ from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
 )
 from pytorch_distributed_tpu_torch.ops.cuda_torso import (
-    gemm_bf16, gemm_bf16_grad, gemm_f32,
+    COUNTERS as GEMM_COUNTERS,
 )
 from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY
 
@@ -63,8 +63,8 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                                     steps_per_call=K)
     if device.type == "cuda":
         fused = GraphedFusedStep(fused, replay.state,
-                                 counters=(hierarchical_sample, gemm_bf16,
-                                           gemm_bf16_grad, gemm_f32))
+                                 counters=(hierarchical_sample,
+                                           *GEMM_COUNTERS))
     gen = torch.Generator(device=device).manual_seed(
         role_seed(opt.seed, "learner", process_ind))
 

@@ -6,16 +6,22 @@ beside busy threads, on a ring filled with random rows.
         [--busy none|host|actor] [--busy-threads 2] [--eager] \\
         [--profile] [--set k=v ...]
 
+    # the torso with compute_dtype float32 (the fp32 GEMM kernel)
+    python -m pytorch_distributed_tpu_torch.bench_learner --profile \\
+        --set compute_dtype=float32
+
 ``--busy`` starts threads beside the learner, as the thread backend's
 actors would run: ``host`` steps 16 Pong simulators with random actions
 (numpy only); ``actor`` also picks them with a batch-16 forward of the
 model on the card, on a high-priority stream of its own, and copies them
-back, as an actor does.  On a GPU the update is
-replayed from a CUDA graph, as the learner runs it, unless ``--eager``.
-Prints one JSON object: wall milliseconds and updates per second over
-``--updates`` updates (ending in a device synchronise), and with
-``--profile`` the profiler's device milliseconds per update by kernel, and
-summed for each of the port's kernels (``kernel_device_ms``).
+back, as an actor does; the timed window starts once every busy thread
+has ticked.  On a GPU the update is replayed from a CUDA graph, as the
+learner runs it, unless ``--eager``.  Prints one JSON object: wall
+milliseconds and updates per second over ``--updates`` updates (ending in
+a device synchronise), the kernels' launches per update in that window
+(``launches_per_update``), and with ``--profile`` the profiler's device
+milliseconds per update by kernel, and summed for each of the port's
+kernels (``kernel_device_ms``).
 """
 
 from __future__ import annotations
@@ -42,21 +48,28 @@ from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
 )
 from pytorch_distributed_tpu_torch.ops.cuda_torso import (
-    gemm_bf16, gemm_bf16_grad, gemm_f32,
+    COUNTERS as GEMM_COUNTERS,
 )
+
+
+# the kernels' launch counters
+COUNTED = (hierarchical_sample, *GEMM_COUNTERS)
+# how long the busy threads may take to tick once
+BUSY_START_S = 300.0
 
 
 def kernel_label(name: str):
     """The row of PERF.md's kernel table that the profiler's kernel
     ``name`` belongs to, or None.  The bf16 GEMM's forward instantiations
-    read both operands K-major (``<BM, BN, false, false>``); the split-K
-    reduce is shared by all the GEMMs."""
+    read both operands K-major (``<BM, BN, false, false>``); the fp32 GEMM
+    is one row, forward and backward; the split-K reduce is shared by all
+    the GEMMs."""
     if "sample_kernel" in name:
         return "per_sample"
     if "gemm_bf16_sm90" in name:
         return ("torso_gemm_fwd" if "false, false>" in name
                 else "torso_gemm_bwd")
-    if "gemm_kernel<float>" in name:
+    if "gemm_f32_sm90" in name:
         return "torso_gemm_f32"
     if "splitk_reduce_kernel" in name:
         return "splitk_reduce"
@@ -116,9 +129,7 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     K = max(1, ap.steps_per_dispatch)
     fused = ring.build_fused_step(step, ap.batch_size, steps_per_call=K)
     if device.type == "cuda" and graph:
-        fused = GraphedFusedStep(fused, ring.state,
-                                 counters=(hierarchical_sample, gemm_bf16,
-                                           gemm_bf16_grad, gemm_f32))
+        fused = GraphedFusedStep(fused, ring.state, counters=COUNTED)
 
     def updates_of(n: int) -> None:
         """``n`` updates, rounded up to whole dispatches of K."""
@@ -136,24 +147,36 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     updates_of(3 * K)  # warm-up, and the graph's capture
     for t in threads:
         t.start()
-    time.sleep(1.0 if threads else 0.0)
+    deadline = time.monotonic() + BUSY_START_S
+    # a busy thread's first tick builds its model and env
+    while threads and not all(ticks):
+        if (time.monotonic() > deadline
+                or not all(t.is_alive() for t in threads)):
+            raise RuntimeError(f"busy threads ticked {ticks} before "
+                               f"timing, within {BUSY_START_S} s")
+        time.sleep(0.01)
     sync = torch.cuda.synchronize if device.type == "cuda" else (
         lambda: None)
     sync()
     ticks0 = sum(ticks)
+    for c in COUNTED:
+        c.launches = 0
     t0 = time.perf_counter()
     updates_of(updates)
     sync()
     seconds = time.perf_counter() - t0
     updates = -(-updates // K) * K
+    launches = {c.__name__: c.launches / updates for c in COUNTED}
     busy_ticks = sum(ticks) - ticks0
     out = {"torso": "kernel" if opt.learner_perf_params.pallas_torso
-           else "module", "cuda_graph": isinstance(fused, GraphedFusedStep),
+           else "module", "compute_dtype": opt.model_params.compute_dtype,
+           "cuda_graph": isinstance(fused, GraphedFusedStep),
            "steps_per_dispatch": K, "busy": busy,
            "busy_threads": len(threads), "updates": updates,
            "wall_ms_per_update": seconds * 1e3 / updates,
            "updates_per_sec": updates / seconds,
-           "busy_ticks_per_sec": busy_ticks / seconds}
+           "busy_ticks_per_sec": busy_ticks / seconds,
+           "launches_per_update": launches}
     if profile and device.type == "cuda":
         from torch.profiler import ProfilerActivity, profile as prof_ctx
 

@@ -47,8 +47,8 @@
 //     slabs, and common.cuh's reduce sums the slabs in a fixed order:
 //     deterministic, no atomics.
 //   - Masked fp32 stores straight from the accumulator registers.
-// TMA descriptors are built on the host per call (cuTensorMapEncodeTiled,
-// reached through cudaGetDriverEntryPoint: no -lcuda) and passed by value
+// TMA descriptors are built on the host per call (tma.cuh: the encoder is
+// reached through cudaGetDriverEntryPoint, no -lcuda) and passed by value
 // as __grid_constant__ parameters, so a captured CUDA graph replays them
 // with the addresses it captured.
 #include <cuda.h>
@@ -57,6 +57,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -81,52 +82,6 @@ struct Tile {
   static constexpr int kSmemBytes =
       STAGES * kStageBytes + 2 * STAGES * 8 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the barrier's phase of parity ``parity`` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// the box at element (c0 along the unit-stride dimension, c1 along the
-// other) -> shared ``dst``
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
 
 // wgmma descriptor of a tile that TMA wrote with the 128-byte swizzle
 // (layout type 1 in bits 62-63): 128-byte rows, 8-row groups 1024 bytes
@@ -375,33 +330,13 @@ __global__ void __launch_bounds__(Tile<BM, BN, kBMn>::kThreads)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-EncodeTiled g_encode = nullptr;
-
 // a bf16 matrix of ``outer`` lines of ``inner`` unit-stride values, ``ld``
-// elements apart, read in boxes of box_inner x box_outer (box_inner * 2 =
-// 128 bytes, the swizzle span) with the 128-byte swizzle; out-of-range
-// elements read as zero
+// elements apart, in boxes of box_inner (64: 128 bytes) x box_outer
 cudaError_t encode(CUtensorMap* map, const void* base, long long inner,
                    long long outer, long long ld, int box_inner,
                    int box_outer) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
-                             static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = g_encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return pdt_encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, inner,
+                    outer, ld, box_inner, box_outer);
 }
 
 template <int BM, int BN, bool kAMn, bool kBMn>
@@ -463,21 +398,8 @@ cudaError_t launch_layout(bool a_mn, bool b_mn, const void* A, long long lda,
 // capture: finds cuTensorMapEncodeTiled and lets every tile shape and
 // layout use its dynamic shared memory (above the 48 KB default).
 extern "C" int pdt_gemm_bf16_init() {
-  if (g_encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return static_cast<int>(cudaErrorSymbolNotFound);
-    g_encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  const cudaError_t found = pdt_find_encode();
+  if (found != cudaSuccess) return static_cast<int>(found);
   const cudaError_t errs[] = {
       allow_smem_all_layouts<64, 8>(),   allow_smem_all_layouts<64, 32>(),
       allow_smem_all_layouts<64, 64>(),  allow_smem_all_layouts<64, 128>(),

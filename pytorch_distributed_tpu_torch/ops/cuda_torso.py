@@ -9,14 +9,16 @@ kernel's source note says what bounds it on the card.
   accumulation, for bf16 or fp32 operands.  CPU tensors take
   ``gemm_plain``; CUDA tensors launch a kernel, or raise: bf16 operands
   ``gemm_bf16`` (``csrc/torso_gemm_sm90.cu``: TMA, an mbarrier ring and
-  wgmma), fp32 operands of any strides ``gemm_f32``
-  (``csrc/torso_gemm.cu``: FMA; the torso with ``compute_dtype``
-  float32).  The bf16 kernel reads each operand through a TMA descriptor,
-  K-major or, for the backward's transposed operands, M- or N-major
-  (``tma_major``); it raises, with the reason, for an operand that no
-  descriptor can describe.  ``gemm_bf16.launches`` counts the bf16
-  launches of forward products, ``gemm_bf16_grad.launches`` those of
-  gradients (``grad=True``), ``gemm_f32.launches`` the fp32 ones.
+  wgmma), fp32 operands ``gemm_f32`` (``csrc/torso_gemm.cu``: TMA, an
+  mbarrier ring and FFMA on register tiles; the torso with
+  ``compute_dtype`` float32).  Both kernels read each operand through a
+  TMA descriptor, K-major or, for the backward's transposed operands, M-
+  or N-major (``tma_major``), and raise, with the reason, for an operand
+  that no descriptor can describe; ``plan_bf16`` and ``plan_f32`` pick
+  their tiles and split K.  ``gemm_bf16.launches`` and
+  ``gemm_f32.launches`` count the launches of forward products,
+  ``gemm_bf16_grad.launches`` and ``gemm_f32_grad.launches`` those of
+  gradients (``grad=True``).
 - ``matmul(x, w, out_dtype)``: the differentiable product, returned in
   fp32 (the reference's ``mm``) or, with ``out_dtype=bf16``, already
   rounded to bf16, as the reference's torso rounds each ``mm``
@@ -26,7 +28,7 @@ kernel's source note says what bounds it on the card.
   cotangent with bf16 ``x`` and ``w`` goes to the bf16 kernel as it lies:
   every operand is bf16-exact, so the same products summed in fp32 are
   the reference's fp32 backward.  Otherwise the operands are fp32, as in
-  the reference.
+  the reference, and go to the fp32 kernel as they lie.
 - ``build_torso_apply``: the learner's ``(params, obs) -> q`` running the
   whole torso through ``matmul``, on the port's own ``state_dict``.
 """
@@ -34,7 +36,7 @@ kernel's source note says what bounds it on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -42,73 +44,85 @@ import torch.nn.functional as F
 from pytorch_distributed_tpu_torch.models.dqn_cnn import CONV_LAYERS
 from pytorch_distributed_tpu_torch.ops import kernels
 
-# the fp32 kernel's output tile and K tile (csrc/torso_gemm.cu BM/BN/BK)
-TILE_M, TILE_N, TILE_K = 64, 64, 32
-# the bf16 kernel's K tile, row tiles (64 rows per consumer warpgroup) and
-# tile widths (csrc/torso_gemm_sm90.cu BK, BM, BN)
+# each kernel's K tile, row tiles and tile widths (BK, BM, BN of
+# csrc/torso_gemm_sm90.cu for bf16, of csrc/torso_gemm.cu for fp32): the
+# bf16 kernel has 64 rows per consumer warpgroup, the fp32 kernel 16
+# thread rows of 4 or 8 rows each
 BF16_TILE_K = 64
 BF16_TILE_M = (64, 128)
 BF16_TILE_N = (8, 32, 64, 128)
-# split K only for a contraction of at least BF16_SPLIT_K_TILES K tiles
-# over fewer output tiles than half the SMs, in chunks of at least
-# BF16_MIN_K_TILES: a split costs a second launch and the fp32 slabs'
-# traffic (chip_smoke.py on an H100 SXM: config 12's Conv_2, 98 tiles of
-# 9 K tiles, and the Q head each ran in about half the time unsplit; see
-# PERF.md)
-BF16_SPLIT_K_TILES = 16
-BF16_MIN_K_TILES = 2
+F32_TILE_K = 32
+F32_TILE_M = (64, 128)
+F32_TILE_N = (32, 64, 128)
+# the taller row tile only where it alone gives *_TALL_BLOCKS blocks a SM;
+# split K only for a contraction of at least *_SPLIT_K_TILES K tiles over
+# fewer output tiles than half the SMs, into about *_SPLIT_BLOCKS blocks a
+# SM, in chunks of at least *_MIN_K_TILES.  A split costs a second launch
+# and the fp32 slabs' traffic: the bf16 kernel, bytes-bound, ran config
+# 12's Conv_2 (98 tiles of 9 K tiles) and the Q head in about half the
+# time unsplit; the fp32 kernel, FFMA-bound, ran config 12's GEMMs fastest
+# with 64-row tiles and two blocks a SM (chip_smoke.py and bench_gemm on
+# an H100 SXM; see PERF.md)
+BF16_TALL_BLOCKS, F32_TALL_BLOCKS = 1, 4
+BF16_SPLIT_K_TILES, F32_SPLIT_K_TILES = 16, 8
+BF16_SPLIT_BLOCKS, F32_SPLIT_BLOCKS = 1, 2
+BF16_MIN_K_TILES = F32_MIN_K_TILES = 2
 NUM_SMS = 132  # H100 SXM
+# the operand types a TMA descriptor of the kernels reads
+TMA_DTYPES = (torch.bfloat16, torch.float32)
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_F32_SIGNATURES = {"pdt_gemm_f32": (_VP, _LL, _LL, _VP, _LL, _LL, _VP, _VP,
-                                    _INT, _INT, _INT, _INT, _INT, _VP)}
-_BF16_SIGNATURES = {"pdt_gemm_bf16_init": (),
-                    "pdt_gemm_bf16": (_VP, _LL, _INT, _VP, _LL, _INT, _VP,
-                                      _VP, _INT, _INT, _INT, _INT, _INT,
-                                      _INT, _INT, _VP)}
+# pdt_gemm_bf16 and pdt_gemm_f32: (A, lda, a_mn, B, ldb, b_mn, C, ws, M, N,
+# K, bm, bn, k_chunk, splits, stream)
+_GEMM_ARGS = (_VP, _LL, _INT, _VP, _LL, _INT, _VP, _VP, _INT, _INT, _INT,
+              _INT, _INT, _INT, _INT, _VP)
 
 
-def split_k(m: int, n: int, k: int):
-    """``(k_chunk, splits)`` of the fp32 kernel: enough blocks for about two
-    waves over the SMs when the output has few tiles, each chunk at least
-    four K tiles deep; ``k_chunk`` is a multiple of the K tile."""
-    tiles = -(-m // TILE_M) * -(-n // TILE_N)
-    want = 1
-    if tiles < NUM_SMS:
-        want = max(1, min(-(-2 * NUM_SMS // tiles), k // (4 * TILE_K)))
-    chunk = -(-k // want)
-    chunk = -(-chunk // TILE_K) * TILE_K
-    return chunk, -(-k // chunk)
-
-
-def plan_bf16(m: int, n: int, k: int):
-    """``(tile_m, tile_n, k_chunk, splits)`` of the bf16 kernel.  The tile
-    width is the narrowest of ``BF16_TILE_N`` that holds N (the widest past
-    it); 128-row tiles when they alone cover the SMs, else 64; and a long
-    contraction over too few output tiles is split into about one block
-    per SM (``BF16_SPLIT_K_TILES``, ``BF16_MIN_K_TILES``).  ``k_chunk`` is a
-    multiple of the K tile."""
-    tn = next((t for t in BF16_TILE_N if t >= n), BF16_TILE_N[-1])
+def _plan(m: int, n: int, k: int, tile_m: Sequence[int],
+          tile_n: Sequence[int], tile_k: int, tall_blocks: int,
+          split_tiles: int, split_blocks: int, min_tiles: int):
+    """``(tile_m, tile_n, k_chunk, splits)``: the narrowest tile width that
+    holds N (the widest past it); the taller row tile where it alone gives
+    ``tall_blocks`` blocks a SM, else the shorter; and a contraction of at
+    least ``split_tiles`` K tiles over fewer output tiles than half the
+    SMs split into about ``split_blocks`` blocks a SM, each chunk at least
+    ``min_tiles`` K tiles.  ``k_chunk`` is a multiple of the K tile."""
+    tn = next((t for t in tile_n if t >= n), tile_n[-1])
     n_tiles = -(-n // tn)
-    tm = 128 if -(-m // 128) * n_tiles >= NUM_SMS else 64
+    tm = (tile_m[1] if -(-m // tile_m[1]) * n_tiles >= tall_blocks * NUM_SMS
+          else tile_m[0])
     tiles = -(-m // tm) * n_tiles
-    k_tiles = -(-k // BF16_TILE_K)
+    k_tiles = -(-k // tile_k)
     want = 1
-    if 2 * tiles <= NUM_SMS and k_tiles >= BF16_SPLIT_K_TILES:
-        want = min(-(-NUM_SMS // tiles), k_tiles // BF16_MIN_K_TILES)
-    chunk = -(-k_tiles // want) * BF16_TILE_K
+    if 2 * tiles <= NUM_SMS and k_tiles >= split_tiles:
+        want = min(-(-split_blocks * NUM_SMS // tiles), k_tiles // min_tiles)
+    chunk = -(-k_tiles // want) * tile_k
     return tm, tn, chunk, -(-k // chunk)
 
 
+def plan_bf16(m: int, n: int, k: int):
+    """The bf16 kernel's ``(tile_m, tile_n, k_chunk, splits)``."""
+    return _plan(m, n, k, BF16_TILE_M, BF16_TILE_N, BF16_TILE_K,
+                 BF16_TALL_BLOCKS, BF16_SPLIT_K_TILES, BF16_SPLIT_BLOCKS,
+                 BF16_MIN_K_TILES)
+
+
+def plan_f32(m: int, n: int, k: int):
+    """The fp32 kernel's ``(tile_m, tile_n, k_chunk, splits)``."""
+    return _plan(m, n, k, F32_TILE_M, F32_TILE_N, F32_TILE_K,
+                 F32_TALL_BLOCKS, F32_SPLIT_K_TILES, F32_SPLIT_BLOCKS,
+                 F32_MIN_K_TILES)
+
+
 def tma_major(t: torch.Tensor, k_dim: int) -> Optional[str]:
-    """Which way a TMA descriptor reads the 2-D bf16 operand ``t``, where
-    ``k_dim`` is its contraction dimension (1 for ``a``, 0 for ``b``):
-    ``"k"`` (K-major: unit stride along K) or ``"mn"`` (M- or N-major: unit
-    stride along the other dimension), or ``None`` when no descriptor can.
-    Either way the lines along the unit-stride dimension must not overlap
-    and must start a multiple of 16 bytes apart, from a 16-byte-aligned
-    base."""
-    if (t.dtype != torch.bfloat16 or t.dim() != 2
+    """Which way a TMA descriptor reads the 2-D bf16 or fp32 operand ``t``,
+    where ``k_dim`` is its contraction dimension (1 for ``a``, 0 for
+    ``b``): ``"k"`` (K-major: unit stride along K) or ``"mn"`` (M- or
+    N-major: unit stride along the other dimension), or ``None`` when no
+    descriptor can.  Either way the lines along the unit-stride dimension
+    must not overlap and must start a multiple of 16 bytes apart, from a
+    16-byte-aligned base."""
+    if (t.dtype not in TMA_DTYPES or t.dim() != 2
             or t.data_ptr() % 16 != 0):
         return None
     for major, unit in (("k", k_dim), ("mn", 1 - k_dim)):
@@ -119,25 +133,26 @@ def tma_major(t: torch.Tensor, k_dim: int) -> Optional[str]:
     return None
 
 
-def check_tma_operands(a: torch.Tensor, b: torch.Tensor) -> None:
-    """Raise, with the reason, unless ``tma_major`` takes both bf16
-    operands of ``a @ b``."""
+def check_tma_operands(a: torch.Tensor, b: torch.Tensor,
+                       what: str = "gemm") -> None:
+    """Raise, with the reason, unless ``tma_major`` takes both operands of
+    ``a @ b``; ``what`` names the kernel in the message."""
     for name, t, k_dim in (("a", a, 1), ("b", b, 0)):
         if tma_major(t, k_dim) is None:
             raise ValueError(
-                f"gemm_bf16: no TMA descriptor reads operand {name} "
-                f"(shape {tuple(t.shape)}, strides {t.stride()}, base "
-                f"{t.data_ptr() % 16} bytes past 16-byte alignment); it "
-                f"must have stride 1 along one dimension, with lines along "
-                f"it a multiple of 16 bytes apart and a 16-byte-aligned "
-                f"base")
+                f"{what}: no TMA descriptor reads operand {name} "
+                f"({t.dtype}, shape {tuple(t.shape)}, strides {t.stride()}, "
+                f"base {t.data_ptr() % 16} bytes past 16-byte alignment); "
+                f"it must be bf16 or fp32 with stride 1 along one "
+                f"dimension, lines along it a multiple of 16 bytes apart "
+                f"and a 16-byte-aligned base")
 
 
 def tma_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` (2-D, unit stride along its last dimension), or a copy of it
     whose rows start a multiple of 16 bytes apart when its own do not: the
-    Q head's (B, 6) bf16 cotangent has 12-byte rows, which no TMA
-    descriptor reads."""
+    Q head's (B, 6) cotangent has 12-byte rows in bf16 and 24-byte rows in
+    fp32, which no TMA descriptor reads."""
     rows, cols = t.shape
     if t.stride(1) == 1 and t.stride(0) * t.element_size() % 16 == 0:
         return t
@@ -176,79 +191,81 @@ def gemm(a: torch.Tensor, b: torch.Tensor, grad: bool = False
         raise ValueError(f"no kernel for device {a.device}")
     if a.dtype == torch.bfloat16:
         return gemm_bf16_grad(a, b) if grad else gemm_bf16(a, b)
-    return gemm_f32(a, b)
+    return gemm_f32_grad(a, b) if grad else gemm_f32(a, b)
 
 
-def _output(a, m, n, splits):
+# operand type -> (source, C entry, tile plan)
+_KERNELS = {torch.bfloat16: ("torso_gemm_sm90", "pdt_gemm_bf16", plan_bf16),
+            torch.float32: ("torso_gemm", "pdt_gemm_f32", plan_f32)}
+
+
+def launch(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype,
+           plan: Optional[tuple] = None) -> torch.Tensor:
+    """The kernel for ``dtype`` on CUDA operands that TMA can read, in the
+    layout ``tma_major`` finds, tiled by its plan (or by ``plan``, a
+    ``(tile_m, tile_n, k_chunk, splits)`` of the kernel's tiles with
+    ``k_chunk`` a multiple of its K tile, which
+    ``pytorch_distributed_tpu_torch.bench_gemm`` passes); counts nothing."""
+    _check_args(a, b)
+    source, entry, plan_fn = _KERNELS[dtype]
+    if a.device.type != "cuda" or a.dtype != dtype:
+        raise ValueError(f"{entry} takes {dtype} CUDA operands, got "
+                         f"{a.dtype} on {a.device}")
+    check_tma_operands(a, b, entry)
+    (m, k), n = a.shape, b.shape[1]
+    tm, tn, chunk, splits = plan or plan_fn(m, n, k)
+    if -(-m // tm) > 65535:
+        raise ValueError(f"{entry}: {m} rows exceed the grid's 65,535 row "
+                         f"tiles of {tm}")
+    a_mn, b_mn = tma_major(a, 1) == "mn", tma_major(b, 0) == "mn"
     c = torch.empty(m, n, dtype=torch.float32, device=a.device)
     ws = (torch.empty(splits, m, n, dtype=torch.float32, device=a.device)
           if splits > 1 else None)
-    return c, ws
-
-
-def _launch_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The bf16 kernel on CUDA operands that TMA can read, in the layout
-    ``tma_major`` finds, tiled by ``plan_bf16``."""
-    _check_args(a, b)
-    if a.device.type != "cuda" or a.dtype != torch.bfloat16:
-        raise ValueError(f"gemm_bf16 takes bf16 CUDA operands, got "
-                         f"{a.dtype} on {a.device}")
-    check_tma_operands(a, b)
-    (m, k), n = a.shape, b.shape[1]
-    tm, tn, chunk, splits = plan_bf16(m, n, k)
-    if -(-m // tm) > 65535:
-        raise ValueError(f"gemm_bf16: {m} rows exceed the grid's 65,535 "
-                         f"row tiles of {tm}")
-    a_mn, b_mn = tma_major(a, 1) == "mn", tma_major(b, 0) == "mn"
-    c, ws = _output(a, m, n, splits)
-    lib = kernels.library("torso_gemm_sm90", _BF16_SIGNATURES,
-                          init="pdt_gemm_bf16_init")
-    err = lib.pdt_gemm_bf16(
+    lib = kernels.library(source, {f"{entry}_init": (), entry: _GEMM_ARGS},
+                          init=f"{entry}_init")
+    err = getattr(lib, entry)(
         a.data_ptr(), a.stride(1 if a_mn else 0), int(a_mn),
         b.data_ptr(), b.stride(0 if b_mn else 1), int(b_mn), c.data_ptr(),
         ws.data_ptr() if ws is not None else None, m, n, k, tm, tn, chunk,
         splits, kernels.stream_ptr(a.device))
-    kernels.check(lib, err, "pdt_gemm_bf16")
+    kernels.check(lib, err, entry)
     return c
 
 
 def gemm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The bf16 kernel for a forward product."""
-    c = _launch_bf16(a, b)
+    c = launch(a, b, torch.bfloat16)
     gemm_bf16.launches += 1
     return c
 
 
 def gemm_bf16_grad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The bf16 kernel for a gradient's product (transposed operands)."""
-    c = _launch_bf16(a, b)
+    c = launch(a, b, torch.bfloat16)
     gemm_bf16_grad.launches += 1
     return c
 
 
 def gemm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The fp32 kernel on CUDA operands of any strides."""
-    _check_args(a, b)
-    if a.device.type != "cuda" or a.dtype != torch.float32:
-        raise ValueError(f"gemm_f32 takes fp32 CUDA operands, got "
-                         f"{a.dtype} on {a.device}")
-    (m, k), n = a.shape, b.shape[1]
-    chunk, splits = split_k(m, n, k)
-    c, ws = _output(a, m, n, splits)
-    lib = kernels.library("torso_gemm", _F32_SIGNATURES)
-    err = lib.pdt_gemm_f32(
-        a.data_ptr(), a.stride(0), a.stride(1),
-        b.data_ptr(), b.stride(0), b.stride(1),
-        c.data_ptr(), ws.data_ptr() if ws is not None else None,
-        m, n, k, chunk, splits, kernels.stream_ptr(a.device))
-    kernels.check(lib, err, "pdt_gemm_f32")
+    """The fp32 kernel for a forward product."""
+    c = launch(a, b, torch.float32)
     gemm_f32.launches += 1
+    return c
+
+
+def gemm_f32_grad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernel for a gradient's product (transposed operands)."""
+    c = launch(a, b, torch.float32)
+    gemm_f32_grad.launches += 1
     return c
 
 
 gemm_bf16.launches = 0
 gemm_bf16_grad.launches = 0
 gemm_f32.launches = 0
+gemm_f32_grad.launches = 0
+# every launch counter of the module
+COUNTERS = (gemm_bf16, gemm_bf16_grad, gemm_f32, gemm_f32_grad)
 
 
 class _Matmul(torch.autograd.Function):
@@ -261,12 +278,11 @@ class _Matmul(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         x_dtype, w_dtype = x.dtype, w.dtype
-        if g.dtype == x_dtype == w_dtype == torch.bfloat16:
-            # bf16 operands as they lie (w^T and x^T are transposed views
-            # of the stored w and x); only g's rows may need aligning
-            g = tma_rows(g)
-        else:
+        if not g.dtype == x_dtype == w_dtype == torch.bfloat16:
             g, x, w = g.float(), x.float(), w.float()
+        # the operands as they lie (w^T and x^T are transposed views of the
+        # stored w and x); only g's rows may need aligning
+        g = tma_rows(g)
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = gemm(g, w.t(), grad=True).to(x_dtype)

@@ -3,7 +3,7 @@
 Each source is compiled on its own with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC`` into
 ``pytorch_distributed_tpu_torch/build/lib<name>_<hash>.so``, keyed by a hash
-of the source, the shared header and the flags, so an edited source builds
+of the source, the shared headers and the flags, so an edited source builds
 anew and an unchanged one is reused.  Missing libraries are built in
 parallel (one ``nvcc`` per source, all started together).  The sources
 have a plain C interface and include no PyTorch header, which keeps a
@@ -32,6 +32,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("per_sample", "torso_gemm", "torso_gemm_sm90")
+HEADERS = ("common.cuh", "tma.cuh")  # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -54,7 +55,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256()
-    for fname in (f"{name}.cu", "common.cuh"):
+    for fname in (f"{name}.cu", *HEADERS):
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

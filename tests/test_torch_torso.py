@@ -27,19 +27,21 @@ from pytorch_distributed_tpu.models import DqnCnnModel as JaxDqnCnn
 from pytorch_distributed_tpu.ops.pallas_torso import (
     build_pallas_torso_apply, make_mxu_matmul,
 )
+from pytorch_distributed_tpu_torch import bench_gemm
 from pytorch_distributed_tpu_torch.convert import convert_dqn_cnn
 from pytorch_distributed_tpu_torch.models.dqn_cnn import (
     DqnCnnModel, torso_out_hw,
 )
 from pytorch_distributed_tpu_torch.ops import cuda_torso
 from pytorch_distributed_tpu_torch.ops.cuda_torso import (
-    build_torso_apply, gemm, gemm_bf16, gemm_f32, gemm_plain, matmul,
+    build_torso_apply, gemm, gemm_bf16, gemm_bf16_grad, gemm_f32,
+    gemm_f32_grad, gemm_plain, matmul,
 )
 
 _JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 SMALL = (44, 52)  # conv stack 10x12 -> 4x5 -> 2x3
-# (M, N, K) of the fp32 kernel's split test, and of config 12's five
-# forward GEMMs at batch 128 (im2col'd convs, Dense_0, the Q head)
+# (M, N, K) of the plans' split tests, and of config 12's five forward
+# GEMMs at batch 128 (im2col'd convs, Dense_0, the Q head)
 SPLIT_K_SHAPES = [(256, 32, 51200), (128, 512, 3136), (51200, 32, 256),
                   (512, 6, 128)]
 FORWARD_SHAPES = [(128 * 20 * 20, 32, 256), (128 * 9 * 9, 64, 512),
@@ -113,17 +115,19 @@ class TestGemm:
         assert gx.dtype == torch.bfloat16 and gw.dtype == torch.bfloat16
 
     def test_cpu_counts_no_launch(self):
-        before = (gemm_bf16.launches, gemm_f32.launches)
+        before = [c.launches for c in cuda_torso.COUNTERS]
         a, b = torch.randn(5, 7), torch.randn(7, 3)
-        assert torch.equal(gemm(a, b), gemm_plain(a, b))
-        assert torch.equal(gemm(a.bfloat16(), b.bfloat16()),
-                           gemm_plain(a.bfloat16(), b.bfloat16()))
-        assert (gemm_bf16.launches, gemm_f32.launches) == before
+        for grad in (False, True):
+            assert torch.equal(gemm(a, b, grad=grad), gemm_plain(a, b))
+            assert torch.equal(gemm(a.bfloat16(), b.bfloat16(), grad=grad),
+                               gemm_plain(a.bfloat16(), b.bfloat16()))
+        assert [c.launches for c in cuda_torso.COUNTERS] == before
 
-    @pytest.mark.parametrize("launcher", [gemm_bf16, gemm_f32])
+    @pytest.mark.parametrize("launcher", [gemm_bf16, gemm_bf16_grad,
+                                          gemm_f32, gemm_f32_grad])
     def test_kernel_launchers_take_cuda_operands_only(self, launcher):
-        a, b = torch.randn(4, 8), torch.randn(8, 3)
-        if launcher is gemm_bf16:
+        a, b = torch.randn(4, 8), torch.randn(8, 4)
+        if launcher in (gemm_bf16, gemm_bf16_grad):
             a, b = a.bfloat16(), b.bfloat16()
         with pytest.raises(ValueError):
             launcher(a, b)
@@ -145,13 +149,46 @@ class TestGemm:
         with pytest.raises(ValueError):
             cuda_torso.gemm(a, b)
 
-    def test_split_k_covers_the_contraction(self):
-        for m, n, k in SPLIT_K_SHAPES:
-            chunk, splits = cuda_torso.split_k(m, n, k)
-            assert chunk % cuda_torso.TILE_K == 0
-            assert (splits - 1) * chunk < k <= splits * chunk
-        assert cuda_torso.split_k(256, 32, 51200)[1] > 1  # Conv_0's dw
-        assert cuda_torso.split_k(51200, 32, 256)[1] == 1  # many tiles
+    @pytest.mark.parametrize("m, n, k", SPLIT_K_SHAPES + FORWARD_SHAPES
+                             + BACKWARD_SHAPES)
+    def test_plan_f32_covers_the_contraction(self, m, n, k):
+        tm, tn, chunk, splits = cuda_torso.plan_f32(m, n, k)
+        assert tm in cuda_torso.F32_TILE_M
+        assert chunk % cuda_torso.F32_TILE_K == 0
+        assert (splits - 1) * chunk < k <= splits * chunk
+        # the narrowest tile width that holds N, the widest past it
+        wide = [t for t in cuda_torso.F32_TILE_N if t >= n]
+        assert tn == (min(wide) if wide else max(cuda_torso.F32_TILE_N))
+
+    @pytest.mark.parametrize("m, n, k, tile", [
+        (100, 6, 64, (64, 32)), (6437, 64, 200, (64, 64)),
+        (100, 512, 3136, (64, 128)), (70000, 32, 256, (128, 32)),
+        (70000, 64, 256, (128, 64)), (20000, 512, 256, (128, 128))])
+    def test_plan_f32_reaches_every_tile(self, m, n, k, tile):
+        # each (tile_m, tile_n) the fp32 kernel instantiates, at a shape of
+        # chip_smoke.py's sweep: 128-row tiles only where they alone give
+        # F32_TALL_BLOCKS blocks a SM
+        assert cuda_torso.plan_f32(m, n, k)[:2] == tile
+
+    def test_plan_f32_splits_conv0_dw_not_the_forward(self):
+        # Conv_0's dw (1,600 K tiles over 4 output tiles) is split into
+        # about F32_SPLIT_BLOCKS blocks a SM, each chunk whole K tiles; the
+        # forward's 51,200 rows fill the SMs unsplit, in 64-row tiles
+        tm, tn, chunk, splits = cuda_torso.plan_f32(256, 32, 51200)
+        assert (tm, tn) == (64, 32) and splits > 1
+        blocks = -(-256 // tm) * splits
+        want = cuda_torso.F32_SPLIT_BLOCKS * cuda_torso.NUM_SMS
+        assert want // 2 <= blocks <= want
+        assert chunk // cuda_torso.F32_TILE_K >= cuda_torso.F32_MIN_K_TILES
+        assert cuda_torso.plan_f32(51200, 32, 256) == (64, 32, 256, 1)
+
+    def test_plan_f32_splits_the_q_head_not_a_short_contraction(self):
+        # the Q head's forward (2 output tiles, 16 K tiles) splits into
+        # chunks of F32_MIN_K_TILES; its dw (4 K tiles) does not split
+        tm, tn, chunk, splits = cuda_torso.plan_f32(128, 6, 512)
+        assert chunk == cuda_torso.F32_MIN_K_TILES * cuda_torso.F32_TILE_K
+        assert splits == 512 // chunk
+        assert cuda_torso.plan_f32(512, 6, 128)[3] == 1
 
     @pytest.mark.parametrize("m, n, k", SPLIT_K_SHAPES + FORWARD_SHAPES
                              + BACKWARD_SHAPES)
@@ -247,7 +284,10 @@ class TestGemm:
         assert not ok(n_major, 0)
         assert not ok(torch.randn(64, 100).bfloat16(), 1)  # 200-byte rows
         assert not ok(torch.randn(64, 128).bfloat16()[:, 1:], 1)  # base + 2
-        assert not ok(torch.randn(64, 128), 1)  # fp32
+        # fp32 is read; float64 and float16 are refused
+        assert ok(torch.randn(64, 128), 1)
+        assert not ok(torch.randn(64, 128).double(), 1)
+        assert not ok(torch.randn(64, 128).half(), 1)
 
     @pytest.mark.parametrize("bad", ["a_n_major", "a_row_12_bytes",
                                      "b_n_major", "b_misaligned"])
@@ -266,6 +306,114 @@ class TestGemm:
             b = torch.randn(6, 520).bfloat16()[:, 1:513].t()  # base + 2
         with pytest.raises(ValueError, match="no TMA descriptor"):
             cuda_torso.check_tma_operands(a, b)
+
+
+    def test_tma_major_reads_fp32_operands_as_they_lie(self):
+        major = cuda_torso.tma_major
+        x = torch.randn(200, 256)  # patches (rows, features)
+        w = torch.randn(32, 256)  # a weight, stored (N, K)
+        g = torch.randn(200, 32)  # a cotangent (rows, N)
+        assert major(x, 1) == "k" and major(w.t(), 0) == "k"  # forward
+        assert major(x.t(), 1) == "mn" and major(g, 0) == "mn"  # dw
+        assert major(g, 1) == "k" and major(w, 0) == "mn"  # dx
+        # a ragged line padded to 16 bytes reads MN-major too
+        assert major(torch.randn(64, 72)[:, :70], 0) == "mn"
+        assert major(torch.randn(64, 70), 0) is None  # 280-byte lines
+
+    def test_tma_rows_aligns_the_fp32_head_cotangent(self):
+        g = torch.randn(128, 6)  # the Q head's fp32 cotangent: 24-byte rows
+        assert cuda_torso.tma_major(g, 1) is None
+        assert cuda_torso.tma_major(g, 0) is None
+        a = cuda_torso.tma_rows(g)
+        assert a.stride() == (8, 1) and torch.equal(a, g)
+        assert cuda_torso.tma_major(a, 1) == "k"
+        assert cuda_torso.tma_major(a, 0) == "mn"
+        ok = torch.randn(128, 64)
+        assert cuda_torso.tma_rows(ok) is ok
+
+    @pytest.mark.parametrize("bad, operand", [
+        ("a_k_major_200_byte_rows", "a"), ("a_m_major_200_byte_lines", "a"),
+        ("b_n_major_24_byte_rows", "b"), ("b_misaligned", "b"),
+        ("float64", "a"), ("float16", "a")])
+    def test_check_tma_operands_raises_for_fp32(self, bad, operand):
+        a = torch.randn(64, 512)
+        b = torch.randn(6, 512).t()  # the head, K-major
+        cuda_torso.check_tma_operands(a, b)
+        if bad == "a_k_major_200_byte_rows":
+            a, b = torch.randn(64, 50), torch.randn(50, 8)
+        elif bad == "a_m_major_200_byte_lines":
+            a, b = torch.randn(64, 50).t(), torch.randn(64, 8)
+        elif bad == "b_n_major_24_byte_rows":
+            b = torch.randn(512, 6)
+        elif bad == "b_misaligned":
+            b = torch.randn(6, 520)[:, 1:513].t()  # base + 4
+        else:
+            dt = torch.float64 if bad == "float64" else torch.float16
+            a, b = a.to(dt), b.to(dt)
+        with pytest.raises(ValueError, match=f"no TMA descriptor reads "
+                                             f"operand {operand}"):
+            cuda_torso.check_tma_operands(a, b)
+
+    def test_fp32_torso_hands_over_tma_ready_operands(self, monkeypatch):
+        # every GEMM of the fp32 torso, forward and backward, as
+        # build_torso_apply and backward call it: the forward reads both
+        # operands K-major; dw = x^T g reads both M-/N-major and dx = g w^T
+        # g K-major and w N-major, as they lie; only the Q head's cotangent
+        # (24-byte rows) is copied, into 32-byte rows
+        seen = []
+
+        def record(a, b, grad=False):
+            seen.append((grad, a, b))
+            return gemm_plain(a, b)
+
+        monkeypatch.setattr(cuda_torso, "gemm", record)
+        _jm, _jp, _m, sd, obs = _jax_and_port(torch.float32, SMALL)
+        params = {k: v.clone().requires_grad_(True) for k, v in sd.items()}
+        q = build_torso_apply(255.0, torch.float32)(params,
+                                                    torch.from_numpy(obs))
+        torch.autograd.grad(q.square().sum(), list(params.values()))
+        major = cuda_torso.tma_major
+        fwd = [(a, b) for grad, a, b in seen if not grad]
+        bwd = [(a, b) for grad, a, b in seen if grad]
+        assert [(a.shape[1], b.shape[1]) for a, b in fwd] == [
+            (256, 32), (512, 64), (576, 64), (384, 512), (512, 6)]
+        for a, b in fwd + bwd:
+            assert a.dtype == b.dtype == torch.float32
+        assert [(major(a, 1), major(b, 0)) for a, b in fwd] == [("k", "k")] * 5
+        layouts = [(major(a, 1), major(b, 0)) for a, b in bwd]
+        assert sorted(layouts) == sorted([("mn", "mn")] * 5
+                                         + [("k", "mn")] * 4), layouts
+        head_dx = bwd[0][0]  # the Q head's dx = g w^T comes first
+        assert head_dx.shape == (2, 6) and head_dx.stride() == (8, 1)
+
+
+    def test_bench_gemm_lays_out_the_operands_of_the_main_path(self):
+        # the GEMMs chip_smoke.py and bench_gemm time: per update and per
+        # type 10 forward GEMMs reading both operands K-major, 5 dw reading
+        # both M-/N-major and 4 dx reading g K-major and w N-major
+        calls, layouts = {}, {}
+        for part, label, a, b, count in bench_gemm.update_gemms("cpu"):
+            calls[part] = calls.get(part, 0) + count
+            layouts.setdefault((part, label.split(".")[1]), set()).add(
+                (cuda_torso.tma_major(a, 1), cuda_torso.tma_major(b, 0)))
+            assert a.dtype == (torch.float32 if part.startswith("f32")
+                               else torch.bfloat16)
+        assert calls == {"fwd": 10, "bwd": 9, "f32_fwd": 10, "f32_bwd": 9}
+        for (part, kind), seen in layouts.items():
+            assert seen == {{"fwd": ("k", "k"), "dw": ("mn", "mn"),
+                             "dx": ("k", "mn")}[kind]}, (part, kind)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_bench_gemm_candidate_plans_cover_the_contraction(self, dtype):
+        tile_k = (cuda_torso.F32_TILE_K if dtype == torch.float32
+                  else cuda_torso.BF16_TILE_K)
+        for m, n, k in FORWARD_SHAPES + BACKWARD_SHAPES:
+            plans = bench_gemm.candidate_plans(m, n, k, dtype)
+            assert (cuda_torso.plan_f32 if dtype == torch.float32
+                    else cuda_torso.plan_bf16)(m, n, k) in plans
+            for _tm, _tn, chunk, splits in plans:
+                assert chunk % tile_k == 0
+                assert (splits - 1) * chunk < k <= splits * chunk
 
 
 def _flax_params(frame, actions: int, rng) -> dict:

@@ -40,41 +40,53 @@ Phases, each printed as one JSON line:
    and, for the kernel torso, 10 forward and 9 backward GEMMs of the
    torso's type and none of the other;
 6. train: config 12 at full width through the port's entry point
-   (``pytorch_distributed_tpu_torch.main``) with the kernel torso on; the
-   kernels' launch counters are zeroed just before and read just after:
-   per update 1 draw, 10 forward and 9 backward bf16 GEMMs, no fp32 GEMM.
+   (``pytorch_distributed_tpu_torch.main``) on the thread backend with the
+   kernel torso on, an evaluator of one capped episode, and logs and
+   checkpoints under a temporary directory; the kernels' launch counters
+   are zeroed just before and read just after: per update 1 draw, 10
+   forward and 9 backward bf16 GEMMs, no fp32 GEMM;
+7. train_process: the same run on the process backend (actors, the
+   evaluator and the logger in spawn children on the CPU, the learner in
+   this process), after a check of the learner's publication off the
+   loop against the inline flatten: the same launches per update, read
+   here; a finite loss;
+   no child with a CUDA context; ``scalars.jsonl`` with evaluator and
+   learner rows; a params file and its ``_best`` tier; prints updates/s,
+   actor frames/s, the replay ratio and the learner's host seconds per
+   part beside the thread backend's;
+8. test_mode: ``main --mode 2`` on that params file, one capped episode
+   with inference on the card: finite stats of one episode, and the peak
+   of allocated device memory up by at least the weights' bytes.
 
-Then a ``kernels`` line (the table PERF.md is written from: the bf16
-GEMM's launches from the train phase, the fp32 GEMM's from the fp32
-learner run), the card's name and power limit, and the verdict as the
-last line.  Exits non-zero, with no verdict, if there is no GPU, if the
-package is missing, or if any phase fails.  TF32 is off throughout, so
-fp32 references are full fp32.
+Then a ``kernels`` line (the table PERF.md is written from: B1's and the
+bf16 GEMM's launches from the train_process phase, the fp32 GEMM's from
+the fp32 learner run), the card's name and power limit, and the verdict
+as the last line.  Exits non-zero, with no verdict, if there is no GPU, if
+the package is missing, or if any phase fails.  TF32 is off throughout,
+so fp32 references are full fp32.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
 import torch
 
-if not torch.cuda.is_available():
-    print("chip_smoke: torch sees no CUDA device; nothing to run",
-          file=sys.stderr)
-    sys.exit(2)
-
-from pytorch_distributed_tpu_torch.bench_gemm import (  # noqa: E402
-    time_ms, update_gemms,
-)
-from pytorch_distributed_tpu_torch.ops import cuda_sampling, cuda_torso  # noqa: E402
-from pytorch_distributed_tpu_torch.ops import kernels  # noqa: E402
+# imported (not run) again by the spawn children of the train_process
+# phase, which must not touch the card: the check for a GPU is in
+# ``__main__`` below
+from pytorch_distributed_tpu_torch.bench_gemm import time_ms, update_gemms
+from pytorch_distributed_tpu_torch.ops import cuda_sampling, cuda_torso
+from pytorch_distributed_tpu_torch.ops import kernels
 
 DEV = torch.device("cuda", 0)
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -84,6 +96,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # config 12 (dqn/pong-sim/device-per/dqn-cnn) at full width
 RING_ROWS, BATCH, FRAME, ACTIONS = 50_000, 128, (4, 84, 84), 6
 TRAIN_STEPS = 2000
+# the cap on an episode's agent steps in the end-to-end phases, so the
+# evaluator's and the tester's greedy episodes end in seconds
+EARLY_STOP = 1000
+RUN_DIR = ""  # the end-to-end phases' logs and checkpoints, made by main
 # (M, K, N) of each kernel's sweep, each run in all four operand layouts:
 # ragged M, N 6 to 512, K from 64 to 51,200 (136, 200 and 1,096 ragged
 # against either K tile), split and unsplit plans, every (row tile, tile
@@ -619,16 +635,25 @@ def learner_alone():
     return out
 
 
-def train():
-    """Config 12 at full width through the port's entry point."""
-    from pytorch_distributed_tpu_torch import main as port_main
-
-    argv = ["--config", "12", "--backend", "thread", "--device", "cuda",
+def _e2e_argv(backend: str) -> list:
+    """Config 12 at full width, 2 actors x 16 envs, the kernel torso, an
+    evaluator of one capped episode, logs and checkpoints in RUN_DIR."""
+    return ["--config", "12", "--backend", backend, "--device", "cuda",
             "--num-actors", "2", "--num-envs-per-actor", "16",
             "--memory-size", str(RING_ROWS), "--batch-size", str(BATCH),
             "--steps", str(TRAIN_STEPS),
             "--set", "learn_start=2000", "--set", "pallas_torso=true",
-            "--set", "learner_freq=100"]
+            "--set", "learner_freq=100", "--set", "evaluator_nepisodes=1",
+            "--set", f"early_stop={EARLY_STOP}",
+            "--set", f"root_dir={RUN_DIR}", "--set", f"refs={backend}"]
+
+
+def _train_through_main(backend: str) -> tuple:
+    """One end-to-end run through ``main``; the kernels' launch counters
+    are zeroed just before it and read just after, in this process."""
+    from pytorch_distributed_tpu_torch import main as port_main
+
+    argv = _e2e_argv(backend)
     cuda_sampling.hierarchical_sample.launches = 0
     cuda_torso.gemm_bf16.launches = 0
     cuda_torso.gemm_bf16_grad.launches = 0
@@ -638,11 +663,10 @@ def train():
                 "torso_gemm_fwd": cuda_torso.gemm_bf16.launches,
                 "torso_gemm_bwd": cuda_torso.gemm_bf16_grad.launches,
                 "torso_gemm_f32": cuda_torso.gemm_f32.launches}
-    RESULTS["launches"] = launches
     steps = summary["learner/steps"]
     if steps < TRAIN_STEPS or not math.isfinite(
             summary["learner/critic_loss"]):
-        raise AssertionError(f"train phase: {summary}")
+        raise AssertionError(f"{backend} train: {summary}")
     # per update with double-DQN off: one draw; 10 bf16 forward GEMMs (5
     # layers, online and target nets) and 9 bf16 backward GEMMs (5 dw, 4
     # dx); the fp32 kernel is off the bf16 torso's path
@@ -651,11 +675,116 @@ def train():
             or launches["torso_gemm_bwd"] != 9 * steps
             or launches["torso_gemm_f32"] != 0):
         raise AssertionError(f"launch counts {launches} for {steps} steps")
-    return {"argv": " ".join(argv), "launches": launches,
-            "updates_per_sec": summary["learner/updates_per_sec"],
-            "critic_loss": summary["learner/critic_loss"],
-            "peak_mem_gb": torch.cuda.max_memory_allocated(DEV) / 1e9,
-            "summary": summary}
+    seconds = summary["learner/train_seconds"]
+    actor_steps = summary["actor/steps_per_sec"] * seconds
+    out = {"argv": " ".join(argv), "launches": launches,
+           "updates_per_sec": summary["learner/updates_per_sec"],
+           "actor_frames_per_sec": summary["actor/steps_per_sec"],
+           # samples drawn per transition stored, over the train loop
+           "replay_ratio": steps * BATCH / max(actor_steps, 1.0),
+           "host_s": {k.rsplit("_", 1)[-1]: summary[f"learner/host_s_{k}"]
+                      for k in ("pacing", "drain", "step", "publish")},
+           "train_seconds": seconds,
+           "critic_loss": summary["learner/critic_loss"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated(DEV) / 1e9,
+           "cpu_count": os.cpu_count(), "summary": summary}
+    RESULTS[f"e2e_{backend}"] = out
+    return out, summary
+
+
+def train():
+    """Config 12 at full width through the port's entry point, thread
+    backend."""
+    out, _summary = _train_through_main("thread")
+    return out
+
+
+def _publisher_matches_inline() -> int:
+    """The learner's publication off the loop on the card: three
+    snapshots of changing weights submitted back to back, then closed; the
+    shared store must hold the last one exactly as the inline flatten lays
+    it out.  Returns how many snapshots the thread wrote."""
+    from pytorch_distributed_tpu_torch.agents.param_store import (
+        DevicePublisher, ParamStore, make_flattener,
+    )
+    from pytorch_distributed_tpu_torch.models.dqn_cnn import DqnCnnModel
+
+    base = {k: v.to(DEV) for k, v in DqnCnnModel(
+        ACTIONS, FRAME, generator=torch.Generator().manual_seed(4)
+    ).state_dict().items()}
+    expect, _ = make_flattener({k: v + 2.0 for k, v in base.items()}, FRAME)
+    store = ParamStore(expect.size)
+    pub = DevicePublisher(store, FRAME, DEV)
+    for i in range(3):
+        pub.submit({k: v + float(i) for k, v in base.items()})
+    pub.close()
+    flat, _version = store.fetch(0)
+    if not (flat == expect).all():
+        raise AssertionError("the published vector differs from the "
+                             "inline flatten")
+    return pub.published
+
+
+def train_process():
+    """The same run on the process backend: the learner here, the actors,
+    the evaluator and the logger in spawn children on the CPU."""
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.utils import checkpoint, metrics
+
+    publisher_writes = _publisher_matches_inline()
+    out, summary = _train_through_main("process")
+    RESULTS["launches"] = out["launches"]
+    if summary["runtime/children_with_cuda"] != 0:
+        raise AssertionError(f"{summary['runtime/children_with_cuda']} "
+                             f"children made a CUDA context")
+    opt = build_options(12, root_dir=RUN_DIR, refs="process")
+    tags = {r["tag"] for r in metrics.read_scalars(opt.log_dir)}
+    if not {"evaluator/avg_reward", "learner/critic_loss"} <= tags:
+        raise AssertionError(f"scalars.jsonl holds only {sorted(tags)}")
+    files = [checkpoint.params_path(opt.model_name),
+             checkpoint.params_path(opt.model_name + "_best")]
+    missing = [f for f in files if not os.path.exists(f)]
+    if missing:
+        raise AssertionError(f"no checkpoint at {missing}")
+    thread = RESULTS.get("e2e_thread", {})
+    return dict(out, children_with_cuda=summary[
+        "runtime/children_with_cuda"], scalar_tags=sorted(tags),
+        checkpoints=files, publisher_check_writes=publisher_writes,
+        thread_backend={
+            k: thread.get(k) for k in ("updates_per_sec",
+                                       "actor_frames_per_sec",
+                                       "replay_ratio", "host_s")})
+
+
+def test_mode():
+    """Mode 2 through ``main`` on the process run's params file."""
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch.agents.param_store import num_params
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.factory import build_model, probe_env
+
+    model_file = build_options(12, root_dir=RUN_DIR,
+                               refs="process").model_name
+    argv = ["--config", "12", "--mode", "2", "--device", "cuda",
+            "--model-file", model_file, "--set", "tester_nepisodes=1",
+            "--set", f"early_stop={EARLY_STOP}"]
+    # the tester's weights live on the card while it plays: the peak of
+    # allocated device memory rises by at least their fp32 bytes
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stats = port_main.main(argv)
+    grew = torch.cuda.max_memory_allocated() - before
+    weights = 4 * num_params(build_model(
+        build_options(12), probe_env(build_options(12))).state_dict())
+    if stats["nepisodes"] != 1 or not all(math.isfinite(v)
+                                          for v in stats.values()):
+        raise AssertionError(f"tester stats {stats}")
+    if grew < weights:
+        raise AssertionError(f"the tester's device memory grew by {grew} B, "
+                             f"under its weights' {weights} B")
+    return {"argv": " ".join(argv), "tester": stats,
+            "device_bytes_grew": grew, "weight_bytes": weights}
 
 
 KERNELS = (
@@ -671,19 +800,21 @@ KERNELS = (
 
 
 def main() -> int:
+    global RUN_DIR
     t0 = time.monotonic()
+    RUN_DIR = tempfile.mkdtemp(prefix="chip_smoke_")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     for fn in (build, per_sample, torso_gemm, torso_apply, learner_alone,
-               train):
+               train, train_process, test_mode):
         if fn is not build and "build" in FAILED:
             break
         phase(fn)
     table = []
-    # the bf16 kernels' launches from the train phase, the fp32 GEMM's from
-    # the fp32 learner run
+    # B1's and the bf16 GEMM's launches from the train_process phase, the
+    # fp32 GEMM's from the fp32 learner run
     launches = dict(RESULTS.get("launches", {}), torso_gemm_f32=RESULTS.get(
         "f32_launches", {}).get("launches", 0))
     for name, source, replaces in KERNELS:
@@ -699,6 +830,7 @@ def main() -> int:
     emit({"kernels": table})
     print(card_name_and_power_limit(), flush=True)
     print(f"chip_smoke: {time.monotonic() - t0:.1f} s", file=sys.stderr)
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
     if FAILED:
         print(f"chip_smoke: failed phases {FAILED}", file=sys.stderr)
         return 1
@@ -709,4 +841,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; nothing to run",
+              file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

@@ -1,19 +1,25 @@
 """Actor workers: epsilon-greedy experience collection — the port of the
 inline loop of pytorch_distributed_tpu/agents/actor.py (``_ActorHarness``,
 ``_LocalDqnEngine`` :415, ``_drive_actor_loop`` :524, ``run_dqn_actor``
-:748), in thread-backend form.
+:748).
 
 Each actor steps ``num_envs_per_actor`` Pong simulators as one vector,
-runs ONE batched forward per tick on the run's device, assembles n-step
-transitions per env and feeds them to the ingest queue.  Exploration
-follows Ape-X over the whole fleet: env j of actor i takes slot i*N + j.
-The weights are the learner's newest published snapshot, swapped in every
-``actor_sync_freq`` env steps.  Per-tick randomness (explore uniforms and
-random actions) comes from the actor's own ``torch.Generator``, seeded from
-``--seed`` and the actor index.  On a GPU each actor runs its inference
-on a high-priority CUDA stream of its own, so its per-tick copy of the
-actions back to the host waits for its own forward and not for the
-learner's queued updates.
+runs ONE batched forward per tick, assembles n-step transitions per env
+and feeds them to the ingest queue.  Exploration follows Ape-X over the
+whole fleet: env j of actor i takes slot i*N + j.  The weights are the
+learner's newest published vector (agents/param_store.py), fetched every
+``actor_sync_freq`` env steps and unflattened into tensors.  Per-tick
+randomness (explore uniforms and random actions) comes from the actor's
+own ``torch.Generator``, seeded from ``--seed`` and the actor index, so
+both backends draw the same streams.
+
+Where an actor infers: a child process of the process backend on the CPU,
+as the reference pins every child there (runtime.py:53-70; its actors
+call ``pin_to_cpu``, actor.py:425), so only the learner's process holds a
+CUDA context.  A thread of the thread backend infers on the run's device;
+on a GPU each runs on a high-priority CUDA stream of its own, so its
+per-tick copy of the actions back to the host waits for its own forward
+and not for the learner's queued updates.
 
 Backends: ``inline`` runs this loop; ``pipelined`` (the default) runs the
 same loop, as the reference pins both to one action stream
@@ -29,7 +35,9 @@ import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.agents.clocks import ActorStats, GlobalClock
-from pytorch_distributed_tpu_torch.agents.param_store import ParamStore
+from pytorch_distributed_tpu_torch.agents.param_store import (
+    ParamStore, make_flattener,
+)
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, build_env_vector, build_model, module_apply, resolve_device,
@@ -41,9 +49,12 @@ from pytorch_distributed_tpu_torch.models.policies import (
 from pytorch_distributed_tpu_torch.ops.nstep import NStepAssembler
 
 _NOT_PORTED_BACKENDS = {
-    "batched": "the shared inference server (ROADMAP.md Queue A item 9)",
-    "device": "the device env rollout (ROADMAP.md Queue A item 9)",
-    "anakin": "the co-located Anakin loop (ROADMAP.md Queue A item 9)",
+    "batched": "the shared inference server (ROADMAP.md, Queue A, "
+               "\"The actor fast path and co-location\")",
+    "device": "the device env rollout (ROADMAP.md, Queue A, \"The actor "
+              "fast path and co-location\")",
+    "anakin": "the co-located Anakin loop (ROADMAP.md, Queue A, \"The "
+              "actor fast path and co-location\")",
 }
 
 
@@ -72,18 +83,28 @@ def run_dqn_actor(opt: Options, spec: EnvSpec, process_ind: int,
     n = max(1, opt.env_params.num_envs_per_actor)
     env = build_env_vector(opt, process_ind, n)
     # the module gives the forward its structure; the weights are always
-    # the published snapshot's
-    apply_fn = module_apply(build_model(opt, spec))
+    # the published vector's
+    model = build_model(opt, spec)
+    apply_fn = module_apply(model)
+    _flat0, unflatten = make_flattener(model.state_dict(), spec.state_shape)
+
     eps = torch.as_tensor(apex_epsilons(process_ind, opt.num_actors, n,
                                         ap.eps, ap.eps_alpha), device=device)
     gen = torch.Generator().manual_seed(role_seed(opt.seed, "actor",
                                                   process_ind))
     stream = (torch.cuda.Stream(device, priority=-1)
               if device.type == "cuda" else None)
+
+    def load(flat):
+        with torch.cuda.stream(stream):  # a no-op for None
+            return {k: v.to(device) for k, v in unflatten(flat).items()}
+
     memory.set_stop(clock.stop)
-    params, version = param_store.wait(0, stop=clock.stop)
+    flat, version = param_store.wait(0, stop=clock.stop)
+    params = load(flat)
     assemblers = [NStepAssembler(ap.nstep, ap.gamma) for _ in range(n)]
     episode_reward = np.zeros(n)
+    episode_steps = np.zeros(n, dtype=np.int64)
     acc = dict.fromkeys(ActorStats.FIELDS, 0.0)
     env_steps, next_sync, next_flush = 0, ap.actor_sync_freq, ap.actor_freq
 
@@ -104,7 +125,8 @@ def run_dqn_actor(opt: Options, spec: EnvSpec, process_ind: int,
             next_sync += ap.actor_sync_freq
             got = param_store.fetch(version)
             if got is not None:
-                params, version = got
+                flat, version = got
+                params = load(flat)
         for j in range(n):
             true_next = infos[j].get("final_obs", next_obs[j])
             for t in assemblers[j].feed(
@@ -113,10 +135,15 @@ def run_dqn_actor(opt: Options, spec: EnvSpec, process_ind: int,
                     truncated=bool(infos[j].get("truncated", False))):
                 memory.feed(t)
             episode_reward[j] += float(rewards[j])
-            if terminals[j]:
+            episode_steps[j] += 1
+            if terminals[j]:  # reference actor.py:292-299
                 acc["nepisodes"] += 1
+                acc["nepisodes_solved"] += float(bool(infos[j].get(
+                    "solved", episode_reward[j] > 0)))
+                acc["total_steps"] += float(episode_steps[j])
                 acc["total_reward"] += episode_reward[j]
                 episode_reward[j] = 0.0
+                episode_steps[j] = 0
         obs = next_obs
         if env_steps >= next_flush:
             next_flush += ap.actor_freq
@@ -125,4 +152,5 @@ def run_dqn_actor(opt: Options, spec: EnvSpec, process_ind: int,
             memory.flush()
     stats.add(**acc)
     memory.flush()
+    memory.close()
     return env_steps

@@ -11,24 +11,34 @@ weights, wait for ``learn_start`` rows, then loop until ``steps``:
   from the learner's device generator; on a GPU it is replayed from a
   CUDA graph;
 - beta annealed on the dispatch cadence;
-- a published snapshot every ``param_publish_freq`` steps, and a stats
-  line every ``learner_freq`` steps (boundary crossings, so K > 1 never
-  skips one).
+- a published snapshot every ``param_publish_freq`` steps (on a GPU
+  through ``DevicePublisher``, off the loop, as the reference's
+  ``_publish_async`` :223-263; on the CPU inline), and on every
+  ``learner_freq`` steps a stats line and one ``LearnerStats`` add (the
+  window's last losses and its updates/s, reference :757), all on
+  boundary crossings so K > 1 never skips one;
+- a final synchronous publication, which the evaluator's last evaluation
+  and the params checkpoint read.
 
 Returns a summary of the run (steps, updates per second, the last
-metrics, the skipped-step count, and the host seconds spent pacing,
-draining, dispatching and publishing), which ``main`` prints.
+metrics, the skipped-step count, the host seconds spent pacing, draining,
+dispatching and publishing, and the actors' env steps over the loop),
+which ``main`` prints.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from pytorch_distributed_tpu_torch.agents.clocks import GlobalClock
-from pytorch_distributed_tpu_torch.agents.param_store import ParamStore
+from pytorch_distributed_tpu_torch.agents.clocks import (
+    GlobalClock, LearnerStats,
+)
+from pytorch_distributed_tpu_torch.agents.param_store import (
+    DevicePublisher, ParamStore, flatten_into,
+)
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, build_model, build_train_state_and_step, init_params,
@@ -49,13 +59,23 @@ from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY
 
 def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                 memory: DevicePerIngest, param_store: ParamStore,
-                clock: GlobalClock) -> Dict[str, float]:
+                clock: GlobalClock,
+                stats: Optional[LearnerStats] = None) -> Dict[str, float]:
     ap = opt.agent_params
     device = resolve_device(opt)
     model = build_model(opt, spec)
     params = init_params(opt, spec, seed=opt.seed, device=device)
     state, step_fn = build_train_state_and_step(opt, model, params)
-    param_store.publish(state.params)  # actors block on version 1
+    host_flat = torch.empty(param_store.num_params)
+
+    def publish_inline(p) -> None:
+        flatten_into({k: v.detach().cpu() for k, v in p.items()}, host_flat,
+                     spec.state_shape)
+        param_store.publish(host_flat.numpy())
+
+    publish_inline(state.params)  # actors block on version 1
+    publisher = (DevicePublisher(param_store, spec.state_shape, device)
+                 if device.type == "cuda" else None)
 
     replay = memory.attach(device)
     K = max(1, ap.steps_per_dispatch)
@@ -86,14 +106,15 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     beta, next_beta = replay.beta(0), 0
     t_start = t_window = time.monotonic()
     window_lstep = lstep
+    actor_step0 = clock.actor_step.value
     spent = dict.fromkeys(("pacing", "drain", "step", "publish"), 0.0)
     while lstep < ap.steps and not clock.stop.is_set() \
             and time.monotonic() < deadline:
         t0 = time.perf_counter()
         if ap.max_replay_ratio > 0:
             while (not clock.stop.is_set() and time.monotonic() < deadline
-                   and (lstep - lstep0 + K) * ap.batch_size
-                   > ap.max_replay_ratio * max(clock.actor_step, 1)):
+                   and (lstep - lstep0 + 1) * ap.batch_size
+                   > ap.max_replay_ratio * max(clock.actor_step.value, 1)):
                 memory.drain()
                 time.sleep(0.002)
             if clock.stop.is_set():
@@ -112,22 +133,37 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
 
         crossed = lambda freq: freq and lstep // freq != prev // freq
         if crossed(ap.param_publish_freq):
-            param_store.publish(state.params)
+            if publisher is not None:
+                publisher.submit(state.params)
+            else:
+                publish_inline(state.params)
         t4 = time.perf_counter()
         for key, dt in zip(spent, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
             spent[key] += dt
         if crossed(ap.learner_freq):
             now = time.monotonic()
             vals = {k: float(v) for k, v in metrics.items()}
+            rate = (lstep - window_lstep) / max(now - t_window, 1e-9)
             print(f"[learner] step {lstep} "
                   f"loss {vals['learner/critic_loss']:.5g} "
                   f"q_mean {vals['learner/q_mean']:.5g} "
-                  f"{(lstep - window_lstep) / max(now - t_window, 1e-9):.1f}"
-                  f" updates/s replay {memory.size}", flush=True)
+                  f"{rate:.1f} updates/s replay {memory.size}", flush=True)
+            if stats is not None:  # reference learner.py:757-766
+                stats.add(counter=1,
+                          critic_loss=vals.get("learner/critic_loss", 0.0),
+                          q_mean=vals.get("learner/q_mean", 0.0),
+                          grad_norm=vals.get("learner/grad_norm", 0.0),
+                          steps_per_sec=rate)
             t_window, window_lstep = now, lstep
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.monotonic() - t_start
+    actor_steps = clock.actor_step.value - actor_step0
+    published = 0
+    if publisher is not None:
+        publisher.close()
+        published = publisher.published
+    publish_inline(state.params)  # the finished weights
     summary = {k: float(v) for k, v in metrics.items()}
     summary.update({
         "learner/steps": lstep,
@@ -135,7 +171,9 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
         "learner/train_seconds": seconds,
         SKIPPED_KEY: float(skipped),
         **{f"learner/host_s_{k}": v for k, v in spent.items()},
+        "learner/async_publishes": published,
         "replay/size": memory.size,
-        "actor/steps": clock.actor_step,
+        "actor/steps": clock.actor_step.value,
+        "actor/steps_per_sec": actor_steps / max(seconds, 1e-9),
     })
     return summary

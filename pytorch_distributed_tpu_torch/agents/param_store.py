@@ -1,55 +1,77 @@
 """Versioned parameter publication — the port of
-pytorch_distributed_tpu/agents/param_store.py in thread-backend form.
+pytorch_distributed_tpu/agents/param_store.py (``ParamStore`` :35-102,
+``make_flattener`` :209).
 
-The learner publishes a cloned snapshot of its parameter tensors (on its
-device) with a version number; actors fetch the newest snapshot on their
-sync cadence and swap it in.  A snapshot is never written after it is
-published, so a fetched reference stays coherent.  On a GPU, ``publish``
-waits until the clone has been made, so an actor may read the snapshot
-from its own CUDA stream.
+The learner writes its parameters as one flat fp32 vector into a shared
+array of the spawn context, under a lock, and bumps a version counter: one
+coherent snapshot per publish.  Actors and the evaluator poll
+``fetch(min_version)`` on their cadence and unflatten into CPU tensors.
+The thread backend uses the same store, so both backends publish one
+format.
+
+The vector's layout is the reference's: its ``ravel_pytree`` order over
+the flax tree, each leaf in the flax layout (convert.py ``flax_leaves``),
+so a vector published by either package reads the same.
+
+On a GPU the learner publishes through ``DevicePublisher``, off its loop,
+as the reference does on an accelerator (agents/learner.py:223-263,
+``_publish_async``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import multiprocessing as mp
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-Snapshot = Dict[str, torch.Tensor]
+from pytorch_distributed_tpu_torch.convert import flax_leaves
+
+_CTX = mp.get_context("spawn")
+
+Params = Dict[str, torch.Tensor]
 
 
 class ParamStore:
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._snap: Optional[Snapshot] = None
-        self._version = 0
+    """One published flat fp32 parameter snapshot and its version."""
+
+    def __init__(self, num_params: int):
+        self.num_params = num_params
+        self._buf = _CTX.Array(ctypes.c_float, num_params, lock=False)
+        self._version = _CTX.Value("l", 0, lock=False)
+        self._lock = _CTX.Lock()
 
     @property
     def version(self) -> int:
-        return self._version
+        return self._version.value
 
-    def publish(self, params: Snapshot) -> int:
-        snap = {k: v.detach().clone() for k, v in params.items()}
-        if any(v.is_cuda for v in snap.values()):
-            done = torch.cuda.Event()
-            done.record()
-            done.synchronize()
+    def publish(self, flat: np.ndarray) -> int:
+        """Write one coherent snapshot; returns the new version."""
+        flat = np.asarray(flat, dtype=np.float32).ravel()
+        if flat.size != self.num_params:
+            raise ValueError(f"{flat.size} params for a store of "
+                             f"{self.num_params}")
         with self._lock:
-            self._snap = snap
-            self._version += 1
-            return self._version
+            np.frombuffer(self._buf, np.float32)[:] = flat
+            self._version.value += 1
+            return self._version.value
 
-    def fetch(self, min_version: int = 0) -> Optional[Tuple[Snapshot, int]]:
-        """``(snapshot, version)`` if newer than ``min_version``, else None."""
+    def fetch(self, min_version: int = 0
+              ) -> Optional[Tuple[np.ndarray, int]]:
+        """A copy of ``(flat, version)`` if newer than ``min_version``,
+        else None (one integer read)."""
+        if self._version.value <= min_version:
+            return None
         with self._lock:
-            if self._version <= min_version:
-                return None
-            return self._snap, self._version
+            return (np.frombuffer(self._buf, np.float32).copy(),
+                    self._version.value)
 
     def wait(self, min_version: int = 0, timeout: float = 300.0,
-             poll: float = 0.02, stop=None) -> Tuple[Snapshot, int]:
+             poll: float = 0.02, stop=None) -> Tuple[np.ndarray, int]:
         """Block until a snapshot newer than ``min_version`` exists."""
         deadline = time.monotonic() + timeout
         while True:
@@ -61,3 +83,119 @@ class ParamStore:
             if time.monotonic() > deadline:
                 raise TimeoutError(f"no params published within {timeout}s")
             time.sleep(poll)
+
+
+def num_params(params: Params) -> int:
+    return sum(int(v.numel()) for v in params.values())
+
+
+def flatten_into(params: Params, out: torch.Tensor,
+                 state_shape: Sequence[int]) -> torch.Tensor:
+    """Copy ``params`` into the flat vector ``out`` (on their device) in
+    the reference's order and layout: one copy per leaf."""
+    pos = 0
+    for _name, leaf in flax_leaves(params, state_shape):
+        n = leaf.numel()
+        out[pos:pos + n].view(leaf.shape).copy_(leaf)
+        pos += n
+    if pos != out.numel():
+        raise ValueError(f"{pos} params for a vector of {out.numel()}")
+    return out
+
+
+def make_flattener(params: Params, state_shape: Sequence[int]
+                   ) -> Tuple[np.ndarray, Callable[[np.ndarray], Params]]:
+    """``(flat0, unflatten)`` for the ``dqn-cnn`` state_dict ``params``:
+    ``flat0`` is its vector as the reference's ``ravel_pytree`` lays it
+    out, and ``unflatten(flat)`` turns any such vector into a new
+    state_dict of fp32 CPU tensors, writing each leaf through the same
+    flax-layout views ``flatten_into`` reads."""
+    template = {k: v.detach().cpu().float() for k, v in params.items()}
+    flat0 = flatten_into(template, torch.empty(num_params(template)),
+                         state_shape).numpy()
+
+    def unflatten(flat: np.ndarray) -> Params:
+        src = torch.from_numpy(np.asarray(flat, dtype=np.float32))
+        out = {k: torch.empty_like(v) for k, v in template.items()}
+        pos = 0
+        for _name, leaf in flax_leaves(out, state_shape):
+            n = leaf.numel()
+            leaf.copy_(src[pos:pos + n].view(leaf.shape))
+            pos += n
+        return out
+
+    return flat0, unflatten
+
+
+class DevicePublisher:
+    """Publication off the learner's loop on a GPU.  ``submit`` enqueues a
+    copy of the parameters into one of two flat device buffers on the
+    loop's stream and records an event; it never waits.  A background
+    thread takes the newest submitted buffer, waits for its event on a
+    stream of its own, copies it into a pinned host buffer and writes the
+    shared store.  A buffer the thread is reading is never the target of
+    a submit; a snapshot not yet taken is replaced by a newer one."""
+
+    def __init__(self, store: ParamStore, state_shape: Sequence[int],
+                 device: torch.device):
+        self._store = store
+        self._shape = tuple(state_shape)
+        n = store.num_params
+        self._bufs = [torch.empty(n, device=device) for _ in range(2)]
+        self._events = [torch.cuda.Event() for _ in range(2)]
+        self._host = torch.empty(n, pin_memory=True)
+        self._stream = torch.cuda.Stream(device)
+        self._cond = threading.Condition()
+        self._pending: Optional[int] = None
+        self._busy: Optional[int] = None
+        self._closed = False
+        self.published = 0
+        self.error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, name="param-pub",
+                                        daemon=True)
+        self._thread.start()
+
+    def submit(self, params: Params) -> None:
+        with self._cond:
+            if self.error is not None:
+                raise RuntimeError("parameter publication failed") \
+                    from self.error
+            target = self._pending if self._pending is not None else 0
+            if target == self._busy:
+                target = 1 - target
+            flatten_into(params, self._bufs[target], self._shape)
+            self._events[target].record()
+            self._pending = target
+            self._cond.notify()
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while self._pending is None and not self._closed:
+                    self._cond.wait()
+                if self._pending is None:
+                    return
+                self._busy, self._pending = self._pending, None
+            try:
+                with torch.cuda.stream(self._stream):
+                    self._stream.wait_event(self._events[self._busy])
+                    self._host.copy_(self._bufs[self._busy],
+                                     non_blocking=True)
+                self._stream.synchronize()
+                self._store.publish(self._host.numpy())
+                self.published += 1
+            except BaseException as e:  # surfaced by the next submit
+                self.error = e
+                return
+            finally:
+                with self._cond:
+                    self._busy = None
+
+    def close(self) -> None:
+        """Publish what is pending, then end the thread."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify()
+        self._thread.join(timeout=60.0)
+        if self.error is not None:
+            raise RuntimeError("parameter publication failed") from self.error

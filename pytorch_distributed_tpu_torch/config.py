@@ -14,8 +14,10 @@ they launch the kernel or raise.
 
 from __future__ import annotations
 
+import os
+import time
 from dataclasses import dataclass, field
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 # [agent_type, env_type, game, memory_type, model_type] — the reference's
 # table (pytorch_distributed_tpu/config.py:37-59); this slice runs row 12
@@ -44,6 +46,13 @@ CONFIGS = [
 
 # the rows this port runs end to end so far
 PORTED_CONFIGS = (12,)
+
+
+def _default_refs() -> str:
+    """Run signature ``{machine}_{timestamp}`` keying checkpoints and logs
+    (reference config.py:141-145)."""
+    machine = os.uname().nodename.split(".")[0] or "machine"
+    return f"{machine}_{time.strftime('%y%m%d%H%M%S')}"
 
 
 @dataclass
@@ -91,8 +100,13 @@ class AgentParams:
     clip_grad: float = float("inf")
     lr: float = 1e-4
     actor_sync_freq: int = 100
+    # logger cadences (reference config.py:315-322)
+    logger_freq: int = 15              # secs
     actor_freq: int = 250
     learner_freq: int = 100
+    evaluator_freq: int = 30           # secs
+    evaluator_nepisodes: int = 2
+    tester_nepisodes: int = 50
     param_publish_freq: int = 10
     learn_start: int = 5000
     batch_size: int = 128
@@ -129,9 +143,14 @@ _SELECTORS = ("agent_type", "env_type", "game", "memory_type", "model_type")
 
 @dataclass
 class Options:
+    # run identity (reference config.py:930-947)
+    mode: int = 1                      # 1 = train, 2 = test model_file
     config: int = 12
     seed: int = 100
+    refs: str = field(default_factory=_default_refs)
+    root_dir: str = field(default_factory=os.getcwd)
     num_actors: int = 8
+    model_file: Optional[str] = None   # the checkpoint mode 2 tests
     device: str = "cuda"
 
     agent_type: str = "dqn"
@@ -147,6 +166,20 @@ class Options:
     health_params: HealthParams = field(default_factory=HealthParams)
     learner_perf_params: LearnerPerfParams = field(
         default_factory=LearnerPerfParams)
+
+    @property
+    def model_dir(self) -> str:
+        return os.path.join(self.root_dir, "models")
+
+    @property
+    def model_name(self) -> str:
+        # reference config.py:979-982
+        return os.path.join(self.model_dir, f"{self.refs}")
+
+    @property
+    def log_dir(self) -> str:
+        # reference config.py:984-987
+        return os.path.join(self.root_dir, "logs", self.refs)
 
 
 def parse_set_overrides(pairs) -> dict:
@@ -197,4 +230,8 @@ def build_options(config: int = 12, **overrides: Any) -> Options:
             raise ValueError(f"unknown option: {key}")
         setattr(owner, key, val)
     opt.env_params.seed = opt.seed
+    if opt.mode == 2 and opt.model_file is None:
+        # reference config.py:1094-1097: test mode defaults to this run's
+        # checkpoint path
+        opt.model_file = opt.model_name
     return opt

@@ -12,12 +12,15 @@ layout traps:
   (c, h, w), so ``Dense_0``'s input rows are permuted.
 
 The transform is linear and per-leaf, so Adam moments (and gradients) of
-the same tree go through it unchanged in meaning.
+the same tree go through it unchanged in meaning.  ``flax_leaves`` is its
+inverse: the port's state_dict as the reference's leaves, in the order
+``ravel_pytree`` flattens them, which fixes the layout of the published
+parameter vector (agents/param_store.py).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,3 +52,29 @@ def convert_dqn_cnn(params: Mapping, state_shape: Sequence[int]
     out["head.bias"] = np.asarray(p["Dense_1"]["bias"])
     return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
             for k, v in out.items()}
+
+
+def flax_leaves(state_dict: Mapping[str, torch.Tensor],
+                state_shape: Sequence[int]
+                ) -> List[Tuple[str, torch.Tensor]]:
+    """The port's ``DqnCnnModel`` state_dict as the reference's flax leaves
+    (``Conv_0/bias``, ``Conv_0/kernel``, ..., ``Dense_1/kernel``: keys
+    sorted at every level, as ``ravel_pytree`` orders a flax tree), each a
+    view of the torch tensor in the flax layout.  No data is copied."""
+    oh, ow = torso_out_hw(*state_shape[1:])
+    fc = state_dict["fc.weight"]                      # cols (c, h, w)
+    c = fc.shape[1] // (oh * ow)
+    kernels = {f"Conv_{i}": state_dict[f"{name}.weight"].permute(2, 3, 1, 0)
+               for i, (name, _cout, _k, _s) in enumerate(CONV_LAYERS)}
+    kernels["Dense_0"] = fc.reshape(-1, c, oh, ow).permute(
+        2, 3, 1, 0)                                   # rows (h, w, c)
+    kernels["Dense_1"] = state_dict["head.weight"].t()
+    biases = {f"Conv_{i}": state_dict[f"{name}.bias"]
+              for i, (name, _cout, _k, _s) in enumerate(CONV_LAYERS)}
+    biases.update(Dense_0=state_dict["fc.bias"],
+                  Dense_1=state_dict["head.bias"])
+    out = []
+    for scope in sorted(kernels):
+        out += [(f"{scope}/bias", biases[scope]),
+                (f"{scope}/kernel", kernels[scope])]
+    return out

@@ -1,6 +1,11 @@
 """Env abstraction — the port's copy of pytorch_distributed_tpu/envs/base.py
 (rendering left out).
 
+Mode switches as the reference's (:73-78, reference core/env.py:29-35):
+``train()`` is the actors' mode, ``eval()`` restores the standard episode
+boundaries for the evaluator and the tester.  Pong has no lives, so the
+simulator steps the same in both.
+
 ``reset() -> obs`` / ``step(a) -> (obs, reward, terminal, info)``; n-step
 assembly lives with the actor (ops/nstep.py).  ``process_ind`` is a global
 env slot: actor i's env j passes slot i*N + j, and the env seeds its numpy
@@ -29,8 +34,15 @@ class Env:
         self.process_ind = process_ind
         self.seed = env_params.seed + process_ind
         self.rng = np.random.default_rng(self.seed)
+        self.training = True
         self.norm_val: float = 1.0
         self._episode_steps = 0
+
+    def train(self) -> None:
+        self.training = True
+
+    def eval(self) -> None:
+        self.training = False
 
     def reset(self) -> np.ndarray:
         self._episode_steps = 0

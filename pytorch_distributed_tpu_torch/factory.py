@@ -162,7 +162,10 @@ class MemoryHandles:
     learner_side: Any
 
 
-def build_memory(opt: Options, spec: EnvSpec) -> MemoryHandles:
+def build_memory(opt: Options, spec: EnvSpec,
+                 in_process: bool = False) -> MemoryHandles:
+    """The device ring's ingest; ``in_process`` when every producer is a
+    thread of the learner's process (the thread backend)."""
     if opt.memory_type != "device-per":
         raise _not_ported(f"memory_type {opt.memory_type!r}")
     mp_ = opt.memory_params
@@ -174,5 +177,6 @@ def build_memory(opt: Options, spec: EnvSpec) -> MemoryHandles:
         action_dtype=spec.action_dtype,
         priority_exponent=mp_.priority_exponent,
         importance_weight=mp_.priority_weight,
-        importance_anneal_steps=opt.agent_params.steps)
+        importance_anneal_steps=opt.agent_params.steps,
+        in_process=in_process)
     return MemoryHandles(actor_side=ingest.make_feeder(), learner_side=ingest)

@@ -2,7 +2,13 @@
 pytorch_distributed_tpu/memory/device_replay.py: ``ReplayState`` and
 ``ring_write`` (:34-85), ``DeviceReplay`` (:265-388), and the queue front
 end ``DeviceReplayIngest`` / ``drain`` (:389-611) without the flow-shed and
-quarantine planes, plus ``DevicePerIngest`` (:614-638).
+quarantine planes, plus ``DevicePerIngest`` (:614-638).  The ingest queue
+is the reference's (memory/feeder.py ``QueueFeeder`` :30, ``QueueOwner``
+:240): a spawn-context ``multiprocessing.Queue`` of transition chunks, so
+feeders pickle to actor processes.  For the thread backend
+(``in_process``) it is a ``queue.Queue`` with the same bound, where the
+reference swaps one in before any worker starts (runtime.py
+``_use_thread_queue`` :357-372).
 
 The six transition columns live as tensors on the learner's device.  Where
 the reference's functional ring returns a new state from every write, the
@@ -14,6 +20,7 @@ integers: ingest is driven from the host, so the host always knows them.
 
 from __future__ import annotations
 
+import multiprocessing as mp
 import queue
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -24,6 +31,8 @@ import torch
 from pytorch_distributed_tpu_torch.utils.experience import (
     REPLAY_FIELDS, Transition, transition_dtypes,
 )
+
+_CTX = mp.get_context("spawn")
 
 
 @dataclass
@@ -91,12 +100,12 @@ class DeviceReplay:
 
 
 class QueueFeeder:
-    """Actor-side feed endpoint (reference memory/feeder.py QueueFeeder,
-    thread backend): buffers ``chunk`` transitions, then puts them on the
-    ingest queue as one list.  A put blocked on a full queue gives up once
-    the run's stop event is set."""
+    """Actor-side feed endpoint (reference memory/feeder.py QueueFeeder):
+    buffers ``chunk`` transitions, then puts them on the ingest queue as
+    one list.  A put blocked on a full queue gives up once the run's stop
+    event is set."""
 
-    def __init__(self, q: queue.Queue, chunk: int = 16):
+    def __init__(self, q, chunk: int = 16):
         self._q = q
         self._chunk = chunk
         self._buf: List[Transition] = []
@@ -110,6 +119,13 @@ class QueueFeeder:
 
     def set_stop(self, event) -> None:
         self._stop = event
+
+    def close(self) -> None:
+        """Never block a process's exit on the queue's feeder thread: once
+        the learner stops draining, its buffered chunks cannot flush into
+        the full pipe (reference feeder.py:136-142)."""
+        if hasattr(self._q, "cancel_join_thread"):  # mp queue only
+            self._q.cancel_join_thread()
 
     def feed(self, transition: Transition) -> None:
         self._buf.append(transition)
@@ -139,20 +155,39 @@ class DeviceReplayIngest:
     def __init__(self, capacity: int, state_shape: Tuple[int, ...],
                  action_shape: Tuple[int, ...] = (),
                  state_dtype=np.uint8, action_dtype=np.int32,
-                 max_queue_chunks: int = 4096):
+                 max_queue_chunks: int = 4096, in_process: bool = False):
         self.capacity = capacity
         self.state_shape = tuple(state_shape)
         self.action_shape = tuple(action_shape)
         self.state_dtype = np.dtype(state_dtype)
         self.action_dtype = np.dtype(action_dtype)
         self.max_queue_chunks = max_queue_chunks  # backpressure bound
-        self._q: queue.Queue = queue.Queue(max_queue_chunks)
+        # in-process producers (the thread backend) hand chunks over by
+        # reference instead of pickling each one through a pipe
+        self._q = (queue.Queue(max_queue_chunks) if in_process
+                   else _CTX.Queue(max_queue_chunks))
         self.replay: Optional[DeviceReplay] = None
         self._pending: List[Transition] = []
         self._fed_total = 0
 
     def make_feeder(self, chunk: int = 16) -> QueueFeeder:
         return QueueFeeder(self._q, chunk)
+
+    def close_write_end(self) -> None:
+        """Drop this process's end for writing, once every producer holds
+        its own (the learner's process never puts).  A producer that dies
+        while writing a chunk leaves a partial message in the pipe, which
+        a read would wait on forever; with this end closed the read ends
+        in ``EOFError`` once the other producers have exited too."""
+        if hasattr(self._q, "_writer"):  # mp queue only
+            self._q._writer.close()
+
+    def close(self) -> None:
+        """Shut the queue down; pending chunks are dropped (reference
+        feeder.py:339-349)."""
+        if hasattr(self._q, "cancel_join_thread"):  # mp queue only
+            self._q.cancel_join_thread()
+            self._q.close()
 
     def _ring_kwargs(self, device) -> dict:
         return dict(capacity=self.capacity, state_shape=self.state_shape,
@@ -188,6 +223,10 @@ class DeviceReplayIngest:
                 self._pending.extend(self._q.get_nowait())
             except queue.Empty:
                 break
+            except (EOFError, OSError) as e:
+                raise RuntimeError("the ingest queue broke off inside a "
+                                   "chunk: a producer died while writing "
+                                   "it") from e
         dt = transition_dtypes(self.state_dtype, self.action_dtype)
         fed = 0
         while self._pending and fed < max_rows:

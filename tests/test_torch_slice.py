@@ -15,9 +15,10 @@ dqn-cnn) against the JAX package:
   converted weights (Q values rtol 1e-4);
 - the entry point: ``main`` on config 12 with ``--device cpu`` at a small
   size, and the refusals (no GPU without ``--device cpu``, rows and
-  backends not ported yet)."""
+  actor backends not ported yet, unknown backends)."""
 
 import functools
+import tempfile
 
 import numpy as np
 import pytest
@@ -228,10 +229,13 @@ def test_acting_matches_jax():
 
 
 def _small_run(*extra):
+    # logs and checkpoints of the run go to a fresh temporary directory
     return ["--config", "12", "--backend", "thread", "--device", "cpu",
             "--memory-size", "2048", "--batch-size", "8", "--steps", "20",
             "--num-actors", "1", "--num-envs-per-actor", "2",
-            "--set", "learn_start=64", "--set", "learner_freq=10", *extra]
+            "--set", "learn_start=64", "--set", "learner_freq=10",
+            "--set", f"root_dir={tempfile.mkdtemp(prefix='port_run_')}",
+            *extra]
 
 
 @pytest.mark.parametrize("torso", ["module", "kernel"])
@@ -260,8 +264,12 @@ def test_refuses_what_is_not_ported(what):
         with pytest.raises(NotImplementedError):
             build_options(8)
     elif what == "backend":
-        with pytest.raises(NotImplementedError):
-            port_main.main(_small_run("--backend", "process"))
+        # both of the reference's backends run; any other is refused
+        # before a worker starts
+        from pytorch_distributed_tpu_torch import runtime
+
+        with pytest.raises(ValueError, match="unknown backend"):
+            runtime.train(build_options(12, device="cpu"), backend="fleet")
     elif what == "actor_backend":
         with pytest.raises(NotImplementedError, match="batched"):
             port_main.main(_small_run("--set", "actor_backend=batched"))

@@ -39,24 +39,54 @@ Phases, each printed as one JSON line:
    just before each timed window and read just after: per update 1 draw
    and, for the kernel torso, 10 forward and 9 backward GEMMs of the
    torso's type and none of the other;
-6. train: config 12 at full width through the port's entry point
+6. native_pong: the C++ Pong stepper (``native/pong_batch.cpp``) built
+   with g++ on this host, 16 envs x 1,000 ticks of random actions against
+   the numpy simulators (ms a tick), and its dynamics against the numpy
+   ``PongSimEnv`` to the bit under ``set_state``;
+7. actor_tick: one CPU actor in a spawn child set up as the process
+   backend's (the CPU, its thread share), 300 ticks of 16 envs inline and
+   pipelined on native and numpy Pong: the StepTimer's phases in ms a
+   tick, frames/s, and the inline and pipelined transition streams
+   identical (sha256 of every row);
+8. actor_gpu: one actor in this process inferring on the card, as the
+   thread backend runs it (its own stream; pinned staging; a
+   non-blocking copy of the actions and an event), 300 ticks of 16 envs
+   inline and pipelined, with a second snapshot published at tick 100 so
+   that the prefetcher's stream path (a copy on its own stream, an
+   event, ``record_stream``) runs inside the window: the two transition
+   streams identical, each with the second weights swapped in;
+9. staged_drain: the same rows through the blocking path (``feed_chunk``
+   of a stacked chunk) and the staged path (the ingest queue's ``drain``:
+   pinned slabs, non-blocking copies) into two rings on the card, with a
+   drain larger than one slab and a wrap: the rings equal to the bit;
+10. train: config 12 at full width through the port's entry point
    (``pytorch_distributed_tpu_torch.main``) on the thread backend with the
-   kernel torso on, an evaluator of one capped episode, and logs and
-   checkpoints under a temporary directory; the kernels' launch counters
-   are zeroed just before and read just after: per update 1 draw, 10
-   forward and 9 backward bf16 GEMMs, no fp32 GEMM;
-7. train_process: the same run on the process backend (actors, the
+   kernel torso on, native Pong and pipelined actors (the defaults), an
+   evaluator of one capped episode, and logs and checkpoints under a
+   temporary directory; the kernels' launch counters are zeroed just
+   before and read just after: per update 1 draw, 10 forward and 9
+   backward bf16 GEMMs, no fp32 GEMM; the actors' timer phases from
+   ``scalars.jsonl``;
+11. train_process: the same run on the process backend (actors, the
    evaluator and the logger in spawn children on the CPU, the learner in
    this process), after a check of the learner's publication off the
    loop against the inline flatten: the same launches per update, read
    here; a finite loss;
    no child with a CUDA context; ``scalars.jsonl`` with evaluator and
    learner rows; a params file and its ``_best`` tier; prints updates/s,
-   actor frames/s, the replay ratio and the learner's host seconds per
-   part beside the thread backend's;
-8. test_mode: ``main --mode 2`` on that params file, one capped episode
+   actor frames/s, the actors' phases, the replay ratio and the learner's
+   host seconds per part beside the thread backend's;
+12. test_mode: ``main --mode 2`` on that params file, one capped episode
    with inference on the card: finite stats of one episode, and the peak
-   of allocated device memory up by at least the weights' bytes.
+   of allocated device memory up by at least the weights' bytes;
+13. process_trace: the process run again with the device traced by
+   ``torch.profiler`` (CUDA activity only) over updates 600 to 1,100: the
+   device's idle share in that window as traced, its busy ms per update,
+   and, labelled as an estimate, the idle share that busy time would
+   leave at train_process's unprofiled rate;
+14. train_paced: the process run with the reference's config-12 pacing
+   (``max_replay_ratio`` 8, ``learn_start`` 5,000): updates/s, the pacing
+   seconds, the actors' phases, the same launches per update.
 
 Then a ``kernels`` line (the table PERF.md is written from: B1's and the
 bf16 GEMM's launches from the train_process phase, the fp32 GEMM's from
@@ -79,6 +109,7 @@ import tempfile
 import time
 import traceback
 
+import numpy as np
 import torch
 
 # imported (not run) again by the spawn children of the train_process
@@ -635,25 +666,32 @@ def learner_alone():
     return out
 
 
-def _e2e_argv(backend: str) -> list:
-    """Config 12 at full width, 2 actors x 16 envs, the kernel torso, an
-    evaluator of one capped episode, logs and checkpoints in RUN_DIR."""
-    return ["--config", "12", "--backend", backend, "--device", "cuda",
+def _e2e_argv(backend: str, refs: str = "", *sets: str) -> list:
+    """Config 12 at full width, 2 actors x 16 envs (native Pong,
+    pipelined: the defaults), the kernel torso, an evaluator of one capped
+    episode, logs and checkpoints in RUN_DIR; ``sets`` are more ``--set``
+    values."""
+    argv = ["--config", "12", "--backend", backend, "--device", "cuda",
             "--num-actors", "2", "--num-envs-per-actor", "16",
             "--memory-size", str(RING_ROWS), "--batch-size", str(BATCH),
             "--steps", str(TRAIN_STEPS),
             "--set", "learn_start=2000", "--set", "pallas_torso=true",
             "--set", "learner_freq=100", "--set", "evaluator_nepisodes=1",
             "--set", f"early_stop={EARLY_STOP}",
-            "--set", f"root_dir={RUN_DIR}", "--set", f"refs={backend}"]
+            "--set", f"root_dir={RUN_DIR}", "--set", f"refs={refs or backend}"]
+    for kv in sets:
+        argv += ["--set", kv]
+    return argv
 
 
-def _train_through_main(backend: str) -> tuple:
+def _train_through_main(backend: str, refs: str = "", *sets: str) -> tuple:
     """One end-to-end run through ``main``; the kernels' launch counters
     are zeroed just before it and read just after, in this process."""
     from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.utils.metrics import timer_phases
 
-    argv = _e2e_argv(backend)
+    argv = _e2e_argv(backend, refs, *sets)
     cuda_sampling.hierarchical_sample.launches = 0
     cuda_torso.gemm_bf16.launches = 0
     cuda_torso.gemm_bf16_grad.launches = 0
@@ -677,9 +715,14 @@ def _train_through_main(backend: str) -> tuple:
         raise AssertionError(f"launch counts {launches} for {steps} steps")
     seconds = summary["learner/train_seconds"]
     actor_steps = summary["actor/steps_per_sec"] * seconds
+    log_dir = build_options(12, root_dir=RUN_DIR, refs=refs or backend).log_dir
+    phases = timer_phases(log_dir)
+    if not {"env", "advance", "tick"} <= phases.keys():
+        raise AssertionError(f"no actor timer rows in {log_dir}: {phases}")
     out = {"argv": " ".join(argv), "launches": launches,
            "updates_per_sec": summary["learner/updates_per_sec"],
            "actor_frames_per_sec": summary["actor/steps_per_sec"],
+           "actor_phases_ms": phases,
            # samples drawn per transition stored, over the train loop
            "replay_ratio": steps * BATCH / max(actor_steps, 1.0),
            "host_s": {k.rsplit("_", 1)[-1]: summary[f"learner/host_s_{k}"]
@@ -688,7 +731,7 @@ def _train_through_main(backend: str) -> tuple:
            "critic_loss": summary["learner/critic_loss"],
            "peak_mem_gb": torch.cuda.max_memory_allocated(DEV) / 1e9,
            "cpu_count": os.cpu_count(), "summary": summary}
-    RESULTS[f"e2e_{backend}"] = out
+    RESULTS[f"e2e_{refs or backend}"] = out
     return out, summary
 
 
@@ -753,7 +796,8 @@ def train_process():
         thread_backend={
             k: thread.get(k) for k in ("updates_per_sec",
                                        "actor_frames_per_sec",
-                                       "replay_ratio", "host_s")})
+                                       "actor_phases_ms", "replay_ratio",
+                                       "host_s")})
 
 
 def test_mode():
@@ -787,6 +831,368 @@ def test_mode():
             "device_bytes_grew": grew, "weight_bytes": weights}
 
 
+NATIVE_ENVS, NATIVE_TICKS = 16, 1000
+ACTOR_TICKS = 300
+
+
+def _pong_ms_per_tick(env, ticks: int, seed: int) -> float:
+    actions = np.random.default_rng(seed).integers(0, ACTIONS,
+                                                   (ticks, NATIVE_ENVS))
+    env.reset()
+    t0 = time.perf_counter()
+    for a in actions:
+        env.step(a)
+    return (time.perf_counter() - t0) / ticks * 1e3
+
+
+def native_pong():
+    """The C++ stepper built on this host (from an empty library path),
+    16 envs x 1,000 ticks of random actions against the numpy simulators,
+    and its dynamics against the numpy ``PongSimEnv`` to the bit under
+    ``set_state`` (no point scored, so no serve is drawn)."""
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.envs.native_pong import (
+        NativePongVectorEnv,
+    )
+    from pytorch_distributed_tpu_torch.envs.pong_sim import PongSimEnv
+    from pytorch_distributed_tpu_torch.factory import build_env_vector
+    from pytorch_distributed_tpu_torch.utils import native_build
+
+    so = os.path.join(native_build.BUILD_DIR, "libpong_batch.so")
+    if os.path.exists(so):
+        os.unlink(so)  # built here, never one brought from elsewhere
+    t0 = time.monotonic()
+    native_build.build_library("pong_batch")
+    build_s = time.monotonic() - t0
+    opt = build_options(12, device="cpu")
+    env = build_env_vector(opt, 0, NATIVE_ENVS)
+    if not isinstance(env, NativePongVectorEnv):
+        raise AssertionError(f"config 12 built {type(env).__name__}")
+    ms = {"native": _pong_ms_per_tick(env, NATIVE_TICKS, 1),
+          "numpy": _pong_ms_per_tick(build_env_vector(build_options(
+              12, device="cpu", native_env=False), 0, NATIVE_ENVS),
+              NATIVE_TICKS, 1)}
+    params = build_options(12).env_params
+    sim, nat = PongSimEnv(params, 0), NativePongVectorEnv(params, 0, 1)
+    sim.reset()
+    nat.reset()
+    sim.player_y, sim.enemy_y, sim.ball_x, sim.ball_y = 30.0, 55.0, 42.0, 40.0
+    sim.ball_vx, sim.ball_vy, sim._score = -1.4, 0.3, [0, 0]
+    nat.set_state(0, np.array([30.0, 55.0, 42.0, 40.0, -1.4, 0.3, 0, 0]))
+    for t, a in enumerate((2, 3, 0, 5, 4, 1, 2, 2, 3, 0, 1, 4)):
+        obs, r, term, _ = sim.step(a)
+        nobs, nr, nterm, _ = nat.step([a])
+        # from the 4th step on the whole stack is frames of this window
+        if not np.array_equal(obs[-1], nobs[0, -1]) or (
+                t >= 3 and not np.array_equal(obs, nobs[0])) or (
+                r, term) != (0.0, False) or (nr[0], nterm[0]) != (0.0, False):
+            raise AssertionError(f"the stepper's dynamics differ from the "
+                                 f"numpy simulator's at step {t}")
+    return {"build_s": build_s, "envs": NATIVE_ENVS, "ticks": NATIVE_TICKS,
+            "ms_per_tick": ms, "speedup": ms["numpy"] / ms["native"],
+            "dynamics": "bit-equal over 12 steps"}
+
+
+def _digest(stream) -> str:
+    """sha256 over every column of every transition, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in stream:
+        for col in t:
+            h.update(np.ascontiguousarray(col).tobytes())
+    return h.hexdigest()
+
+
+def _actor_tick_child(results, root: str) -> None:
+    """Spawn child: the process backend's actor set-up (the CPU, the
+    thread share of a 2-actor run with an evaluator), then one bounded actor run of ACTOR_TICKS ticks of 16 envs
+    for each env and schedule."""
+    from pytorch_distributed_tpu_torch import runtime
+    from pytorch_distributed_tpu_torch.agents.actor import bounded_actor_run
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    def opt(native, backend):
+        return build_options(
+            12, device="cpu", num_actors=2, num_envs_per_actor=NATIVE_ENVS,
+            evaluator_nepisodes=1, native_env=native, actor_backend=backend,
+            actor_freq=10 ** 9, root_dir=root, refs="actor_tick")
+
+    try:
+        threads = runtime.child_threads(opt(True, "inline"))
+        runtime.enter_child(threads)
+        bounded_actor_run(opt(True, "inline"), 20)  # warm-up
+        out = {"threads": threads, "runs": {}}
+        for native in (True, False):
+            for backend in ("inline", "pipelined"):
+                r = bounded_actor_run(opt(native, backend), ACTOR_TICKS)
+                t = r["timer_ms"]
+                out["runs"][f"{'native' if native else 'numpy'}_{backend}"] \
+                    = {"frames_per_sec": r["env_steps"] / r["seconds"],
+                       "ms_per_tick": r["seconds"] / ACTOR_TICKS * 1e3,
+                       "phases_ms": {k[len("actor/time_"):-3]: v
+                                     for k, v in t.items()
+                                     if k.endswith("_ms") and not
+                                     k.endswith(("_max_ms", "_total_ms"))},
+                       "rows": len(r["stream"]),
+                       "digest": _digest(r["stream"])}
+        out["cuda_initialized"] = torch.cuda.is_initialized()
+        results.put(out)
+    except BaseException as e:  # reported by the parent
+        results.put({"error": repr(e)})
+        raise
+
+
+def actor_tick():
+    """One CPU actor in a spawn child pinned to the CPU, inline and
+    pipelined, on native and numpy Pong: the StepTimer's phases in ms a
+    tick, and the inline and pipelined transition streams identical."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    child = ctx.Process(target=_actor_tick_child,
+                        args=(results, os.path.join(RUN_DIR, "actor_tick")))
+    child.start()
+    try:
+        out = results.get(timeout=400)
+    finally:
+        child.join(60)
+        if child.is_alive():
+            child.terminate()
+            child.join(5)
+    if "error" in out:
+        raise AssertionError(f"actor_tick child: {out['error']}")
+    runs = out["runs"]
+    for env in ("native", "numpy"):
+        a, b = runs[f"{env}_inline"], runs[f"{env}_pipelined"]
+        if a["digest"] != b["digest"] or a["rows"] != b["rows"] or \
+                not a["rows"]:
+            raise AssertionError(f"{env}: the pipelined stream differs from "
+                                 f"the inline one ({a['rows']} and "
+                                 f"{b['rows']} rows)")
+    if out["cuda_initialized"]:
+        raise AssertionError("the actor child initialised CUDA")
+    return dict(out, ticks=ACTOR_TICKS, envs=NATIVE_ENVS,
+                streams="inline == pipelined (sha256 of every row)")
+
+
+GPU_SWAP_TICK = 100
+
+
+def actor_gpu():
+    """One actor inferring on the card in this thread, as the thread
+    backend runs it, inline and pipelined over the same ticks, with a
+    second snapshot published at ``GPU_SWAP_TICK``: the two transition
+    streams must be identical and both must have swapped the second
+    weights in."""
+    from pytorch_distributed_tpu_torch.agents.actor import bounded_actor_run
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    runs = {}
+    for backend in ("inline", "pipelined"):
+        r = bounded_actor_run(build_options(
+            12, device="cuda", num_actors=2, num_envs_per_actor=NATIVE_ENVS,
+            actor_backend=backend, actor_freq=10 ** 9,
+            root_dir=os.path.join(RUN_DIR, "actor_gpu"), refs=backend),
+            ACTOR_TICKS, publish_at=GPU_SWAP_TICK)
+        t = r["timer_ms"]
+        runs[backend] = {
+            "frames_per_sec": r["env_steps"] / r["seconds"],
+            "version": r["version"],
+            "param_swaps": t.get("actor/time_param_swap_calls", 0.0),
+            "phases_ms": {k[len("actor/time_"):-3]: v for k, v in t.items()
+                          if k.endswith("_ms") and not
+                          k.endswith(("_max_ms", "_total_ms"))},
+            "rows": len(r["stream"]), "digest": _digest(r["stream"])}
+    a, b = runs["inline"], runs["pipelined"]
+    if a["digest"] != b["digest"] or a["rows"] != b["rows"] or not a["rows"]:
+        raise AssertionError(f"on the card the pipelined stream differs from "
+                             f"the inline one ({a['rows']} and {b['rows']} "
+                             f"rows)")
+    if a["version"] != 2 or b["version"] != 2 or not b["param_swaps"]:
+        raise AssertionError(f"the second snapshot was not swapped in: {runs}")
+    return {"runs": runs, "ticks": ACTOR_TICKS, "envs": NATIVE_ENVS,
+            "published_at_tick": GPU_SWAP_TICK,
+            "streams": "inline == pipelined (sha256 of every row)"}
+
+
+def staged_drain():
+    """The same rows into two rings on the card: the blocking path (a
+    stacked chunk per drain, ``feed_chunk`` from pageable memory) and the
+    staged path (the ingest queue, ``drain``: pinned slabs, non-blocking
+    copies); drains under and over one slab, across the wrap.  The rings
+    must be equal to the bit."""
+    from pytorch_distributed_tpu_torch.memory.device_per import (
+        DevicePerReplay,
+    )
+    from pytorch_distributed_tpu_torch.memory.device_replay import (
+        STAGE_ROWS, STAGE_SLABS, DevicePerIngest,
+    )
+    from pytorch_distributed_tpu_torch.utils.experience import (
+        REPLAY_FIELDS, Transition,
+    )
+
+    capacity, drains = 2048, (100, 1300, 900, 700)
+    rng = np.random.default_rng(8)
+    blocking = DevicePerReplay(capacity, FRAME, device=DEV)
+    ingest = DevicePerIngest(capacity, FRAME, in_process=True)
+    staged = ingest.attach(DEV)
+    feeder = ingest.make_feeder()
+    secs = {"blocking": 0.0, "staged": 0.0}
+    for n in drains:
+        rows = [Transition(
+            state0=rng.integers(0, 255, FRAME, dtype=np.uint8),
+            action=np.asarray(rng.integers(0, ACTIONS)),
+            reward=np.float32(rng.normal()),
+            gamma_n=np.float32(0.99 ** rng.integers(1, 6)),
+            state1=rng.integers(0, 255, FRAME, dtype=np.uint8),
+            terminal1=np.float32(rng.random() < 0.1)) for _ in range(n)]
+        for t in rows:
+            feeder.feed(t)
+        feeder.flush()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk = Transition(*(np.stack([np.asarray(
+            getattr(r, f), np.int32 if f == "action" else None)
+            for r in rows]) for f in REPLAY_FIELDS))
+        blocking.feed_chunk(chunk)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if ingest.drain() != n:
+            raise AssertionError("the drain did not take every row")
+        torch.cuda.synchronize()
+        secs["blocking"] += t1 - t0
+        secs["staged"] += time.perf_counter() - t1
+    torch.cuda.synchronize()
+    for f in (*REPLAY_FIELDS, "priority", "max_priority", "fill_rows"):
+        if not torch.equal(getattr(blocking.state, f),
+                           getattr(staged.state, f)):
+            raise AssertionError(f"staged ring differs in {f}")
+    if (blocking.state.pos, blocking.state.fill) != (staged.state.pos,
+                                                     staged.state.fill):
+        raise AssertionError("cursors differ")
+    rows = sum(drains)
+    return {"capacity": capacity, "drains": drains, "slab_rows": STAGE_ROWS,
+            "slabs": STAGE_SLABS, "pinned": ingest._staging.pinned,
+            "wrapped": rows > capacity, "rings": "bit-equal",
+            "us_per_row": {k: v / rows * 1e6 for k, v in secs.items()}}
+
+
+def _profile_window(clock, start_step: int, stop_step: int) -> dict:
+    """Trace the device with ``torch.profiler`` while the learner goes
+    from ``start_step`` to ``stop_step``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    while clock.learner_step.value < start_step:
+        if clock.stop.is_set():
+            return {}
+        time.sleep(0.002)
+    out = {}
+    # CUDA activity only: tracing the host's ops slows the learner's loop
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0, s0 = time.perf_counter(), clock.learner_step.value
+        while clock.learner_step.value < stop_step \
+                and not clock.stop.is_set():
+            time.sleep(0.002)
+        out["window_s"] = time.perf_counter() - t0
+        out["updates"] = clock.learner_step.value - s0
+    out["trace"] = os.path.join(RUN_DIR, "process_trace.json")
+    prof.export_chrome_trace(out["trace"])
+    out["top_kernels_ms"] = sorted(
+        ((e.key[:60], e.self_device_time_total / 1e3)
+         for e in prof.key_averages() if e.self_device_time_total > 0),
+        key=lambda kv: -kv[1])[:8]
+    return out
+
+
+def _busy_us(trace_path: str) -> tuple:
+    """The union of the device's kernel, copy and set intervals in a
+    chrome trace, in us, and their count."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, len(spans)
+
+
+def process_trace():
+    """The unpaced process-backend run of ``train_process`` again, with the
+    device traced by ``torch.profiler`` while the learner takes updates 600
+    to 1,100: the device's idle share in that window as traced (the
+    union of its kernels and copies against the window's wall time), its
+    busy time per update, the window's updates/s beside the unprofiled
+    run's, and, as an estimate, the idle share that busy time would leave
+    at the unprofiled rate."""
+    import threading
+
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch import runtime
+
+    opt = port_main.options_from_args(port_main.parse_args(
+        _e2e_argv("process", "process_trace")))
+    topology = runtime.Topology(opt, backend="process")
+    ran: dict = {}
+
+    def run():
+        try:
+            ran["summary"] = topology.run()
+        except BaseException as e:  # raised below, in this thread
+            ran["error"] = e
+            topology.clock.stop.set()
+
+    # the learner on a thread of its own, the profiler on this one
+    learner = threading.Thread(target=run, name="process-trace-run")
+    learner.start()
+    try:
+        window = _profile_window(topology.clock, 600, 1100)
+    finally:
+        learner.join()
+    if "error" in ran:
+        raise ran["error"]
+    summary = ran["summary"]
+    if "trace" not in window:
+        raise AssertionError(f"no trace window: {window}")
+    busy_us, spans = _busy_us(window["trace"])
+    if not spans:
+        raise AssertionError("the trace holds no device activity")
+    busy = busy_us / (window["window_s"] * 1e6)
+    busy_ms = busy_us / 1e3 / window["updates"]
+    rate = RESULTS.get("e2e_process", {}).get("updates_per_sec")
+    return {"window_s": window["window_s"], "updates": window["updates"],
+            "window_updates_per_sec": window["updates"] / window["window_s"],
+            "device_spans": spans, "device_busy_ms_per_update": busy_ms,
+            "device_idle_share_traced": 1.0 - busy,
+            "unprofiled_updates_per_sec": rate,
+            # not traced: the window's busy ms per update at the rate of
+            # train_process, which ran without the profiler
+            "device_idle_share_estimate_at_unprofiled_rate":
+                None if rate is None else 1.0 - busy_ms * rate / 1e3,
+            "top_kernels_ms": window["top_kernels_ms"],
+            "children_with_cuda": summary["runtime/children_with_cuda"]}
+
+
+def train_paced():
+    """The process backend with the reference's config-12 pacing
+    (``max_replay_ratio`` 8, ``learn_start`` 5,000): the rate users feel,
+    set by the actors' frames."""
+    out, summary = _train_through_main("process", "paced",
+                                       "max_replay_ratio=8",
+                                       "learn_start=5000")
+    if summary["runtime/children_with_cuda"] != 0:
+        raise AssertionError("a child made a CUDA context")
+    return dict(out, pacing_s=summary["learner/host_s_pacing"],
+                pacing_share=summary["learner/host_s_pacing"]
+                / out["train_seconds"],
+                children_with_cuda=summary["runtime/children_with_cuda"])
+
+
 KERNELS = (
     ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
      "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
@@ -808,7 +1214,8 @@ def main() -> int:
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     for fn in (build, per_sample, torso_gemm, torso_apply, learner_alone,
-               train, train_process, test_mode):
+               native_pong, actor_tick, actor_gpu, staged_drain, train,
+               train_process, test_mode, process_trace, train_paced):
         if fn is not build and "build" in FAILED:
             break
         phase(fn)

@@ -1,52 +1,73 @@
-"""Actor workers: epsilon-greedy experience collection — the port of the
-inline loop of pytorch_distributed_tpu/agents/actor.py (``_ActorHarness``,
-``_LocalDqnEngine`` :415, ``_drive_actor_loop`` :524, ``run_dqn_actor``
-:748).
+"""Actor workers: epsilon-greedy experience collection — the port of
+pytorch_distributed_tpu/agents/actor.py for the dqn family: the harness
+(``_ActorHarness`` :120-390: ``tick_sync``, ``advance``, the stat and
+timer cadences), the local act engine (``_LocalDqnEngine`` :415-437), the
+loop (``_drive_actor_loop`` :524-590), ``run_dqn_actor`` (:748) and
+``bounded_actor_run`` (:828).
 
-Each actor steps ``num_envs_per_actor`` Pong simulators as one vector,
-runs ONE batched forward per tick, assembles n-step transitions per env
-and feeds them to the ingest queue.  Exploration follows Ape-X over the
-whole fleet: env j of actor i takes slot i*N + j.  The weights are the
-learner's newest published vector (agents/param_store.py), fetched every
-``actor_sync_freq`` env steps and unflattened into tensors.  Per-tick
-randomness (explore uniforms and random actions) comes from the actor's
-own ``torch.Generator``, seeded from ``--seed`` and the actor index, so
-both backends draw the same streams.
+Each actor steps ``num_envs_per_actor`` Pong games as one vector (the C++
+stepper unless ``native_env`` is false), runs ONE batched forward per
+tick, assembles n-step transitions per env and feeds them to the ingest
+queue.  Exploration follows Ape-X over the whole fleet: env j of actor i
+takes slot i*N + j.  The weights are the learner's newest published
+vector (agents/param_store.py): a ``ParamPrefetcher`` thread fetches and
+unflattens it, and every ``actor_sync_freq`` env steps the tick swaps in
+what the thread finished.  Per-tick randomness (explore uniforms and
+random actions) is drawn from the actor's own ``torch.Generator``, seeded
+from ``--seed`` and the actor index, when the tick's forward is submitted,
+in tick order; so every schedule and backend draws the same streams.
 
 Where an actor infers: a child process of the process backend on the CPU,
 as the reference pins every child there (runtime.py:53-70; its actors
 call ``pin_to_cpu``, actor.py:425), so only the learner's process holds a
 CUDA context.  A thread of the thread backend infers on the run's device;
-on a GPU each runs on a high-priority CUDA stream of its own, so its
-per-tick copy of the actions back to the host waits for its own forward
-and not for the learner's queued updates.
+on a GPU each runs on a high-priority CUDA stream of its own, so waiting
+for its actions waits for its own forward and not for the learner's
+queued updates.
 
-Backends: ``inline`` runs this loop; ``pipelined`` (the default) runs the
-same loop, as the reference pins both to one action stream
-(tests/test_actor_pipeline.py there); ``batched``, ``device`` and
-``anakin`` are not ported yet.
+Schedules (``actor_backend``):
+
+- ``inline``: act(k) . env(k) . tick_sync . feed(k);
+- ``pipelined`` (the default): act(k) was dispatched before feed(k-1);
+  sync(k) . env(k) . tick_sync . dispatch act(k+1) . feed(k).  On the CPU
+  the forward runs on a one-thread executor (torch's kernels and the
+  stepper's C call both release the GIL, so the forward and the env step
+  overlap); on a GPU it is enqueued on the actor's stream, its actions come
+  back by a non-blocking copy into pinned memory, and an event marks the
+  copy.
+
+Both schedules submit and collect once per tick and swap weights at the
+same point (after the env step, before the next dispatch), so their
+transition streams are identical (tests/test_torch_actor_pipeline.py).
+``batched``, ``device`` and ``anakin`` are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import threading
+import time
+import types
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.agents.clocks import ActorStats, GlobalClock
 from pytorch_distributed_tpu_torch.agents.param_store import (
-    ParamStore, make_flattener,
+    ParamPrefetcher, ParamStore, make_flattener,
 )
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
-    EnvSpec, build_env_vector, build_model, module_apply, resolve_device,
-    role_seed,
+    EnvSpec, build_env_vector, build_model, init_params, module_apply,
+    probe_env, resolve_device, role_seed,
 )
 from pytorch_distributed_tpu_torch.models.policies import (
     apex_epsilons, epsilon_greedy_act,
 )
 from pytorch_distributed_tpu_torch.ops.nstep import NStepAssembler
+from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
+from pytorch_distributed_tpu_torch.utils.profiling import StepTimer
 
 _NOT_PORTED_BACKENDS = {
     "batched": "the shared inference server (ROADMAP.md, Queue A, "
@@ -69,88 +90,324 @@ def resolve_actor_backend(opt: Options) -> str:
     return backend
 
 
+class _DqnEngine:
+    """The tick's fused epsilon-greedy forward as ``submit(params, obs)``,
+    which dispatches it and draws the tick's randomness, and
+    ``collect(pending)``, which returns the actions as a new numpy array.
+    One engine serves both schedules."""
+
+    def __init__(self, apply_fn, eps: np.ndarray, gen: torch.Generator,
+                 num_actions: int, obs_shape, device: torch.device, stream,
+                 pipelined: bool):
+        n = len(eps)
+        self._apply = apply_fn
+        self._gen = gen
+        self._n, self._num_actions = n, num_actions
+        self._eps = torch.as_tensor(eps, device=device)
+        self._device, self._stream = device, stream
+        self._pool = None
+        if device.type == "cuda":
+            # pinned staging both ways: the copies are enqueued on the
+            # actor's stream and the host waits only in collect.  One set
+            # suffices: collect(k) has waited for tick k's copies before
+            # submit(k+1) refills them
+            self._obs = torch.empty((n, *obs_shape), dtype=torch.uint8,
+                                    pin_memory=True)
+            self._u = torch.empty(n, pin_memory=True)
+            self._a = torch.empty(n, dtype=torch.int64, pin_memory=True)
+            self._actions = torch.empty(n, dtype=torch.int64,
+                                        pin_memory=True)
+            self._done = torch.cuda.Event()
+        elif pipelined:
+            self._pool = ThreadPoolExecutor(1, thread_name_prefix="act")
+
+    def _act_cpu(self, params, obs: np.ndarray, u, a) -> np.ndarray:
+        action, _q_sel, _q_max = epsilon_greedy_act(
+            self._apply, params, torch.from_numpy(obs), self._eps, u, a)
+        return action.numpy()
+
+    def submit(self, params, obs: np.ndarray):
+        u = torch.rand(self._n, generator=self._gen)
+        a = torch.randint(self._num_actions, (self._n,), generator=self._gen)
+        if self._device.type == "cuda":
+            self._obs.numpy()[...] = obs
+            self._u.copy_(u)
+            self._a.copy_(a)
+            dev = self._device
+            with torch.cuda.stream(self._stream):
+                action, _q_sel, _q_max = epsilon_greedy_act(
+                    self._apply, params,
+                    self._obs.to(dev, non_blocking=True), self._eps,
+                    self._u.to(dev, non_blocking=True),
+                    self._a.to(dev, non_blocking=True))
+                self._actions.copy_(action, non_blocking=True)
+                self._done.record(self._stream)
+            return self._done
+        if self._pool is not None:
+            return self._pool.submit(self._act_cpu, params, obs, u, a)
+        return self._act_cpu(params, obs, u, a)
+
+    def collect(self, pending) -> np.ndarray:
+        if self._device.type == "cuda":
+            pending.synchronize()
+            return self._actions.numpy().copy()
+        if self._pool is not None:
+            return pending.result()
+        return pending
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+
+
+class DqnActor:
+    """One actor's state: its env vector, assemblers, weights, stat and
+    timer cadences (reference ``_ActorHarness``)."""
+
+    def __init__(self, opt: Options, spec: EnvSpec, process_ind: int,
+                 memory: Any, param_store: ParamStore, clock: GlobalClock,
+                 stats: ActorStats):
+        self.backend = resolve_actor_backend(opt)
+        self.ap = opt.agent_params
+        self.memory, self.clock, self.stats = memory, clock, stats
+        device = resolve_device(opt)
+        n = self.num_envs = max(1, opt.env_params.num_envs_per_actor)
+        self.env = build_env_vector(opt, process_ind, n)
+        # the module gives the forward its structure; the weights are
+        # always the published vector's
+        model = build_model(opt, spec)
+        _flat0, unflatten = make_flattener(model.state_dict(),
+                                           spec.state_shape)
+        stream = (torch.cuda.Stream(device, priority=-1)
+                  if device.type == "cuda" else None)
+
+        def load(flat):
+            if device.type == "cpu":
+                return unflatten(flat)
+            return {k: v.pin_memory().to(device, non_blocking=True)
+                    for k, v in unflatten(flat).items()}
+
+        memory.set_stop(clock.stop)
+        flat, self.version = param_store.wait(0, stop=clock.stop)
+        with torch.cuda.stream(stream):  # a no-op for None
+            self.params = load(flat)
+        if stream is not None:
+            stream.synchronize()
+        self._prefetch = ParamPrefetcher(param_store, load,
+                                         start_version=self.version,
+                                         stream=stream)
+        self.engine = _DqnEngine(
+            module_apply(model),
+            apex_epsilons(process_ind, opt.num_actors, n, self.ap.eps,
+                          self.ap.eps_alpha),
+            torch.Generator().manual_seed(role_seed(opt.seed, "actor",
+                                                    process_ind)),
+            spec.num_actions, spec.state_shape, device, stream,
+            pipelined=self.backend == "pipelined")
+        self.assemblers = [NStepAssembler(self.ap.nstep, self.ap.gamma)
+                           for _ in range(n)]
+        self.episode_reward = np.zeros(n)
+        self.episode_steps = np.zeros(n, dtype=np.int64)
+        self._acc = dict.fromkeys(ActorStats.FIELDS, 0.0)
+        self.env_steps = 0
+        self._next_sync = self.ap.actor_sync_freq
+        self._next_flush = self.ap.actor_freq
+        self.timer = StepTimer("actor")
+        self._writer = MetricsWriter(opt.log_dir, role=f"actor-{process_ind}",
+                                     run_id=opt.refs)
+        self._obs: Optional[np.ndarray] = None
+
+    def tick_sync(self) -> None:
+        """Once per tick, after the env step and before the next dispatch:
+        count the steps and, on the sync cadence, swap in the prefetched
+        weights (timed as ``param_swap``)."""
+        n = self.num_envs
+        self.env_steps += n
+        self.clock.add_actor_steps(n)
+        self._acc["total_nframes"] += n
+        if self.env_steps >= self._next_sync:
+            self._next_sync += self.ap.actor_sync_freq
+            t0 = time.perf_counter()
+            got = self._prefetch.take()
+            if got is not None:
+                self.params, self.version = got
+                self.timer.add("param_swap", time.perf_counter() - t0)
+
+    def advance(self, actions, next_obs, rewards, terminals, infos) -> None:
+        """Feed the assemblers and the ingest queue with one tick, and run
+        the stat and timer cadence."""
+        for j in range(self.num_envs):
+            true_next = infos[j].get("final_obs", next_obs[j])
+            for t in self.assemblers[j].feed(
+                    self._obs[j], actions[j], float(rewards[j]), true_next,
+                    bool(terminals[j]),
+                    truncated=bool(infos[j].get("truncated", False))):
+                self.memory.feed(t)
+            self.episode_reward[j] += float(rewards[j])
+            self.episode_steps[j] += 1
+            if terminals[j]:  # reference actor.py:292-299
+                self._acc["nepisodes"] += 1
+                self._acc["nepisodes_solved"] += float(bool(infos[j].get(
+                    "solved", self.episode_reward[j] > 0)))
+                self._acc["total_steps"] += float(self.episode_steps[j])
+                self._acc["total_reward"] += self.episode_reward[j]
+                self.episode_reward[j] = 0.0
+                self.episode_steps[j] = 0
+        self._obs = next_obs
+        if self.env_steps >= self._next_flush:
+            self._next_flush += self.ap.actor_freq
+            self._flush_stats()
+            self._writer.scalars(self.timer.drain(),
+                                 step=self.clock.learner_step.value)
+            self.memory.flush()
+
+    def _flush_stats(self) -> None:
+        if any(self._acc.values()):
+            self.stats.add(**self._acc)
+            self._acc = dict.fromkeys(ActorStats.FIELDS, 0.0)
+
+    def run(self) -> int:
+        """Collect experience until the clock ends the run (reference
+        ``_drive_actor_loop``).  The serial loop books ``act``; the
+        pipelined loop books ``dispatch`` and ``sync``, and their sum as
+        ``act``.  Returns the env steps taken."""
+        timer, engine = self.timer, self.engine
+        pipelined = self.backend == "pipelined"
+        self._obs = self.env.reset()
+        try:
+            pending = None
+            if pipelined:
+                t0 = time.perf_counter()
+                pending = engine.submit(self.params, self._obs)
+                timer.add("dispatch", time.perf_counter() - t0)
+            t_sync = 0.0
+            while not self.clock.done(self.ap.steps):
+                t0 = time.perf_counter()
+                if pipelined:
+                    actions = engine.collect(pending)
+                    t_sync = time.perf_counter() - t0
+                    timer.add("sync", t_sync)
+                else:
+                    actions = engine.collect(engine.submit(self.params,
+                                                           self._obs))
+                    timer.add("act", time.perf_counter() - t0)
+                with timer.phase("env"):
+                    next_obs, rewards, terminals, infos = \
+                        self.env.step(actions)
+                self.tick_sync()
+                if pipelined:
+                    t0 = time.perf_counter()
+                    pending = engine.submit(self.params, next_obs)
+                    t_disp = time.perf_counter() - t0
+                    timer.add("dispatch", t_disp)
+                    timer.add("act", t_sync + t_disp)
+                with timer.phase("advance"):
+                    self.advance(actions, next_obs, rewards, terminals,
+                                 infos)
+            if pipelined:  # the last dispatch is never fed
+                engine.collect(pending)
+        finally:
+            self.shutdown()
+        return self.env_steps
+
+    def shutdown(self) -> None:
+        self._prefetch.close()
+        self.engine.close()
+        self._flush_stats()
+        self.memory.flush()
+        self.memory.close()
+        self._writer.close()
+
+
 def run_dqn_actor(opt: Options, spec: EnvSpec, process_ind: int,
                   memory: Any, param_store: ParamStore, clock: GlobalClock,
                   stats: ActorStats) -> int:
     """Collect experience until the learner clock ends the run.  Returns
     the env steps this actor took."""
-    backend = resolve_actor_backend(opt)
-    if backend == "pipelined" and process_ind == 0:
-        print("[actor] actor_backend=pipelined runs the inline loop in this "
-              "port (same action stream)", flush=True)
-    ap = opt.agent_params
-    device = resolve_device(opt)
-    n = max(1, opt.env_params.num_envs_per_actor)
-    env = build_env_vector(opt, process_ind, n)
-    # the module gives the forward its structure; the weights are always
-    # the published vector's
-    model = build_model(opt, spec)
-    apply_fn = module_apply(model)
-    _flat0, unflatten = make_flattener(model.state_dict(), spec.state_shape)
+    return DqnActor(opt, spec, process_ind, memory, param_store, clock,
+                    stats).run()
 
-    eps = torch.as_tensor(apex_epsilons(process_ind, opt.num_actors, n,
-                                        ap.eps, ap.eps_alpha), device=device)
-    gen = torch.Generator().manual_seed(role_seed(opt.seed, "actor",
-                                                  process_ind))
-    stream = (torch.cuda.Stream(device, priority=-1)
-              if device.type == "cuda" else None)
 
-    def load(flat):
-        with torch.cuda.stream(stream):  # a no-op for None
-            return {k: v.to(device) for k, v in unflatten(flat).items()}
+class RecordingSink:
+    """A feeder that keeps every transition it is fed, for bounded runs."""
 
-    memory.set_stop(clock.stop)
-    flat, version = param_store.wait(0, stop=clock.stop)
-    params = load(flat)
-    assemblers = [NStepAssembler(ap.nstep, ap.gamma) for _ in range(n)]
-    episode_reward = np.zeros(n)
-    episode_steps = np.zeros(n, dtype=np.int64)
-    acc = dict.fromkeys(ActorStats.FIELDS, 0.0)
-    env_steps, next_sync, next_flush = 0, ap.actor_sync_freq, ap.actor_freq
+    def __init__(self):
+        self.items: List[Any] = []
 
-    obs = env.reset()
-    while not clock.done(ap.steps):
-        explore_u = torch.rand(n, generator=gen)
-        random_a = torch.randint(spec.num_actions, (n,), generator=gen)
-        with torch.cuda.stream(stream):  # a no-op for None
-            action, _q_sel, _q_max = epsilon_greedy_act(
-                apply_fn, params, torch.from_numpy(obs).to(device), eps,
-                explore_u.to(device), random_a.to(device))
-            actions = action.cpu().numpy()
-        next_obs, rewards, terminals, infos = env.step(actions)
-        env_steps += n
-        clock.add_actor_steps(n)
-        acc["total_nframes"] += n
-        if env_steps >= next_sync:
-            next_sync += ap.actor_sync_freq
-            got = param_store.fetch(version)
-            if got is not None:
-                flat, version = got
-                params = load(flat)
-        for j in range(n):
-            true_next = infos[j].get("final_obs", next_obs[j])
-            for t in assemblers[j].feed(
-                    obs[j], actions[j], float(rewards[j]), true_next,
-                    bool(terminals[j]),
-                    truncated=bool(infos[j].get("truncated", False))):
-                memory.feed(t)
-            episode_reward[j] += float(rewards[j])
-            episode_steps[j] += 1
-            if terminals[j]:  # reference actor.py:292-299
-                acc["nepisodes"] += 1
-                acc["nepisodes_solved"] += float(bool(infos[j].get(
-                    "solved", episode_reward[j] > 0)))
-                acc["total_steps"] += float(episode_steps[j])
-                acc["total_reward"] += episode_reward[j]
-                episode_reward[j] = 0.0
-                episode_steps[j] = 0
-        obs = next_obs
-        if env_steps >= next_flush:
-            next_flush += ap.actor_freq
-            stats.add(**acc)
-            acc = dict.fromkeys(ActorStats.FIELDS, 0.0)
-            memory.flush()
-    stats.add(**acc)
-    memory.flush()
-    memory.close()
-    return env_steps
+    def set_stop(self, event) -> None:
+        pass
+
+    def feed(self, transition) -> None:
+        self.items.append(transition)
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class _BoundedClock:
+    """Quacks like ``GlobalClock``; ends the loop after ``ticks`` ticks
+    instead of at a learner step, and calls ``on_tick(k)``, if set, as
+    tick k starts."""
+
+    def __init__(self, ticks: int):
+        self._ticks = self._left = ticks
+        self.on_tick = None
+        self.stop = threading.Event()
+        self.learner_step = types.SimpleNamespace(value=0)
+
+    def done(self, steps: int) -> bool:
+        if self._left <= 0:
+            return True
+        if self.on_tick is not None:
+            self.on_tick(self._ticks - self._left)
+        self._left -= 1
+        return False
+
+    def add_actor_steps(self, n: int = 1) -> int:
+        return n
+
+
+def bounded_actor_run(opt: Options, ticks: int, spec: EnvSpec = None,
+                      process_ind: int = 0, param_seed: int = 0,
+                      publish_at: Optional[int] = None) -> dict:
+    """Run ONE actor in this thread for exactly ``ticks`` ticks against
+    one published snapshot (``init_params(seed=param_seed)``) and a
+    ``RecordingSink``: the harness of the schedule-equivalence tests and
+    of ``chip_smoke.py``'s ``actor_tick``.  With ``publish_at``, a second
+    snapshot (``seed=param_seed + 1``) is published as that tick starts,
+    and the tick waits until the actor's prefetcher has loaded it, so the
+    actor swaps it in at its next sync point whatever the schedule.
+    Returns ``{"stream": the transitions fed, "timer_ms": the StepTimer's
+    drain over the run, "env_steps", "version": the weights' version at
+    the end, "seconds"}``; set ``actor_freq`` above ``ticks * num_envs``
+    to keep the timer whole."""
+    spec = spec if spec is not None else probe_env(opt)
+    flats = [make_flattener(init_params(opt, spec, seed=param_seed + i),
+                            spec.state_shape)[0]
+             for i in range(1 + (publish_at is not None))]
+    store = ParamStore(flats[0].size)
+    store.publish(flats[0])
+    sink = RecordingSink()
+    clock = _BoundedClock(ticks)
+    actor = DqnActor(opt, spec, process_ind, sink, store, clock,
+                     ActorStats())
+
+    def publish(k: int) -> None:
+        if k == publish_at:
+            version = store.publish(flats[1])
+            deadline = time.monotonic() + 60.0
+            while actor._prefetch.version < version:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("the prefetcher did not load the "
+                                       "second snapshot")
+                time.sleep(0.001)
+
+    clock.on_tick = publish
+    t0 = time.perf_counter()
+    env_steps = actor.run()
+    return {"stream": sink.items,
+            "timer_ms": actor.timer.drain(), "env_steps": env_steps,
+            "version": actor.version, "seconds": time.perf_counter() - t0}

@@ -1,11 +1,13 @@
 """Versioned parameter publication — the port of
 pytorch_distributed_tpu/agents/param_store.py (``ParamStore`` :35-102,
-``make_flattener`` :209).
+``ParamPrefetcher`` :104-206, ``make_flattener`` :209).
 
 The learner writes its parameters as one flat fp32 vector into a shared
 array of the spawn context, under a lock, and bumps a version counter: one
-coherent snapshot per publish.  Actors and the evaluator poll
-``fetch(min_version)`` on their cadence and unflatten into CPU tensors.
+coherent snapshot per publish.  The evaluator polls ``fetch(min_version)``
+on its cadence and unflattens into CPU tensors; an actor's
+``ParamPrefetcher`` does the fetch and the unflatten on a thread of its
+own, and the actor's tick only swaps in what it finished.
 The thread backend uses the same store, so both backends publish one
 format.
 
@@ -22,9 +24,10 @@ from __future__ import annotations
 
 import ctypes
 import multiprocessing as mp
+import sys
 import threading
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +86,100 @@ class ParamStore:
             if time.monotonic() > deadline:
                 raise TimeoutError(f"no params published within {timeout}s")
             time.sleep(poll)
+
+
+class ParamPrefetcher:
+    """The actors' weight refresh off their tick (reference :104-206).
+
+    A thread polls the store's version every ``poll_secs``; when a newer
+    snapshot is there it fetches it and runs ``unravel_fn`` on it, and
+    parks the result for ``take()``, which swaps it out under a lock.
+    After a refresh the thread rests ``refresh_secs``, so a learner that
+    publishes several times a second does not keep a core unflattening
+    snapshots the tick would drop.
+
+    ``stream``: the CUDA stream the consumer computes on, for an actor
+    that infers on a GPU.  ``unravel_fn`` then runs on a stream of the
+    prefetcher's own (it does the host-to-device copies there) and an
+    event follows it; ``take()`` makes ``stream`` wait on that event and
+    marks every tensor as used on ``stream``, so the caching allocator
+    reuses none of them before the consumer's work on them is done.
+
+    A failing refresh is printed once and retried; the consumer keeps the
+    version it last took."""
+
+    def __init__(self, store: ParamStore, unravel_fn: Callable,
+                 start_version: int = 0, poll_secs: float = 0.1,
+                 refresh_secs: float = 0.5, stream=None):
+        self._store = store
+        self._unravel_fn = unravel_fn
+        self._version = start_version
+        self._poll_secs = poll_secs
+        self._refresh_secs = refresh_secs
+        self._consumer = stream
+        self._stream = (torch.cuda.Stream(stream.device)
+                        if stream is not None else None)
+        self.failures = 0
+        self._ready: Optional[Tuple[Any, int, Any]] = None
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run,
+                                        name="param-prefetch", daemon=True)
+        self._thread.start()
+
+    def _load(self, flat: np.ndarray) -> Tuple[Any, Any]:
+        if self._stream is None:
+            return self._unravel_fn(flat), None
+        with torch.cuda.stream(self._stream):
+            tree = self._unravel_fn(flat)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return tree, done
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            wait = self._poll_secs
+            try:
+                got = (self._store.fetch(self._version)
+                       if self._store.version > self._version else None)
+                if got is not None:
+                    flat, version = got
+                    tree, done = self._load(flat)
+                    with self._lock:
+                        self._ready = (tree, version, done)
+                        self._version = version
+                    wait = max(self._poll_secs, self._refresh_secs)
+            except Exception as e:  # noqa: BLE001 - the actor keeps acting
+                self.failures += 1
+                if self.failures == 1:
+                    print(f"[param-prefetch] weight refresh failing ({e!r});"
+                          f" the actor continues on version "
+                          f"{self._version} and the refresh is retried",
+                          file=sys.stderr, flush=True)
+            self._stop.wait(wait)
+
+    @property
+    def version(self) -> int:
+        """The newest version the thread has loaded (taken or not)."""
+        return self._version
+
+    def take(self) -> Optional[Tuple[Any, int]]:
+        """The newest prefetched ``(params, version)``, or None — the only
+        call on the consumer's tick."""
+        with self._lock:
+            got, self._ready = self._ready, None
+        if got is None:
+            return None
+        tree, version, done = got
+        if done is not None:
+            self._consumer.wait_event(done)
+            for t in tree.values():
+                t.record_stream(self._consumer)
+        return tree, version
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5.0)
 
 
 def num_params(params: Params) -> int:

@@ -66,9 +66,14 @@ class EnvParams:
     early_stop: int = 12500
     action_repetition: int = 4
     num_envs_per_actor: int = 1
-    # "pipelined" (default) and "inline" run the same inline loop here;
-    # "batched", "device" and "anakin" are not ported yet (ROADMAP.md)
+    # "pipelined" (default) dispatches tick k+1's forward before it feeds
+    # tick k; "inline" runs act, env step and feed in turn; both give the
+    # same transitions.  "batched", "device" and "anakin" are not ported
+    # yet (ROADMAP.md)
     actor_backend: str = "pipelined"
+    # pong-sim actors step their envs through the C++ batched stepper
+    # (native/pong_batch.cpp, built with g++); false: the numpy simulators
+    native_env: bool = True
 
     @property
     def state_shape(self) -> Tuple[int, ...]:

@@ -1,5 +1,6 @@
 """Builders shared by the port's workers — the port of
 pytorch_distributed_tpu/factory.py: the env probe and ``EnvSpec`` (:239),
+the actors' env vector and the stepper's prebuild (:280-353),
 the dqn branch of ``build_train_state_and_step`` (:636-647), the learner's
 train apply gate ``_dqn_train_apply`` (:674-723) and the device-PER branch
 of ``build_memory`` (:887).
@@ -20,6 +21,9 @@ import torch
 from torch.func import functional_call
 
 from pytorch_distributed_tpu_torch.config import Options
+from pytorch_distributed_tpu_torch.envs.native_pong import (
+    NativePongVectorEnv,
+)
 from pytorch_distributed_tpu_torch.envs.pong_sim import PongSimEnv
 from pytorch_distributed_tpu_torch.envs.vector import VectorEnv
 from pytorch_distributed_tpu_torch.memory.device_replay import (
@@ -30,6 +34,7 @@ from pytorch_distributed_tpu_torch.ops.cuda_torso import build_torso_apply
 from pytorch_distributed_tpu_torch.ops.losses import (
     TrainState, build_dqn_train_step, init_train_state,
 )
+from pytorch_distributed_tpu_torch.utils.native_build import build_library
 
 ENVS = {"pong-sim": PongSimEnv}
 
@@ -86,11 +91,30 @@ def build_env(opt: Options, process_ind: int = 0):
     return ENVS[opt.env_type](opt.env_params, process_ind)
 
 
-def build_env_vector(opt: Options, process_ind: int,
-                     num_envs: int) -> VectorEnv:
-    """Env j of actor i takes the seed slot i*N + j (reference :291)."""
+def wants_native_pong(opt: Options) -> bool:
+    """One gate for the C++ stepper, shared by ``build_env_vector`` and
+    ``prebuild_native`` (reference ``_wants_native_pong`` :280)."""
+    return opt.env_type == "pong-sim" and opt.env_params.native_env
+
+
+def build_env_vector(opt: Options, process_ind: int, num_envs: int):
+    """The actors' N envs as one vector; env j of actor i takes the seed
+    slot i*N + j (reference :291-330).  Pong steps through the C++ stepper
+    unless ``native_env`` is false; a stepper that cannot be built raises
+    (``NativeBuildError``), where the reference warns and takes the numpy
+    simulators."""
+    if wants_native_pong(opt):
+        return NativePongVectorEnv(opt.env_params, process_ind, num_envs)
     return VectorEnv([build_env(opt, process_ind * num_envs + j)
                       for j in range(num_envs)])
+
+
+def prebuild_native(opt: Options) -> None:
+    """Build the stepper's library once, before any worker starts, so N
+    actors do not race one g++ (reference :333-353); raises if it cannot
+    be built."""
+    if wants_native_pong(opt):
+        build_library("pong_batch", timeout=600.0)
 
 
 def probe_env(opt: Options) -> EnvSpec:

@@ -48,9 +48,10 @@ class PerReplayState(ReplayState):
     fill_rows: Optional[torch.Tensor] = None     # () f32 copy of ``fill``
 
 
-def per_feed(state: PerReplayState, chunk: Transition, capacity: int) -> None:
+def per_feed(state: PerReplayState, chunk: Transition, capacity: int,
+             non_blocking: bool = False) -> None:
     """Ring write at the cursor; the new rows take the running max."""
-    for start, stop in ring_write(state, chunk, capacity):
+    for start, stop in ring_write(state, chunk, capacity, non_blocking):
         state.priority[start:stop] = state.max_priority
     state.fill_rows.fill_(float(state.fill))
 
@@ -125,8 +126,9 @@ class DevicePerReplay(DeviceReplay):
             fill_rows=torch.zeros((), dtype=torch.float32,
                                   device=self.device))
 
-    def feed_chunk(self, chunk: Transition) -> None:
-        per_feed(self.state, chunk, self.capacity)
+    def feed_chunk(self, chunk: Transition,
+                   non_blocking: bool = False) -> None:
+        per_feed(self.state, chunk, self.capacity, non_blocking)
 
     def beta(self, step: int) -> float:
         frac = min(1.0, step / max(1, self.beta_steps))

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.utils.experience import (
-    REPLAY_FIELDS, Transition, transition_dtypes,
+    REPLAY_FIELDS, Transition,
 )
 
 _CTX = mp.get_context("spawn")
@@ -47,13 +47,15 @@ class ReplayState:
     fill: int = 0            # valid rows
 
 
-def ring_write(state: ReplayState, chunk: Transition,
-               capacity: int) -> List[Tuple[int, int]]:
-    """Write a chunk (host numpy columns, ``n <= capacity`` rows) at the
-    cursor, in place: one host-to-device copy per column into the ring's
-    slice, or two where the chunk wraps.  Returns the written ``(start,
-    stop)`` spans so extended schemas (the PER ring) can set their per-row
-    fields at the same places."""
+def ring_write(state: ReplayState, chunk: Transition, capacity: int,
+               non_blocking: bool = False) -> List[Tuple[int, int]]:
+    """Write a chunk (host columns, numpy arrays or CPU tensors, ``n <=
+    capacity`` rows) at the cursor, in place: one host-to-device copy per
+    column into the ring's slice, or two where the chunk wraps, on the
+    current stream.  ``non_blocking`` for pinned columns, which the caller
+    must not overwrite before the copies are done.  Returns the written
+    ``(start, stop)`` spans so extended schemas (the PER ring) can set
+    their per-row fields at the same places."""
     n = int(np.shape(chunk.reward)[0])
     if not 0 < n <= capacity:
         raise ValueError(f"chunk of {n} rows for a ring of {capacity}")
@@ -63,10 +65,11 @@ def ring_write(state: ReplayState, chunk: Transition,
         spans.append((0, n - first))
     for f in REPLAY_FIELDS:
         col = getattr(state, f)
-        host = torch.as_tensor(np.asarray(getattr(chunk, f)))
-        col[spans[0][0]:spans[0][1]].copy_(host[:first])
+        host = torch.as_tensor(getattr(chunk, f))
+        col[spans[0][0]:spans[0][1]].copy_(host[:first],
+                                           non_blocking=non_blocking)
         if first < n:
-            col[:n - first].copy_(host[first:])
+            col[:n - first].copy_(host[first:], non_blocking=non_blocking)
     state.pos = (state.pos + n) % capacity
     state.fill = min(state.fill + n, capacity)
     return spans
@@ -95,8 +98,53 @@ class DeviceReplay:
     def _extend(self, columns: dict) -> ReplayState:
         return ReplayState(**columns)
 
-    def feed_chunk(self, chunk: Transition) -> None:
-        ring_write(self.state, chunk, self.capacity)
+    def feed_chunk(self, chunk: Transition,
+                   non_blocking: bool = False) -> None:
+        ring_write(self.state, chunk, self.capacity, non_blocking)
+
+
+class StagedWriter:
+    """The drain's host side (reference: the feed is an asynchronous
+    program enqueued behind the queued updates, memory/device_replay.py
+    :308).  Rows are stacked straight into one of ``slabs`` host slabs of
+    ``rows`` rows each (pinned for a ring on a GPU) and written to the
+    ring from there; a drain larger than a slab takes the slabs in turn.
+    On a GPU the copies are non-blocking on the current stream, so they
+    run in order after the update already queued there and before the
+    next one, and an event recorded after a slab's copies is waited on
+    before the slab is refilled: the only wait on the device in the
+    drain.  Pinned memory stays at ``slabs * rows`` rows whatever the
+    drain's size."""
+
+    def __init__(self, replay: "DeviceReplay", rows: int, slabs: int):
+        self.replay = replay
+        self.rows = max(1, min(rows, replay.capacity))
+        self.pinned = replay.device.type == "cuda"
+        st = replay.state
+        self._slabs = [{f: torch.empty((self.rows, *getattr(st, f).shape[1:]),
+                                       dtype=getattr(st, f).dtype,
+                                       pin_memory=self.pinned)
+                        for f in REPLAY_FIELDS} for _ in range(slabs)]
+        self._events: List[Optional[torch.cuda.Event]] = [None] * slabs
+        self._next = 0
+
+    def write(self, rows: List[Transition]) -> None:
+        for lo in range(0, len(rows), self.rows):
+            part = rows[lo:lo + self.rows]
+            n, i = len(part), self._next
+            self._next = (i + 1) % len(self._slabs)
+            if self._events[i] is not None:
+                self._events[i].synchronize()  # its last copies are done
+            slab = self._slabs[i]
+            for f in REPLAY_FIELDS:
+                np.stack([getattr(r, f) for r in part],
+                         out=slab[f].numpy()[:n])
+            self.replay.feed_chunk(Transition(*(slab[f][:n]
+                                                for f in REPLAY_FIELDS)),
+                                   non_blocking=self.pinned)
+            if self.pinned:
+                self._events[i] = torch.cuda.Event()
+                self._events[i].record()
 
 
 class QueueFeeder:
@@ -146,11 +194,16 @@ class QueueFeeder:
         self._buf = []
 
 
+STAGE_ROWS = 512   # rows per staging slab: 29 MB of config 12's frames
+STAGE_SLABS = 3
+
+
 class DeviceReplayIngest:
     """Queue front end of the device ring: actors feed through
     ``make_feeder()``; the learner calls ``attach(device)`` and then
-    ``drain()`` between dispatches, which stacks pending rows on the host
-    and writes them with one host-to-device copy per column."""
+    ``drain()`` between dispatches, which stacks pending rows into the
+    staging slabs (``StagedWriter``) and writes them with one
+    host-to-device copy per column and slab."""
 
     def __init__(self, capacity: int, state_shape: Tuple[int, ...],
                  action_shape: Tuple[int, ...] = (),
@@ -167,6 +220,7 @@ class DeviceReplayIngest:
         self._q = (queue.Queue(max_queue_chunks) if in_process
                    else _CTX.Queue(max_queue_chunks))
         self.replay: Optional[DeviceReplay] = None
+        self._staging: Optional[StagedWriter] = None
         self._pending: List[Transition] = []
         self._fed_total = 0
 
@@ -200,8 +254,9 @@ class DeviceReplayIngest:
         return DeviceReplay(**self._ring_kwargs(device))
 
     def attach(self, device) -> DeviceReplay:
-        """Allocate the ring on the learner's device."""
+        """Allocate the ring on the learner's device, and its staging."""
         self.replay = self._make_replay(device)
+        self._staging = StagedWriter(self.replay, STAGE_ROWS, STAGE_SLABS)
         return self.replay
 
     @property
@@ -227,17 +282,12 @@ class DeviceReplayIngest:
                 raise RuntimeError("the ingest queue broke off inside a "
                                    "chunk: a producer died while writing "
                                    "it") from e
-        dt = transition_dtypes(self.state_dtype, self.action_dtype)
-        fed = 0
-        while self._pending and fed < max_rows:
-            n = min(len(self._pending), self.capacity, max_rows - fed)
-            rows, self._pending = self._pending[:n], self._pending[n:]
-            self.replay.feed_chunk(Transition(*(
-                np.asarray(np.stack([getattr(r, f) for r in rows]), dt[f])
-                for f in REPLAY_FIELDS)))
-            fed += n
-        self._fed_total += fed
-        return fed
+        n = min(len(self._pending), max_rows)
+        rows, self._pending = self._pending[:n], self._pending[n:]
+        if n:
+            self._staging.write(rows)
+        self._fed_total += n
+        return n
 
 
 class DevicePerIngest(DeviceReplayIngest):

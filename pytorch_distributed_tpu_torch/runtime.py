@@ -4,9 +4,11 @@
 ``test``).
 
 The shared plane (clocks, stat accumulators, the flat parameter store and
-the ingest queue) is made here; then one logger, ``num_actors`` actors
-and, when ``evaluator_nepisodes > 0``, one evaluator run as workers, with
-the learner on the calling thread of this process.
+the ingest queue) is made here, and the actors' C++ stepper is built once
+(``factory.prebuild_native``, reference :243); then one logger,
+``num_actors`` actors and, when ``evaluator_nepisodes > 0``, one
+evaluator run as workers, with the learner on the calling thread of this
+process.
 
 Backends:
 
@@ -48,7 +50,8 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 )
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
-    EnvSpec, build_memory, build_model, probe_env, resolve_device,
+    EnvSpec, build_memory, build_model, prebuild_native, probe_env,
+    resolve_device,
 )
 
 _CTX = mp.get_context("spawn")
@@ -60,21 +63,35 @@ WORKERS: Dict[str, Callable] = {
 }
 
 
+def enter_child(num_threads: int) -> None:
+    """What every spawn child does before its worker: hide every GPU and
+    take its share of the host's cores."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(num_threads)
+
+
 def _child_main(role: str, args: tuple, num_threads: int,
                 children_with_cuda) -> None:
-    """Spawn trampoline: hide every GPU from this child and set the run's
-    device to the CPU before the worker resolves one, give torch the
-    child's share of the host's cores, run the worker, and count the child
-    in ``children_with_cuda`` if CUDA was initialised in it all the same."""
-    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    """Spawn trampoline: ``enter_child``, set the run's device to the CPU
+    before the worker resolves one, run the worker, and count the child in
+    ``children_with_cuda`` if CUDA was initialised in it all the same."""
+    enter_child(num_threads)
     args[0].device = "cpu"  # args[0] is this child's copy of the Options
-    torch.set_num_threads(num_threads)
     try:
         WORKERS[role](*args)
     finally:
         if torch.cuda.is_initialized():
             with children_with_cuda.get_lock():
                 children_with_cuda.value += 1
+
+
+def child_threads(opt: Options) -> int:
+    """A child's share of the host's cores on the process backend: the
+    cores over the processes that compute (the actors, the evaluator and
+    the learner's)."""
+    computing = opt.num_actors + 1 + (
+        opt.agent_params.evaluator_nepisodes > 0)
+    return max(1, (os.cpu_count() or 1) // computing)
 
 
 class Topology:
@@ -124,13 +141,11 @@ class Topology:
         """Mode 1: start the workers, run the learner here, join.  Returns
         the learner's summary; raises if any worker failed."""
         opt = self.opt
+        prebuild_native(opt)  # once, before N actors race one g++
         specs = self._worker_specs()
         threads_before = torch.get_num_threads()
         if self.backend == "process":
-            # the host's cores shared among the processes that compute:
-            # the actors, the evaluator and the learner's
-            computing = sum(role != "logger" for role, _i, _a in specs) + 1
-            threads = max(1, (os.cpu_count() or 1) // computing)
+            threads = child_threads(opt)
             for role, ind, args in specs:
                 self._spawn(role, ind, args, threads)
             self.handles.learner_side.close_write_end()

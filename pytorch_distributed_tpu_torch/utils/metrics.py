@@ -6,12 +6,18 @@ reference's row layout, ``{tag, value, step, wall}`` plus ``role`` and
 (``evaluator/avg_reward``, ``actor/total_nframes``,
 ``learner/critic_loss``, ...).  The TensorBoard mirror and the histogram,
 bucket and span rows are not ported yet.
+
+    python -m pytorch_distributed_tpu_torch.utils.metrics LOG_DIR
+
+prints the run's actor timer phases (``timer_phases``) as one JSON line.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
+import sys
 import time
 from typing import List, Optional
 
@@ -70,3 +76,30 @@ def read_scalars(log_dir: str) -> List[dict]:
             except ValueError:
                 continue
     return out
+
+
+def timer_phases(log_dir: str, prefix: str = "actor") -> dict:
+    """A run's StepTimer rows (utils/profiling.py) summed over every worker
+    of ``prefix`` and every window: ms per call of each phase, and ``tick``,
+    the ms of one loop iteration (the phases it runs once: ``act``, or
+    ``sync`` and ``dispatch``, then ``env`` and ``advance``; ``param_swap``
+    spread over the iterations), with ``ticks``, their count."""
+    total, calls = {}, {}
+    pattern = re.compile(rf"{re.escape(prefix)}/time_(\w+?)_(total_ms|calls)")
+    for r in read_scalars(log_dir):
+        m = pattern.fullmatch(r["tag"])
+        if m:
+            acc = total if m[2] == "total_ms" else calls
+            acc[m[1]] = acc.get(m[1], 0.0) + r["value"]
+    out = {p: total[p] / calls[p] for p in total if calls.get(p)}
+    ticks = calls.get("env", 0.0)
+    if ticks:
+        parts = ("sync", "dispatch") if "sync" in total else ("act",)
+        out["tick"] = sum(total.get(p, 0.0) for p in (
+            *parts, "env", "advance", "param_swap")) / ticks
+        out["ticks"] = ticks
+    return out
+
+
+if __name__ == "__main__":
+    print(json.dumps(timer_phases(sys.argv[1])))

@@ -86,7 +86,23 @@ Phases, each printed as one JSON line:
    leave at train_process's unprofiled rate;
 14. train_paced: the process run with the reference's config-12 pacing
    (``max_replay_ratio`` 8, ``learn_start`` 5,000): updates/s, the pacing
-   seconds, the actors' phases, the same launches per update.
+   seconds, the actors' phases, the same launches per update;
+15. resume: supervision and resume at full width, in three legs. (1) A
+   process-backend run here, paced (``max_replay_ratio`` 8), with the
+   hang watchdog at 10 s and an epoch every 500 steps: a timer thread
+   SIGKILLs ``actor-0`` once the learner passes step 300 and SIGSTOPs
+   ``actor-1`` after step 900; the run must finish its steps with 2
+   restarts and 1 hang kill, no child with CUDA and the same launches
+   per update; the time from the kill to the respawned child's first
+   tick. (2) ``main`` in a subprocess with ``checkpoint_replay`` on, sent
+   SIGTERM once its log passes step 1,000: it must exit 0 within 60 s,
+   and its newest epoch must pass ``ckpt_fsck`` and hold ``state.pt``,
+   ``replay.npz`` and ``extras.json``. (3) A run here with ``resume``
+   "must" on the same refs: its first published weights equal to the bit
+   the epoch's ``state.pt`` params, its ring restored with the epoch's
+   rows, then its steps with the same launches per update. It prints the
+   epochs' bytes and save seconds with and without the ring, the rows
+   and seconds of the restore, and ``train_process``'s updates/s.
 
 Then a ``kernels`` line (the table PERF.md is written from: B1's and the
 bf16 GEMM's launches from the train_process phase, the fp32 GEMM's from
@@ -1193,6 +1209,221 @@ def train_paced():
                 children_with_cuda=summary["runtime/children_with_cuda"])
 
 
+def _zero_launches() -> None:
+    for fn in (cuda_sampling.hierarchical_sample, cuda_torso.gemm_bf16,
+               cuda_torso.gemm_bf16_grad, cuda_torso.gemm_f32):
+        fn.launches = 0
+
+
+def _launches_per_update(updates: int) -> dict:
+    """The launch counters over ``updates``; raises unless each update
+    launched 1 draw and 10 + 9 bf16 GEMMs and no fp32 one."""
+    got = {"per_sample": cuda_sampling.hierarchical_sample.launches,
+           "torso_gemm_fwd": cuda_torso.gemm_bf16.launches,
+           "torso_gemm_bwd": cuda_torso.gemm_bf16_grad.launches,
+           "torso_gemm_f32": cuda_torso.gemm_f32.launches}
+    if updates <= 0 or got != {"per_sample": updates,
+                               "torso_gemm_fwd": 10 * updates,
+                               "torso_gemm_bwd": 9 * updates,
+                               "torso_gemm_f32": 0}:
+        raise AssertionError(f"launch counts {got} for {updates} updates")
+    return got
+
+
+def _drill_timer(topology, out: dict) -> None:
+    """Leg 1's faults: SIGKILL ``actor-0`` past learner step 300, time its
+    respawn to a first tick, SIGSTOP ``actor-1`` past step 900."""
+    import multiprocessing
+    import signal
+
+    clock, board = topology.clock, topology.progress_board
+
+    def child(name):
+        return next(p for p in multiprocessing.active_children()
+                    if p.name == name)
+
+    def wait(pred, what, timeout=240.0):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if clock.stop.is_set() or time.monotonic() > deadline:
+                raise AssertionError(f"leg 1: {what}")
+            time.sleep(0.005)
+
+    try:
+        wait(lambda: clock.learner_step.value > 300, "no step 300")
+        os.kill(child("actor-0").pid, signal.SIGKILL)
+        t_kill = time.monotonic()
+        out["killed_at_step"] = clock.learner_step.value
+        wait(lambda: topology.restarts >= 1, "no respawn")
+        wait(lambda: board.marks("actor-0") > 0, "no respawned tick")
+        out["respawn_to_first_tick_s"] = time.monotonic() - t_kill
+        wait(lambda: clock.learner_step.value > 900, "no step 900")
+        os.kill(child("actor-1").pid, signal.SIGSTOP)
+        out["stopped_at_step"] = clock.learner_step.value
+        t_stop = time.monotonic()
+        wait(lambda: topology.hang_kills >= 1, "no hang kill")
+        out["stop_to_hang_kill_s"] = time.monotonic() - t_stop
+    except BaseException as e:  # noqa: BLE001 - reported by the leg
+        out["error"] = repr(e)
+
+
+def _resume_leg_drill() -> dict:
+    import threading
+
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch import runtime
+
+    opt = port_main.options_from_args(port_main.parse_args(_e2e_argv(
+        "process", "resume_drill", "max_replay_ratio=8",
+        "hang_deadline=10", "hang_grace=120", "checkpoint_freq=500",
+        "evaluator_nepisodes=0")))
+    topology = runtime.Topology(opt, backend="process")
+    faults: dict = {}
+    timer = threading.Thread(target=_drill_timer, args=(topology, faults),
+                             daemon=True)
+    _zero_launches()
+    timer.start()
+    summary = topology.run()
+    launches = _launches_per_update(summary["learner/steps"])
+    timer.join(timeout=10.0)
+    if "error" in faults or summary["learner/steps"] < TRAIN_STEPS:
+        raise AssertionError(f"leg 1: {faults} {summary}")
+    counts = {k: summary[f"runtime/{k}"] for k in (
+        "restarts", "hang_kills", "children_with_cuda", "preempted")}
+    if counts != {"restarts": 2, "hang_kills": 1, "children_with_cuda": 0,
+                  "preempted": 0}:
+        raise AssertionError(f"leg 1: runtime counts {counts}")
+    return dict(faults, **counts, launches=launches,
+                updates_per_sec=summary["learner/updates_per_sec"],
+                epochs=summary["checkpoint/epochs_committed"],
+                epoch_bytes=summary["checkpoint/epoch_bytes"],
+                save_s_per_epoch=summary["checkpoint/save_seconds"]
+                / summary["checkpoint/epochs_committed"])
+
+
+PREEMPT_AT = 1000
+
+
+def _resume_leg_preempt() -> dict:
+    import signal
+
+    argv = _e2e_argv("process", "preempt", "checkpoint_replay=true")
+    argv[argv.index("--steps") + 1] = str(10 ** 6)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        os.path.dirname(os.path.abspath(__file__)),
+        os.environ.get("PYTHONPATH")))))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pytorch_distributed_tpu_torch.main", *argv],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines, sent = [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            m = re.match(r"\[learner\] step (\d+) ", line)
+            if m and int(m.group(1)) >= PREEMPT_AT:
+                break
+        proc.send_signal(signal.SIGTERM)
+        sent = time.monotonic()
+        out, _ = proc.communicate(timeout=60)
+        exit_s = time.monotonic() - sent
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines += out.splitlines()
+    if proc.returncode != 0 or exit_s >= 60.0:
+        raise AssertionError(f"leg 2: exit {proc.returncode} after "
+                             f"{exit_s} s: " + "\n".join(lines[-40:]))
+    summary = json.loads(next(ln for ln in reversed(lines)
+                              if ln.startswith("{")))
+    root = os.path.join(RUN_DIR, "models", "preempt_ckpt")
+    fsck = subprocess.run(
+        [sys.executable, "-m", "pytorch_distributed_tpu_torch.ckpt_fsck",
+         root, "--json"], env=env, capture_output=True, text=True,
+        timeout=600)
+    report = json.loads(fsck.stdout.strip().splitlines()[-1])
+    if fsck.returncode != 0:
+        raise AssertionError(f"leg 2: fsck {report}")
+    newest = report["epochs"][0]
+    if set(newest["artifacts"]) != {"state.pt", "replay.npz",
+                                    "extras.json"}:
+        raise AssertionError(f"leg 2: epoch holds {newest['artifacts']}")
+    return {"exit_code": proc.returncode, "sigterm_to_exit_s": exit_s,
+            "preempted": summary["runtime/preempted"],
+            "steps": summary["learner/steps"], "epoch": newest["epoch"],
+            "epoch_step": newest["learner_step"],
+            "epoch_bytes": newest["bytes"],
+            "artifact_bytes": newest["artifacts"],
+            "save_s": summary["checkpoint/save_seconds"],
+            "replay_rows": summary["replay/size"]}
+
+
+def _resume_leg_resume(preempt: dict) -> dict:
+    import threading
+
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch import runtime
+    from pytorch_distributed_tpu_torch.agents.param_store import (
+        make_flattener,
+    )
+    from pytorch_distributed_tpu_torch.utils import checkpoint
+
+    argv = _e2e_argv("process", "preempt", "checkpoint_replay=true")
+    argv[argv.index("--steps") + 1] = str(preempt["epoch_step"] + 1000)
+    opt = port_main.options_from_args(port_main.parse_args(
+        argv + ["--resume", "preempt"]))
+    info = checkpoint.resolve_epoch(opt.model_name)
+    want, _ = make_flattener(checkpoint.load_epoch_state(info).params, FRAME)
+    rows = info.manifest["artifacts"]["replay.npz"]["rows"]
+    topology = runtime.Topology(opt, backend="process")
+    store, first = topology.param_store, {}
+
+    def watch():  # the first publication, before the ring's restore ends
+        while not topology.clock.stop.is_set():
+            got = store.fetch(0)
+            if got is not None:
+                first["flat"], first["version"] = got
+                return
+            time.sleep(0.0005)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    _zero_launches()
+    watcher.start()
+    summary = topology.run()
+    watcher.join(timeout=5.0)
+    updates = summary["learner/steps"] - summary["learner/resumed_from_step"]
+    launches = _launches_per_update(updates)
+    if first.get("version") != 1 or not np.array_equal(first["flat"], want):
+        raise AssertionError(f"leg 3: the first publication (version "
+                             f"{first.get('version')}) is not the epoch's "
+                             f"params")
+    if (summary["learner/resumed_from_step"] != info.learner_step
+            or summary["replay/restored_rows"] != min(rows, RING_ROWS)
+            or summary["learner/steps"] != info.learner_step + 1000):
+        raise AssertionError(f"leg 3: {summary}")
+    return {"resumed_epoch": info.epoch,
+            "resumed_from_step": info.learner_step,
+            "steps": summary["learner/steps"], "launches": launches,
+            "first_publication": "bit-equal to state.pt",
+            "restored_rows": summary["replay/restored_rows"],
+            "restore_s": summary["checkpoint/restore_seconds"],
+            "updates_per_sec": summary["learner/updates_per_sec"],
+            "children_with_cuda": summary["runtime/children_with_cuda"]}
+
+
+def resume():
+    """Supervision and resume at config 12's full width, in three legs:
+    restarts and the hang watchdog, SIGTERM preemption, resume."""
+    drill = _resume_leg_drill()
+    preempt = _resume_leg_preempt()
+    resumed = _resume_leg_resume(preempt)
+    return {"card": card_name_and_power_limit(), "drill": drill,
+            "preempt": preempt, "resume": resumed,
+            "train_process_updates_per_sec": RESULTS.get(
+                "e2e_process", {}).get("updates_per_sec")}
+
+
 KERNELS = (
     ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
      "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
@@ -1215,7 +1446,8 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0)})
     for fn in (build, per_sample, torso_gemm, torso_apply, learner_alone,
                native_pong, actor_tick, actor_gpu, staged_drain, train,
-               train_process, test_mode, process_trace, train_paced):
+               train_process, test_mode, process_trace, train_paced,
+               resume):
         if fn is not build and "build" in FAILED:
             break
         phase(fn)

@@ -170,6 +170,9 @@ class DqnActor:
         self.backend = resolve_actor_backend(opt)
         self.ap = opt.agent_params
         self.memory, self.clock, self.stats = memory, clock, stats
+        # the hang watchdog's liveness mark, once a tick (reference :244)
+        self._label = f"actor-{process_ind}"
+        self._bump = getattr(clock, "bump_progress", lambda label: None)
         device = resolve_device(opt)
         n = self.num_envs = max(1, opt.env_params.num_envs_per_actor)
         self.env = build_env_vector(opt, process_ind, n)
@@ -224,6 +227,7 @@ class DqnActor:
         n = self.num_envs
         self.env_steps += n
         self.clock.add_actor_steps(n)
+        self._bump(self._label)
         self._acc["total_nframes"] += n
         if self.env_steps >= self._next_sync:
             self._next_sync += self.ap.actor_sync_freq

@@ -9,8 +9,11 @@ learner push into their accumulators, and the logger drains and resets
 them on its cadence.  The evaluator hands each result to the logger
 through the ``EvaluatorStats`` flag handshake.
 
-Left out: the hang watchdog's progress board and the health counters
-(skipped steps, rollbacks), whose planes are not ported.
+The clock also carries the hang watchdog's progress board
+(utils/supervision.py ``ProgressBoard``), which the topology attaches
+before any worker spawns, and the counters a checkpoint epoch records:
+the skipped steps and the rollbacks.  ``rollbacks`` stays 0: rollback
+belongs to the health plane, which is not ported.
 """
 
 from __future__ import annotations
@@ -32,11 +35,35 @@ class GlobalClock:
         self.best_eval_reward = _CTX.Value("d", float("-inf"), lock=True)
         # cooperative shutdown: set when the learner ends or a worker dies
         self.stop = _CTX.Event()
+        # the counters an epoch's extras record
+        self.skipped_steps = _CTX.Value("l", 0, lock=True)
+        self.rollbacks = _CTX.Value("l", 0, lock=True)
+        # the hang watchdog's board (utils/supervision.ProgressBoard),
+        # attached by the topology before any spawn; its shared values
+        # ride the clock's pickle into every child
+        self.progress = None
+
+    def bump_progress(self, label: str, n: int = 1) -> None:
+        """A liveness mark for ``label`` (``actor-3``, ``learner``); a
+        no-op when no board is attached."""
+        if self.progress is not None:
+            self.progress.bump(label, n)
+
+    def add_skipped_steps(self, n: int) -> None:
+        with self.skipped_steps.get_lock():
+            self.skipped_steps.value += n
 
     def add_actor_steps(self, n: int = 1) -> int:
         with self.actor_step.get_lock():
             self.actor_step.value += n
             return self.actor_step.value
+
+    def seed_actor_steps(self, n: int) -> None:
+        """Additive restore of an epoch's actor-step count: actors may
+        already be stepping when the learner restores, so the count is
+        added under the lock, not written over their first steps."""
+        with self.actor_step.get_lock():
+            self.actor_step.value += n
 
     def set_learner_step(self, value: int) -> None:
         with self.learner_step.get_lock():

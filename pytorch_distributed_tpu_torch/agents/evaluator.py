@@ -143,13 +143,19 @@ def run_evaluator(opt: Options, spec: EnvSpec, process_ind: int, memory: Any,
         with snap_lock:
             return snapshots.popleft() if snapshots else None
 
+    # the hang watchdog's liveness mark (reference :218-230), on every
+    # poll and after every evaluation: a stuck episode goes stale, a
+    # starved evaluator does not
+    bump = getattr(clock, "bump_progress", lambda label: None)
     try:
         while not clock.done(ap.steps):
+            bump("evaluator-0")
             snap = pop_snapshot()
             if snap is None:
                 time.sleep(0.1)
                 continue
             evaluate(*snap)
+            bump("evaluator-0")
         # the finished weights, always fetched fresh; the backlog only if
         # nothing was ever published
         cap_thread.join(timeout=2.0)

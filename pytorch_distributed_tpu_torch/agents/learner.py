@@ -1,7 +1,10 @@
 """The learner loop — the port of the device-PER branch of
-pytorch_distributed_tpu/agents/learner.py ``run_learner`` (:56-, :299-351,
-:474-760): attach the ring on the run's device, publish the initial
-weights, wait for ``learn_start`` rows, then loop until ``steps``:
+pytorch_distributed_tpu/agents/learner.py ``run_learner`` (:56-, :166-204,
+:299-351, :455-485, :474-760, :907-916): resume from the newest complete
+checkpoint epoch unless ``resume`` is "never" (the state, the actors' step
+count added to the clock, the best evaluation, the pacing baseline, the
+device generator and, with ``checkpoint_replay``, the ring), publish the
+initial weights, wait for ``learn_start`` rows, then loop until ``steps``:
 
 - ``max_replay_ratio`` pacing (keep draining while throttled, so a full
   ingest queue never blocks the actors that advance the clock);
@@ -17,13 +20,23 @@ weights, wait for ``learn_start`` rows, then loop until ``steps``:
   ``learner_freq`` steps a stats line and one ``LearnerStats`` add (the
   window's last losses and its updates/s, reference :757), all on
   boundary crossings so K > 1 never skips one;
+- a checkpoint epoch on every ``checkpoint_freq`` crossing;
+- a liveness mark on the clock's progress board on every loop and every
+  pacing wait, which the runtime's hang watchdog reads;
 - a final synchronous publication, which the evaluator's last evaluation
-  and the params checkpoint read.
+  and the params checkpoint read, and then a final checkpoint epoch.  A
+  SIGTERM (runtime.py) stops the loop early and lands here too.
 
-Returns a summary of the run (steps, updates per second, the last
-metrics, the skipped-step count, the host seconds spent pacing, draining,
-dispatching and publishing, and the actors' env steps over the loop),
-which ``main`` prints.
+On a GPU the resume comes before the CUDA graph's capture, which clones
+its static buffers from the state it is first handed, and an epoch reads
+the state from those buffers after a synchronize, so no replay is in
+flight while it is copied out.
+
+Returns a summary of the run (steps, this run's updates per second, the
+last metrics, the skipped-step count, the host seconds spent pacing,
+draining, dispatching and publishing, the actors' env steps over the
+loop, the step it resumed from and the epochs it committed), which
+``main`` prints.
 """
 
 from __future__ import annotations
@@ -54,7 +67,36 @@ from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
 from pytorch_distributed_tpu_torch.ops.cuda_torso import (
     COUNTERS as GEMM_COUNTERS,
 )
-from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY
+from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY, TrainState
+from pytorch_distributed_tpu_torch.utils import checkpoint as ckpt
+
+
+def resume_epoch(opt: Options) -> Optional[ckpt.EpochInfo]:
+    """The epoch a run resumes from: the newest complete one unless
+    ``resume`` is "never"; "must" raises without one."""
+    if opt.resume not in ("auto", "must", "never"):
+        raise ValueError(f"unknown resume mode {opt.resume!r}")
+    if opt.resume == "never":
+        return None
+    epoch = ckpt.resolve_epoch(opt.model_name)
+    if epoch is None and opt.resume == "must":
+        raise RuntimeError(f"resume='must' but no complete checkpoint "
+                           f"epoch under {ckpt.ckpt_root(opt.model_name)}")
+    return epoch
+
+
+def epoch_extras(clock: GlobalClock, lstep: int, lstep0: int,
+                 replay_size: int, gen: torch.Generator) -> dict:
+    """What an epoch records beside the state (reference :526-552)."""
+    return dict(
+        learner_step=lstep,
+        lstep0=lstep0,
+        actor_step=int(clock.actor_step.value),
+        best_eval_reward=float(clock.best_eval_reward.value),
+        replay_size=replay_size,
+        rollbacks=int(clock.rollbacks.value),
+        skipped_steps=int(clock.skipped_steps.value),
+        rng=dict(learner_device=ckpt.serialize_torch_rng(gen)))
 
 
 def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
@@ -68,6 +110,24 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     state, step_fn = build_train_state_and_step(opt, model, params)
     host_flat = torch.empty(param_store.num_params)
 
+    # the counters come back before the first publication, so no worker
+    # sees the values from before the resume
+    epoch = resume_epoch(opt)
+    t_restore = time.perf_counter()
+    if epoch is not None:
+        state = ckpt.load_epoch_state(epoch, device)
+        clock.seed_actor_steps(int(epoch.extras.get("actor_step", 0)))
+        # the sidecar can be ahead of the epoch's score when a record
+        # fell between two commits
+        best = max(float(epoch.extras.get("best_eval_reward",
+                                          float("-inf"))),
+                   ckpt.load_best_score(opt.model_name))
+        clock.best_eval_reward.value = best
+        print(f"[learner] resumed epoch {epoch.epoch} "
+              f"(step {epoch.learner_step}, "
+              f"actor_step +{int(epoch.extras.get('actor_step', 0))}, "
+              f"best_eval {best:g})", flush=True)
+
     def publish_inline(p) -> None:
         flatten_into({k: v.detach().cpu() for k, v in p.items()}, host_flat,
                      spec.state_shape)
@@ -78,6 +138,16 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                  if device.type == "cuda" else None)
 
     replay = memory.attach(device)
+    restored_rows = 0
+    if epoch is not None and opt.memory_params.checkpoint_replay:
+        # the ring from the same epoch as the state, never a mix; a
+        # changed geometry raises CheckpointMismatch here
+        restored_rows = ckpt.load_epoch_replay(epoch, memory)
+        if restored_rows:
+            print(f"[learner] replay restored from epoch {epoch.epoch}: "
+                  f"{restored_rows} rows", flush=True)
+    restore_s = time.perf_counter() - t_restore if epoch is not None \
+        else 0.0
     K = max(1, ap.steps_per_dispatch)
     fused = replay.build_fused_step(step_fn, ap.batch_size,
                                     steps_per_call=K)
@@ -87,6 +157,33 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                                            *GEMM_COUNTERS))
     gen = torch.Generator(device=device).manual_seed(
         role_seed(opt.seed, "learner", process_ind))
+    lstep = lstep0 = int(state.step)
+    if epoch is not None:
+        # pacing goes on from the epoch's baseline against the restored
+        # actor count, and the draws from where the epoch froze them
+        lstep0 = int(epoch.extras.get("lstep0", lstep0))
+        ckpt.restore_torch_rng(
+            gen, epoch.extras.get("rng", {}).get("learner_device"))
+    lstep_resumed = lstep
+    clock.set_learner_step(lstep)
+    saves = dict(epochs=0, seconds=0.0, bytes=0, skipped=0)
+
+    def save_epoch(st: TrainState) -> None:
+        t0 = time.perf_counter()
+        if device.type == "cuda":  # no replay of the graph in flight
+            torch.cuda.synchronize(device)
+        n = int(skipped)
+        clock.add_skipped_steps(n - saves["skipped"])
+        saves["skipped"] = n
+        path = ckpt.save_epoch(
+            opt.model_name, state=st,
+            memory=memory if opt.memory_params.checkpoint_replay else None,
+            extras=epoch_extras(clock, lstep, lstep0, memory.size, gen),
+            retain=ap.checkpoint_retain)
+        saves["epochs"] += 1
+        saves["seconds"] += time.perf_counter() - t0
+        saves["bytes"] = ckpt.epoch_bytes(path)
+        clock.bump_progress("learner")
 
     # gate until the replay warms up; clamped below the ring's capacity,
     # whose fill never exceeds it
@@ -94,13 +191,12 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     deadline = (time.monotonic() + ap.max_seconds) if ap.max_seconds > 0 \
         else float("inf")
     while not clock.done(ap.steps) and time.monotonic() < deadline:
+        clock.bump_progress("learner")  # a warm-up is no hang
         memory.drain()
         if memory.size > learn_start:
             break
         time.sleep(0.01)
 
-    lstep = lstep0 = 0
-    clock.set_learner_step(lstep)
     metrics: Dict[str, torch.Tensor] = {}
     skipped = torch.zeros((), device=device)
     beta, next_beta = replay.beta(0), 0
@@ -111,11 +207,13 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     while lstep < ap.steps and not clock.stop.is_set() \
             and time.monotonic() < deadline:
         t0 = time.perf_counter()
+        clock.bump_progress("learner")
         if ap.max_replay_ratio > 0:
             while (not clock.stop.is_set() and time.monotonic() < deadline
                    and (lstep - lstep0 + 1) * ap.batch_size
                    > ap.max_replay_ratio * max(clock.actor_step.value, 1)):
                 memory.drain()
+                clock.bump_progress("learner")  # pacing is no hang
                 time.sleep(0.002)
             if clock.stop.is_set():
                 break
@@ -140,6 +238,8 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
         t4 = time.perf_counter()
         for key, dt in zip(spent, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
             spent[key] += dt
+        if crossed(ap.checkpoint_freq):
+            save_epoch(state)
         if crossed(ap.learner_freq):
             now = time.monotonic()
             vals = {k: float(v) for k, v in metrics.items()}
@@ -164,10 +264,19 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
         publisher.close()
         published = publisher.published
     publish_inline(state.params)  # the finished weights
+    # the final epoch, also on a preemption: a next run resumes from it
+    save_epoch(state)
     summary = {k: float(v) for k, v in metrics.items()}
     summary.update({
         "learner/steps": lstep,
-        "learner/updates_per_sec": lstep / max(seconds, 1e-9),
+        "learner/updates_per_sec": (lstep - lstep_resumed)
+        / max(seconds, 1e-9),
+        "learner/resumed_from_step": lstep_resumed,
+        "checkpoint/epochs_committed": saves["epochs"],
+        "checkpoint/save_seconds": saves["seconds"],
+        "checkpoint/epoch_bytes": saves["bytes"],
+        "checkpoint/restore_seconds": restore_s,
+        "replay/restored_rows": restored_rows,
         "learner/train_seconds": seconds,
         SKIPPED_KEY: float(skipped),
         **{f"learner/host_s_{k}": v for k, v in spent.items()},

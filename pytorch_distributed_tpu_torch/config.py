@@ -87,6 +87,10 @@ class MemoryParams:
     state_dtype: str = "uint8"
     priority_exponent: float = 0.6
     priority_weight: float = 0.4
+    # save the ring's rows and priorities with every checkpoint epoch
+    # (utils/checkpoint.py save_epoch); off by default: config 12's ring
+    # compresses slowly on the host
+    checkpoint_replay: bool = False
 
 
 @dataclass
@@ -113,6 +117,10 @@ class AgentParams:
     evaluator_nepisodes: int = 2
     tester_nepisodes: int = 50
     param_publish_freq: int = 10
+    # learner steps between checkpoint epochs; 0: the final epoch only
+    checkpoint_freq: int = 0
+    # committed epochs kept on disk (utils/checkpoint.py gc_epochs)
+    checkpoint_retain: int = 3
     learn_start: int = 5000
     batch_size: int = 128
     max_replay_ratio: float = 0.0
@@ -132,6 +140,11 @@ class HealthParams:
     # the in-step finite check (ops/losses.finite_guard): a non-finite
     # step is skipped and reported as learner/skipped
     numeric_guards: bool = True
+    # the hang watchdog (runtime.py): seconds a worker may go without a
+    # progress mark before it is SIGKILLed and respawned; 0 turns it off.
+    # ``hang_grace`` is added before a worker's first mark
+    hang_deadline: float = 0.0
+    hang_grace: float = 120.0
 
 
 @dataclass
@@ -156,6 +169,11 @@ class Options:
     root_dir: str = field(default_factory=os.getcwd)
     num_actors: int = 8
     model_file: Optional[str] = None   # the checkpoint mode 2 tests
+    # checkpoint epochs (utils/checkpoint.py, reference config.py:941-949):
+    # "auto" resumes from the newest complete epoch under
+    # ``{model_name}_ckpt`` if there is one; "must" (``--resume REFS``)
+    # raises without one; "never" starts fresh
+    resume: str = "auto"
     device: str = "cuda"
 
     agent_type: str = "dqn"

@@ -188,8 +188,10 @@ class MemoryHandles:
 
 def build_memory(opt: Options, spec: EnvSpec,
                  in_process: bool = False) -> MemoryHandles:
-    """The device ring's ingest; ``in_process`` when every producer is a
-    thread of the learner's process (the thread backend)."""
+    """The device ring's ingest, with one queue per actor slot
+    (``learner_side.make_feeder(i)``; ``actor_side`` is slot 0's feeder),
+    or one in-process queue when every producer is a thread of the
+    learner's process (``in_process``, the thread backend)."""
     if opt.memory_type != "device-per":
         raise _not_ported(f"memory_type {opt.memory_type!r}")
     mp_ = opt.memory_params
@@ -202,5 +204,5 @@ def build_memory(opt: Options, spec: EnvSpec,
         priority_exponent=mp_.priority_exponent,
         importance_weight=mp_.priority_weight,
         importance_anneal_steps=opt.agent_params.steps,
-        in_process=in_process)
+        in_process=in_process, slots=max(1, opt.num_actors))
     return MemoryHandles(actor_side=ingest.make_feeder(), learner_side=ingest)

@@ -3,6 +3,8 @@
 
     python -m pytorch_distributed_tpu_torch.main --config 12 \\
         [--backend process|thread] [--device cuda|cpu] [--set k=v ...]
+    python -m pytorch_distributed_tpu_torch.main --config 12 \\
+        --resume REFS [--steps N] [--set k=v ...]
     python -m pytorch_distributed_tpu_torch.main --config 12 --mode 2 \\
         --model-file models/REFS [--device cpu]
 
@@ -10,8 +12,12 @@ Both modes run on the GPU unless ``--device cpu`` is given; with no GPU
 visible and no ``--device cpu`` they raise.  Mode 1 trains (the process
 backend by default); scalars land in ``logs/{refs}/scalars.jsonl`` and
 params checkpoints in ``models/{refs}.pt`` (and ``models/{refs}_best.pt``)
-under ``root_dir`` (the working directory unless ``--set root_dir=...``).
-Mode 2 runs the tester's greedy episodes on a params file.  The last line
+under ``root_dir`` (the working directory unless ``--set root_dir=...``),
+and every run ends by committing a checkpoint epoch under
+``models/{refs}_ckpt`` (more often with ``--set checkpoint_freq=N``).  A
+run under the refs of an earlier one continues from its newest complete
+epoch; ``--resume REFS`` insists on one.  SIGTERM ends a run early with
+a final epoch and exit code 0.  Mode 2 runs the tester's greedy episodes on a params file.  The last line
 printed is the run's summary (mode 1) or the tester's stats (mode 2) as
 one JSON object.
 """
@@ -47,6 +53,10 @@ def parse_args(argv=None):
                    help="learner steps between param publications")
     p.add_argument("--model-file", type=str, default=None,
                    help="the params checkpoint mode 2 tests")
+    p.add_argument("--resume", type=str, default=None, metavar="REFS",
+                   help="continue run REFS from its newest complete "
+                        "checkpoint epoch (models/REFS_ckpt); raises if "
+                        "there is none")
     p.add_argument("--backend", choices=("process", "thread"),
                    default="process")
     p.add_argument("--set", action="append", default=[], metavar="K=V",
@@ -65,6 +75,8 @@ def options_from_args(args):
                  param_publish_freq=args.publish_freq,
                  model_file=args.model_file)
     overrides.update({k: v for k, v in flags.items() if v is not None})
+    if args.resume is not None:
+        overrides.update(refs=args.resume, resume="must")
     if args.enable_double:
         overrides["enable_double"] = True
     return build_options(config=args.config, **overrides)

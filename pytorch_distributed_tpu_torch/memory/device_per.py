@@ -1,8 +1,9 @@
 """Prioritized replay in device memory, fused into the learner step — the
 port of pytorch_distributed_tpu/memory/device_per.py: ``per_feed``
 (:59-64), ``per_sample`` (:86-120), ``per_update_priorities`` (:153-161),
-``DevicePerReplay`` (:203-257) and the sequential ``build_fused_step``
-(:327-351).
+``DevicePerReplay`` (:203-257) with its checkpoint surface
+(``snapshot``/``restore`` :355-392) and the sequential
+``build_fused_step`` (:327-351).
 
 Priorities are stored pre-exponentiated (``p = (|td| + eps) ** alpha``);
 new rows enter at the running max priority so every row is replayed at
@@ -29,6 +30,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.memory.device_replay import (
@@ -129,6 +131,40 @@ class DevicePerReplay(DeviceReplay):
     def feed_chunk(self, chunk: Transition,
                    non_blocking: bool = False) -> None:
         per_feed(self.state, chunk, self.capacity, non_blocking)
+
+    def snapshot(self) -> dict:
+        """The ring's snapshot plus the priorities: ``leaf_priority``, the
+        rows' stored ``p ** alpha`` in age order, and
+        ``max_priority_base``, the running max in the unexponentiated
+        unit, as the reference writes them."""
+        out = super().snapshot()
+        out["leaf_priority"] = self._age_order(self.state.priority)
+        mx = float(self.state.max_priority)
+        out["max_priority_base"] = np.float64(
+            mx ** (1.0 / self.alpha) if self.alpha else mx)
+        return out
+
+    def _reset(self) -> None:
+        super()._reset()
+        self.state.priority.zero_()
+        self.state.max_priority.fill_(1.0)
+        self.state.fill_rows.zero_()
+
+    def restore(self, data: dict) -> int:
+        """The rows enter at the max priority through the ring write, then
+        the saved priorities overwrite theirs, so sampling goes on where
+        it stopped."""
+        n = super().restore(data)
+        if n and "leaf_priority" in data:
+            st = self.state
+            idx = torch.arange(st.pos - n, st.pos) % self.capacity
+            st.priority[idx.to(self.device)] = torch.as_tensor(
+                np.asarray(data["leaf_priority"], np.float32)[-n:]).to(
+                self.device)
+            base = float(data.get("max_priority_base", 1.0))
+            st.max_priority.fill_(float(np.float32(
+                base ** self.alpha if self.alpha else base)))
+        return n
 
     def beta(self, step: int) -> float:
         frac = min(1.0, step / max(1, self.beta_steps))

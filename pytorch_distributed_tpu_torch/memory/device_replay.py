@@ -2,13 +2,18 @@
 pytorch_distributed_tpu/memory/device_replay.py: ``ReplayState`` and
 ``ring_write`` (:34-85), ``DeviceReplay`` (:265-388), and the queue front
 end ``DeviceReplayIngest`` / ``drain`` (:389-611) without the flow-shed and
-quarantine planes, plus ``DevicePerIngest`` (:614-638).  The ingest queue
-is the reference's (memory/feeder.py ``QueueFeeder`` :30, ``QueueOwner``
-:240): a spawn-context ``multiprocessing.Queue`` of transition chunks, so
-feeders pickle to actor processes.  For the thread backend
-(``in_process``) it is a ``queue.Queue`` with the same bound, where the
-reference swaps one in before any worker starts (runtime.py
-``_use_thread_queue`` :357-372).
+quarantine planes, plus ``DevicePerIngest`` (:614-638), and the rings'
+checkpoint surface (``snapshot``/``restore``, :343-377, :517-542).  The
+feed is the reference's (memory/feeder.py ``QueueFeeder`` :30): chunks of
+transitions put on a spawn-context ``multiprocessing.Queue``.  Where the
+reference shares one queue among every actor, the port gives each actor
+slot a queue of its own (``make_feeder(slot)``), so every pipe has one
+writer: an actor killed inside a put tears only its own queue, and its
+respawn is handed a fresh one (``replace_slot``) while the old one is
+read to its end.  The total bound of queued chunks is split over the
+slots.  For the thread backend (``in_process``) one ``queue.Queue`` with
+the whole bound serves every slot, where the reference swaps one in
+before any worker starts (runtime.py ``_use_thread_queue`` :357-372).
 
 The six transition columns live as tensors on the learner's device.  Where
 the reference's functional ring returns a new state from every write, the
@@ -22,8 +27,10 @@ from __future__ import annotations
 
 import multiprocessing as mp
 import queue
+import threading
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from multiprocessing import connection
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,6 +109,43 @@ class DeviceReplay:
                    non_blocking: bool = False) -> None:
         ring_write(self.state, chunk, self.capacity, non_blocking)
 
+    def _age_order(self, col: torch.Tensor) -> np.ndarray:
+        """The valid rows of a column, oldest first, on the host: when the
+        ring is full the cursor points at the oldest row; before that,
+        ``[0, fill)`` is oldest first."""
+        st = self.state
+        if st.fill == self.capacity and st.pos:
+            col = torch.cat([col[st.pos:], col[:st.pos]])
+        else:
+            col = col[:st.fill]
+        return col.cpu().numpy().copy()
+
+    def snapshot(self) -> dict:
+        """The valid rows, oldest first, as host arrays in NCHW (the
+        reference's snapshot without its provenance column)."""
+        return {f: self._age_order(getattr(self.state, f))
+                for f in REPLAY_FIELDS}
+
+    def _reset(self) -> None:
+        """Empty the ring in place: the tensors stay the ones a captured
+        graph reads."""
+        st = self.state
+        for f in REPLAY_FIELDS:
+            getattr(st, f).zero_()
+        st.pos = st.fill = 0
+
+    def restore(self, data: dict) -> int:
+        """Replace the contents with a snapshot's newest rows that fit,
+        written through the normal ring write.  Returns rows restored.  A
+        ``prov`` column, which the reference's snapshots carry, is
+        ignored."""
+        self._reset()
+        n = min(len(np.asarray(data["reward"])), self.capacity)
+        if n:
+            self.feed_chunk(Transition(*(np.asarray(data[f])[-n:]
+                                         for f in REPLAY_FIELDS)))
+        return n
+
 
 class StagedWriter:
     """The drain's host side (reference: the feed is an asynchronous
@@ -159,12 +203,6 @@ class QueueFeeder:
         self._buf: List[Transition] = []
         self._stop = None
 
-    def clone(self) -> "QueueFeeder":
-        """Same queue, own buffer: one per actor thread."""
-        f = QueueFeeder(self._q, self._chunk)
-        f._stop = self._stop
-        return f
-
     def set_stop(self, event) -> None:
         self._stop = event
 
@@ -199,16 +237,26 @@ STAGE_SLABS = 3
 
 
 class DeviceReplayIngest:
-    """Queue front end of the device ring: actors feed through
-    ``make_feeder()``; the learner calls ``attach(device)`` and then
-    ``drain()`` between dispatches, which stacks pending rows into the
-    staging slabs (``StagedWriter``) and writes them with one
-    host-to-device copy per column and slab."""
+    """Queue front end of the device ring: actor slot ``i`` feeds through
+    ``make_feeder(i)``; the learner calls ``attach(device)`` and then
+    ``drain()`` between dispatches, which reads every slot's queue,
+    stacks the rows into the staging slabs (``StagedWriter``) and writes
+    them with one host-to-device copy per column and slab.
+
+    On the process backend the topology closes its own write end of a
+    slot's queue right after the spawn that hands it over
+    (``close_write_end``) and names the child's sentinel
+    (``bind_producer``).  A read that ends in ``EOFError`` or ``OSError``
+    then means that every writer is gone: if the queue's producer has
+    exited (or the queue was replaced), what was left is dropped, the
+    read is counted in ``torn_reads`` and the queue is closed; if the
+    producer is still alive the drain raises."""
 
     def __init__(self, capacity: int, state_shape: Tuple[int, ...],
                  action_shape: Tuple[int, ...] = (),
                  state_dtype=np.uint8, action_dtype=np.int32,
-                 max_queue_chunks: int = 4096, in_process: bool = False):
+                 max_queue_chunks: int = 4096, in_process: bool = False,
+                 slots: int = 1):
         self.capacity = capacity
         self.state_shape = tuple(state_shape)
         self.action_shape = tuple(action_shape)
@@ -216,32 +264,91 @@ class DeviceReplayIngest:
         self.action_dtype = np.dtype(action_dtype)
         self.max_queue_chunks = max_queue_chunks  # backpressure bound
         # in-process producers (the thread backend) hand chunks over by
-        # reference instead of pickling each one through a pipe
-        self._q = (queue.Queue(max_queue_chunks) if in_process
-                   else _CTX.Queue(max_queue_chunks))
+        # reference through one queue instead of pickling through pipes
+        self._shared = queue.Queue(max_queue_chunks) if in_process else None
+        self._slot_bound = max(1, max_queue_chunks // max(1, slots))
+        self._lock = threading.Lock()  # the drain vs the runtime's monitor
+        self._live: Dict[int, object] = {}     # slot -> its queue
+        self._retiring: List[object] = []      # replaced, read to the end
+        self._producer: Dict[int, object] = {}  # id(queue) -> sentinel
+        self.torn_reads = 0
         self.replay: Optional[DeviceReplay] = None
         self._staging: Optional[StagedWriter] = None
         self._pending: List[Transition] = []
         self._fed_total = 0
 
-    def make_feeder(self, chunk: int = 16) -> QueueFeeder:
-        return QueueFeeder(self._q, chunk)
+    def _slot_queue(self, slot: int):
+        with self._lock:
+            if slot not in self._live:
+                self._live[slot] = _CTX.Queue(self._slot_bound)
+            return self._live[slot]
 
-    def close_write_end(self) -> None:
-        """Drop this process's end for writing, once every producer holds
-        its own (the learner's process never puts).  A producer that dies
-        while writing a chunk leaves a partial message in the pipe, which
-        a read would wait on forever; with this end closed the read ends
-        in ``EOFError`` once the other producers have exited too."""
-        if hasattr(self._q, "_writer"):  # mp queue only
-            self._q._writer.close()
+    def make_feeder(self, slot: int = 0, chunk: int = 16) -> QueueFeeder:
+        """The feeder of actor slot ``slot``."""
+        if self._shared is not None:
+            return QueueFeeder(self._shared, chunk)
+        return QueueFeeder(self._slot_queue(slot), chunk)
+
+    def replace_slot(self, slot: int, chunk: int = 16) -> QueueFeeder:
+        """A fresh queue for the respawn of ``slot`` and its feeder; the
+        old queue is read to its end by the following drains."""
+        if self._shared is not None:
+            raise RuntimeError("the in-process queue has no slots")
+        with self._lock:
+            old = self._live.pop(slot, None)
+            if old is not None:
+                self._retiring.append(old)
+        return self.make_feeder(slot, chunk)
+
+    def bind_producer(self, slot: int, sentinel) -> None:
+        """Name the process that writes ``slot``'s queue, by its
+        ``Process.sentinel``."""
+        self._producer[id(self._slot_queue(slot))] = sentinel
+
+    def close_write_end(self, slot: int) -> None:
+        """Drop this process's write end of ``slot``'s queue once its
+        producer holds its own: this process never puts.  A producer that
+        dies inside a put leaves a partial message in its pipe, which a
+        read would wait on forever; with this end closed the read ends in
+        ``EOFError`` instead."""
+        self._slot_queue(slot)._writer.close()
+
+    def _sources(self) -> list:
+        """(slot or None, queue) of every queue to read: the live slots'
+        and the replaced ones'."""
+        if self._shared is not None:
+            return [(0, self._shared)]
+        with self._lock:
+            return list(self._live.items()) + [(None, q)
+                                               for q in self._retiring]
+
+    def _producer_gone(self, slot, q, timeout: float = 5.0) -> bool:
+        if slot is None:
+            return True  # replaced: its producer is dead
+        sentinel = self._producer.get(id(q))
+        return sentinel is not None and bool(
+            connection.wait([sentinel], timeout))
+
+    def _retire(self, q) -> None:
+        with self._lock:
+            if q in self._retiring:
+                self._retiring.remove(q)
+            for slot, live in list(self._live.items()):
+                if live is q:
+                    del self._live[slot]
+            self._producer.pop(id(q), None)
+        _close_queue(q)
 
     def close(self) -> None:
-        """Shut the queue down; pending chunks are dropped (reference
+        """Shut every queue down; pending chunks are dropped (reference
         feeder.py:339-349)."""
-        if hasattr(self._q, "cancel_join_thread"):  # mp queue only
-            self._q.cancel_join_thread()
-            self._q.close()
+        if self._shared is not None:
+            return
+        with self._lock:
+            qs = list(self._live.values()) + self._retiring
+            self._live, self._retiring = {}, []
+        for q in qs:
+            _close_queue(q)
 
     def _ring_kwargs(self, device) -> dict:
         return dict(capacity=self.capacity, state_shape=self.state_shape,
@@ -266,27 +373,51 @@ class DeviceReplayIngest:
         return min(self._fed_total, self.replay.capacity)
 
     def drain(self, max_chunks: int = 1024, max_rows: int = 32768) -> int:
-        """Move queued transitions into the ring, at most ``max_rows`` per
+        """Move queued transitions into the ring: at most ``max_chunks``
+        chunks read over all queues and ``max_rows`` rows written per
         call (the rest stays pending for the next drain).  Returns rows
         written."""
         if self.replay is None:
             raise RuntimeError("attach() first")
-        if not self._pending and self._q.empty():
-            return 0
-        for _ in range(max_chunks):
-            try:
-                self._pending.extend(self._q.get_nowait())
-            except queue.Empty:
-                break
-            except (EOFError, OSError) as e:
-                raise RuntimeError("the ingest queue broke off inside a "
-                                   "chunk: a producer died while writing "
-                                   "it") from e
+        budget = max_chunks
+        for slot, q in self._sources():
+            while budget > 0:
+                try:
+                    self._pending.extend(q.get_nowait())
+                    budget -= 1
+                except queue.Empty:
+                    if slot is None:  # a replaced queue, read to its end
+                        self._retire(q)
+                    break
+                except (EOFError, OSError) as e:
+                    if not self._producer_gone(slot, q):
+                        raise RuntimeError(
+                            "the ingest queue broke off inside a chunk: "
+                            "its producer is alive") from e
+                    self.torn_reads += 1
+                    self._retire(q)
+                    break
         n = min(len(self._pending), max_rows)
         rows, self._pending = self._pending[:n], self._pending[n:]
         if n:
             self._staging.write(rows)
         self._fed_total += n
+        return n
+
+    def snapshot(self) -> dict:
+        """Drain every queued chunk into the ring, then its snapshot."""
+        if self.replay is None:
+            raise RuntimeError("attach() first")
+        while self.drain():  # a deep backlog takes several capped drains
+            pass
+        return self.replay.snapshot()
+
+    def restore(self, data: dict) -> int:
+        """Replace the ring's contents with a snapshot's; returns rows."""
+        if self.replay is None:
+            raise RuntimeError("attach() first")
+        n = self.replay.restore(data)
+        self._fed_total = n  # the ring was emptied first
         return n
 
 
@@ -313,6 +444,17 @@ class DevicePerIngest(DeviceReplayIngest):
             importance_weight=self.importance_weight,
             importance_anneal_steps=self.importance_anneal_steps,
             **self._ring_kwargs(device))
+
+
+def _close_queue(q) -> None:
+    """Close a spawn queue in this process without waiting on a feeder
+    thread.  ``close`` leaves the read end to the feeder thread, which
+    closes both ends; with no thread (this process never put) the read
+    end is closed here."""
+    q.cancel_join_thread()
+    q.close()
+    if q._thread is None:
+        q._reader.close()
 
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:

@@ -1,10 +1,11 @@
 """The run topology — the port of pytorch_distributed_tpu/runtime.py
 (``_child_main`` :53-98, ``Topology`` :101-352 with ``_worker_specs``
-:201-226, ``run`` :228-352, ``_spawn`` :374, ``_join_all`` :510, and
-``test``).
+:201-226, ``run`` :228-352, ``_spawn`` :374, ``_monitor`` :384-508,
+``_join_all`` :510-546, and ``test``).
 
-The shared plane (clocks, stat accumulators, the flat parameter store and
-the ingest queue) is made here, and the actors' C++ stepper is built once
+The shared plane (clocks, stat accumulators, the flat parameter store,
+the ingest queues and the hang watchdog's progress board, attached to
+the clock) is made here, and the actors' C++ stepper is built once
 (``factory.prebuild_native``, reference :243); then one logger,
 ``num_actors`` actors and, when ``evaluator_nepisodes > 0``, one
 evaluator run as workers, with the learner on the calling thread of this
@@ -16,20 +17,33 @@ Backends:
   spawn child that the trampoline pins to the CPU before anything in it
   resolves a device, so the learner's process is the only one with a CUDA
   context.  Each child reports whether CUDA was initialised in it when it
-  exits; the summary's ``runtime/children_with_cuda`` counts them.  A
-  monitor thread trips the stop event when a child exits abnormally, and
-  ``run`` then raises.  The restart budget and the SIGTERM preemption
-  path are not ported yet (ROADMAP.md).
-- ``thread``: the same workers as threads of this process, over an
+  exits; the summary's ``runtime/children_with_cuda`` counts them.  Each
+  actor slot feeds a queue of its own (memory/device_replay.py).  A
+  monitor thread supervises the children: a dead actor is respawned with
+  the same arguments and a fresh slot queue, up to ``max_restarts`` (3)
+  times per slot (utils/supervision.py ``RestartBudget``); a dead logger
+  or evaluator, or an actor out of budget, stops the run and ``run``
+  raises.  With ``hang_deadline > 0`` the monitor is also the hang
+  watchdog: a child whose progress marks go stale is SIGKILLed and
+  respawned under the same budget (``runtime/hang_kills``), and a stale
+  learner ends the process with ``EXIT_HUNG`` for an outer supervisor
+  to resume.
+- ``thread``: the same workers as threads of this process, over one
   in-process ``queue.Queue`` (built as such, where the reference swaps
-  one in: ``_use_thread_queue`` :357-372).  The threads share one GIL
-  with the learner, which is what bounds this backend (PERF.md).
+  one in: ``_use_thread_queue`` :357-372), with no restarts.  The threads
+  share one GIL with the learner, which is what bounds this backend
+  (PERF.md).
+
+SIGTERM is a preemption notice on either backend when ``run`` is called
+from the main thread: the run drains, the learner commits its final
+checkpoint epoch, and ``run`` returns with ``runtime/preempted`` 1.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
 import os
+import signal
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -52,6 +66,9 @@ from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, build_memory, build_model, prebuild_native, probe_env,
     resolve_device,
+)
+from pytorch_distributed_tpu_torch.utils.supervision import (
+    EXIT_HUNG, ProgressBoard, RestartBudget, describe_exit,
 )
 
 _CTX = mp.get_context("spawn")
@@ -99,7 +116,7 @@ class Topology:
     Options."""
 
     def __init__(self, opt: Options, spec: Optional[EnvSpec] = None,
-                 backend: str = "process"):
+                 backend: str = "process", max_restarts: int = 3):
         if backend not in ("process", "thread"):
             raise ValueError(f"unknown backend {backend!r}")
         resolve_device(opt)  # fail before any worker starts
@@ -116,17 +133,31 @@ class Topology:
         self.handles = build_memory(opt, self.spec,
                                     in_process=backend == "thread")
         self.children_with_cuda = _CTX.Value("l", 0)
+        # the hang watchdog's board rides the clock's pickle into every
+        # child, so it exists before any spawn
+        self.progress_board = ProgressBoard(
+            ["learner", "evaluator-0"]
+            + [f"actor-{i}" for i in range(opt.num_actors)])
+        self.clock.progress = self.progress_board
+        self.max_restarts = max_restarts
+        self.restarts = 0
+        self.hang_kills = 0
+        # set when a SIGTERM (a preemption notice) ended the run
+        self.preempted = threading.Event()
         self._workers: List[Any] = []
+        self._meta: Dict[Any, tuple] = {}  # process -> (role, ind, args)
         self._errors: List[str] = []
+        self._threads = 1
 
     def _worker_specs(self):
         opt, spec = self.opt, self.spec
         specs = [("logger", 0, (opt, self.clock, self.actor_stats,
                                 self.learner_stats, self.evaluator_stats))]
         for i in range(opt.num_actors):
-            # one feeder per actor: threads must not share a chunk buffer
+            # one feeder per actor slot: its own queue on the process
+            # backend, its own chunk buffer on the thread backend
             specs.append(("actor", i, (
-                opt, spec, i, self.handles.actor_side.clone(),
+                opt, spec, i, self.handles.learner_side.make_feeder(i),
                 self.param_store, self.clock, self.actor_stats)))
         if opt.agent_params.evaluator_nepisodes > 0:
             specs.append(("evaluator", 0, (
@@ -137,21 +168,49 @@ class Topology:
             self.evaluator_stats.done.value = 1
         return specs
 
+    def _watch_sigterm(self, run_over: threading.Event):
+        """On the main thread: make SIGTERM a preemption notice.  The
+        handler only sets ``preempted`` (a ``threading.Event``); a watcher
+        thread sets the shared stop event, since the interrupted thread
+        (the learner) polls that event's lock and a set from inside the
+        handler could deadlock on it (reference :253-287).  Returns the
+        previous handler, or None when none was installed."""
+        if threading.current_thread() is not threading.main_thread():
+            return None
+        prev = signal.signal(signal.SIGTERM,
+                             lambda signum, frame: self.preempted.set())
+
+        def promote():
+            while not run_over.is_set():
+                if self.preempted.wait(0.2):
+                    print("[runtime] SIGTERM: preemption notice; draining "
+                          "for a final checkpoint epoch", flush=True)
+                    self.clock.stop.set()
+                    return
+
+        threading.Thread(target=promote, name="preempt-watch",
+                         daemon=True).start()
+        return prev
+
     def run(self) -> Dict[str, float]:
-        """Mode 1: start the workers, run the learner here, join.  Returns
-        the learner's summary; raises if any worker failed."""
+        """Mode 1: start the workers, run the learner here, supervise,
+        join.  Returns the learner's summary with the runtime's counts;
+        raises if any worker failed for good."""
         opt = self.opt
         prebuild_native(opt)  # once, before N actors race one g++
         specs = self._worker_specs()
         threads_before = torch.get_num_threads()
+        run_over = threading.Event()
+        prev_term = self._watch_sigterm(run_over)
+        monitor = None
         if self.backend == "process":
-            threads = child_threads(opt)
+            self._threads = child_threads(opt)
             for role, ind, args in specs:
-                self._spawn(role, ind, args, threads)
-            self.handles.learner_side.close_write_end()
-            torch.set_num_threads(threads)
-            threading.Thread(target=self._monitor, name="monitor",
-                             daemon=True).start()
+                self._spawn(role, ind, args)
+            torch.set_num_threads(self._threads)
+            monitor = threading.Thread(target=self._monitor, name="monitor",
+                                       daemon=True)
+            monitor.start()
         else:
             for role, ind, args in specs:
                 t = threading.Thread(target=self._thread_main,
@@ -161,6 +220,7 @@ class Topology:
                 self._workers.append(t)
         failure = None
         try:
+            self.progress_board.note_start("learner")
             summary = run_learner(opt, self.spec, 0,
                                   self.handles.learner_side,
                                   self.param_store, self.clock,
@@ -169,6 +229,11 @@ class Topology:
             failure = e
         finally:
             self.clock.stop.set()  # releases every worker loop
+            run_over.set()  # parks the preemption watcher
+            if prev_term is not None:
+                signal.signal(signal.SIGTERM, prev_term)
+            if monitor is not None:
+                monitor.join()  # no respawn races the join below
             self._join_all()
             self.handles.learner_side.close()
             torch.set_num_threads(threads_before)
@@ -177,7 +242,11 @@ class Topology:
                 from failure
         if failure is not None:
             raise failure
-        summary["runtime/children_with_cuda"] = self.children_with_cuda.value
+        summary.update({
+            "runtime/children_with_cuda": self.children_with_cuda.value,
+            "runtime/restarts": self.restarts,
+            "runtime/hang_kills": self.hang_kills,
+            "runtime/preempted": int(self.preempted.is_set())})
         return summary
 
     def _thread_main(self, role: str, ind: int, args: tuple) -> None:
@@ -188,30 +257,113 @@ class Topology:
             self.clock.stop.set()
             raise
 
-    def _spawn(self, role: str, ind: int, args: tuple, threads: int) -> None:
+    def _spawn(self, role: str, ind: int, args: tuple) -> None:
         p = _CTX.Process(target=_child_main,
-                         args=(role, args, threads, self.children_with_cuda),
+                         args=(role, args, self._threads,
+                               self.children_with_cuda),
                          name=f"{role}-{ind}", daemon=True)
         p.start()
+        # the incarnation's start-up grace window starts here
+        self.progress_board.note_start(p.name)
+        if role == "actor":
+            # the child holds its own write end now; and a read that
+            # ends in EOF is judged by this child's liveness
+            ingest = self.handles.learner_side
+            ingest.bind_producer(ind, p.sentinel)
+            ingest.close_write_end(ind)
         self._workers.append(p)
+        self._meta[p] = (role, ind, args)
+
+    def _replace(self, p, code: int, budget: RestartBudget) -> bool:
+        """After child ``p`` died with ``code``: respawn it if it is an
+        actor with budget left (a fresh slot queue, the same arguments
+        otherwise) and return True; else record the failure, stop the
+        run and return False (``p`` stays for ``_join_all``)."""
+        role, ind, args = self._meta.pop(p)
+        if role == "actor" and budget.request_restart(ind) is not None:
+            self._workers.remove(p)
+            budget.note_birth(ind)
+            print(f"[runtime] actor-{ind} died ({describe_exit(code)}); "
+                  f"restart {budget.count(ind)}/{budget.max_restarts}",
+                  flush=True)
+            feeder = self.handles.learner_side.replace_slot(ind)
+            self._spawn(role, ind, args[:3] + (feeder,) + args[4:])
+            # counted once the new child is listed and its marks reset
+            self.restarts += 1
+            return True
+        self._errors.append(f"{role}-{ind} {describe_exit(code)}")
+        print(f"[runtime] {role}-{ind} died ({describe_exit(code)}); "
+              f"stopping the run", flush=True)
+        self.clock.stop.set()
+        return False
 
     def _monitor(self, poll: float = 0.2) -> None:
-        """Trip the stop event as soon as any child exits abnormally."""
+        """Respawn dead actors within their budget, stop the run on any
+        other death; with ``hang_deadline > 0``, SIGKILL and respawn
+        stale children the same way (``EXIT_HUNG``) and end the process
+        if the learner is stale."""
+        hp = self.opt.health_params
+        budget = RestartBudget(max_restarts=self.max_restarts)
+        for role, ind, _args in self._meta.values():
+            if role == "actor":
+                budget.note_birth(ind)
         while not self.clock.stop.is_set():
-            for p in self._workers:
-                if p.exitcode not in (None, 0):
-                    self._errors.append(f"{p.name} exited with code "
-                                        f"{p.exitcode}")
-                    print(f"[runtime] {p.name} died (exit code "
-                          f"{p.exitcode}); stopping the run", flush=True)
-                    self.clock.stop.set()
+            for p in list(self._workers):
+                if p.exitcode not in (None, 0) \
+                        and not self._replace(p, p.exitcode, budget):
                     return
+            if hp.hang_deadline > 0:
+                hung = set(self.progress_board.hung(hp.hang_deadline,
+                                                    hp.hang_grace))
+                killed = False
+                for p in list(self._workers):
+                    if p.name not in hung or p.exitcode is not None:
+                        continue
+                    print(f"[runtime] {p.name} made no progress for "
+                          f"{self.progress_board.age(p.name):.1f} s; "
+                          f"killing it", flush=True)
+                    self.hang_kills += 1
+                    p.kill()
+                    p.join(5.0)
+                    killed = True
+                    if not self._replace(p, EXIT_HUNG, budget):
+                        return
+                # a learner reading a hung child's pipe goes stale with
+                # it, and reads on once the kill ends the pipe: it is
+                # judged on the next pass
+                if "learner" in hung and not killed:
+                    print(f"[runtime] learner ({describe_exit(EXIT_HUNG)}); "
+                          f"ending the process for a resume", flush=True)
+                    self.clock.stop.set()
+                    os._exit(EXIT_HUNG)
             time.sleep(poll)
 
     def _join_all(self, timeout: float = 240.0) -> None:
         """Join every worker within ``timeout`` (the evaluator's final
-        evaluation can take a while), then terminate the stragglers."""
+        evaluation can take a while), then terminate the stragglers.  With
+        the watchdog on, a child whose marks are stale at shutdown can
+        drain nothing: it is killed at once (an actor's kill is counted
+        in ``hang_kills``, any other child's is a failure)."""
         deadline = time.monotonic() + timeout
+        hp = self.opt.health_params
+        stale_killed = set()
+        while hp.hang_deadline > 0 and time.monotonic() < deadline:
+            alive = [w for w in self._workers
+                     if isinstance(w, _CTX.Process) and w.is_alive()]
+            if not alive:
+                break
+            hung = set(self.progress_board.hung(hp.hang_deadline,
+                                                hp.hang_grace))
+            for w in alive:
+                if w.name in hung:
+                    print(f"[runtime] {w.name} hung at shutdown; killing "
+                          f"it", flush=True)
+                    w.kill()  # SIGTERM would wait on a stopped child
+                    w.join(5.0)
+                    stale_killed.add(w.name)
+                    if w.name.startswith("actor-"):
+                        self.hang_kills += 1
+            time.sleep(0.25)
         # the logger last: its end-of-run drain waits for the evaluator,
         # which a dead evaluator must not leave it doing
         for w in sorted(self._workers, key=lambda w: w.name == "logger-0"):
@@ -227,7 +379,9 @@ class Topology:
                     w.join(5.0)
                     self._errors.append(f"{w.name} did not stop")
                 elif w.exitcode != 0 and not any(
-                        e.startswith(w.name + " ") for e in self._errors):
+                        e.startswith(w.name + " ") for e in self._errors) \
+                        and not (w.name in stale_killed
+                                 and w.name.startswith("actor-")):
                     self._errors.append(f"{w.name} exited with code "
                                         f"{w.exitcode}")
 

@@ -94,8 +94,9 @@ def _reference(tmp_path):
     return clock, jax_run_learner, args, handles.learner_side
 
 
-def _port():
-    opt = build_options(12, device="cpu", **SETTINGS)
+def _port(tmp_path):
+    opt = build_options(12, device="cpu", root_dir=str(tmp_path / "port"),
+                        **SETTINGS)
     spec = EnvSpec(FRAME, ACTIONS, 255.0)
     handles = build_memory(opt, spec)
     _feed(handles.actor_side, Transition)
@@ -110,7 +111,7 @@ def _port():
 @pytest.mark.timeout(90)
 def test_gate_lets_the_same_steps_through_at_k4(tmp_path):
     assert EXPECT == 12  # a "+ K" gate would stop at 8
-    sides = {"reference": _reference(tmp_path), "port": _port()}
+    sides = {"reference": _reference(tmp_path), "port": _port(tmp_path)}
     errors = []
 
     def run(fn, args):

@@ -3,7 +3,8 @@ it copies, the evaluator -> logger handshake and the logger's rows, the
 params checkpoints and their ``_best`` tier, and config 12 end to end on
 the process backend (actors, an evaluator and a logger in spawn
 children, the learner here) followed by ``--mode 2`` on its params file,
-and a dead actor child, which must make ``run`` raise, not hang.
+and a dead child the run cannot replace (the evaluator, or an actor with
+no restart left), which must make ``run`` raise, not hang.
 
 The spawn tests carry their own timeout: each child imports torch, so a
 run takes some seconds to start.
@@ -238,14 +239,15 @@ def test_process_backend_end_to_end_then_mode_2(tmp_path):
 @pytest.mark.timeout(120)
 @pytest.mark.parametrize("victim", ["actor-1", "evaluator-0"])
 def test_a_dead_child_makes_run_raise(tmp_path, victim):
-    """A child killed mid-run: the monitor stops the run, the learner's
+    """A child killed mid-run that the run cannot replace (the actor's
+    slot has no restart left): the monitor stops the run, the learner's
     loop ends (its ingest read too, if the child was writing a chunk), the
     logger does not wait for a dead evaluator's last point, and ``run``
     raises naming the child, within seconds."""
     opt = port_main.options_from_args(port_main.parse_args(_process_run(
         tmp_path, "--set", "max_seconds=45")))
     opt.agent_params.steps = 10 ** 6
-    topo = runtime.Topology(opt, backend="process")
+    topo = runtime.Topology(opt, backend="process", max_restarts=0)
     killed = []
 
     def kill_the_victim():

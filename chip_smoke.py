@@ -87,7 +87,27 @@ Phases, each printed as one JSON line:
 14. train_paced: the process run with the reference's config-12 pacing
    (``max_replay_ratio`` 8, ``learn_start`` 5,000): updates/s, the pacing
    seconds, the actors' phases, the same launches per update;
-15. resume: supervision and resume at full width, in three legs. (1) A
+15. inference: the shared inference server (``actor_backend=batched``)
+   alone on the card, on random weights: one batched actor of 16 envs,
+   300 ticks of native Pong with every env reset at ticks 100 and 200
+   (so full uploads reseed the server's stack between packed ones),
+   against an ``inline`` actor on its own CUDA stream at the same seed and
+   weights: identical transition streams (sha256 of every row); each
+   program's CUDA graph against the same act run eagerly, to the bit;
+   sweeps of 2 and 6 clients' full requests coalesced into one forward,
+   each client's q_sel and q_max against its own 16-row forward within
+   rtol and atol 1e-2 (a wider batch may pick other convolution
+   algorithms), and its actions equal wherever the top-two gap exceeds
+   that; the share of equal actions; round trip ms per request, device
+   ms per forward (graph replays timed by events) and rows per sweep at
+   1, 2 and 6 clients;
+16. train_batched: the process run with ``actor_backend=batched``,
+   unpaced and then paced as train_paced: the same launches per update,
+   a finite loss, no child with CUDA, ``inference/rows`` equal to the
+   actors' frames within one tick per actor; updates/s, frames/s, the
+   actors' phases, the learner's host seconds and the server's counts
+   beside train_process's and train_paced's;
+17. resume: supervision and resume at full width, in three legs. (1) A
    process-backend run here, paced (``max_replay_ratio`` 8), with the
    hang watchdog at 10 s and an epoch every 500 steps: a timer thread
    SIGKILLs ``actor-0`` once the learner passes step 300 and SIGSTOPs
@@ -106,7 +126,9 @@ Phases, each printed as one JSON line:
 
 Then a ``kernels`` line (the table PERF.md is written from: B1's and the
 bf16 GEMM's launches from the train_process phase, the fp32 GEMM's from
-the fp32 learner run), the card's name and power limit, and the verdict
+the fp32 learner run, and each kernel's launches on the process runs
+with pipelined and with batched actors), the card's name and power
+limit, and the verdict
 as the last line.  Exits non-zero, with no verdict, if there is no GPU, if
 the package is missing, or if any phase fails.  TF32 is off throughout,
 so fp32 references are full fp32.
@@ -1209,6 +1231,296 @@ def train_paced():
                 children_with_cuda=summary["runtime/children_with_cuda"])
 
 
+# the inference phase's tolerance for a wider sweep against one client's
+# forward, on q_sel and q_max (bf16 compute; a wider batch may pick other
+# convolution algorithms)
+SWEEP_RTOL = SWEEP_ATOL = 1e-2
+INFER_EARLY_STOP = 100  # every env resets at ticks 100 and 200 of 300
+TIMED_TICKS = 200
+
+
+def _batched_opt(backend: str, refs: str, **kw):
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    return build_options(
+        12, device="cuda", num_actors=2, num_envs_per_actor=NATIVE_ENVS,
+        actor_backend=backend, actor_freq=10 ** 9,
+        early_stop=INFER_EARLY_STOP, root_dir=os.path.join(RUN_DIR, refs),
+        refs=refs, **kw)
+
+
+def _server(opt, spec, clients: int, in_process: bool = False):
+    """A server on the card over ``init_params(seed=0)`` with ``clients``
+    clients, on pipes as the process backend wires it, or on in-process
+    queues (whose puts never wait for the server)."""
+    from pytorch_distributed_tpu_torch.agents.actor import snapshot_store
+    from pytorch_distributed_tpu_torch.agents.inference import (
+        InferenceServer,
+    )
+
+    srv = InferenceServer(opt, spec, snapshot_store(opt, spec, 0),
+                          in_process=in_process)
+    return srv, [srv.make_client(i) for i in range(clients)]
+
+
+def _graph_vs_eager(srv, spec, gen) -> dict:
+    """Each program kind replayed from its graph against the same act run
+    eagerly on the same inputs, on the server's stream: max abs difference
+    of the packed output (0.0 is bit-equal)."""
+    from pytorch_distributed_tpu_torch.models.policies import (
+        packed_act_rows, packed_roll_act,
+    )
+
+    n = NATIVE_ENVS
+    obs = torch.randint(0, 255, (n, *FRAME), generator=gen,
+                        dtype=torch.uint8)
+    new = torch.randint(0, 255, (n, *FRAME[1:]), generator=gen,
+                        dtype=torch.uint8)
+    ctl = torch.stack([torch.full((n,), 0.3), torch.rand(n, generator=gen),
+                       torch.randint(0, ACTIONS, (n,), generator=gen).float()])
+    out = {}
+    srv._refresh_params(block=True)
+    with torch.cuda.stream(srv._stream):
+        rows = srv._rows_progs[n]
+        rows.stage("obs", 0, n, obs.numpy())
+        rows.stage("ctl", 0, n, ctl.numpy())
+        rows.launch(("obs", "ctl"))
+        got = torch.from_numpy(rows.result().copy())
+        d = {k: v.to(DEV) for k, v in (("obs", obs), ("ctl", ctl))}
+        want = packed_act_rows(srv._apply, srv._params, d["obs"],
+                               d["ctl"][0], d["ctl"][1], d["ctl"][2].long())
+        out["rows"] = (got - want.cpu()).abs().max().item()
+        roll = srv._roll_progs[0]
+        roll.dev["stack"].copy_(d["obs"])
+        stack = d["obs"].clone()
+        roll.stage("new", 0, n, new.numpy())
+        roll.stage("ctl", 0, n, ctl.numpy())
+        roll.launch(("new", "ctl"))
+        got = torch.from_numpy(roll.result().copy())
+        stack, want = packed_roll_act(srv._apply, srv._params, stack,
+                                      new.to(DEV), d["ctl"][0], d["ctl"][1],
+                                      d["ctl"][2].long())
+        out["roll"] = (got - want.cpu()).abs().max().item()
+        out["roll_stack_equal"] = bool(torch.equal(stack, roll.dev["stack"]))
+    srv._stream.synchronize()
+    return out
+
+
+def _sweep_check(spec, clients: int, gen) -> dict:
+    """``clients`` clients submit the same full observations before the
+    server starts, so its first sweep takes them all in one forward; each
+    client's q_sel and q_max against its own forward at one client's
+    width, eagerly, within SWEEP_RTOL/ATOL, and its actions equal wherever
+    the top-two gap of q exceeds the tolerance."""
+    from pytorch_distributed_tpu_torch.models.policies import packed_act_rows
+
+    opt = _batched_opt("batched", f"sweep{clients}")
+    # a pipe's send of a full stack waits for a reader: in-process queues
+    # hold every request until the server starts
+    srv, cs = _server(opt, spec, clients, in_process=True)
+    n = NATIVE_ENVS
+    obs = torch.randint(0, 255, (n, *FRAME), generator=gen,
+                        dtype=torch.uint8)
+    sent = []
+    for c in cs:
+        eps = torch.rand(n, generator=gen)
+        u = torch.rand(n, generator=gen)
+        a = torch.randint(0, ACTIONS, (n,), generator=gen)
+        c.begin_session(eps.numpy())
+        sent.append((c.submit(obs.numpy(), 1, u.numpy(), a.numpy()),
+                     eps, u, a))
+    srv.start()
+    try:
+        got = [c.collect(h, timeout=120.0) for c, (h, *_r) in zip(cs, sent)]
+        with torch.cuda.stream(srv._stream):
+            q = srv._apply(srv._params, obs.to(DEV)).cpu()
+            want = [packed_act_rows(srv._apply, srv._params, obs.to(DEV),
+                                    e.to(DEV), u.to(DEV), a.to(DEV)).cpu()
+                    for _h, e, u, a in sent]
+        srv._stream.synchronize()
+    finally:
+        srv.stop()
+    if srv.stats["batches"] != 1 or srv.stats["widest_batch"] != clients * n:
+        raise AssertionError(f"{clients} clients were not one sweep: "
+                             f"{srv.stats}")
+    top2 = q.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > SWEEP_ATOL
+    equal, worst = 0, 0.0
+    for g, w in zip(got, want):
+        g = torch.from_numpy(g)
+        torch.testing.assert_close(g[1:], w[1:], rtol=SWEEP_RTOL,
+                                   atol=SWEEP_ATOL)
+        worst = max(worst, (g[1:] - w[1:]).abs().max().item())
+        same = g[0] == w[0]
+        if not bool(same[clear].all()):
+            raise AssertionError(f"{clients} clients: an action with a "
+                                 f"clear top-two gap differs")
+        equal += int(same.sum())
+    return {"rows": srv.stats["widest_batch"],
+            "bucket": min(r for r in srv._rows_progs
+                          if r >= clients * n),
+            "max_abs_q_diff": worst,
+            "equal_action_share": equal / (clients * n)}
+
+
+def _timed_clients(spec, clients: int, gen) -> dict:
+    """``clients`` threads, each a client sending TIMED_TICKS rolled frame
+    stacks (packed after the first): round trip ms per request, rows per
+    sweep, and the server's device ms per forward (its roll-act graph at
+    one client's width and its rows graph at the widest bucket, replayed
+    alone on its stream and timed by events)."""
+    import threading
+
+    opt = _batched_opt("batched", f"timed{clients}")
+    srv, cs = _server(opt, spec, clients)
+    n = NATIVE_ENVS
+    frames = torch.randint(0, 255, (TIMED_TICKS + FRAME[0], n, *FRAME[1:]),
+                           generator=gen, dtype=torch.uint8).numpy()
+    rtt = [[] for _ in cs]
+    errors = []
+
+    def client(i):
+        try:
+            c = cs[i]
+            c.begin_session(np.full(n, 0.1, np.float32))
+            u = np.ones(n, np.float32)
+            a = np.zeros(n, np.int64)
+            for k in range(TIMED_TICKS):
+                obs = np.ascontiguousarray(
+                    frames[k:k + FRAME[0]].transpose(1, 0, 2, 3))
+                t0 = time.perf_counter()
+                c.collect(c.submit(obs, k + 1, u, a), timeout=120.0)
+                rtt[i].append(time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    srv.start()
+    try:
+        ts = [threading.Thread(target=client, args=(i,)) for i in
+              range(clients)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(300)
+        dev_ms = {}
+        for name, prog in (("roll_16", srv._roll_progs[0]),
+                           (f"rows_{max(srv._rows_progs)}",
+                            srv._rows_progs[max(srv._rows_progs)])):
+            start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+            with torch.cuda.stream(srv._stream):
+                prog.graph.replay()
+                start.record()
+                for _ in range(50):
+                    prog.graph.replay()
+                end.record()
+            end.synchronize()
+            dev_ms[name] = start.elapsed_time(end) / 50
+    finally:
+        srv.stop()
+    if errors:
+        raise errors[0]
+    all_rtt = sorted(x for r in rtt for x in r[1:])
+    st = srv.stats
+    if st["requests"] != clients * TIMED_TICKS or st["packed"] != \
+            clients * (TIMED_TICKS - 1):
+        raise AssertionError(f"{clients} clients: {st}")
+    return {"round_trip_ms_mean": 1e3 * sum(all_rtt) / len(all_rtt),
+            "round_trip_ms_p50": 1e3 * all_rtt[len(all_rtt) // 2],
+            "round_trip_ms_p99": 1e3 * all_rtt[int(len(all_rtt) * 0.99)],
+            "rows_per_sweep": st["rows"] / st["batches"],
+            "rows_per_forward": st["rows"] / st["forwards"],
+            "device_ms_per_forward": dev_ms, "stats": dict(st)}
+
+
+def inference():
+    """The shared inference server alone on the card (random weights from
+    ``init_params``): one batched actor of 16 envs over 300 ticks of
+    native Pong against an ``inline`` actor on its own CUDA stream at the
+    same seed and weights (every env resets at ticks 100 and 200, so full
+    uploads reseed the stack mid-run): identical sha256 streams; each
+    program's graph against the eager act (bit-equal); coalesced sweeps of
+    2 and 6 clients against one client's forward (SWEEP_RTOL, SWEEP_ATOL);
+    round trip, device ms per forward and rows per sweep at 1, 2 and 6
+    clients."""
+    from pytorch_distributed_tpu_torch.agents.actor import bounded_actor_run
+    from pytorch_distributed_tpu_torch.factory import probe_env
+
+    gen = torch.Generator().manual_seed(9)
+    opt_b = _batched_opt("batched", "inference")
+    spec = probe_env(opt_b)
+    srv, (client,) = _server(opt_b, spec, 1)
+    srv.start()
+    try:
+        graph_vs_eager = _graph_vs_eager(srv, spec, gen)
+        batched = bounded_actor_run(opt_b, ACTOR_TICKS, spec=spec,
+                                    inference=client)
+    finally:
+        srv.stop()
+    inline = bounded_actor_run(_batched_opt("inline", "inference_inline"),
+                               ACTOR_TICKS, spec=spec)
+    if (graph_vs_eager["rows"], graph_vs_eager["roll"]) != (0.0, 0.0) \
+            or not graph_vs_eager["roll_stack_equal"]:
+        raise AssertionError(f"graph against eager: {graph_vs_eager}")
+    a, b = _digest(inline["stream"]), _digest(batched["stream"])
+    if a != b or len(inline["stream"]) != len(batched["stream"]):
+        raise AssertionError("the batched stream differs from the inline "
+                             "one")
+    st = srv.stats
+    full = st["requests"] - st["packed"]
+    if st["packed"] == 0 or full < 3:
+        raise AssertionError(f"both upload paths did not run: {st}")
+    phases = {k[len("actor/time_"):-3]: v for k, v in
+              batched["timer_ms"].items()
+              if k.endswith("_ms") and not k.endswith(("_max_ms",
+                                                       "_total_ms"))}
+    return {"streams": "batched == inline on the card (sha256 of every "
+                       "row)", "rows": len(batched["stream"]),
+            "ticks": ACTOR_TICKS, "envs": NATIVE_ENVS,
+            "server_stats": dict(st), "full_requests": full,
+            "graph_vs_eager_max_abs": graph_vs_eager,
+            "batched_frames_per_sec":
+                batched["env_steps"] / batched["seconds"],
+            "inline_frames_per_sec": inline["env_steps"] / inline["seconds"],
+            "batched_phases_ms": phases,
+            "sweep_tolerance": {"rtol": SWEEP_RTOL, "atol": SWEEP_ATOL},
+            "sweeps": {k: _sweep_check(spec, k, gen) for k in (2, 6)},
+            "timed": {k: _timed_clients(spec, k, gen) for k in (1, 2, 6)}}
+
+
+def train_batched():
+    """Config 12 at full width through ``main`` on the process backend with
+    ``actor_backend=batched``, unpaced and then paced (the reference's
+    flags): the same launches per update, a finite loss, no child with
+    CUDA, ``inference/rows`` equal to the actors' frames within one tick
+    per actor, beside train_process's and train_paced's numbers."""
+    out = {}
+    for name, sets in (("unpaced", ()),
+                       ("paced", ("max_replay_ratio=8", "learn_start=5000"))):
+        r, summary = _train_through_main("process", f"batched_{name}",
+                                         "actor_backend=batched", *sets)
+        RESULTS[f"launches_batched_{name}"] = r["launches"]
+        if summary["runtime/children_with_cuda"] != 0:
+            raise AssertionError("a child made a CUDA context")
+        over = summary["inference/rows"] - summary["runtime/actor_steps"]
+        if not 0 <= over <= 2 * NATIVE_ENVS:
+            raise AssertionError(
+                f"{name}: inference/rows {summary['inference/rows']} for "
+                f"{summary['runtime/actor_steps']} actor frames")
+        r = {k: r[k] for k in ("launches", "updates_per_sec",
+                               "actor_frames_per_sec", "actor_phases_ms",
+                               "replay_ratio", "host_s", "train_seconds",
+                               "critic_loss")}
+        r["inference"] = {k.split("/", 1)[1]: v for k, v in summary.items()
+                          if k.startswith("inference/")}
+        r["rows_over_frames"] = over
+        out[name] = r
+    keys = ("updates_per_sec", "actor_frames_per_sec", "actor_phases_ms",
+            "host_s")
+    return dict(out, card=card_name_and_power_limit(), pipelined={
+        "unpaced": {k: RESULTS.get("e2e_process", {}).get(k) for k in keys},
+        "paced": {k: RESULTS.get("e2e_paced", {}).get(k) for k in keys}})
+
+
 def _zero_launches() -> None:
     for fn in (cuda_sampling.hierarchical_sample, cuda_torso.gemm_bf16,
                cuda_torso.gemm_bf16_grad, cuda_torso.gemm_f32):
@@ -1447,7 +1759,7 @@ def main() -> int:
     for fn in (build, per_sample, torso_gemm, torso_apply, learner_alone,
                native_pong, actor_tick, actor_gpu, staged_drain, train,
                train_process, test_mode, process_trace, train_paced,
-               resume):
+               inference, train_batched, resume):
         if fn is not build and "build" in FAILED:
             break
         phase(fn)
@@ -1458,8 +1770,13 @@ def main() -> int:
         "f32_launches", {}).get("launches", 0))
     for name, source, replaces in KERNELS:
         r = RESULTS.get(name, {})
+        by_path = {path: RESULTS.get(key, {}).get(name) for path, key in (
+            ("train_process", "launches"),
+            ("train_batched_unpaced", "launches_batched_unpaced"),
+            ("train_batched_paced", "launches_batched_paced"))}
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=launches.get(name, 0),
+                          launches_by_path=by_path,
                           **{k: r.get(k) for k in (
                               "max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}))

@@ -2,7 +2,8 @@
 pytorch_distributed_tpu/agents/actor.py for the dqn family: the harness
 (``_ActorHarness`` :120-390: ``tick_sync``, ``advance``, the stat and
 timer cadences), the local act engine (``_LocalDqnEngine`` :415-437), the
-loop (``_drive_actor_loop`` :524-590), ``run_dqn_actor`` (:748) and
+batched engine (``_BatchedDqnEngine`` :479-497), the loop
+(``_drive_actor_loop`` :524-590), ``run_dqn_actor`` (:748) and
 ``bounded_actor_run`` (:828).
 
 Each actor steps ``num_envs_per_actor`` Pong games as one vector (the C++
@@ -39,7 +40,14 @@ Schedules (``actor_backend``):
 Both schedules submit and collect once per tick and swap weights at the
 same point (after the env step, before the next dispatch), so their
 transition streams are identical (tests/test_torch_actor_pipeline.py).
-``batched``, ``device`` and ``anakin`` are not ported yet.
+
+``batched`` runs the pipelined schedule with no model in the actor: its
+engine sends each tick's observations, with the randomness drawn here as
+above, to the shared inference server (agents/inference.py) and collects
+the actions; the weights are the server's, so ``tick_sync`` swaps
+nothing.  Its stream equals ``inline``'s on the same weights
+(tests/test_torch_inference.py).  ``device`` and ``anakin`` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, build_env_vector, build_model, init_params, module_apply,
-    probe_env, resolve_device, role_seed,
+    probe_env, resolve_actor_backend, resolve_device, role_seed,
 )
 from pytorch_distributed_tpu_torch.models.policies import (
     apex_epsilons, epsilon_greedy_act,
@@ -68,27 +76,6 @@ from pytorch_distributed_tpu_torch.models.policies import (
 from pytorch_distributed_tpu_torch.ops.nstep import NStepAssembler
 from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
 from pytorch_distributed_tpu_torch.utils.profiling import StepTimer
-
-_NOT_PORTED_BACKENDS = {
-    "batched": "the shared inference server (ROADMAP.md, Queue A, "
-               "\"The actor fast path and co-location\")",
-    "device": "the device env rollout (ROADMAP.md, Queue A, \"The actor "
-              "fast path and co-location\")",
-    "anakin": "the co-located Anakin loop (ROADMAP.md, Queue A, \"The "
-              "actor fast path and co-location\")",
-}
-
-
-def resolve_actor_backend(opt: Options) -> str:
-    backend = opt.env_params.actor_backend
-    if backend in _NOT_PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"actor_backend={backend!r} needs "
-            f"{_NOT_PORTED_BACKENDS[backend]}, which is not ported yet")
-    if backend not in ("pipelined", "inline"):
-        raise ValueError(f"unknown actor_backend {backend!r}")
-    return backend
-
 
 class _DqnEngine:
     """The tick's fused epsilon-greedy forward as ``submit(params, obs)``,
@@ -160,14 +147,40 @@ class _DqnEngine:
             self._pool.shutdown(wait=True)
 
 
+class _BatchedDqnEngine:
+    """The engine interface over an ``InferenceClient``: ``submit`` draws
+    the tick's randomness exactly as ``_DqnEngine.submit`` does and sends
+    the request; ``collect`` unpacks the actions from the response."""
+
+    def __init__(self, client, eps: np.ndarray, gen: torch.Generator,
+                 num_actions: int):
+        self._client = client
+        self._gen = gen
+        self._n, self._num_actions = len(eps), num_actions
+        self._tick = 0
+        client.begin_session(eps)
+
+    def submit(self, params, obs: np.ndarray):
+        u = torch.rand(self._n, generator=self._gen)
+        a = torch.randint(self._num_actions, (self._n,), generator=self._gen)
+        self._tick += 1
+        return self._client.submit(obs, self._tick, u.numpy(), a.numpy())
+
+    def collect(self, pending) -> np.ndarray:
+        return self._client.collect(pending)[0].astype(np.int64)
+
+    def close(self) -> None:
+        pass
+
+
 class DqnActor:
     """One actor's state: its env vector, assemblers, weights, stat and
     timer cadences (reference ``_ActorHarness``)."""
 
     def __init__(self, opt: Options, spec: EnvSpec, process_ind: int,
                  memory: Any, param_store: ParamStore, clock: GlobalClock,
-                 stats: ActorStats):
-        self.backend = resolve_actor_backend(opt)
+                 stats: ActorStats, inference: Any = None):
+        self.backend = resolve_actor_backend(opt, inference)
         self.ap = opt.agent_params
         self.memory, self.clock, self.stats = memory, clock, stats
         # the hang watchdog's liveness mark, once a tick (reference :244)
@@ -176,37 +189,22 @@ class DqnActor:
         device = resolve_device(opt)
         n = self.num_envs = max(1, opt.env_params.num_envs_per_actor)
         self.env = build_env_vector(opt, process_ind, n)
-        # the module gives the forward its structure; the weights are
-        # always the published vector's
-        model = build_model(opt, spec)
-        _flat0, unflatten = make_flattener(model.state_dict(),
-                                           spec.state_shape)
-        stream = (torch.cuda.Stream(device, priority=-1)
-                  if device.type == "cuda" else None)
-
-        def load(flat):
-            if device.type == "cpu":
-                return unflatten(flat)
-            return {k: v.pin_memory().to(device, non_blocking=True)
-                    for k, v in unflatten(flat).items()}
-
+        eps = apex_epsilons(process_ind, opt.num_actors, n, self.ap.eps,
+                            self.ap.eps_alpha)
+        gen = torch.Generator().manual_seed(role_seed(opt.seed, "actor",
+                                                      process_ind))
         memory.set_stop(clock.stop)
-        flat, self.version = param_store.wait(0, stop=clock.stop)
-        with torch.cuda.stream(stream):  # a no-op for None
-            self.params = load(flat)
-        if stream is not None:
-            stream.synchronize()
-        self._prefetch = ParamPrefetcher(param_store, load,
-                                         start_version=self.version,
-                                         stream=stream)
-        self.engine = _DqnEngine(
-            module_apply(model),
-            apex_epsilons(process_ind, opt.num_actors, n, self.ap.eps,
-                          self.ap.eps_alpha),
-            torch.Generator().manual_seed(role_seed(opt.seed, "actor",
-                                                    process_ind)),
-            spec.num_actions, spec.state_shape, device, stream,
-            pipelined=self.backend == "pipelined")
+        self._prefetch: Optional[ParamPrefetcher] = None
+        if self.backend == "batched":
+            # no model here: the server holds the weights.  The wait stays
+            # as the barrier every worker starts behind (the learner is up)
+            self.params = None
+            _flat, self.version = param_store.wait(0, stop=clock.stop)
+            self.engine = _BatchedDqnEngine(inference, eps, gen,
+                                            spec.num_actions)
+        else:
+            self._init_local(opt, spec, device, param_store, clock, eps,
+                             gen)
         self.assemblers = [NStepAssembler(self.ap.nstep, self.ap.gamma)
                            for _ in range(n)]
         self.episode_reward = np.zeros(n)
@@ -220,6 +218,37 @@ class DqnActor:
                                      run_id=opt.refs)
         self._obs: Optional[np.ndarray] = None
 
+    def _init_local(self, opt, spec, device, param_store, clock, eps,
+                    gen) -> None:
+        """The model, the first weights, the prefetcher and the engine of
+        an actor that infers itself (``inline``, ``pipelined``)."""
+        # the module gives the forward its structure; the weights are
+        # always the published vector's
+        model = build_model(opt, spec, init_weights=False)
+        _flat0, unflatten = make_flattener(model.state_dict(),
+                                           spec.state_shape)
+        stream = (torch.cuda.Stream(device, priority=-1)
+                  if device.type == "cuda" else None)
+
+        def load(flat):
+            if device.type == "cpu":
+                return unflatten(flat)
+            return {k: v.pin_memory().to(device, non_blocking=True)
+                    for k, v in unflatten(flat).items()}
+
+        flat, self.version = param_store.wait(0, stop=clock.stop)
+        with torch.cuda.stream(stream):  # a no-op for None
+            self.params = load(flat)
+        if stream is not None:
+            stream.synchronize()
+        self._prefetch = ParamPrefetcher(param_store, load,
+                                         start_version=self.version,
+                                         stream=stream)
+        self.engine = _DqnEngine(
+            module_apply(model), eps, gen, spec.num_actions,
+            spec.state_shape, device, stream,
+            pipelined=self.backend == "pipelined")
+
     def tick_sync(self) -> None:
         """Once per tick, after the env step and before the next dispatch:
         count the steps and, on the sync cadence, swap in the prefetched
@@ -229,7 +258,7 @@ class DqnActor:
         self.clock.add_actor_steps(n)
         self._bump(self._label)
         self._acc["total_nframes"] += n
-        if self.env_steps >= self._next_sync:
+        if self._prefetch is not None and self.env_steps >= self._next_sync:
             self._next_sync += self.ap.actor_sync_freq
             t0 = time.perf_counter()
             got = self._prefetch.take()
@@ -276,7 +305,7 @@ class DqnActor:
         pipelined loop books ``dispatch`` and ``sync``, and their sum as
         ``act``.  Returns the env steps taken."""
         timer, engine = self.timer, self.engine
-        pipelined = self.backend == "pipelined"
+        pipelined = self.backend in ("pipelined", "batched")
         self._obs = self.env.reset()
         try:
             pending = None
@@ -315,7 +344,8 @@ class DqnActor:
         return self.env_steps
 
     def shutdown(self) -> None:
-        self._prefetch.close()
+        if self._prefetch is not None:
+            self._prefetch.close()
         self.engine.close()
         self._flush_stats()
         self.memory.flush()
@@ -325,11 +355,12 @@ class DqnActor:
 
 def run_dqn_actor(opt: Options, spec: EnvSpec, process_ind: int,
                   memory: Any, param_store: ParamStore, clock: GlobalClock,
-                  stats: ActorStats) -> int:
-    """Collect experience until the learner clock ends the run.  Returns
-    the env steps this actor took."""
+                  stats: ActorStats, inference: Any = None) -> int:
+    """Collect experience until the learner clock ends the run; under
+    ``batched`` through the client ``inference``.  Returns the env steps
+    this actor took."""
     return DqnActor(opt, spec, process_ind, memory, param_store, clock,
-                    stats).run()
+                    stats, inference).run()
 
 
 class RecordingSink:
@@ -374,9 +405,22 @@ class _BoundedClock:
         return n
 
 
+def snapshot_store(opt: Options, spec: EnvSpec, seed: int = 0
+                   ) -> ParamStore:
+    """A ``ParamStore`` holding one published snapshot,
+    ``init_params(seed=seed)``: what a bounded run's actor, or the
+    inference server it talks to, reads its weights from."""
+    flat = make_flattener(init_params(opt, spec, seed=seed),
+                          spec.state_shape)[0]
+    store = ParamStore(flat.size)
+    store.publish(flat)
+    return store
+
+
 def bounded_actor_run(opt: Options, ticks: int, spec: EnvSpec = None,
                       process_ind: int = 0, param_seed: int = 0,
-                      publish_at: Optional[int] = None) -> dict:
+                      publish_at: Optional[int] = None,
+                      inference: Any = None) -> dict:
     """Run ONE actor in this thread for exactly ``ticks`` ticks against
     one published snapshot (``init_params(seed=param_seed)``) and a
     ``RecordingSink``: the harness of the schedule-equivalence tests and
@@ -384,24 +428,31 @@ def bounded_actor_run(opt: Options, ticks: int, spec: EnvSpec = None,
     snapshot (``seed=param_seed + 1``) is published as that tick starts,
     and the tick waits until the actor's prefetcher has loaded it, so the
     actor swaps it in at its next sync point whatever the schedule.
+    Under ``batched`` the actor talks to the server through the client
+    ``inference`` and acts on the server's weights: build the server on
+    ``snapshot_store(opt, spec, param_seed)`` for the same snapshot
+    (``publish_at`` needs a prefetcher, so it is refused there).
     Returns ``{"stream": the transitions fed, "timer_ms": the StepTimer's
     drain over the run, "env_steps", "version": the weights' version at
     the end, "seconds"}``; set ``actor_freq`` above ``ticks * num_envs``
     to keep the timer whole."""
     spec = spec if spec is not None else probe_env(opt)
-    flats = [make_flattener(init_params(opt, spec, seed=param_seed + i),
-                            spec.state_shape)[0]
-             for i in range(1 + (publish_at is not None))]
-    store = ParamStore(flats[0].size)
-    store.publish(flats[0])
+    store = snapshot_store(opt, spec, param_seed)
+    second = None
+    if publish_at is not None:
+        if inference is not None:
+            raise ValueError("publish_at swaps weights in the actor; a "
+                             "batched actor has none")
+        second = make_flattener(init_params(opt, spec, seed=param_seed + 1),
+                                spec.state_shape)[0]
     sink = RecordingSink()
     clock = _BoundedClock(ticks)
     actor = DqnActor(opt, spec, process_ind, sink, store, clock,
-                     ActorStats())
+                     ActorStats(), inference)
 
     def publish(k: int) -> None:
         if k == publish_at:
-            version = store.publish(flats[1])
+            version = store.publish(second)
             deadline = time.monotonic() + 60.0
             while actor._prefetch.version < version:
                 if time.monotonic() > deadline:

@@ -200,6 +200,21 @@ def flatten_into(params: Params, out: torch.Tensor,
     return out
 
 
+def unflatten_into(flat: torch.Tensor, params: Params,
+                   state_shape: Sequence[int]) -> Params:
+    """The inverse of ``flatten_into``: write the vector ``flat`` into the
+    existing tensors ``params`` (on ``flat``'s device), one copy per
+    leaf, through the flax-layout views."""
+    pos = 0
+    for _name, leaf in flax_leaves(params, state_shape):
+        n = leaf.numel()
+        leaf.copy_(flat[pos:pos + n].view(leaf.shape))
+        pos += n
+    if pos != flat.numel():
+        raise ValueError(f"{pos} params for a vector of {flat.numel()}")
+    return params
+
+
 def make_flattener(params: Params, state_shape: Sequence[int]
                    ) -> Tuple[np.ndarray, Callable[[np.ndarray], Params]]:
     """``(flat0, unflatten)`` for the ``dqn-cnn`` state_dict ``params``:
@@ -212,14 +227,10 @@ def make_flattener(params: Params, state_shape: Sequence[int]
                          state_shape).numpy()
 
     def unflatten(flat: np.ndarray) -> Params:
-        src = torch.from_numpy(np.asarray(flat, dtype=np.float32))
-        out = {k: torch.empty_like(v) for k, v in template.items()}
-        pos = 0
-        for _name, leaf in flax_leaves(out, state_shape):
-            n = leaf.numel()
-            leaf.copy_(src[pos:pos + n].view(leaf.shape))
-            pos += n
-        return out
+        return unflatten_into(
+            torch.from_numpy(np.asarray(flat, dtype=np.float32)),
+            {k: torch.empty_like(v) for k, v in template.items()},
+            state_shape)
 
     return flat0, unflatten
 

@@ -68,8 +68,10 @@ class EnvParams:
     num_envs_per_actor: int = 1
     # "pipelined" (default) dispatches tick k+1's forward before it feeds
     # tick k; "inline" runs act, env step and feed in turn; both give the
-    # same transitions.  "batched", "device" and "anakin" are not ported
-    # yet (ROADMAP.md)
+    # same transitions.  "batched" sends each tick's observations to the
+    # shared inference server in the learner's process (agents/
+    # inference.py), and gives the same transitions too.  "device" and
+    # "anakin" are not ported yet (ROADMAP.md)
     actor_backend: str = "pipelined"
     # pong-sim actors step their envs through the C++ batched stepper
     # (native/pong_batch.cpp, built with g++); false: the numpy simulators

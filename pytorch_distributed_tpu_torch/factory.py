@@ -1,5 +1,7 @@
 """Builders shared by the port's workers — the port of
-pytorch_distributed_tpu/factory.py: the env probe and ``EnvSpec`` (:239),
+pytorch_distributed_tpu/factory.py: the actor backend's gate
+``resolve_actor_backend`` (:144-220) and ``needs_inference_server``
+(:228-232), the env probe and ``EnvSpec`` (:239),
 the actors' env vector and the stepper's prebuild (:280-353),
 the dqn branch of ``build_train_state_and_step`` (:636-647), the learner's
 train apply gate ``_dqn_train_apply`` (:674-723) and the device-PER branch
@@ -12,6 +14,7 @@ model and the ``device-per`` ring.  Anything else raises
 
 from __future__ import annotations
 
+import warnings
 import zlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -42,6 +45,45 @@ ENVS = {"pong-sim": PongSimEnv}
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
                                f"Queue A)")
+
+
+ACTOR_BACKENDS = ("pipelined", "inline", "batched", "device", "anakin")
+
+_NOT_PORTED_BACKENDS = {
+    "device": "the device env rollout (ROADMAP.md, Queue A, \"The actor "
+              "fast path and co-location\")",
+    "anakin": "the co-located Anakin loop (ROADMAP.md, Queue A, \"The "
+              "actor fast path and co-location\")",
+}
+
+
+def resolve_actor_backend(opt: Options, inference: Any = None) -> str:
+    """The actor schedule a worker runs, from ``actor_backend``: one gate
+    for the actor and the topology.  ``batched`` needs an inference
+    client (``inference``); without one it falls back to ``pipelined``
+    with a warning, as the reference does for a host with no server
+    (``Topology`` always wires one in).  ``device`` and ``anakin`` raise:
+    they are not ported yet."""
+    backend = opt.env_params.actor_backend
+    if backend not in ACTOR_BACKENDS:
+        raise ValueError(f"unknown actor_backend {backend!r} (one of "
+                         f"{ACTOR_BACKENDS})")
+    if backend in _NOT_PORTED_BACKENDS:
+        raise NotImplementedError(
+            f"actor_backend={backend!r} needs "
+            f"{_NOT_PORTED_BACKENDS[backend]}, which is not ported yet")
+    if backend == "batched" and inference is None:
+        warnings.warn("actor_backend=batched but no InferenceClient was "
+                      "wired in (a topology without the server); falling "
+                      "back to pipelined", stacklevel=2)
+        return "pipelined"
+    return backend
+
+
+def needs_inference_server(opt: Options) -> bool:
+    """Whether a topology stands up the shared inference server for its
+    actors (runtime.Topology)."""
+    return opt.env_params.actor_backend == "batched"
 
 
 def resolve_device(opt: Options) -> torch.device:
@@ -125,14 +167,18 @@ def probe_env(opt: Options) -> EnvSpec:
 
 
 def build_model(opt: Options, spec: EnvSpec, device=None,
-                generator: Optional[torch.Generator] = None) -> DqnCnnModel:
+                generator: Optional[torch.Generator] = None,
+                init_weights: bool = True) -> DqnCnnModel:
     """The configured model on ``device``, initialised from
-    ``generator``."""
+    ``generator``.  ``init_weights=False`` skips the orthogonal init (a QR
+    per layer, seconds on a busy host) for a caller that wants only the
+    forward's structure and brings its own weights."""
     if opt.model_type != "dqn-cnn":
         raise _not_ported(f"model_type {opt.model_type!r}")
     model = DqnCnnModel(spec.num_actions, spec.state_shape,
                         norm_val=spec.norm_val,
-                        orthogonal_init=opt.model_params.orthogonal_init,
+                        orthogonal_init=(init_weights and
+                                         opt.model_params.orthogonal_init),
                         compute_dtype=compute_dtype(opt),
                         generator=generator)
     return model.to(device) if device is not None else model

@@ -4,9 +4,12 @@
 # 5,000, double DQN, max_replay_ratio 8, an evaluation every 60 s), the
 # bf16 kernel torso, on the card.  Run from the root of a checkout:
 #
-#   bash pytorch_distributed_tpu_torch/measure_paced.sh sweep OUT
+#   bash pytorch_distributed_tpu_torch/measure_paced.sh sweep OUT \
+#       [PREFIX --set k=v ...]
 #       2, 3 and 6 actors x 16 envs, and 2 actors with compute_dtype
-#       float32, 4,000 updates each (seed 100);
+#       float32, 4,000 updates each (seed 100), the run names prefixed
+#       with PREFIX and the --set values added (e.g. "batched --set
+#       actor_backend=batched");
 #   bash pytorch_distributed_tpu_torch/measure_paced.sh northstar OUT NAME \
 #       SEED MAX_SECONDS [--set k=v ...]
 #       time to +18: 2 actors x 16 envs, 250,000 updates or MAX_SECONDS,
@@ -42,12 +45,14 @@ run() {  # NAME SEED [main args...]
 
 case $mode in
   sweep)
+    pre=${1:-}
+    [ $# -gt 0 ] && shift
     for n in 2 3 6; do
-      run "sweep_a$n" 100 --num-actors "$n" --num-envs-per-actor 16 \
-        --steps 4000
+      run "${pre}sweep_a$n" 100 --num-actors "$n" --num-envs-per-actor 16 \
+        --steps 4000 "$@"
     done
-    run sweep_a2_fp32 100 --num-actors 2 --num-envs-per-actor 16 \
-      --steps 4000 --set compute_dtype=float32
+    run "${pre}sweep_a2_fp32" 100 --num-actors 2 --num-envs-per-actor 16 \
+      --steps 4000 --set compute_dtype=float32 "$@"
     ;;
   northstar)
     name=$1 seed=$2 secs=$3
@@ -60,7 +65,8 @@ case $mode in
     tail -c 1500 "$OUT/${name}_report.txt"
     ;;
   *)
-    echo "usage: $0 sweep OUT | northstar OUT NAME SEED MAX_SECONDS [...]" >&2
+    echo "usage: $0 sweep OUT [PREFIX ...] | northstar OUT NAME SEED" \
+      "MAX_SECONDS [...]" >&2
     exit 2
     ;;
 esac

@@ -9,7 +9,13 @@ the clock) is made here, and the actors' C++ stepper is built once
 (``factory.prebuild_native``, reference :243); then one logger,
 ``num_actors`` actors and, when ``evaluator_nepisodes > 0``, one
 evaluator run as workers, with the learner on the calling thread of this
-process.
+process.  With ``actor_backend=batched`` the shared inference server
+(agents/inference.py) runs as a thread of this process too: built here,
+a client handed to each actor, started after the workers and before the
+learner, stopped after the workers' join (an actor may still wait in
+``collect``), and watched by the monitor on both backends: a dead server
+stops the run and ``run`` raises.  Its counts land in the summary as
+``inference/*``.
 
 Backends:
 
@@ -20,7 +26,8 @@ Backends:
   exits; the summary's ``runtime/children_with_cuda`` counts them.  Each
   actor slot feeds a queue of its own (memory/device_replay.py).  A
   monitor thread supervises the children: a dead actor is respawned with
-  the same arguments and a fresh slot queue, up to ``max_restarts`` (3)
+  the same arguments, a fresh slot queue and, under ``batched``, a fresh
+  pair of inference pipes, up to ``max_restarts`` (3)
   times per slot (utils/supervision.py ``RestartBudget``); a dead logger
   or evaluator, or an actor out of budget, stops the run and ``run``
   raises.  With ``hang_deadline > 0`` the monitor is also the hang
@@ -50,9 +57,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from pytorch_distributed_tpu_torch.agents.actor import (
-    resolve_actor_backend, run_dqn_actor,
-)
+from pytorch_distributed_tpu_torch.agents.actor import run_dqn_actor
 from pytorch_distributed_tpu_torch.agents.clocks import (
     ActorStats, EvaluatorStats, GlobalClock, LearnerStats,
 )
@@ -64,8 +69,8 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 )
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
-    EnvSpec, build_memory, build_model, prebuild_native, probe_env,
-    resolve_device,
+    EnvSpec, build_memory, build_model, needs_inference_server,
+    prebuild_native, probe_env, resolve_actor_backend, resolve_device,
 )
 from pytorch_distributed_tpu_torch.utils.supervision import (
     EXIT_HUNG, ProgressBoard, RestartBudget, describe_exit,
@@ -120,7 +125,6 @@ class Topology:
         if backend not in ("process", "thread"):
             raise ValueError(f"unknown backend {backend!r}")
         resolve_device(opt)  # fail before any worker starts
-        resolve_actor_backend(opt)
         self.opt = opt
         self.backend = backend
         self.spec = spec if spec is not None else probe_env(opt)
@@ -129,9 +133,20 @@ class Topology:
         self.learner_stats = LearnerStats()
         self.evaluator_stats = EvaluatorStats()
         self.param_store = ParamStore(
-            num_params(build_model(opt, self.spec).state_dict()))
+            num_params(build_model(opt, self.spec,
+                                   init_weights=False).state_dict()))
         self.handles = build_memory(opt, self.spec,
                                     in_process=backend == "thread")
+        self.inference_server = None
+        if needs_inference_server(opt):
+            from pytorch_distributed_tpu_torch.agents.inference import (
+                InferenceServer,
+            )
+
+            self.inference_server = InferenceServer(
+                opt, self.spec, self.param_store,
+                in_process=backend == "thread")
+        resolve_actor_backend(opt, self.inference_server)
         self.children_with_cuda = _CTX.Value("l", 0)
         # the hang watchdog's board rides the clock's pickle into every
         # child, so it exists before any spawn
@@ -142,6 +157,7 @@ class Topology:
         self.max_restarts = max_restarts
         self.restarts = 0
         self.hang_kills = 0
+        self._last_kill = float("-inf")  # the watchdog's newest kill
         # set when a SIGTERM (a preemption notice) ended the run
         self.preempted = threading.Event()
         self._workers: List[Any] = []
@@ -156,9 +172,11 @@ class Topology:
         for i in range(opt.num_actors):
             # one feeder per actor slot: its own queue on the process
             # backend, its own chunk buffer on the thread backend
+            srv = self.inference_server
             specs.append(("actor", i, (
                 opt, spec, i, self.handles.learner_side.make_feeder(i),
-                self.param_store, self.clock, self.actor_stats)))
+                self.param_store, self.clock, self.actor_stats,
+                srv.make_client(i) if srv is not None else None)))
         if opt.agent_params.evaluator_nepisodes > 0:
             specs.append(("evaluator", 0, (
                 opt, spec, 0, None, self.param_store, self.clock,
@@ -208,9 +226,6 @@ class Topology:
             for role, ind, args in specs:
                 self._spawn(role, ind, args)
             torch.set_num_threads(self._threads)
-            monitor = threading.Thread(target=self._monitor, name="monitor",
-                                       daemon=True)
-            monitor.start()
         else:
             for role, ind, args in specs:
                 t = threading.Thread(target=self._thread_main,
@@ -218,8 +233,15 @@ class Topology:
                                      name=f"{role}-{ind}", daemon=True)
                 t.start()
                 self._workers.append(t)
+        if self.backend == "process" or self.inference_server is not None:
+            monitor = threading.Thread(target=self._monitor, name="monitor",
+                                       daemon=True)
+            monitor.start()
         failure = None
         try:
+            if self.inference_server is not None:
+                # after the clients were wired, before anything acts
+                self.inference_server.start()
             self.progress_board.note_start("learner")
             summary = run_learner(opt, self.spec, 0,
                                   self.handles.learner_side,
@@ -235,6 +257,10 @@ class Topology:
             if monitor is not None:
                 monitor.join()  # no respawn races the join below
             self._join_all()
+            if self.inference_server is not None:
+                # after the join: an actor may still wait in collect
+                self._note_server_death()
+                self.inference_server.stop()
             self.handles.learner_side.close()
             torch.set_num_threads(threads_before)
         if self._errors:
@@ -246,7 +272,13 @@ class Topology:
             "runtime/children_with_cuda": self.children_with_cuda.value,
             "runtime/restarts": self.restarts,
             "runtime/hang_kills": self.hang_kills,
-            "runtime/preempted": int(self.preempted.is_set())})
+            "runtime/preempted": int(self.preempted.is_set()),
+            # the actors' env steps once every worker has stopped (the
+            # learner's "actor/steps" is read before the join)
+            "runtime/actor_steps": self.clock.actor_step.value})
+        if self.inference_server is not None:
+            summary.update({f"inference/{k}": v for k, v in
+                            self.inference_server.stats.items()})
         return summary
 
     def _thread_main(self, role: str, ind: int, args: tuple) -> None:
@@ -271,6 +303,8 @@ class Topology:
             ingest = self.handles.learner_side
             ingest.bind_producer(ind, p.sentinel)
             ingest.close_write_end(ind)
+            if self.inference_server is not None:
+                self.inference_server.close_client_ends(ind)
         self._workers.append(p)
         self._meta[p] = (role, ind, args)
 
@@ -287,7 +321,10 @@ class Topology:
                   f"restart {budget.count(ind)}/{budget.max_restarts}",
                   flush=True)
             feeder = self.handles.learner_side.replace_slot(ind)
-            self._spawn(role, ind, args[:3] + (feeder,) + args[4:])
+            srv = self.inference_server
+            client = srv.replace_client(ind) if srv is not None else None
+            self._spawn(role, ind, args[:3] + (feeder,) + args[4:7]
+                        + (client,))
             # counted once the new child is listed and its marks reset
             self.restarts += 1
             return True
@@ -298,45 +335,72 @@ class Topology:
         return False
 
     def _monitor(self, poll: float = 0.2) -> None:
-        """Respawn dead actors within their budget, stop the run on any
-        other death; with ``hang_deadline > 0``, SIGKILL and respawn
-        stale children the same way (``EXIT_HUNG``) and end the process
-        if the learner is stale."""
+        """Stop the run if the inference server died (checked first, on
+        both backends: a dead server would turn every actor respawn into
+        a ``collect`` timeout); on the process backend, supervise the
+        children (``_supervise``)."""
         hp = self.opt.health_params
         budget = RestartBudget(max_restarts=self.max_restarts)
         for role, ind, _args in self._meta.values():
             if role == "actor":
                 budget.note_birth(ind)
+        srv = self.inference_server
         while not self.clock.stop.is_set():
-            for p in list(self._workers):
-                if p.exitcode not in (None, 0) \
-                        and not self._replace(p, p.exitcode, budget):
-                    return
-            if hp.hang_deadline > 0:
-                hung = set(self.progress_board.hung(hp.hang_deadline,
-                                                    hp.hang_grace))
-                killed = False
-                for p in list(self._workers):
-                    if p.name not in hung or p.exitcode is not None:
-                        continue
-                    print(f"[runtime] {p.name} made no progress for "
-                          f"{self.progress_board.age(p.name):.1f} s; "
-                          f"killing it", flush=True)
-                    self.hang_kills += 1
-                    p.kill()
-                    p.join(5.0)
-                    killed = True
-                    if not self._replace(p, EXIT_HUNG, budget):
-                        return
-                # a learner reading a hung child's pipe goes stale with
-                # it, and reads on once the kill ends the pipe: it is
-                # judged on the next pass
-                if "learner" in hung and not killed:
-                    print(f"[runtime] learner ({describe_exit(EXIT_HUNG)}); "
-                          f"ending the process for a resume", flush=True)
-                    self.clock.stop.set()
-                    os._exit(EXIT_HUNG)
+            if srv is not None and not srv.healthy():
+                self._note_server_death()
+                print("[runtime] inference server died; stopping the run",
+                      flush=True)
+                self.clock.stop.set()
+                return
+            if self.backend == "process" and not self._supervise(budget,
+                                                                 hp):
+                return
             time.sleep(poll)
+
+    def _note_server_death(self) -> None:
+        """Record the inference server's failure once, if it failed (the
+        actors' own errors may have stopped the run first)."""
+        err = self.inference_server.error
+        msg = f"inference server died: {err!r}"
+        if err is not None and msg not in self._errors:
+            self._errors.append(msg)
+
+    def _supervise(self, budget: RestartBudget, hp) -> bool:
+        """One pass over the children: respawn dead actors within their
+        budget, stop the run on any other death; with ``hang_deadline >
+        0``, SIGKILL and respawn stale children the same way
+        (``EXIT_HUNG``) and end the process if the learner is stale.
+        False once the run is stopped."""
+        for p in list(self._workers):
+            if p.exitcode not in (None, 0) \
+                    and not self._replace(p, p.exitcode, budget):
+                return False
+        if hp.hang_deadline > 0:
+            hung = set(self.progress_board.hung(hp.hang_deadline,
+                                                hp.hang_grace))
+            for p in list(self._workers):
+                if p.name not in hung or p.exitcode is not None:
+                    continue
+                print(f"[runtime] {p.name} made no progress for "
+                      f"{self.progress_board.age(p.name):.1f} s; "
+                      f"killing it", flush=True)
+                self.hang_kills += 1
+                p.kill()
+                p.join(5.0)
+                self._last_kill = time.monotonic()
+                if not self._replace(p, EXIT_HUNG, budget):
+                    return False
+            # a learner reading a hung child's pipe goes stale with it,
+            # and reads on once the kill ends the pipe: it is judged only
+            # once a whole deadline has passed since the last kill, so a
+            # busy host's slow wake-up is not taken for a hang
+            if "learner" in hung and (time.monotonic() - self._last_kill
+                                      > hp.hang_deadline):
+                print(f"[runtime] learner ({describe_exit(EXIT_HUNG)}); "
+                      f"ending the process for a resume", flush=True)
+                self.clock.stop.set()
+                os._exit(EXIT_HUNG)
+        return True
 
     def _join_all(self, timeout: float = 240.0) -> None:
         """Join every worker within ``timeout`` (the evaluator's final

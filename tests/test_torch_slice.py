@@ -14,8 +14,9 @@ dqn-cnn) against the JAX package:
 - acting: the Ape-X epsilons exactly, greedy and epsilon-greedy actions on
   converted weights (Q values rtol 1e-4);
 - the entry point: ``main`` on config 12 with ``--device cpu`` at a small
-  size, and the refusals (no GPU without ``--device cpu``, rows and
-  actor backends not ported yet, unknown backends)."""
+  size, with the default actors and with ``actor_backend=batched`` on
+  both backends, and the refusals (no GPU without ``--device cpu``, rows
+  and actor backends not ported yet, unknown backends)."""
 
 import functools
 import tempfile
@@ -249,6 +250,24 @@ def test_main_trains_config_12_on_cpu(torso):
     assert summary["learner/skipped"] == 0.0
 
 
+@pytest.mark.timeout(240)
+@pytest.mark.parametrize("backend", ["thread", "process"])
+def test_main_trains_config_12_with_batched_actors(backend):
+    """``actor_backend=batched`` through ``main``: the actors infer through
+    the shared inference server, which serves every frame they step and
+    one tick more per actor (the pipelined schedule's last dispatch)."""
+    argv = _small_run("--set", "actor_backend=batched")
+    argv[argv.index("--backend") + 1] = backend
+    summary = port_main.main(argv)
+    assert summary["learner/steps"] == 20
+    assert np.isfinite(summary["learner/critic_loss"])
+    assert summary["runtime/children_with_cuda"] == 0
+    rows, frames = summary["inference/rows"], summary["runtime/actor_steps"]
+    assert frames > 64 and 0 <= rows - frames <= 2  # 1 actor x 2 envs
+    assert summary["inference/requests"] == rows // 2
+    assert summary["inference/param_refreshes"] >= 1
+
+
 def test_main_without_a_gpu_refuses_cuda():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
@@ -257,8 +276,9 @@ def test_main_without_a_gpu_refuses_cuda():
         port_main.main(argv)
 
 
-@pytest.mark.parametrize("what", ["config", "backend", "actor_backend",
-                                  "option"])
+@pytest.mark.parametrize("what", ["config", "backend",
+                                  "actor_backend=device",
+                                  "actor_backend=anakin", "option"])
 def test_refuses_what_is_not_ported(what):
     if what == "config":
         with pytest.raises(NotImplementedError):
@@ -270,9 +290,9 @@ def test_refuses_what_is_not_ported(what):
 
         with pytest.raises(ValueError, match="unknown backend"):
             runtime.train(build_options(12, device="cpu"), backend="fleet")
-    elif what == "actor_backend":
-        with pytest.raises(NotImplementedError, match="batched"):
-            port_main.main(_small_run("--set", "actor_backend=batched"))
+    elif what.startswith("actor_backend="):
+        with pytest.raises(NotImplementedError, match=what.split("=")[1]):
+            port_main.main(_small_run("--set", what))
     else:
         with pytest.raises(ValueError, match="unknown option"):
             build_options(12, megabatch=4)

@@ -43,23 +43,33 @@ Phases, each printed as one JSON line:
    with g++ on this host, 16 envs x 1,000 ticks of random actions against
    the numpy simulators (ms a tick), and its dynamics against the numpy
    ``PongSimEnv`` to the bit under ``set_state``;
-7. actor_tick: one CPU actor in a spawn child set up as the process
+7. device_env: torch device Pong (``envs/device_env.py``) on the card
+   against the numpy float32 oracle, every state and StepOut field to
+   the bit at every step of 350 steps of 32 envs (three truncated
+   episodes); ms per tick at 32, 256 and 1,024 envs, one step replayed
+   from a CUDA graph (device time) and eager;
+8. fused_rollout: config 12's fleet (32 envs, 8 ticks a dispatch) as
+   one fused rollout: the graphed rollout against the same rollout run
+   eagerly, every chunk column to the bit; ``emit="replay"`` against
+   ``emit="chunk"`` fed into a ring, the rings to the bit; device ms per
+   dispatch and frames/s of the rollout alone;
+9. actor_tick: one CPU actor in a spawn child set up as the process
    backend's (the CPU, its thread share), 300 ticks of 16 envs inline and
    pipelined on native and numpy Pong: the StepTimer's phases in ms a
    tick, frames/s, and the inline and pipelined transition streams
    identical (sha256 of every row);
-8. actor_gpu: one actor in this process inferring on the card, as the
+10. actor_gpu: one actor in this process inferring on the card, as the
    thread backend runs it (its own stream; pinned staging; a
    non-blocking copy of the actions and an event), 300 ticks of 16 envs
    inline and pipelined, with a second snapshot published at tick 100 so
    that the prefetcher's stream path (a copy on its own stream, an
    event, ``record_stream``) runs inside the window: the two transition
    streams identical, each with the second weights swapped in;
-9. staged_drain: the same rows through the blocking path (``feed_chunk``
+11. staged_drain: the same rows through the blocking path (``feed_chunk``
    of a stacked chunk) and the staged path (the ingest queue's ``drain``:
    pinned slabs, non-blocking copies) into two rings on the card, with a
    drain larger than one slab and a wrap: the rings equal to the bit;
-10. train: config 12 at full width through the port's entry point
+12. train: config 12 at full width through the port's entry point
    (``pytorch_distributed_tpu_torch.main``) on the thread backend with the
    kernel torso on, native Pong and pipelined actors (the defaults), an
    evaluator of one capped episode, and logs and checkpoints under a
@@ -67,7 +77,7 @@ Phases, each printed as one JSON line:
    before and read just after: per update 1 draw, 10 forward and 9
    backward bf16 GEMMs, no fp32 GEMM; the actors' timer phases from
    ``scalars.jsonl``;
-11. train_process: the same run on the process backend (actors, the
+13. train_process: the same run on the process backend (actors, the
    evaluator and the logger in spawn children on the CPU, the learner in
    this process), after a check of the learner's publication off the
    loop against the inline flatten: the same launches per update, read
@@ -76,18 +86,18 @@ Phases, each printed as one JSON line:
    learner rows; a params file and its ``_best`` tier; prints updates/s,
    actor frames/s, the actors' phases, the replay ratio and the learner's
    host seconds per part beside the thread backend's;
-12. test_mode: ``main --mode 2`` on that params file, one capped episode
+14. test_mode: ``main --mode 2`` on that params file, one capped episode
    with inference on the card: finite stats of one episode, and the peak
    of allocated device memory up by at least the weights' bytes;
-13. process_trace: the process run again with the device traced by
+15. process_trace: the process run again with the device traced by
    ``torch.profiler`` (CUDA activity only) over updates 600 to 1,100: the
    device's idle share in that window as traced, its busy ms per update,
    and, labelled as an estimate, the idle share that busy time would
    leave at train_process's unprofiled rate;
-14. train_paced: the process run with the reference's config-12 pacing
+16. train_paced: the process run with the reference's config-12 pacing
    (``max_replay_ratio`` 8, ``learn_start`` 5,000): updates/s, the pacing
    seconds, the actors' phases, the same launches per update;
-15. inference: the shared inference server (``actor_backend=batched``)
+17. inference: the shared inference server (``actor_backend=batched``)
    alone on the card, on random weights: one batched actor of 16 envs,
    300 ticks of native Pong with every env reset at ticks 100 and 200
    (so full uploads reseed the server's stack between packed ones),
@@ -101,13 +111,27 @@ Phases, each printed as one JSON line:
    that; the share of equal actions; round trip ms per request, device
    ms per forward (graph replays timed by events) and rows per sweep at
    1, 2 and 6 clients;
-16. train_batched: the process run with ``actor_backend=batched``,
+18. train_batched: the process run with ``actor_backend=batched``,
    unpaced and then paced as train_paced: the same launches per update,
    a finite loss, no child with CUDA, ``inference/rows`` equal to the
    actors' frames within one tick per actor; updates/s, frames/s, the
    actors' phases, the learner's host seconds and the server's counts
    beside train_process's and train_paced's;
-17. resume: supervision and resume at full width, in three legs. (1) A
+19. train_anakin: config 12 at full width through ``main`` with
+   ``actor_backend=anakin`` (the fleet and the learner in this process,
+   the evaluator and the logger in children), strict and at
+   ``rollout_ratio`` 16: the same launches per update, a finite loss,
+   no actor child and no child with CUDA, evaluator rows; updates/s,
+   frames/s and the duty cycle; then each variant's loop driven here by
+   ``AnakinDriver``'s own scheduler and traced by ``torch.profiler`` over a
+   window (40 updates strict, 400 at ratio 16, the profiler started and
+   stopped between dispatches in the launching thread): the device's
+   idle share as traced and, as an estimate, at the untraced rate;
+20. train_device: the process run with ``actor_backend=device`` (each
+   actor child one fused rollout on the CPU): the same checks, frames/s,
+   the actors' phases and the learner's host seconds; then one device
+   actor on the card as the thread backend runs it (40 dispatches);
+21. resume: supervision and resume at full width, in three legs. (1) A
    process-backend run here, paced (``max_replay_ratio`` 8), with the
    hang watchdog at 10 s and an epoch every 500 steps: a timer thread
    SIGKILLs ``actor-0`` once the learner passes step 300 and SIGSTOPs
@@ -127,7 +151,7 @@ Phases, each printed as one JSON line:
 Then a ``kernels`` line (the table PERF.md is written from: B1's and the
 bf16 GEMM's launches from the train_process phase, the fp32 GEMM's from
 the fp32 learner run, and each kernel's launches on the process runs
-with pipelined and with batched actors), the card's name and power
+with pipelined, batched and device actors and on the two Anakin runs), the card's name and power
 limit, and the verdict
 as the last line.  Exits non-zero, with no verdict, if there is no GPU, if
 the package is missing, or if any phase fails.  TF32 is off throughout,
@@ -722,9 +746,11 @@ def _e2e_argv(backend: str, refs: str = "", *sets: str) -> list:
     return argv
 
 
-def _train_through_main(backend: str, refs: str = "", *sets: str) -> tuple:
+def _train_through_main(backend: str, refs: str = "", *sets: str,
+                        phases=("env", "advance", "tick")) -> tuple:
     """One end-to-end run through ``main``; the kernels' launch counters
-    are zeroed just before it and read just after, in this process."""
+    are zeroed just before it and read just after, in this process.
+    ``phases``: the actors' timer phases the run must have logged."""
     from pytorch_distributed_tpu_torch import main as port_main
     from pytorch_distributed_tpu_torch.config import build_options
     from pytorch_distributed_tpu_torch.utils.metrics import timer_phases
@@ -754,16 +780,16 @@ def _train_through_main(backend: str, refs: str = "", *sets: str) -> tuple:
     seconds = summary["learner/train_seconds"]
     actor_steps = summary["actor/steps_per_sec"] * seconds
     log_dir = build_options(12, root_dir=RUN_DIR, refs=refs or backend).log_dir
-    phases = timer_phases(log_dir)
-    if not {"env", "advance", "tick"} <= phases.keys():
-        raise AssertionError(f"no actor timer rows in {log_dir}: {phases}")
+    logged = timer_phases(log_dir)
+    if not set(phases) <= logged.keys():
+        raise AssertionError(f"no actor timer rows in {log_dir}: {logged}")
     out = {"argv": " ".join(argv), "launches": launches,
            "updates_per_sec": summary["learner/updates_per_sec"],
            "actor_frames_per_sec": summary["actor/steps_per_sec"],
-           "actor_phases_ms": phases,
+           "actor_phases_ms": logged,
            # samples drawn per transition stored, over the train loop
            "replay_ratio": steps * BATCH / max(actor_steps, 1.0),
-           "host_s": {k.rsplit("_", 1)[-1]: summary[f"learner/host_s_{k}"]
+           "host_s": {k: summary.get(f"learner/host_s_{k}")
                       for k in ("pacing", "drain", "step", "publish")},
            "train_seconds": seconds,
            "critic_loss": summary["learner/critic_loss"],
@@ -1117,7 +1143,8 @@ def staged_drain():
             "us_per_row": {k: v / rows * 1e6 for k, v in secs.items()}}
 
 
-def _profile_window(clock, start_step: int, stop_step: int) -> dict:
+def _profile_window(clock, start_step: int, stop_step: int,
+                    name: str = "process_trace") -> dict:
     """Trace the device with ``torch.profiler`` while the learner goes
     from ``start_step`` to ``stop_step``."""
     from torch.profiler import ProfilerActivity, profile
@@ -1135,7 +1162,7 @@ def _profile_window(clock, start_step: int, stop_step: int) -> dict:
             time.sleep(0.002)
         out["window_s"] = time.perf_counter() - t0
         out["updates"] = clock.learner_step.value - s0
-    out["trace"] = os.path.join(RUN_DIR, "process_trace.json")
+    out["trace"] = os.path.join(RUN_DIR, f"{name}.json")
     prof.export_chrome_trace(out["trace"])
     out["top_kernels_ms"] = sorted(
         ((e.key[:60], e.self_device_time_total / 1e3)
@@ -1168,45 +1195,13 @@ def process_trace():
     busy time per update, the window's updates/s beside the unprofiled
     run's, and, as an estimate, the idle share that busy time would leave
     at the unprofiled rate."""
-    import threading
-
-    from pytorch_distributed_tpu_torch import main as port_main
-    from pytorch_distributed_tpu_torch import runtime
-
-    opt = port_main.options_from_args(port_main.parse_args(
-        _e2e_argv("process", "process_trace")))
-    topology = runtime.Topology(opt, backend="process")
-    ran: dict = {}
-
-    def run():
-        try:
-            ran["summary"] = topology.run()
-        except BaseException as e:  # raised below, in this thread
-            ran["error"] = e
-            topology.clock.stop.set()
-
-    # the learner on a thread of its own, the profiler on this one
-    learner = threading.Thread(target=run, name="process-trace-run")
-    learner.start()
-    try:
-        window = _profile_window(topology.clock, 600, 1100)
-    finally:
-        learner.join()
-    if "error" in ran:
-        raise ran["error"]
-    summary = ran["summary"]
-    if "trace" not in window:
-        raise AssertionError(f"no trace window: {window}")
-    busy_us, spans = _busy_us(window["trace"])
-    if not spans:
-        raise AssertionError("the trace holds no device activity")
-    busy = busy_us / (window["window_s"] * 1e6)
-    busy_ms = busy_us / 1e3 / window["updates"]
+    summary, window = _traced_run(
+        _e2e_argv("process", "process_trace"), 600, 1100, "process_trace")
+    busy_ms = window["device_busy_ms_per_update"]
     rate = RESULTS.get("e2e_process", {}).get("updates_per_sec")
-    return {"window_s": window["window_s"], "updates": window["updates"],
-            "window_updates_per_sec": window["updates"] / window["window_s"],
-            "device_spans": spans, "device_busy_ms_per_update": busy_ms,
-            "device_idle_share_traced": 1.0 - busy,
+    return {**{k: window[k] for k in (
+        "window_s", "updates", "window_updates_per_sec", "device_spans",
+        "device_busy_ms_per_update", "device_idle_share_traced")},
             "unprofiled_updates_per_sec": rate,
             # not traced: the window's busy ms per update at the rate of
             # train_process, which ran without the profiler
@@ -1736,6 +1731,439 @@ def resume():
                 "e2e_process", {}).get("updates_per_sec")}
 
 
+# ---------------------------------------------------------------------------
+# the device env fleet, the fused rollout and the Anakin loop
+# ---------------------------------------------------------------------------
+
+FLEET = 32  # config 12's fleet: 2 actors x 16 envs
+# train_anakin's traced windows, in learner steps: a strict window's
+# trace holds every kernel of 40 rollouts
+TRACE_WINDOWS = {"strict": (300, 340), "ratio16": (400, 800)}
+ENV_SIZES = (32, 256, 1024)
+ENV_EARLY_STOP, ENV_STEPS = 100, 350  # 3 truncated episodes and a half
+ROLLOUT_TICKS, ROLLOUT_TIMED = 8, 50
+
+
+def _graph_of(fn):
+    """``fn()`` captured into a CUDA graph on a side stream (after two
+    uncaptured calls for lazy set-up), and its outputs."""
+    side = torch.cuda.Stream(DEV)
+    side.wait_stream(torch.cuda.current_stream(DEV))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+        side.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(DEV).wait_stream(side)
+    return graph, out
+
+
+def _replay_ms(graph, reps: int) -> float:
+    """Device ms per replay of ``graph``, by CUDA events over ``reps``."""
+    graph.replay()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_env():
+    """Torch device Pong on the card against the numpy float32 oracle
+    (envs/device_env.py ``NumpyOps``), every state and StepOut field to the
+    bit at every step of 350 steps of 32 envs (early_stop 100: three full
+    truncated episodes, points scored and serves redrawn); then ms per
+    tick at 32, 256 and 1,024 envs: one step replayed from a CUDA graph
+    (device time by events) and the same step eager (host clock after a
+    synchronize)."""
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.envs.device_env import (
+        NumpyOps, TorchOps, build_device_env,
+    )
+
+    ep = build_options(12, early_stop=ENV_EARLY_STOP).env_params
+    dev = build_device_env(ep, 0, FLEET, ops=TorchOps(DEV))
+    orc = build_device_env(ep, 0, FLEET, ops=NumpyOps(np.float32))
+    sd, so = dev.init(), orc.init()
+    rng = np.random.default_rng(11)
+    ends = 0
+    for t in range(ENV_STEPS):
+        acts = rng.integers(0, ACTIONS, FLEET)
+        sd, od = dev.step(sd, torch.as_tensor(acts, device=DEV))
+        so, oo = orc.step(so, acts)
+        for tup_d, tup_o in ((od, oo), (sd, so)):
+            for name, a, b in zip(tup_d._fields, tup_d, tup_o):
+                if not np.array_equal(a.cpu().numpy(), b):
+                    raise AssertionError(f"step {t}: {name} differs from "
+                                         f"the numpy oracle")
+        ends += int(od.terminal.sum())
+    if ends != 3 * FLEET or int(sd.rng_count.max()) <= 3:
+        raise AssertionError(f"{ends} episode ends, rng_count "
+                             f"{int(sd.rng_count.max())}")
+    timing = {}
+    for n in ENV_SIZES:
+        env = build_device_env(ep, 0, n, ops=TorchOps(DEV))
+        state = env.init()
+        acts = torch.randint(0, ACTIONS, (n,), device=DEV,
+                             generator=torch.Generator(device=DEV).manual_seed(n))
+
+        def step():
+            nxt, out = env.step(state, acts)
+            for dst, src in zip(state, nxt):
+                if src is not dst:
+                    dst.copy_(src)
+            return out
+
+        graph, _out = _graph_of(step)
+        graph_ms = _replay_ms(graph, 200)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            step()
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / 50 * 1e3
+        timing[n] = {"graph_ms_per_tick": graph_ms,
+                     "eager_ms_per_tick": eager_ms,
+                     "graph_frames_per_sec": n / graph_ms * 1e3}
+    RESULTS["device_env"] = timing
+    return {"oracle": f"bit-equal, {ENV_STEPS} steps x {FLEET} envs, "
+                      f"{ends} episode ends", "timing": timing,
+            "card": card_name_and_power_limit()}
+
+
+def _fleet_rollout(emit: str, graph: bool, ring=None):
+    """Config 12's fleet (32 envs, K 8, nstep 5, random bf16 dqn-cnn
+    weights from seed 3) as a fused rollout on the card, its carry, the
+    weights and a generator at seed 5."""
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.factory import (
+        build_device_env, build_model, init_params, module_apply, probe_env,
+    )
+    from pytorch_distributed_tpu_torch.memory.device_per import (
+        per_write_masked,
+    )
+    from pytorch_distributed_tpu_torch.models.policies import (
+        apex_epsilons, build_fused_rollout, init_rollout_carry,
+    )
+
+    opt = build_options(12, early_stop=EARLY_STOP)
+    spec = probe_env(opt)
+    ap = opt.agent_params
+    env = build_device_env(opt, 0, FLEET, DEV)
+    roll = build_fused_rollout(
+        module_apply(build_model(opt, spec, init_weights=False)), env,
+        nstep=ap.nstep, gamma=ap.gamma, rollout_ticks=ROLLOUT_TICKS,
+        eps=apex_epsilons(0, 1, FLEET, ap.eps, ap.eps_alpha), emit=emit,
+        ring=ring, ring_write_fn=per_write_masked, graph=graph)
+    params = init_params(opt, spec, seed=3, device=DEV)
+    return (roll, init_rollout_carry(env, ap.nstep), params,
+            torch.Generator(device=DEV).manual_seed(5))
+
+
+def fused_rollout():
+    """The fused rollout of config 12's fleet on the card (32 envs x 8
+    ticks a dispatch, nstep 5, the module's bf16 forward): the graphed
+    rollout against the same rollout run eagerly, every chunk column of 6
+    dispatches to the bit (the first two graphed calls run eagerly, the
+    rest replay the graph); ``emit="replay"`` (graphed, into a PER ring)
+    against ``emit="chunk"``'s valid rows fed into another ring
+    (``feed_chunk``), the rings' columns, priorities and cursors to the
+    bit after 6 dispatches; then device ms per dispatch of the graph by
+    CUDA events over 50 dispatches, and frames/s of the rollout alone."""
+    from pytorch_distributed_tpu_torch.memory.device_per import (
+        DevicePerReplay,
+    )
+    from pytorch_distributed_tpu_torch.utils.experience import (
+        REPLAY_FIELDS, Transition,
+    )
+
+    eager = _fleet_rollout("chunk", graph=False)
+    graphed = _fleet_rollout("chunk", graph=True)
+    fed = DevicePerReplay(4096, FRAME, device=DEV)
+    direct = DevicePerReplay(4096, FRAME, device=DEV)
+    replay = _fleet_rollout("replay", graph=True, ring=direct.state)
+    dispatches = 6
+    for d in range(dispatches):
+        chunks = []
+        for roll, carry, params, gen in (eager, graphed):
+            roll.draw(gen)
+            ch = roll(params, carry)
+            chunks.append({f: getattr(ch, f).cpu() for f in ch._fields})
+        for f in chunks[0]:
+            if not torch.equal(chunks[0][f], chunks[1][f]):
+                raise AssertionError(f"dispatch {d}: graphed {f} differs "
+                                     f"from eager")
+        valid = chunks[0]["valid"]
+        if valid.any():
+            fed.feed_chunk(Transition(*(chunks[0][f][valid]
+                                        for f in REPLAY_FIELDS)))
+        roll, carry, params, gen = replay
+        roll.draw(gen)
+        stats = roll(params, carry)
+        if stats.rows != int(valid.sum()) or int(stats.fed) != stats.rows:
+            raise AssertionError(f"dispatch {d}: {stats.rows} rows, "
+                                 f"{int(stats.fed)} written, "
+                                 f"{int(valid.sum())} valid")
+    for f in REPLAY_FIELDS + ("priority", "max_priority", "fill_rows"):
+        if not torch.equal(getattr(fed.state, f), getattr(direct.state, f)):
+            raise AssertionError(f"replay emit: ring {f} differs from the "
+                                 f"chunk emit's")
+    if (fed.state.pos, fed.state.fill) != (direct.state.pos,
+                                           direct.state.fill):
+        raise AssertionError("replay emit: cursor differs")
+    roll, carry, params, gen = graphed
+    roll.draw(gen)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(ROLLOUT_TIMED):
+        roll(params, carry)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / ROLLOUT_TIMED
+    frames = FLEET * ROLLOUT_TICKS
+    RESULTS["fused_rollout"] = {"device_ms_per_dispatch": ms,
+                                "frames_per_sec": frames / ms * 1e3}
+    return {"graph_vs_eager": f"bit-equal over {dispatches} dispatches",
+            "replay_vs_chunk": f"bit-equal rings, {direct.state.fill} rows",
+            "envs": FLEET, "ticks": ROLLOUT_TICKS,
+            "device_ms_per_dispatch": ms,
+            "device_ms_per_tick": ms / ROLLOUT_TICKS,
+            "frames_per_sec": frames / ms * 1e3,
+            "card": card_name_and_power_limit()}
+
+
+def _traced_run(argv, start: int, stop: int, name: str) -> tuple:
+    """``argv`` run as ``main`` runs it (``runtime.Topology``) with the
+    learner on a thread of its own and the device traced by
+    ``torch.profiler`` from learner step ``start`` to ``stop``; returns
+    (summary, the window)."""
+    import threading
+
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch import runtime
+
+    opt = port_main.options_from_args(port_main.parse_args(argv))
+    topology = runtime.Topology(opt, backend="process")
+    ran: dict = {}
+
+    def run():
+        try:
+            ran["summary"] = topology.run()
+        except BaseException as e:  # raised below, in this thread
+            ran["error"] = e
+            topology.clock.stop.set()
+
+    learner = threading.Thread(target=run, name=f"{name}-run")
+    learner.start()
+    try:
+        window = _profile_window(topology.clock, start, stop, name)
+    finally:
+        learner.join()
+    if "error" in ran:
+        raise ran["error"]
+    if "trace" not in window:
+        raise AssertionError(f"no trace window: {window}")
+    _busy_share(window)
+    return ran["summary"], window
+
+
+def _busy_share(window: dict) -> None:
+    """Add the trace's busy ms per update and idle share to ``window``."""
+    busy_us, spans = _busy_us(window["trace"])
+    if not spans:
+        raise AssertionError("the trace holds no device activity")
+    window.update(device_spans=spans,
+                  device_busy_ms_per_update=busy_us / 1e3 / window["updates"],
+                  device_idle_share_traced=1.0 - busy_us
+                  / (window["window_s"] * 1e6),
+                  window_updates_per_sec=window["updates"]
+                  / window["window_s"])
+
+
+def _anakin_loop_traced(sets, start: int, stop: int, name: str) -> dict:
+    """The Anakin driver of config 12 at full width (the options of the
+    run through ``main``) driven here, in this thread, by its own
+    scheduler (``want_rollout``, then a rollout or a learner dispatch)
+    to learner step ``start``; then ``stop - start`` updates timed
+    without the profiler and as many traced by ``torch.profiler`` (CUDA
+    activity), the profiler started and stopped between dispatches in
+    the thread that launches them.  Returns the traced window with its
+    idle share, and the untraced window's updates/s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch.agents.anakin import AnakinDriver
+    from pytorch_distributed_tpu_torch.agents.clocks import (
+        ActorStats, GlobalClock, LearnerStats,
+    )
+    from pytorch_distributed_tpu_torch.agents.param_store import (
+        ParamStore, num_params,
+    )
+    from pytorch_distributed_tpu_torch.factory import (
+        build_memory, build_model, probe_env,
+    )
+
+    opt = port_main.options_from_args(port_main.parse_args(_e2e_argv(
+        "process", f"anakin_{name}_trace", "actor_backend=anakin", *sets)))
+    spec = probe_env(opt)
+    handles = build_memory(opt, spec, in_process=True)
+    store = ParamStore(num_params(build_model(
+        opt, spec, init_weights=False).state_dict()))
+    drv = AnakinDriver(opt, spec, handles.learner_side, store, GlobalClock(),
+                       LearnerStats(), actor_stats=ActorStats())
+
+    def until(step: int) -> float:
+        torch.cuda.synchronize()
+        t0, s0 = time.perf_counter(), drv.lstep
+        while drv.lstep < step:
+            if drv.want_rollout():
+                drv.dispatch_rollout()
+            else:
+                drv.dispatch_learn()
+        torch.cuda.synchronize()
+        return (drv.lstep - s0) / (time.perf_counter() - t0)
+
+    try:
+        until(start)
+        untraced = until(start + (stop - start))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0, s0 = time.perf_counter(), drv.lstep
+            until(drv.lstep + (stop - start))
+            window = {"window_s": time.perf_counter() - t0,
+                      "updates": drv.lstep - s0}
+    finally:
+        drv.writer.close()
+        handles.learner_side.close()
+    window["trace"] = os.path.join(RUN_DIR, f"anakin_{name}.json")
+    prof.export_chrome_trace(window["trace"])
+    window["top_kernels_ms"] = sorted(
+        ((e.key[:60], e.self_device_time_total / 1e3)
+         for e in prof.key_averages() if e.self_device_time_total > 0),
+        key=lambda kv: -kv[1])[:8]
+    _busy_share(window)
+    window["untraced_updates_per_sec"] = untraced
+    # not traced: the window's busy ms per update at the untraced rate
+    window["device_idle_share_estimate_at_untraced_rate"] = 1.0 - window[
+        "device_busy_ms_per_update"] * untraced / 1e3
+    return window
+
+
+def train_anakin():
+    """Config 12 at full width through ``main`` with ``actor_backend=
+    anakin`` on the process backend (the evaluator and the logger in
+    spawn children, the fleet of 2 x 16 envs and the learner in this
+    process), at strict alternation and at ``rollout_ratio`` 16 (the
+    reference's replay ratio 8 at batch 128): 1 draw and 10 + 9 bf16 GEMMs
+    per update and no fp32 GEMM, a finite loss, no actor child and no
+    child with CUDA, evaluator rows; updates/s, frames/s and the duty
+    cycle (the rollouts' share of the device time between CUDA events).
+    Then each variant's loop traced over ``TRACE_WINDOWS``
+    (``_anakin_loop_traced``): the idle share of the device."""
+    from pytorch_distributed_tpu_torch import runtime
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.utils import metrics
+
+    out = {}
+    spawn = runtime.Topology._spawn
+    for name, sets in (("strict", ()), ("ratio16", ("rollout_ratio=16",))):
+        roles: list = []
+
+        def spy(topology, role, ind, args, roles=roles):
+            roles.append(role)
+            return spawn(topology, role, ind, args)
+
+        runtime.Topology._spawn = spy  # notes the role of every child
+        try:
+            r, summary = _train_through_main(
+                "process", f"anakin_{name}", "actor_backend=anakin", *sets,
+                phases=())
+        finally:
+            runtime.Topology._spawn = spawn
+        RESULTS[f"launches_anakin_{name}"] = r["launches"]
+        if "actor" in roles or summary["runtime/children_with_cuda"] != 0:
+            raise AssertionError(f"children {roles}, "
+                                 f"{summary['runtime/children_with_cuda']} "
+                                 f"with CUDA")
+        if summary["anakin/rollouts"] <= 0 or summary[
+                "runtime/actor_steps"] != summary["anakin/frames"]:
+            raise AssertionError(f"anakin {name}: {summary}")
+        tags = {row["tag"] for row in metrics.read_scalars(build_options(
+            12, root_dir=RUN_DIR, refs=f"anakin_{name}").log_dir)}
+        if not {"evaluator/avg_reward", "learner/critic_loss",
+                "anakin/duty_cycle"} <= tags:
+            raise AssertionError(f"scalars.jsonl holds only {sorted(tags)}")
+        window = _anakin_loop_traced(sets, *TRACE_WINDOWS[name], name)
+        out[name] = {
+            "launches": r["launches"],
+            "updates_per_sec": r["updates_per_sec"],
+            "frames_per_sec": r["actor_frames_per_sec"],
+            "duty_cycle": summary["anakin/duty_cycle"],
+            "rollout_device_s": summary["anakin/rollout_s"],
+            "learn_device_s": summary["anakin/learn_s"],
+            "rollouts": summary["anakin/rollouts"],
+            "learns": summary["anakin/learns"],
+            "train_seconds": r["train_seconds"],
+            "critic_loss": r["critic_loss"],
+            "replay_ratio": r["replay_ratio"],
+            "children": sorted(set(roles)),
+            "traced": {k: window[k] for k in (
+                "window_s", "updates", "window_updates_per_sec",
+                "untraced_updates_per_sec", "device_busy_ms_per_update",
+                "device_idle_share_traced",
+                "device_idle_share_estimate_at_untraced_rate",
+                "top_kernels_ms")}}
+    keys = ("updates_per_sec", "actor_frames_per_sec", "host_s")
+    return dict(out, card=card_name_and_power_limit(), beside={
+        run: {k: RESULTS.get(f"e2e_{run}", {}).get(k) for k in keys}
+        for run in ("process", "paced", "batched_unpaced",
+                    "batched_paced")})
+
+
+def train_device():
+    """Config 12 at full width through ``main`` on the process backend
+    with ``actor_backend=device``: each actor child steps its 16 envs as
+    one fused rollout on the CPU (8 ticks a dispatch); the same launches
+    per update, a finite loss, no child with CUDA; frames/s, the actors'
+    phases (rollout, emit, advance) and the learner's host seconds.
+    Then one device actor of 16 envs in this process on the card, as the
+    thread backend runs it (its rollout one CUDA graph on the actor's
+    stream), for 40 dispatches: the rows it fed and its frames/s."""
+    from pytorch_distributed_tpu_torch.agents.actor import bounded_actor_run
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    r, summary = _train_through_main("process", "device",
+                                     "actor_backend=device",
+                                     phases=("rollout", "emit", "advance"))
+    RESULTS["launches_device"] = r["launches"]
+    if summary["runtime/children_with_cuda"] != 0:
+        raise AssertionError("a child made a CUDA context")
+    opt = build_options(
+        12, device="cuda", num_actors=2, num_envs_per_actor=NATIVE_ENVS,
+        actor_backend="device", early_stop=EARLY_STOP, actor_freq=10 ** 9,
+        root_dir=RUN_DIR, refs="device_gpu_actor")
+    dispatches = 40
+    gpu = bounded_actor_run(opt, dispatches)
+    k, nstep = opt.env_params.device_rollout_ticks, opt.agent_params.nstep
+    rows = NATIVE_ENVS * (dispatches * k - nstep)
+    if len(gpu["stream"]) != rows:
+        raise AssertionError(f"the GPU device actor fed "
+                             f"{len(gpu['stream'])} rows, not {rows}")
+    return dict({k_: r[k_] for k_ in (
+        "launches", "updates_per_sec", "actor_frames_per_sec",
+        "actor_phases_ms", "replay_ratio", "host_s", "train_seconds",
+        "critic_loss")}, gpu_thread_actor={
+            "rows": rows, "frames_per_sec": gpu["env_steps"]
+            / gpu["seconds"], "timer_ms": gpu["timer_ms"]},
+        card=card_name_and_power_limit())
+
+
 KERNELS = (
     ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
      "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
@@ -1757,9 +2185,10 @@ def main() -> int:
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     for fn in (build, per_sample, torso_gemm, torso_apply, learner_alone,
-               native_pong, actor_tick, actor_gpu, staged_drain, train,
-               train_process, test_mode, process_trace, train_paced,
-               inference, train_batched, resume):
+               native_pong, device_env, fused_rollout, actor_tick, actor_gpu,
+               staged_drain, train, train_process, test_mode, process_trace,
+               train_paced, inference, train_batched, train_anakin,
+               train_device, resume):
         if fn is not build and "build" in FAILED:
             break
         phase(fn)
@@ -1773,7 +2202,10 @@ def main() -> int:
         by_path = {path: RESULTS.get(key, {}).get(name) for path, key in (
             ("train_process", "launches"),
             ("train_batched_unpaced", "launches_batched_unpaced"),
-            ("train_batched_paced", "launches_batched_paced"))}
+            ("train_batched_paced", "launches_batched_paced"),
+            ("anakin", "launches_anakin_strict"),
+            ("anakin_ratio16", "launches_anakin_ratio16"),
+            ("train_device", "launches_device"))}
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=launches.get(name, 0),
                           launches_by_path=by_path,

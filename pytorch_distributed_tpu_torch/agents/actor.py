@@ -3,8 +3,9 @@ pytorch_distributed_tpu/agents/actor.py for the dqn family: the harness
 (``_ActorHarness`` :120-390: ``tick_sync``, ``advance``, the stat and
 timer cadences), the local act engine (``_LocalDqnEngine`` :415-437), the
 batched engine (``_BatchedDqnEngine`` :479-497), the loop
-(``_drive_actor_loop`` :524-590), ``run_dqn_actor`` (:748) and
-``bounded_actor_run`` (:828).
+(``_drive_actor_loop`` :524-590), ``fold_rollout_episode_stats``
+(:592-614), the device loop (``_drive_device_actor_loop`` :616-745),
+``run_dqn_actor`` (:748-773) and ``bounded_actor_run`` (:828).
 
 Each actor steps ``num_envs_per_actor`` Pong games as one vector (the C++
 stepper unless ``native_env`` is false), runs ONE batched forward per
@@ -46,8 +47,22 @@ engine sends each tick's observations, with the randomness drawn here as
 above, to the shared inference server (agents/inference.py) and collects
 the actions; the weights are the server's, so ``tick_sync`` swaps
 nothing.  Its stream equals ``inline``'s on the same weights
-(tests/test_torch_inference.py).  ``device`` and ``anakin`` are not
-ported yet.
+(tests/test_torch_inference.py).
+
+``device`` steps no host env: the actor's Pong fleet lives as tensors on
+its device (envs/device_env.py) and one fused rollout
+(models/policies.py) runs K = ``device_rollout_ticks`` ticks of forward,
+action, env step and n-step assembly per dispatch; the host fetches the
+chunk once and feeds its valid rows.  The weight swap, the stat flush and
+the liveness mark run once a dispatch.  Timer phases: ``rollout`` (the
+dispatch), ``emit`` (the chunk's copy to the host), ``advance`` (feed and
+episode accounting), ``param_swap``.  In a child of the process backend
+the fleet runs on the CPU; a thread of the thread backend runs it on the
+card as one CUDA graph on the actor's stream.  Its explore draws come
+from the actor's generator in the inline order, so over the same env its
+transitions are the inline actor's (tests/test_torch_fused_rollout.py).
+An actor is never the co-located ``anakin`` loop (the learner is): an
+actor slot under ``anakin`` runs ``device``.
 """
 
 from __future__ import annotations
@@ -67,13 +82,16 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 )
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
-    EnvSpec, build_env_vector, build_model, init_params, module_apply,
-    probe_env, resolve_actor_backend, resolve_device, role_seed,
+    EnvSpec, build_device_env, build_env_vector, build_model, init_params,
+    module_apply, probe_env, resolve_actor_backend, resolve_device,
+    role_seed,
 )
 from pytorch_distributed_tpu_torch.models.policies import (
-    apex_epsilons, epsilon_greedy_act,
+    RolloutChunk, apex_epsilons, build_fused_rollout, epsilon_greedy_act,
+    init_rollout_carry,
 )
 from pytorch_distributed_tpu_torch.ops.nstep import NStepAssembler
+from pytorch_distributed_tpu_torch.utils.experience import Transition
 from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
 from pytorch_distributed_tpu_torch.utils.profiling import StepTimer
 
@@ -181,6 +199,10 @@ class DqnActor:
                  memory: Any, param_store: ParamStore, clock: GlobalClock,
                  stats: ActorStats, inference: Any = None):
         self.backend = resolve_actor_backend(opt, inference)
+        if self.backend == "anakin":
+            # the co-located loop is the learner; an actor slot runs the
+            # split-process device schedule over the same fleet
+            self.backend = "device"
         self.ap = opt.agent_params
         self.memory, self.clock, self.stats = memory, clock, stats
         # the hang watchdog's liveness mark, once a tick (reference :244)
@@ -188,11 +210,18 @@ class DqnActor:
         self._bump = getattr(clock, "bump_progress", lambda label: None)
         device = resolve_device(opt)
         n = self.num_envs = max(1, opt.env_params.num_envs_per_actor)
-        self.env = build_env_vector(opt, process_ind, n)
+        if self.backend == "device":
+            self.env = None
+            self.device_env = build_device_env(opt, process_ind, n, device)
+        else:
+            self.env = build_env_vector(opt, process_ind, n)
         eps = apex_epsilons(process_ind, opt.num_actors, n, self.ap.eps,
                             self.ap.eps_alpha)
-        gen = torch.Generator().manual_seed(role_seed(opt.seed, "actor",
-                                                      process_ind))
+        # the device loop draws on its acting device; the host loops draw
+        # on the CPU whatever device they infer on
+        gen = torch.Generator(
+            device=device if self.backend == "device" else "cpu"
+        ).manual_seed(role_seed(opt.seed, "actor", process_ind))
         memory.set_stop(clock.stop)
         self._prefetch: Optional[ParamPrefetcher] = None
         if self.backend == "batched":
@@ -244,6 +273,15 @@ class DqnActor:
         self._prefetch = ParamPrefetcher(param_store, load,
                                          start_version=self.version,
                                          stream=stream)
+        if self.backend == "device":
+            self._stream, self._gen = stream, gen
+            self.engine = None
+            self.rollout = build_fused_rollout(
+                module_apply(model), self.device_env, nstep=self.ap.nstep,
+                gamma=self.ap.gamma,
+                rollout_ticks=max(1, opt.env_params.device_rollout_ticks),
+                eps=eps)
+            return
         self.engine = _DqnEngine(
             module_apply(model), eps, gen, spec.num_actions,
             spec.state_shape, device, stream,
@@ -304,6 +342,8 @@ class DqnActor:
         ``_drive_actor_loop``).  The serial loop books ``act``; the
         pipelined loop books ``dispatch`` and ``sync``, and their sum as
         ``act``.  Returns the env steps taken."""
+        if self.backend == "device":
+            return self._run_device()
         timer, engine = self.timer, self.engine
         pipelined = self.backend in ("pipelined", "batched")
         self._obs = self.env.reset()
@@ -343,14 +383,91 @@ class DqnActor:
             self.shutdown()
         return self.env_steps
 
+    def _run_device(self) -> int:
+        """The device loop (reference ``_drive_device_actor_loop``): per
+        dispatch the rollout's K ticks on the device, one copy of the
+        chunk to the host, then the cadences and the feed."""
+        timer, ap, rollout = self.timer, self.ap, self.rollout
+        frames = rollout.K * self.num_envs
+        try:
+            with torch.cuda.stream(self._stream):  # a no-op for None
+                carry = init_rollout_carry(self.device_env, ap.nstep)
+                while not self.clock.done(ap.steps):
+                    t0 = time.perf_counter()
+                    rollout.draw(self._gen)
+                    chunk = rollout(self.params, carry)
+                    t1 = time.perf_counter()
+                    ch = {f: getattr(chunk, f).cpu().numpy()
+                          for f in RolloutChunk._fields}
+                    t2 = time.perf_counter()
+                    timer.add("rollout", t1 - t0)
+                    timer.add("emit", t2 - t1)
+                    self.env_steps += frames
+                    self.clock.add_actor_steps(frames)
+                    self._bump(self._label)
+                    self._acc["total_nframes"] += frames
+                    if self.env_steps >= self._next_sync:
+                        self._next_sync += ap.actor_sync_freq
+                        t0 = time.perf_counter()
+                        got = self._prefetch.take()
+                        if got is not None:
+                            self.params, self.version = got
+                            timer.add("param_swap", time.perf_counter() - t0)
+                    with timer.phase("advance"):
+                        self._feed_chunk(ch)
+                        fold_rollout_episode_stats(
+                            ch["step_reward"], ch["step_terminal"],
+                            self.episode_reward, self.episode_steps,
+                            self._acc)
+                    if self.env_steps >= self._next_flush:
+                        self._next_flush += ap.actor_freq
+                        self._flush_stats()
+                        self._writer.scalars(
+                            timer.drain(), step=self.clock.learner_step.value)
+                        self.memory.flush()
+        finally:
+            self.shutdown()
+        return self.env_steps
+
+    def _feed_chunk(self, ch: dict) -> None:
+        """The chunk's valid rows to the ingest, in (tick, env) order."""
+        valid = ch["valid"]
+        for k, j in zip(*np.nonzero(valid)):
+            self.memory.feed(Transition(
+                state0=ch["state0"][k, j], action=ch["action"][k, j],
+                reward=ch["reward"][k, j], gamma_n=ch["gamma_n"][k, j],
+                state1=ch["state1"][k, j],
+                terminal1=ch["terminal1"][k, j]))
+
     def shutdown(self) -> None:
         if self._prefetch is not None:
             self._prefetch.close()
-        self.engine.close()
+        if self.engine is not None:
+            self.engine.close()
         self._flush_stats()
         self.memory.flush()
         self.memory.close()
         self._writer.close()
+
+
+def fold_rollout_episode_stats(step_reward, step_terminal, episode_reward,
+                               episode_steps, acc: dict) -> None:
+    """Fold a fused dispatch's (K, N) per-tick env stats into the per-env
+    episode accumulators (changed in place) and the actor stat dict
+    (``ActorStats.FIELDS`` keys): one implementation for the device actor
+    loop and the Anakin driver.  An episode counts as solved when its
+    return is positive."""
+    step_reward = np.asarray(step_reward)
+    for k in range(step_reward.shape[0]):
+        episode_reward += np.asarray(step_reward[k], np.float64)
+        episode_steps += 1
+        for j in np.nonzero(np.asarray(step_terminal[k]))[0]:
+            acc["nepisodes"] += 1
+            acc["nepisodes_solved"] += float(episode_reward[j] > 0)
+            acc["total_steps"] += float(episode_steps[j])
+            acc["total_reward"] += float(episode_reward[j])
+            episode_steps[j] = 0
+            episode_reward[j] = 0.0
 
 
 def run_dqn_actor(opt: Options, spec: EnvSpec, process_ind: int,

@@ -54,8 +54,8 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 )
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
-    EnvSpec, build_model, build_train_state_and_step, init_params,
-    resolve_device, role_seed,
+    EnvSpec, anakin_active, build_model, build_train_state_and_step,
+    init_params, resolve_device, role_seed,
 )
 from pytorch_distributed_tpu_torch.memory.device_per import GraphedFusedStep
 from pytorch_distributed_tpu_torch.memory.device_replay import (
@@ -99,10 +99,72 @@ def epoch_extras(clock: GlobalClock, lstep: int, lstep0: int,
         rng=dict(learner_device=ckpt.serialize_torch_rng(gen)))
 
 
+def restore_epoch(opt: Options, epoch: ckpt.EpochInfo, clock: GlobalClock,
+                  device, role: str = "learner") -> TrainState:
+    """The epoch's train state on ``device``; the clock takes the epoch's
+    actor steps (added) and the best evaluation (the epoch's or the
+    ``_best`` sidecar's, whichever is higher)."""
+    state = ckpt.load_epoch_state(epoch, device)
+    clock.seed_actor_steps(int(epoch.extras.get("actor_step", 0)))
+    # the sidecar can be ahead of the epoch's score when a record fell
+    # between two commits
+    best = max(float(epoch.extras.get("best_eval_reward", float("-inf"))),
+               ckpt.load_best_score(opt.model_name))
+    clock.best_eval_reward.value = best
+    print(f"[{role}] resumed epoch {epoch.epoch} "
+          f"(step {epoch.learner_step}, "
+          f"actor_step +{int(epoch.extras.get('actor_step', 0))}, "
+          f"best_eval {best:g})", flush=True)
+    return state
+
+
+class EpochSaver:
+    """Commits checkpoint epochs of one learner (with the ring when
+    ``checkpoint_replay``) and counts them: ``epochs``, ``seconds`` and the
+    newest epoch's ``bytes``.  On a GPU it synchronizes first, so no
+    replay of a graph is in flight while the state is copied out."""
+
+    def __init__(self, opt: Options, clock: GlobalClock, memory, device):
+        self.opt, self.clock, self.memory = opt, clock, memory
+        self.device = torch.device(device)
+        self.epochs, self.seconds, self.bytes = 0, 0.0, 0
+        self._skipped = 0
+
+    def save(self, state: TrainState, lstep: int, lstep0: int,
+             gen: torch.Generator, skipped: torch.Tensor) -> None:
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        n = int(skipped)
+        self.clock.add_skipped_steps(n - self._skipped)
+        self._skipped = n
+        opt = self.opt
+        path = ckpt.save_epoch(
+            opt.model_name, state=state,
+            memory=(self.memory if opt.memory_params.checkpoint_replay
+                    else None),
+            extras=epoch_extras(self.clock, lstep, lstep0, self.memory.size,
+                                gen),
+            retain=opt.agent_params.checkpoint_retain)
+        self.epochs += 1
+        self.seconds += time.perf_counter() - t0
+        self.bytes = ckpt.epoch_bytes(path)
+        self.clock.bump_progress("learner")
+
+
 def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                 memory: DevicePerIngest, param_store: ParamStore,
                 clock: GlobalClock,
                 stats: Optional[LearnerStats] = None) -> Dict[str, float]:
+    if anakin_active(opt):
+        # this process is the actor fleet too (reference :56-72); the
+        # runtime calls run_anakin_learner itself, to hand it the ActorStats
+        from pytorch_distributed_tpu_torch.agents.anakin import (
+            run_anakin_learner,
+        )
+
+        return run_anakin_learner(opt, spec, process_ind, memory,
+                                  param_store, clock, stats)
     ap = opt.agent_params
     device = resolve_device(opt)
     model = build_model(opt, spec)
@@ -115,18 +177,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     epoch = resume_epoch(opt)
     t_restore = time.perf_counter()
     if epoch is not None:
-        state = ckpt.load_epoch_state(epoch, device)
-        clock.seed_actor_steps(int(epoch.extras.get("actor_step", 0)))
-        # the sidecar can be ahead of the epoch's score when a record
-        # fell between two commits
-        best = max(float(epoch.extras.get("best_eval_reward",
-                                          float("-inf"))),
-                   ckpt.load_best_score(opt.model_name))
-        clock.best_eval_reward.value = best
-        print(f"[learner] resumed epoch {epoch.epoch} "
-              f"(step {epoch.learner_step}, "
-              f"actor_step +{int(epoch.extras.get('actor_step', 0))}, "
-              f"best_eval {best:g})", flush=True)
+        state = restore_epoch(opt, epoch, clock, device)
 
     def publish_inline(p) -> None:
         flatten_into({k: v.detach().cpu() for k, v in p.items()}, host_flat,
@@ -166,24 +217,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
             gen, epoch.extras.get("rng", {}).get("learner_device"))
     lstep_resumed = lstep
     clock.set_learner_step(lstep)
-    saves = dict(epochs=0, seconds=0.0, bytes=0, skipped=0)
-
-    def save_epoch(st: TrainState) -> None:
-        t0 = time.perf_counter()
-        if device.type == "cuda":  # no replay of the graph in flight
-            torch.cuda.synchronize(device)
-        n = int(skipped)
-        clock.add_skipped_steps(n - saves["skipped"])
-        saves["skipped"] = n
-        path = ckpt.save_epoch(
-            opt.model_name, state=st,
-            memory=memory if opt.memory_params.checkpoint_replay else None,
-            extras=epoch_extras(clock, lstep, lstep0, memory.size, gen),
-            retain=ap.checkpoint_retain)
-        saves["epochs"] += 1
-        saves["seconds"] += time.perf_counter() - t0
-        saves["bytes"] = ckpt.epoch_bytes(path)
-        clock.bump_progress("learner")
+    saver = EpochSaver(opt, clock, memory, device)
 
     # gate until the replay warms up; clamped below the ring's capacity,
     # whose fill never exceeds it
@@ -239,7 +273,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
         for key, dt in zip(spent, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
             spent[key] += dt
         if crossed(ap.checkpoint_freq):
-            save_epoch(state)
+            saver.save(state, lstep, lstep0, gen, skipped)
         if crossed(ap.learner_freq):
             now = time.monotonic()
             vals = {k: float(v) for k, v in metrics.items()}
@@ -265,16 +299,16 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
         published = publisher.published
     publish_inline(state.params)  # the finished weights
     # the final epoch, also on a preemption: a next run resumes from it
-    save_epoch(state)
+    saver.save(state, lstep, lstep0, gen, skipped)
     summary = {k: float(v) for k, v in metrics.items()}
     summary.update({
         "learner/steps": lstep,
         "learner/updates_per_sec": (lstep - lstep_resumed)
         / max(seconds, 1e-9),
         "learner/resumed_from_step": lstep_resumed,
-        "checkpoint/epochs_committed": saves["epochs"],
-        "checkpoint/save_seconds": saves["seconds"],
-        "checkpoint/epoch_bytes": saves["bytes"],
+        "checkpoint/epochs_committed": saver.epochs,
+        "checkpoint/save_seconds": saver.seconds,
+        "checkpoint/epoch_bytes": saver.bytes,
         "checkpoint/restore_seconds": restore_s,
         "replay/restored_rows": restored_rows,
         "learner/train_seconds": seconds,

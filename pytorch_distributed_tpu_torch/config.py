@@ -70,9 +70,20 @@ class EnvParams:
     # tick k; "inline" runs act, env step and feed in turn; both give the
     # same transitions.  "batched" sends each tick's observations to the
     # shared inference server in the learner's process (agents/
-    # inference.py), and gives the same transitions too.  "device" and
-    # "anakin" are not ported yet (ROADMAP.md)
+    # inference.py), and gives the same transitions too.  "device" runs
+    # the Pong fleet as tensors (envs/device_env.py), fused with the
+    # forward and the n-step assembly into one rollout of
+    # ``device_rollout_ticks`` ticks (models/policies.py); "anakin" runs
+    # that rollout in the learner's process, writing straight into the
+    # ring between learner dispatches (agents/anakin.py, AnakinParams).
+    # anakin steps down to device, and device to pipelined, with a
+    # warning where the config cannot run them (factory.py)
     actor_backend: str = "pipelined"
+    # ticks of the whole fleet per fused rollout dispatch
+    device_rollout_ticks: int = 8
+    # the device env family: "auto" takes env_type's own ("pong" for
+    # pong-sim); a named family must be that one (envs/device_env.py)
+    device_env_family: str = "auto"
     # pong-sim actors step their envs through the C++ batched stepper
     # (native/pong_batch.cpp, built with g++); false: the numpy simulators
     native_env: bool = True
@@ -156,8 +167,29 @@ class LearnerPerfParams:
     pallas_torso: bool = False
 
 
+@dataclass
+class AnakinParams:
+    """The co-located Anakin loop's knobs (agents/anakin.py), active under
+    ``actor_backend="anakin"``; each is overridable from the environment
+    as ``TPU_APEX_ANAKIN_<FIELD>`` (``anakin.resolve_anakin``)."""
+
+    # env frames per learner update the scheduler aims at; 0: strict
+    # alternation of one rollout and one learner dispatch
+    rollout_ratio: float = 0.0
+    # ring rows (per half with ``double_buffer``) before the first learner
+    # dispatch; 0: ``learn_start``, clamped below the ring's capacity
+    min_fill: int = 0
+    # two half-capacity rings: learner dispatches sample one while
+    # rollouts write the other, swapping once ``min_fill`` fresh rows
+    # landed
+    double_buffer: bool = False
+    # drain the ingest queues between dispatches (rows from actors of
+    # another host; none in a co-located run)
+    drain_ingest: bool = True
+
+
 _SUBS = ("env_params", "memory_params", "model_params", "agent_params",
-         "health_params", "learner_perf_params")
+         "health_params", "learner_perf_params", "anakin_params")
 _SELECTORS = ("agent_type", "env_type", "game", "memory_type", "model_type")
 
 
@@ -191,6 +223,7 @@ class Options:
     health_params: HealthParams = field(default_factory=HealthParams)
     learner_perf_params: LearnerPerfParams = field(
         default_factory=LearnerPerfParams)
+    anakin_params: AnakinParams = field(default_factory=AnakinParams)
 
     @property
     def model_dir(self) -> str:

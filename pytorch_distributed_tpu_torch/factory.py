@@ -1,7 +1,9 @@
 """Builders shared by the port's workers — the port of
-pytorch_distributed_tpu/factory.py: the actor backend's gate
-``resolve_actor_backend`` (:144-220) and ``needs_inference_server``
-(:228-232), the env probe and ``EnvSpec`` (:239),
+pytorch_distributed_tpu/factory.py: the Anakin gates ``anakin_eligible``
+and ``anakin_active`` (:108-141), the actor backend's gate
+``resolve_actor_backend`` (:144-215), ``build_device_env`` (:216-230),
+``needs_inference_server`` (:228-232), the env probe and ``EnvSpec``
+(:239), the device-env predicate ``device_backend_active`` (:270-277),
 the actors' env vector and the stepper's prebuild (:280-353),
 the dqn branch of ``build_train_state_and_step`` (:636-647), the learner's
 train apply gate ``_dqn_train_apply`` (:674-723) and the device-PER branch
@@ -24,6 +26,12 @@ import torch
 from torch.func import functional_call
 
 from pytorch_distributed_tpu_torch.config import Options
+from pytorch_distributed_tpu_torch.envs.device_env import (
+    TorchOps, device_env_supported,
+)
+from pytorch_distributed_tpu_torch.envs.device_env import (
+    build_device_env as _build_device_env,
+)
 from pytorch_distributed_tpu_torch.envs.native_pong import (
     NativePongVectorEnv,
 )
@@ -49,35 +57,88 @@ def _not_ported(what: str) -> NotImplementedError:
 
 ACTOR_BACKENDS = ("pipelined", "inline", "batched", "device", "anakin")
 
-_NOT_PORTED_BACKENDS = {
-    "device": "the device env rollout (ROADMAP.md, Queue A, \"The actor "
-              "fast path and co-location\")",
-    "anakin": "the co-located Anakin loop (ROADMAP.md, Queue A, \"The "
-              "actor fast path and co-location\")",
-}
+
+def anakin_eligible(opt: Options) -> Tuple[bool, str]:
+    """Whether this config can run the co-located Anakin loop: the dqn
+    family, a device env implementation and a device ring for the
+    rollout's in-graph writes.  Returns ``(ok, reason)``."""
+    if opt.agent_type != "dqn":
+        return False, f"agent_type={opt.agent_type} (dqn only)"
+    if not device_env_supported(opt.env_params):
+        return False, (f"env_type={opt.env_params.env_type!r} has no "
+                       f"device env implementation")
+    if opt.memory_type not in ("device", "device-per"):
+        return False, (f"memory_type={opt.memory_type!r} (the fused "
+                       f"rollout writes into a device ring: use 'device' "
+                       f"or 'device-per')")
+    return True, ""
+
+
+def anakin_active(opt: Options) -> bool:
+    """Whether the run is the co-located Anakin loop: the env fleet in the
+    learner's process and no actor workers.  One predicate for the
+    topology and the learner."""
+    return (opt.env_params.actor_backend == "anakin"
+            and anakin_eligible(opt)[0])
+
+
+def device_backend_active(opt: Options) -> bool:
+    """Whether the actor slots run the device env fleet (``device``, or
+    ``anakin``'s fleet in the learner): no actor steps the C++ stepper
+    then.  Warns about nothing, unlike ``resolve_actor_backend``."""
+    return (opt.env_params.actor_backend in ("device", "anakin")
+            and opt.agent_type == "dqn"
+            and device_env_supported(opt.env_params))
 
 
 def resolve_actor_backend(opt: Options, inference: Any = None) -> str:
     """The actor schedule a worker runs, from ``actor_backend``: one gate
-    for the actor and the topology.  ``batched`` needs an inference
-    client (``inference``); without one it falls back to ``pipelined``
-    with a warning, as the reference does for a host with no server
-    (``Topology`` always wires one in).  ``device`` and ``anakin`` raise:
-    they are not ported yet."""
+    for the actor and the topology.  Each backend steps down with a
+    warning where the reference's does: ``batched`` without an inference
+    client (``inference``) to ``pipelined``; ``anakin`` on a config that
+    cannot run it (``anakin_eligible``) to ``device``; ``device`` outside
+    the dqn family, or on an env with no device implementation, to
+    ``pipelined``."""
     backend = opt.env_params.actor_backend
     if backend not in ACTOR_BACKENDS:
         raise ValueError(f"unknown actor_backend {backend!r} (one of "
                          f"{ACTOR_BACKENDS})")
-    if backend in _NOT_PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"actor_backend={backend!r} needs "
-            f"{_NOT_PORTED_BACKENDS[backend]}, which is not ported yet")
     if backend == "batched" and inference is None:
         warnings.warn("actor_backend=batched but no InferenceClient was "
                       "wired in (a topology without the server); falling "
                       "back to pipelined", stacklevel=2)
         return "pipelined"
+    if backend == "anakin":
+        ok, why = anakin_eligible(opt)
+        if ok:
+            return "anakin"
+        warnings.warn(f"actor_backend=anakin is not runnable here ({why}); "
+                      f"falling back to the split-process device backend",
+                      stacklevel=2)
+        backend = "device"
+    if backend == "device":
+        if opt.agent_type != "dqn":
+            warnings.warn(f"actor_backend=device serves the flat dqn "
+                          f"family only (got agent_type={opt.agent_type}); "
+                          f"falling back to pipelined", stacklevel=2)
+            return "pipelined"
+        if not device_env_supported(opt.env_params):
+            warnings.warn(f"actor_backend=device but env_type="
+                          f"{opt.env_params.env_type!r} has no device env "
+                          f"implementation (envs/device_env."
+                          f"DEVICE_ENV_FAMILIES); falling back to "
+                          f"pipelined", stacklevel=2)
+            return "pipelined"
     return backend
+
+
+def build_device_env(opt: Options, process_ind: int, num_envs: int,
+                     device="cpu"):
+    """The device env fleet of one actor slot on ``device``, on the slot
+    contract of ``build_env_vector`` (env j of actor i takes slot
+    ``seed + i*N + j``)."""
+    return _build_device_env(opt.env_params, process_ind, num_envs,
+                             ops=TorchOps(device))
 
 
 def needs_inference_server(opt: Options) -> bool:
@@ -135,8 +196,10 @@ def build_env(opt: Options, process_ind: int = 0):
 
 def wants_native_pong(opt: Options) -> bool:
     """One gate for the C++ stepper, shared by ``build_env_vector`` and
-    ``prebuild_native`` (reference ``_wants_native_pong`` :280)."""
-    return opt.env_type == "pong-sim" and opt.env_params.native_env
+    ``prebuild_native`` (reference ``_wants_native_pong`` :280); runs of
+    the device env fleet build none."""
+    return (opt.env_type == "pong-sim" and opt.env_params.native_env
+            and not device_backend_active(opt))
 
 
 def build_env_vector(opt: Options, process_ind: int, num_envs: int):

@@ -9,11 +9,15 @@
 #       2, 3 and 6 actors x 16 envs, and 2 actors with compute_dtype
 #       float32, 4,000 updates each (seed 100), the run names prefixed
 #       with PREFIX and the --set values added (e.g. "batched --set
-#       actor_backend=batched");
+#       actor_backend=batched", or "anakin --set actor_backend=anakin
+#       --set rollout_ratio=16": the co-located loop ignores
+#       max_replay_ratio and keeps 16 frames an update, the reference's
+#       replay ratio 8 at batch 128);
 #   bash pytorch_distributed_tpu_torch/measure_paced.sh northstar OUT NAME \
 #       SEED MAX_SECONDS [--set k=v ...]
 #       time to +18: 2 actors x 16 envs, 250,000 updates or MAX_SECONDS,
-#       then tools/northstar_report.py on its log.
+#       then tools/northstar_report.py on its log (the same --set values
+#       as sweep select the backend).
 #
 # Writes OUT/NAME.log (the run's output; its last line is the summary),
 # OUT/NAME.phases.json (the actors' timer phases), OUT/NAME_evals.jsonl

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.memory.device_replay import (
-    DeviceReplay, ReplayState, ring_write,
+    DeviceReplay, ReplayState, _masked_put, masked_write_index,
+    ring_write, ring_write_masked,
 )
 from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
@@ -56,6 +57,22 @@ def per_feed(state: PerReplayState, chunk: Transition, capacity: int,
     for start, stop in ring_write(state, chunk, capacity, non_blocking):
         state.priority[start:stop] = state.max_priority
     state.fill_rows.fill_(float(state.fill))
+
+
+def per_write_masked(state: PerReplayState, chunk: Transition,
+                     valid: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The masked twin of ``per_feed`` for writes inside a device program
+    (reference memory/device_per.py:67-83): ``ring_write_masked``, and
+    every written row enters at the running max priority; ``fill_rows``
+    moves on the device too, since the IS weights read it.  Returns the
+    count written, on the device."""
+    idx, _total = masked_write_index(state, valid, capacity)
+    total = ring_write_masked(state, chunk, valid, capacity)
+    _masked_put(state.priority, idx, valid,
+                state.max_priority.expand(valid.shape))
+    state.fill_rows.copy_(torch.clamp(state.fill_rows + total,
+                                      max=float(capacity)))
+    return total
 
 
 def per_sample(state: PerReplayState, u: torch.Tensor, beta,

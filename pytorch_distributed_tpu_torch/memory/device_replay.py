@@ -52,6 +52,9 @@ class ReplayState:
     terminal1: torch.Tensor  # (N,) float32
     pos: int = 0             # write cursor
     fill: int = 0            # valid rows
+    # the write cursor on the device, for writes inside a CUDA graph
+    # (``ring_write_masked``); set from ``pos`` before each such dispatch
+    cursor: Optional[torch.Tensor] = None
 
 
 def ring_write(state: ReplayState, chunk: Transition, capacity: int,
@@ -82,6 +85,45 @@ def ring_write(state: ReplayState, chunk: Transition, capacity: int,
     return spans
 
 
+def masked_write_index(state: ReplayState, valid: torch.Tensor,
+                       capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ring rows for a chunk's rows under ``valid`` (reference
+    memory/device_replay.py:92-125): valid row i goes to ``cursor +
+    rank_i``; the invalid rows go, in turn, to the rows after the last
+    valid one (distinct from every valid row, ``n <= capacity``), where
+    the writer puts back what they hold.  Returns ``(idx, total)``, both on
+    the device: no host sync, so a CUDA graph can capture it."""
+    v = valid.to(torch.int64)
+    total = v.sum()
+    rank = torch.cumsum(v, 0) - 1
+    rank_off = torch.cumsum(1 - v, 0) - 1 + total
+    idx = (state.cursor + torch.where(valid, rank, rank_off)) % capacity
+    return idx, total
+
+
+def _masked_put(col: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
+                new: torch.Tensor) -> None:
+    keep = valid.reshape(valid.shape + (1,) * (new.dim() - 1))
+    col.index_copy_(0, idx, torch.where(keep, new.to(col.dtype),
+                                        col.index_select(0, idx)))
+
+
+def ring_write_masked(state: ReplayState, chunk: Transition,
+                      valid: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Write only the ``valid`` rows of a device chunk at the device
+    cursor, in chunk order, in place: invalid rows take no slot and
+    change no row, and the cursor moves by the valid count.  The fused
+    rollout's replay emit writes with it (warmup ticks have no closed
+    n-step window).  Returns the count written, on the device; the host's
+    ``pos``/``fill`` are the caller's to advance (the count is a pure
+    function of the tick window)."""
+    idx, total = masked_write_index(state, valid, capacity)
+    for f in REPLAY_FIELDS:
+        _masked_put(getattr(state, f), idx, valid, getattr(chunk, f))
+    state.cursor.copy_((state.cursor + total) % capacity)
+    return total
+
+
 class DeviceReplay:
     """Owner of the ring tensors (learner side only)."""
 
@@ -100,7 +142,8 @@ class DeviceReplay:
             reward=z((capacity,), torch.float32),
             gamma_n=z((capacity,), torch.float32),
             state1=z((capacity, *self.state_shape), state_dtype),
-            terminal1=z((capacity,), torch.float32)))
+            terminal1=z((capacity,), torch.float32),
+            cursor=z((), torch.int64)))
 
     def _extend(self, columns: dict) -> ReplayState:
         return ReplayState(**columns)
@@ -132,6 +175,7 @@ class DeviceReplay:
         st = self.state
         for f in REPLAY_FIELDS:
             getattr(st, f).zero_()
+        st.cursor.zero_()
         st.pos = st.fill = 0
 
     def restore(self, data: dict) -> int:
@@ -273,6 +317,7 @@ class DeviceReplayIngest:
         self._producer: Dict[int, object] = {}  # id(queue) -> sentinel
         self.torn_reads = 0
         self.replay: Optional[DeviceReplay] = None
+        self.replay_b: Optional[DeviceReplay] = None
         self._staging: Optional[StagedWriter] = None
         self._pending: List[Transition] = []
         self._fed_total = 0
@@ -350,15 +395,17 @@ class DeviceReplayIngest:
         for q in qs:
             _close_queue(q)
 
-    def _ring_kwargs(self, device) -> dict:
-        return dict(capacity=self.capacity, state_shape=self.state_shape,
+    def _ring_kwargs(self, device, capacity: Optional[int] = None) -> dict:
+        return dict(capacity=capacity or self.capacity,
+                    state_shape=self.state_shape,
                     action_shape=self.action_shape,
                     state_dtype=_torch_dtype(self.state_dtype),
                     action_dtype=_torch_dtype(self.action_dtype),
                     device=device)
 
-    def _make_replay(self, device) -> DeviceReplay:
-        return DeviceReplay(**self._ring_kwargs(device))
+    def _make_replay(self, device, capacity: Optional[int] = None
+                     ) -> DeviceReplay:
+        return DeviceReplay(**self._ring_kwargs(device, capacity))
 
     def attach(self, device) -> DeviceReplay:
         """Allocate the ring on the learner's device, and its staging."""
@@ -366,11 +413,30 @@ class DeviceReplayIngest:
         self._staging = StagedWriter(self.replay, STAGE_ROWS, STAGE_SLABS)
         return self.replay
 
+    def attach_halves(self, device) -> Tuple[DeviceReplay, DeviceReplay]:
+        """Two half-capacity rings for the Anakin loop's double buffer
+        (reference :480-497): learner dispatches sample one while rollouts
+        write the other.  The first is also ``self.replay``, so the drain
+        and the checkpoint keep working on it."""
+        half = max(self.capacity // 2, 1)
+        self.replay = self._make_replay(device, half)
+        self._staging = StagedWriter(self.replay, STAGE_ROWS, STAGE_SLABS)
+        self.replay_b = self._make_replay(device, half)
+        return self.replay, self.replay_b
+
+    def note_scatter(self, rows: int) -> None:
+        """Count rows written into the attached ring(s) inside a device
+        program (the Anakin rollout's replay emit), which never pass
+        ``drain`` (reference :499)."""
+        self._fed_total += int(rows)
+
     @property
     def size(self) -> int:
         if self.replay is None:
             raise RuntimeError("attach() first")
-        return min(self._fed_total, self.replay.capacity)
+        cap = self.replay.capacity * (2 if self.replay_b is not None
+                                      else 1)
+        return min(self._fed_total, cap)
 
     def drain(self, max_chunks: int = 1024, max_rows: int = 32768) -> int:
         """Move queued transitions into the ring: at most ``max_chunks``
@@ -434,7 +500,7 @@ class DevicePerIngest(DeviceReplayIngest):
         self.importance_weight = importance_weight
         self.importance_anneal_steps = importance_anneal_steps
 
-    def _make_replay(self, device):
+    def _make_replay(self, device, capacity: Optional[int] = None):
         from pytorch_distributed_tpu_torch.memory.device_per import (
             DevicePerReplay,
         )
@@ -443,7 +509,7 @@ class DevicePerIngest(DeviceReplayIngest):
             priority_exponent=self.priority_exponent,
             importance_weight=self.importance_weight,
             importance_anneal_steps=self.importance_anneal_steps,
-            **self._ring_kwargs(device))
+            **self._ring_kwargs(device, capacity))
 
 
 def _close_queue(q) -> None:

@@ -9,7 +9,11 @@ the clock) is made here, and the actors' C++ stepper is built once
 (``factory.prebuild_native``, reference :243); then one logger,
 ``num_actors`` actors and, when ``evaluator_nepisodes > 0``, one
 evaluator run as workers, with the learner on the calling thread of this
-process.  With ``actor_backend=batched`` the shared inference server
+process.  Under ``actor_backend=anakin`` (``factory.anakin_active``) no
+actor worker exists: the learner's process runs the env fleet and the
+learner as one loop (agents/anakin.py, reference :188-205, :314-330),
+and the logger, the evaluator, the monitor, the hang watchdog and
+SIGTERM stay as they are.  With ``actor_backend=batched`` the shared inference server
 (agents/inference.py) runs as a thread of this process too: built here,
 a client handed to each actor, started after the workers and before the
 learner, stopped after the workers' join (an actor may still wait in
@@ -69,8 +73,9 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 )
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
-    EnvSpec, build_memory, build_model, needs_inference_server,
-    prebuild_native, probe_env, resolve_actor_backend, resolve_device,
+    EnvSpec, anakin_active, build_memory, build_model,
+    needs_inference_server, prebuild_native, probe_env,
+    resolve_actor_backend, resolve_device,
 )
 from pytorch_distributed_tpu_torch.utils.supervision import (
     EXIT_HUNG, ProgressBoard, RestartBudget, describe_exit,
@@ -111,8 +116,8 @@ def child_threads(opt: Options) -> int:
     """A child's share of the host's cores on the process backend: the
     cores over the processes that compute (the actors, the evaluator and
     the learner's)."""
-    computing = opt.num_actors + 1 + (
-        opt.agent_params.evaluator_nepisodes > 0)
+    actors = 0 if anakin_active(opt) else opt.num_actors
+    computing = actors + 1 + (opt.agent_params.evaluator_nepisodes > 0)
     return max(1, (os.cpu_count() or 1) // computing)
 
 
@@ -147,12 +152,15 @@ class Topology:
                 opt, self.spec, self.param_store,
                 in_process=backend == "thread")
         resolve_actor_backend(opt, self.inference_server)
+        # under anakin the env fleet lives in the learner's process: no
+        # actor worker, and no actor slot on the watchdog's board
+        self.anakin = anakin_active(opt)
         self.children_with_cuda = _CTX.Value("l", 0)
         # the hang watchdog's board rides the clock's pickle into every
         # child, so it exists before any spawn
         self.progress_board = ProgressBoard(
             ["learner", "evaluator-0"]
-            + [f"actor-{i}" for i in range(opt.num_actors)])
+            + [f"actor-{i}" for i in range(self._num_actor_workers())])
         self.clock.progress = self.progress_board
         self.max_restarts = max_restarts
         self.restarts = 0
@@ -165,11 +173,14 @@ class Topology:
         self._errors: List[str] = []
         self._threads = 1
 
+    def _num_actor_workers(self) -> int:
+        return 0 if self.anakin else self.opt.num_actors
+
     def _worker_specs(self):
         opt, spec = self.opt, self.spec
         specs = [("logger", 0, (opt, self.clock, self.actor_stats,
                                 self.learner_stats, self.evaluator_stats))]
-        for i in range(opt.num_actors):
+        for i in range(self._num_actor_workers()):
             # one feeder per actor slot: its own queue on the process
             # backend, its own chunk buffer on the thread backend
             srv = self.inference_server
@@ -243,10 +254,22 @@ class Topology:
                 # after the clients were wired, before anything acts
                 self.inference_server.start()
             self.progress_board.note_start("learner")
-            summary = run_learner(opt, self.spec, 0,
-                                  self.handles.learner_side,
-                                  self.param_store, self.clock,
-                                  self.learner_stats)
+            if self.anakin:
+                # the learner is the actor fleet too; the shared
+                # ActorStats keep the logger's actor rows flowing
+                from pytorch_distributed_tpu_torch.agents.anakin import (
+                    run_anakin_learner,
+                )
+
+                summary = run_anakin_learner(
+                    opt, self.spec, 0, self.handles.learner_side,
+                    self.param_store, self.clock, self.learner_stats,
+                    actor_stats=self.actor_stats)
+            else:
+                summary = run_learner(opt, self.spec, 0,
+                                      self.handles.learner_side,
+                                      self.param_store, self.clock,
+                                      self.learner_stats)
         except Exception as e:  # a dead worker can break the ingest too
             failure = e
         finally:

@@ -341,9 +341,11 @@ def test_resolve_actor_backend_downgrades(tmp_path):
         assert resolve_actor_backend(opt, None) == "pipelined"
     assert resolve_actor_backend(opt, object()) == "batched"
     assert resolve_actor_backend(_opt(tmp_path, "inline")) == "inline"
+    # config 12 runs both device-env backends (tests/test_torch_anakin.py
+    # holds their step-downs against the reference's)
     for backend in ("device", "anakin"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            resolve_actor_backend(_opt(tmp_path, backend), object())
+        assert resolve_actor_backend(_opt(tmp_path, backend),
+                                     object()) == backend
     bad = _opt(tmp_path, "pipelined")
     bad.env_params.actor_backend = "warp"
     with pytest.raises(ValueError, match="warp"):

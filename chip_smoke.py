@@ -90,7 +90,7 @@ Phases, each printed as one JSON line:
    with inference on the card: finite stats of one episode, and the peak
    of allocated device memory up by at least the weights' bytes;
 15. process_trace: the process run again with the device traced by
-   ``torch.profiler`` (CUDA activity only) over updates 600 to 1,100: the
+   ``torch.profiler`` (CUDA activity only) over updates 600 to 850: the
    device's idle share in that window as traced, its busy ms per update,
    and, labelled as an estimate, the idle share that busy time would
    leave at train_process's unprofiled rate;
@@ -124,7 +124,7 @@ Phases, each printed as one JSON line:
    no actor child and no child with CUDA, evaluator rows; updates/s,
    frames/s and the duty cycle; then each variant's loop driven here by
    ``AnakinDriver``'s own scheduler and traced by ``torch.profiler`` over a
-   window (40 updates strict, 400 at ratio 16, the profiler started and
+   window (40 updates strict, 200 at ratio 16, the profiler started and
    stopped between dispatches in the launching thread): the device's
    idle share as traced and, as an estimate, at the untraced rate;
 20. train_device: the process run with ``actor_backend=device`` (each
@@ -148,18 +148,42 @@ Phases, each printed as one JSON line:
    epochs' bytes and save seconds with and without the ring, the rows
    and seconds of the restore, and ``train_process``'s updates/s.
 
-Then a ``kernels`` line (the table PERF.md is written from: B1's and the
-bf16 GEMM's launches from the train_process phase, the fp32 GEMM's from
-the fp32 learner run, and each kernel's launches on the process runs
-with pipelined, batched and device actors and on the two Anakin runs), the card's name and power
-limit, and the verdict
-as the last line.  Exits non-zero, with no verdict, if there is no GPU, if
-the package is missing, or if any phase fails.  TF32 is off throughout,
-so fp32 references are full fp32.
+22. health: the health plane at full width on the process backend,
+   with the reference's defaults (detector, rollback ladder, quarantine).
+   (a) The rollback drill: ``TPU_APEX_QUARANTINE=0``, actor-0 alone
+   poisons four flushes after the epoch of step 800 (``FEEDER_FAULTS``
+   in its spawn), the NaN rows make the guard skip, the streak trips and
+   the learner rolls back: exactly one rollback to that epoch, an
+   ``fsck``-clean root, the launch counters still advancing after the
+   restore and the same launches per dispatched update; the first update
+   after the restore, replayed from the CUDA graph, against the same
+   update run eagerly on a clone of the restored state and ring, to the
+   bit; the ring it replays on is the live ring, holding the epoch's rows
+   and priorities and no NaN; the seconds from the streak's start to the
+   rollback, of the restore and of that first update. (b) The
+   quarantine drill: the same poison with the quarantine on: its 64 rows
+   in ``quarantine/``, no rollback, no skipped step, no NaN in the ring.
+   (c) The validator's cost: ``main`` with pipelined and with batched
+   actors, the quarantine on (train_process's and train_batched's
+   unpaced runs) and off: updates/s, frames/s, the drain's host seconds
+   and the validator's own seconds side by side. (d) The X-ray of a full
+   ring: host ms a stats window (the one copy included) and device ms,
+   against the host X-ray.
+
+``python3 chip_smoke.py PHASE ...`` runs ``build`` and the named phases
+only.  Then a ``kernels`` line (the table PERF.md is written from: B1's
+and the bf16 GEMM's launches from the train_process phase, the fp32
+GEMM's from the fp32 learner run, and each kernel's launches on the
+process runs with pipelined, batched and device actors, on the two
+Anakin runs and on the two health drills), the card's name and power
+limit, and the verdict as the last line.  Exits non-zero, with no
+verdict, if there is no GPU, if the package is missing, or if any phase
+fails.  TF32 is off throughout, so fp32 references are full fp32.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1190,13 +1214,13 @@ def _busy_us(trace_path: str) -> tuple:
 def process_trace():
     """The unpaced process-backend run of ``train_process`` again, with the
     device traced by ``torch.profiler`` while the learner takes updates 600
-    to 1,100: the device's idle share in that window as traced (the
+    to 850: the device's idle share in that window as traced (the
     union of its kernels and copies against the window's wall time), its
     busy time per update, the window's updates/s beside the unprofiled
     run's, and, as an estimate, the idle share that busy time would leave
     at the unprofiled rate."""
     summary, window = _traced_run(
-        _e2e_argv("process", "process_trace"), 600, 1100, "process_trace")
+        _e2e_argv("process", "process_trace"), 600, 850, "process_trace")
     busy_ms = window["device_busy_ms_per_update"]
     rate = RESULTS.get("e2e_process", {}).get("updates_per_sec")
     return {**{k: window[k] for k in (
@@ -1738,7 +1762,7 @@ def resume():
 FLEET = 32  # config 12's fleet: 2 actors x 16 envs
 # train_anakin's traced windows, in learner steps: a strict window's
 # trace holds every kernel of 40 rollouts
-TRACE_WINDOWS = {"strict": (300, 340), "ratio16": (400, 800)}
+TRACE_WINDOWS = {"strict": (300, 340), "ratio16": (400, 600)}
 ENV_SIZES = (32, 256, 1024)
 ENV_EARLY_STOP, ENV_STEPS = 100, 350  # 3 truncated episodes and a half
 ROLLOUT_TICKS, ROLLOUT_TIMED = 8, 50
@@ -2164,6 +2188,320 @@ def train_device():
         card=card_name_and_power_limit())
 
 
+# ---------------------------------------------------------------------------
+# the health plane: rollback, quarantine, validator and X-ray costs
+# ---------------------------------------------------------------------------
+
+# the drills: actor-0 alone poisons 4 flushes (64 rows) from its 480th,
+# near learner step 970 at replay ratio 8 (2 actors x 16 envs: 32 frames
+# a tick, 16 frames an update; 830 to 1,110 if one actor runs 15% ahead):
+# the epoch of step 800 is the clean restore point, and the default
+# streak (3 windows of 50 steps) trips by about step 1,310, before the
+# run ends at 1,500 and before the next epoch (1,600)
+HEALTH_POISON = ",".join(f"poison_chunk@{n}" for n in range(480, 484))
+HEALTH_STEPS, HEALTH_EPOCH = 1500, 800
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k])
+                                            for k in a)
+    return all(_tree_equal(x, y) for x, y in zip(a, b))
+
+
+def _poison_actor_0(topology, spec: str) -> None:
+    """Spawn actor-0, and only it, with ``FEEDER_FAULTS=spec``: one
+    poisoning actor, so no second poison can land after the restore."""
+    spawn = topology._spawn
+
+    def spawn_poisoned(role, ind, args):
+        if (role, ind) == ("actor", 0):
+            os.environ["FEEDER_FAULTS"] = spec
+        try:
+            spawn(role, ind, args)
+        finally:
+            os.environ.pop("FEEDER_FAULTS", None)
+
+    topology._spawn = spawn_poisoned
+
+
+def _first_update_spy(seen: dict):
+    """A ``GraphedFusedStep`` that, on the first replay handed a train
+    state other than its static buffers (the rollback's restored state),
+    keeps clones of that state, the ring, the uniforms and beta, runs the
+    replay, and keeps its result, the launch counters and its time."""
+    from pytorch_distributed_tpu_torch.memory import device_per
+
+    class Spy(device_per.GraphedFusedStep):
+        def __call__(self, ts, rs, us, beta):
+            if self._graph is None or ts is self._static \
+                    or "graph_out" in seen:
+                return super().__call__(ts, rs, us, beta)
+            from pytorch_distributed_tpu_torch.utils import checkpoint
+
+            torch.cuda.synchronize(DEV)
+            seen["counters_at_restore"] = {
+                c.__name__: c.launches for c in self._counters}
+            seen["state_in"] = device_per._clone_tree(ts)
+            seen["ring_in"] = dataclasses.replace(rs, **{
+                f.name: getattr(rs, f.name).clone()
+                for f in dataclasses.fields(rs)
+                if isinstance(getattr(rs, f.name), torch.Tensor)})
+            seen["us"], seen["beta"] = us.clone(), float(beta)
+            seen["target"] = checkpoint.resolve_epoch(seen["model_name"])
+            t0 = time.perf_counter()
+            out = super().__call__(ts, rs, us, beta)
+            torch.cuda.synchronize(DEV)
+            seen["first_update_s"] = time.perf_counter() - t0
+            seen["graph_out"] = device_per._clone_tree(out[0])
+            seen["graph_priority"] = rs.priority.clone()
+            seen["fused"], seen["ring"] = self._fused, rs
+            return out
+
+    return Spy
+
+
+def _restored_ring_is_the_epochs(seen: dict) -> int:
+    """The ring the first post-restore update replays holds the target
+    epoch's rows and priorities: the restore writes the newest ``n`` from
+    slot 0, no update has touched their priorities yet, and the ``k``
+    rows drained since then went to the slots after them (over the
+    oldest restored ones only if the ring wrapped).  Returns the rows
+    compared."""
+    ring, target = seen["ring_in"], seen["target"]
+    with np.load(os.path.join(target.path, "replay.npz")) as z:
+        cols = {k: z[k] for k in ("reward", "action", "gamma_n",
+                                  "terminal1", "leaf_priority")}
+    cap = ring.reward.shape[0]
+    n = min(len(cols["reward"]), cap)
+    k = (ring.pos - n) % cap
+    lo = max(0, n + k - cap)
+    for name, col in (("reward", ring.reward), ("action", ring.action),
+                      ("gamma_n", ring.gamma_n),
+                      ("terminal1", ring.terminal1),
+                      ("leaf_priority", ring.priority)):
+        if not np.array_equal(col[lo:n].cpu().numpy(),
+                              cols[name][len(cols[name]) - n + lo:]):
+            raise AssertionError(f"the restored ring's {name} is not the "
+                                 f"epoch's")
+    if not torch.isfinite(ring.reward[:ring.fill]).all():
+        raise AssertionError("a NaN reward is left in the restored ring")
+    return n - lo
+
+
+def _health_rollback() -> dict:
+    """(a) The rollback drill at full width on the process backend."""
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch import runtime
+    from pytorch_distributed_tpu_torch.agents import learner as learner_mod
+    from pytorch_distributed_tpu_torch.utils import checkpoint, flight_recorder
+
+    opt = port_main.options_from_args(port_main.parse_args(_e2e_argv(
+        "process", "health_rollback", "max_replay_ratio=8",
+        f"checkpoint_freq={HEALTH_EPOCH}", "checkpoint_replay=true",
+        "checkpoint_retain=10", "learner_freq=50",
+        "evaluator_nepisodes=0")))
+    opt.agent_params.steps = HEALTH_STEPS
+    flight_recorder.reset()  # no event of an earlier run in the rings
+    topology = runtime.Topology(opt, backend="process")
+    _poison_actor_0(topology, HEALTH_POISON)
+    seen = {"model_name": opt.model_name}
+    graphed = learner_mod.GraphedFusedStep
+    learner_mod.GraphedFusedStep = _first_update_spy(seen)
+    os.environ["TPU_APEX_QUARANTINE"] = "0"
+    _zero_launches()
+    try:
+        summary = topology.run()
+    finally:
+        learner_mod.GraphedFusedStep = graphed
+        os.environ.pop("TPU_APEX_QUARANTINE", None)
+    launches = _launches_per_update(summary["learner/updates"])
+    RESULTS["launches_health_rollback"] = launches
+    if (summary["health/rollbacks"] != 1 or "graph_out" not in seen
+            or summary["learner/steps"] < HEALTH_STEPS):
+        raise AssertionError(f"(a) rollbacks {summary['health/rollbacks']}, "
+                             f"restore seen {'graph_out' in seen}: {summary}")
+    at_restore = seen["counters_at_restore"]
+    after = {"hierarchical_sample": launches["per_sample"],
+             "gemm_bf16": launches["torso_gemm_fwd"],
+             "gemm_bf16_grad": launches["torso_gemm_bwd"]}
+    if not all(after[k] > at_restore[k] for k in after):
+        raise AssertionError(f"(a) the counters stood still after the "
+                             f"restore: {at_restore} -> {after}")
+    # the first update after the restore, replayed from the graph, against
+    # the same update run eagerly on the same restored state and ring
+    ring = seen["ring_in"]
+    rows = _restored_ring_is_the_epochs(seen)
+    eager_ts, _m = seen["fused"](seen["state_in"], ring, seen["us"],
+                                 seen["beta"])
+    torch.cuda.synchronize(DEV)
+    if not (_tree_equal(seen["graph_out"], eager_ts)
+            and torch.equal(seen["graph_priority"], ring.priority)):
+        raise AssertionError("(a) the graph's first update after the "
+                             "restore differs from the eager update")
+    live = topology.handles.learner_side.replay.state
+    if live.priority.data_ptr() != seen["ring"].priority.data_ptr() \
+            or not torch.isfinite(live.reward).all():
+        raise AssertionError("(a) the graph's ring is not the live ring, "
+                             "or it holds a NaN reward")
+    root = checkpoint.ckpt_root(opt.model_name)
+    report = checkpoint.fsck(root)
+    target = seen["target"]
+    with open(os.path.join(opt.log_dir, "blackbox", "learner.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    (rb,) = [e for e in events if e["kind"] == "rollback"]
+    # the streak that tripped the rollback starts at its last streak-1 mark
+    start = [e for e in events if e["kind"] == "anomaly"
+             and e["t"] <= rb["t"] and e["streak"] == 1][-1]
+    if report["violations"] or rb["epoch"] != target.epoch \
+            or target.learner_step >= start["step"]:
+        raise AssertionError(f"(a) fsck {report['violations']}, rollback "
+                             f"{rb}, target {target.epoch}")
+    return {"launches": launches, "counters_at_restore": at_restore,
+            "updates": summary["learner/updates"],
+            "steps": summary["learner/steps"],
+            "skipped_steps": summary["learner/skipped"],
+            "rollback": {k: rb[k] for k in ("epoch", "step", "reason")},
+            "streak_start_step": start["step"],
+            "fsck_violations": report["violations"],
+            "rolled_back_epochs": report["rolled_back"],
+            "restored_rows_checked": rows,
+            "first_update_after_restore": "graph == eager to the bit",
+            # the rollback's record follows its restore
+            "detect_s": rb["t"] - start["t"]
+            - summary["health/rollback_seconds"],
+            "restore_s": summary["health/rollback_seconds"],
+            "first_update_s": seen["first_update_s"],
+            "updates_per_sec": summary["learner/updates_per_sec"],
+            "children_with_cuda": summary["runtime/children_with_cuda"]}
+
+
+def _health_quarantine() -> dict:
+    """(b) The same poison with the quarantine on: files, no rollback, no
+    NaN in the ring, no skipped step."""
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch import runtime
+    from pytorch_distributed_tpu_torch.utils import flight_recorder, health
+
+    opt = port_main.options_from_args(port_main.parse_args(_e2e_argv(
+        "process", "health_quarantine", "max_replay_ratio=8",
+        "evaluator_nepisodes=0")))
+    opt.agent_params.steps = HEALTH_STEPS
+    flight_recorder.reset()
+    health.reset()
+    topology = runtime.Topology(opt, backend="process")
+    _poison_actor_0(topology, HEALTH_POISON)
+    _zero_launches()
+    summary = topology.run()
+    launches = _launches_per_update(summary["learner/updates"])
+    RESULTS["launches_health_quarantine"] = launches
+    qdir = os.path.join(opt.log_dir, "quarantine")
+    files = sorted(os.listdir(qdir)) if os.path.isdir(qdir) else []
+    filed = 0
+    for name in files:
+        with np.load(os.path.join(qdir, name)) as z:
+            filed += len(z["reason"])
+    ring = topology.handles.learner_side.replay.state
+    # four poisoned flushes of at most 16 rows (a flush on the actor's
+    # stats cadence can be shorter)
+    if (not 0 < summary["ingest/quarantined"] == filed <= 64
+            or summary["health/rollbacks"] != 0
+            or summary["learner/skipped"] != 0
+            or not torch.isfinite(ring.reward).all()):
+        raise AssertionError(f"(b) files {files} ({filed} rows): {summary}")
+    return {"files": files, "quarantined": summary["ingest/quarantined"],
+            "validated": summary["ingest/validated"],
+            "rollbacks": summary["health/rollbacks"], "launches": launches}
+
+
+def _validator_cost() -> dict:
+    """(c) ``main`` under pipelined and batched actors with the quarantine
+    on (the train_process and train_batched runs, or run here) and with
+    ``TPU_APEX_QUARANTINE=0``: updates/s, frames/s and the drain's host
+    seconds side by side, and the seconds the validator took."""
+    out = {}
+    for backend, key, sets in (
+            ("pipelined", "e2e_process", ()),
+            ("batched", "e2e_batched_unpaced", ("actor_backend=batched",))):
+        row = {}
+        for label in ("on", "off"):
+            refs = f"health_{backend}_{label}"
+            if label == "on" and key in RESULTS:
+                summary = RESULTS[key]["summary"]
+            else:
+                if label == "off":
+                    os.environ["TPU_APEX_QUARANTINE"] = "0"
+                try:
+                    _r, summary = _train_through_main("process", refs, *sets)
+                finally:
+                    os.environ.pop("TPU_APEX_QUARANTINE", None)
+            validated = summary["ingest/validated"]
+            if (label == "on") != (validated > 0):
+                raise AssertionError(f"(c) {refs}: {validated} rows "
+                                     f"validated")
+            row[label] = {
+                "updates_per_sec": summary["learner/updates_per_sec"],
+                "actor_frames_per_sec": summary["actor/steps_per_sec"],
+                "host_s_drain": summary["learner/host_s_drain"],
+                "train_seconds": summary["learner/train_seconds"],
+                "validated_rows": validated,
+                "validate_s": summary["ingest/validate_seconds"],
+                "validate_us_per_row": 1e6 * summary[
+                    "ingest/validate_seconds"] / max(validated, 1)}
+        out[backend] = row
+    return out
+
+
+def _xray_cost() -> dict:
+    """(d) The X-ray of a full 50,000-row ring on the card, as the
+    learner reads it once a stats window (``read_xray``: the histogram,
+    ESS, rows and mass, then one copy to the host): host ms a window and
+    device ms, against the host X-ray of the same leaves."""
+    from pytorch_distributed_tpu_torch.agents.learner import read_xray
+    from pytorch_distributed_tpu_torch.memory.device_per import (
+        DevicePerReplay, priority_xray_device,
+    )
+    from pytorch_distributed_tpu_torch.utils import health
+
+    ring = DevicePerReplay(RING_ROWS, FRAME, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    p = ring.state.priority
+    p.copy_(torch.rand(RING_ROWS, generator=gen, device=DEV) ** 4)
+    p[:RING_ROWS // 10] = 0.0
+    for _ in range(5):
+        read_xray(ring.state)
+    reps, t0 = 50, time.perf_counter()
+    for _ in range(reps):
+        xr = read_xray(ring.state)
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    host = health.priority_xray(p.cpu().numpy())
+    if not (np.array_equal(xr["counts"], host["counts"])
+            and xr["rows"] == host["rows"]
+            and math.isclose(xr["ess"], host["ess"], rel_tol=1e-4)):
+        raise AssertionError(f"(d) the device X-ray {xr} is not the host "
+                             f"X-ray {host}")
+    graph = _graph_of(lambda: priority_xray_device(ring.state))[0]
+    return {"ms_per_window": ms, "device_ms": _replay_ms(graph, 200),
+            "rows": xr["rows"], "ess_frac": xr["ess_frac"]}
+
+
+def health_phase():
+    """The health plane at config 12's full width on the process backend
+    (the reference's defaults: detector, rollback ladder and quarantine
+    on): (a) the rollback drill, (b) the quarantine drill, (c) the
+    validator's cost, (d) the X-ray's."""
+    return {"card": card_name_and_power_limit(),
+            "rollback": _health_rollback(),
+            "quarantine": _health_quarantine(),
+            "validator": _validator_cost(),
+            "xray": _xray_cost()}
+
+
+health_phase.__name__ = "health"
+
+
 KERNELS = (
     ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
      "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
@@ -2184,14 +2522,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
-    for fn in (build, per_sample, torso_gemm, torso_apply, learner_alone,
-               native_pong, device_env, fused_rollout, actor_tick, actor_gpu,
-               staged_drain, train, train_process, test_mode, process_trace,
-               train_paced, inference, train_batched, train_anakin,
-               train_device, resume):
+    phases = (build, per_sample, torso_gemm, torso_apply, learner_alone,
+              native_pong, device_env, fused_rollout, actor_tick, actor_gpu,
+              staged_drain, train, train_process, test_mode, process_trace,
+              train_paced, inference, train_batched, train_anakin,
+              train_device, resume, health_phase)
+    only = set(sys.argv[1:])  # phase names to run after build; none: all
+    unknown = only - {fn.__name__ for fn in phases}
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
+    for fn in phases:
         if fn is not build and "build" in FAILED:
             break
-        phase(fn)
+        if fn is build or not only or fn.__name__ in only:
+            phase(fn)
     table = []
     # B1's and the bf16 GEMM's launches from the train_process phase, the
     # fp32 GEMM's from the fp32 learner run
@@ -2205,7 +2549,9 @@ def main() -> int:
             ("train_batched_paced", "launches_batched_paced"),
             ("anakin", "launches_anakin_strict"),
             ("anakin_ratio16", "launches_anakin_ratio16"),
-            ("train_device", "launches_device"))}
+            ("train_device", "launches_device"),
+            ("health_rollback", "launches_health_rollback"),
+            ("health_quarantine", "launches_health_quarantine"))}
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=launches.get(name, 0),
                           launches_by_path=by_path,

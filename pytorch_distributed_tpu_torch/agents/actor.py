@@ -53,8 +53,9 @@ nothing.  Its stream equals ``inline``'s on the same weights
 its device (envs/device_env.py) and one fused rollout
 (models/policies.py) runs K = ``device_rollout_ticks`` ticks of forward,
 action, env step and n-step assembly per dispatch; the host fetches the
-chunk once and feeds its valid rows.  The weight swap, the stat flush and
-the liveness mark run once a dispatch.  Timer phases: ``rollout`` (the
+chunk once and feeds its valid rows.  The weight swap, the stat flush,
+the liveness mark and the ``ACTOR_FAULTS`` frame (one a tick on the other
+backends) run once a dispatch.  Timer phases: ``rollout`` (the
 dispatch), ``emit`` (the chunk's copy to the host), ``advance`` (feed and
 episode accounting), ``param_swap``.  In a child of the process backend
 the fleet runs on the CPU; a thread of the thread backend runs it on the
@@ -92,6 +93,7 @@ from pytorch_distributed_tpu_torch.models.policies import (
 )
 from pytorch_distributed_tpu_torch.ops.nstep import NStepAssembler
 from pytorch_distributed_tpu_torch.utils.experience import Transition
+from pytorch_distributed_tpu_torch.utils.faults import FaultInjector
 from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
 from pytorch_distributed_tpu_torch.utils.profiling import StepTimer
 
@@ -205,9 +207,12 @@ class DqnActor:
             self.backend = "device"
         self.ap = opt.agent_params
         self.memory, self.clock, self.stats = memory, clock, stats
-        # the hang watchdog's liveness mark, once a tick (reference :244)
+        # the hang watchdog's liveness mark, once a tick (reference :244),
+        # and the ACTOR_FAULTS plane, one frame a tick (reference :208,
+        # :245): hang@N and crash@N drill the watchdog and the restarts
         self._label = f"actor-{process_ind}"
         self._bump = getattr(clock, "bump_progress", lambda label: None)
+        self._faults = FaultInjector.from_env("actor")
         device = resolve_device(opt)
         n = self.num_envs = max(1, opt.env_params.num_envs_per_actor)
         if self.backend == "device":
@@ -295,6 +300,7 @@ class DqnActor:
         self.env_steps += n
         self.clock.add_actor_steps(n)
         self._bump(self._label)
+        self._faults.data_frame(())
         self._acc["total_nframes"] += n
         if self._prefetch is not None and self.env_steps >= self._next_sync:
             self._next_sync += self.ap.actor_sync_freq
@@ -405,6 +411,7 @@ class DqnActor:
                     self.env_steps += frames
                     self.clock.add_actor_steps(frames)
                     self._bump(self._label)
+                    self._faults.data_frame(())  # one frame a dispatch
                     self._acc["total_nframes"] += frames
                     if self.env_steps >= self._next_sync:
                         self._next_sync += ap.actor_sync_freq

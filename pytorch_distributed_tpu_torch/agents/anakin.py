@@ -36,8 +36,10 @@ Publication (``DevicePublisher``), checkpoint epochs (with ``lstep0`` and
 ``actor_step``; ``--resume`` seeds the cumulative frame count from
 ``actor_step``, so the scheduler does not flood rollouts after a
 restart), the ``learner_freq`` stats, the liveness mark and SIGTERM are
-the learner's (agents/learner.py).  Knobs: ``config.AnakinParams``,
-each overridable as ``TPU_APEX_ANAKIN_<FIELD>``.
+the learner's (agents/learner.py), and so are the initial params
+(``initial_params``: ``--model-file`` fine-tunes).  As in the reference
+(:176-179) the Anakin loop keeps no rollback ladder.  Knobs:
+``config.AnakinParams``, each overridable as ``TPU_APEX_ANAKIN_<FIELD>``.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from pytorch_distributed_tpu_torch.agents.actor import (
 )
 from pytorch_distributed_tpu_torch.agents.clocks import ActorStats
 from pytorch_distributed_tpu_torch.agents.learner import (
-    EpochSaver, restore_epoch, resume_epoch,
+    EpochSaver, initial_params, restore_epoch, resume_epoch,
 )
 from pytorch_distributed_tpu_torch.agents.param_store import (
     DevicePublisher, flatten_into,
@@ -63,8 +65,7 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 from pytorch_distributed_tpu_torch.config import AnakinParams, Options
 from pytorch_distributed_tpu_torch.factory import (
     anakin_eligible, build_device_env, build_model,
-    build_train_state_and_step, init_params, module_apply, resolve_device,
-    role_seed,
+    build_train_state_and_step, module_apply, resolve_device, role_seed,
 )
 from pytorch_distributed_tpu_torch.memory.device_per import (
     GraphedFusedStep, per_write_masked,
@@ -191,7 +192,7 @@ class AnakinDriver:
 
         # ---- the learner half, as run_learner builds it ----
         model = build_model(opt, spec)
-        params = init_params(opt, spec, seed=opt.seed, device=device)
+        params = initial_params(opt, spec, device)
         self.state, step_fn = build_train_state_and_step(opt, model, params)
         epoch = resume_epoch(opt)
         if epoch is not None:

@@ -12,8 +12,9 @@ through the ``EvaluatorStats`` flag handshake.
 The clock also carries the hang watchdog's progress board
 (utils/supervision.py ``ProgressBoard``), which the topology attaches
 before any worker spawns, and the counters a checkpoint epoch records:
-the skipped steps and the rollbacks.  ``rollbacks`` stays 0: rollback
-belongs to the health plane, which is not ported.
+the skipped steps (brought up to date on the learner's stats cadence and
+at every epoch) and the rollbacks (one per rollback of the learner's
+health sentinel, agents/learner.py).
 """
 
 from __future__ import annotations

@@ -49,8 +49,10 @@ Where the port differs from the reference:
   the CPU the programs run eagerly.  A graph that fails to capture
   raises; nothing falls back to the eager path or to the CPU.
 
-Not ported: the perf plane's writer and the flight recorder's record on
-a crash (ROADMAP.md, Queue A).
+A crash of the serve loop is recorded as ``server-crash`` in the
+``inference`` flight recorder (reference :383-386) before every client
+is refused; the runtime's monitor dumps it when it stops the run.  Not
+ported: the perf plane's writer (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ from pytorch_distributed_tpu_torch.factory import (
 from pytorch_distributed_tpu_torch.models.policies import (
     packed_act_rows, packed_roll_act,
 )
+from pytorch_distributed_tpu_torch.utils import flight_recorder
 
 _CTX = mp.get_context("spawn")
 
@@ -561,6 +564,8 @@ class InferenceServer:
             if self._stop.is_set():
                 return  # shutdown race (an interrupted weight wait)
             self.error = e
+            flight_recorder.get_recorder("inference").record(
+                "server-crash", error=repr(e))
             self._refuse_until_stopped((0, 0, (_ERROR, repr(e))))
             raise
 

@@ -27,22 +27,43 @@ initial weights, wait for ``learn_start`` rows, then loop until ``steps``:
   and the params checkpoint read, and then a final checkpoint epoch.  A
   SIGTERM (runtime.py) stops the loop early and lands here too.
 
+With ``--model-file`` in mode 1 the initial params are the file's
+(fine-tuning, reference :113-118), before any resume.
+
+The health sentinel (``HealthSentinel``, reference :553-630, :770-870)
+watches the stats windows: the window's skipped steps (the device count's
+difference, read where the metrics are read), the window's last loss and
+grad norm and the PER X-ray of the ring (``priority_xray_device``, one
+small copy to the host) go to ``health.AnomalyDetector``, and
+``health/*`` and ``replay/priority_ess*`` rows to ``scalars.jsonl``.  A
+streak of ``anomaly_threshold`` anomalous windows rolls the learner back
+in process: to the newest complete epoch older than the previous restore
+point, with every newer epoch fenced, the train state, the ring (with
+``checkpoint_replay``), the device generator and the learner step
+restored and the actors' step count left as it is; after
+``max_rollbacks`` rollbacks, or with no epoch to go back to, the learner
+raises ``RuntimeError("[health] ...")``.  ``LEARNER_FAULTS`` counts one
+frame per dispatch; its ``poison_grad`` targets a host-sampled batch and
+stays inert on this fused path, with the reference's notice (:662-667).
+
 On a GPU the resume comes before the CUDA graph's capture, which clones
 its static buffers from the state it is first handed, and an epoch reads
 the state from those buffers after a synchronize, so no replay is in
-flight while it is copied out.
+flight while it is copied out.  A rollback hands the graph the restored
+state, which its call copies into the static buffers, and restores the
+ring in place, so the graph replays on the restored tensors.
 
 Returns a summary of the run (steps, this run's updates per second, the
 last metrics, the skipped-step count, the host seconds spent pacing,
 draining, dispatching and publishing, the actors' env steps over the
-loop, the step it resumed from and the epochs it committed), which
-``main`` prints.
+loop, the step it resumed from, the epochs it committed, the rollbacks
+and the ingest's validation counts), which ``main`` prints.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -57,7 +78,9 @@ from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, anakin_active, build_model, build_train_state_and_step,
     init_params, resolve_device, role_seed,
 )
-from pytorch_distributed_tpu_torch.memory.device_per import GraphedFusedStep
+from pytorch_distributed_tpu_torch.memory.device_per import (
+    GraphedFusedStep, priority_xray_device,
+)
 from pytorch_distributed_tpu_torch.memory.device_replay import (
     DevicePerIngest,
 )
@@ -69,6 +92,37 @@ from pytorch_distributed_tpu_torch.ops.cuda_torso import (
 )
 from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY, TrainState
 from pytorch_distributed_tpu_torch.utils import checkpoint as ckpt
+from pytorch_distributed_tpu_torch.utils import flight_recorder, health
+from pytorch_distributed_tpu_torch.utils.faults import FaultInjector
+from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
+
+
+def initial_params(opt: Options, spec: EnvSpec,
+                   device) -> Dict[str, torch.Tensor]:
+    """The params a run starts from: ``init_params`` from the seed, or the
+    ``model_file``'s (``models/{refs}`` or a ``.pt`` path) when one is
+    given, as the reference fine-tunes (learner.py:113-118,
+    anakin.py:166-171).  A resume then replaces them with an epoch's."""
+    params = init_params(opt, spec, seed=opt.seed, device=device)
+    path = opt.model_file
+    if not path:
+        return params
+    if path.endswith(".msgpack"):
+        raise ValueError(
+            f"{path} is a params file of the JAX package: convert its param "
+            f"tree with pytorch_distributed_tpu_torch.convert.convert_dqn_cnn "
+            f"and write it with utils.checkpoint.save_params first")
+    if not path.endswith(ckpt.EXT):
+        path = ckpt.params_path(path)
+    loaded = ckpt.load_params(path)
+    wrong = sorted(k for k in params.keys() | loaded.keys()
+                   if k not in loaded or k not in params
+                   or loaded[k].shape != params[k].shape)
+    if wrong:
+        raise ValueError(f"{path} does not fit the model: {wrong}")
+    print(f"[learner] initial params from {path}", flush=True)
+    return {k: loaded[k].to(device=device, dtype=v.dtype)
+            for k, v in params.items()}
 
 
 def resume_epoch(opt: Options) -> Optional[ckpt.EpochInfo]:
@@ -130,14 +184,20 @@ class EpochSaver:
         self.epochs, self.seconds, self.bytes = 0, 0.0, 0
         self._skipped = 0
 
+    def count_skipped(self, skipped: torch.Tensor) -> int:
+        """Bring the clock's ``skipped_steps`` up to the device's running
+        count (a read that waits for the device); returns the count."""
+        n = int(skipped)
+        self.clock.add_skipped_steps(n - self._skipped)
+        self._skipped = n
+        return n
+
     def save(self, state: TrainState, lstep: int, lstep0: int,
              gen: torch.Generator, skipped: torch.Tensor) -> None:
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        n = int(skipped)
-        self.clock.add_skipped_steps(n - self._skipped)
-        self._skipped = n
+        self.count_skipped(skipped)
         opt = self.opt
         path = ckpt.save_epoch(
             opt.model_name, state=state,
@@ -150,6 +210,130 @@ class EpochSaver:
         self.seconds += time.perf_counter() - t0
         self.bytes = ckpt.epoch_bytes(path)
         self.clock.bump_progress("learner")
+
+
+def read_xray(ring_state) -> dict:
+    """The priority X-ray of a PER ring (``priority_xray_device``) on the
+    host, in one copy: ``counts``, ``ess``, ``rows``, ``mass`` and
+    ``ess_frac`` (None for an empty ring)."""
+    counts, ess, rows, mass = priority_xray_device(ring_state)
+    host = torch.cat([counts.to(torch.float64),
+                      torch.stack([ess, rows.to(ess.dtype), mass]
+                                  ).to(torch.float64)]).cpu()
+    ess, n = float(host[-3]), int(host[-2])
+    return {"counts": host[:-3].to(torch.int64).numpy(), "ess": ess,
+            "rows": n, "mass": float(host[-1]),
+            "ess_frac": ess / n if n else None}
+
+
+class HealthSentinel:
+    """The learner's half of the health plane: the anomaly detector on the
+    stats windows and the rollback ladder (reference agents/learner.py
+    :553-630, :770-870), with the ``learner`` flight recorder."""
+
+    def __init__(self, opt: Options, clock: GlobalClock, memory, device):
+        self.opt, self.clock, self.memory = opt, clock, memory
+        self.device = device
+        self.hp = hp = health.resolve(opt.health_params)
+        self.detector = health.AnomalyDetector(
+            zmax=hp.anomaly_zmax, grad_spike=hp.grad_spike,
+            threshold=hp.anomaly_threshold, ess_floor=hp.ess_floor)
+        self.recorder = flight_recorder.get_recorder("learner")
+        self.writer = MetricsWriter(opt.log_dir, role="learner",
+                                    run_id=opt.refs)
+        self.used = 0          # rollbacks spent
+        self.before = None     # the ladder's last restore point
+        self._win_base = 0     # the skipped count at the window's start
+        self.xrays, self.xray_s, self.rollback_s = 0, 0.0, 0.0
+
+    def window(self, lstep: int, vals: Dict[str, float],
+               skipped: int) -> Optional[str]:
+        """One stats window: ``vals`` are the window's last metrics and
+        ``skipped`` the running skipped count.  Feeds the detector, writes
+        the health rows; returns the reason when a rollback is due."""
+        skipped_w = skipped - self._win_base
+        self._win_base = skipped
+        t0 = time.perf_counter()
+        xr = read_xray(self.memory.replay.state)
+        self.xrays += 1
+        self.xray_s += time.perf_counter() - t0
+        anomalies = self.detector.observe(
+            loss=vals.get("learner/critic_loss"),
+            grad_norm=vals.get("learner/grad_norm"),
+            priority_mass=xr["mass"], replay_rows=xr["rows"],
+            skipped=skipped_w, priority_ess=xr["ess_frac"])
+        det = self.detector
+        if anomalies:
+            self.recorder.record("anomaly", step=lstep, kinds=anomalies,
+                                 streak=det.streak)
+            print(f"[health] anomaly at step {lstep}: "
+                  f"{'+'.join(anomalies)} (streak {det.streak}/"
+                  f"{self.hp.anomaly_threshold})", flush=True)
+        rows = {"health/skipped_steps": float(self.clock.skipped_steps.value),
+                "health/rollbacks": float(self.clock.rollbacks.value),
+                "health/anomaly_streak": float(det.streak)}
+        if xr["rows"]:
+            rows.update({"replay/priority_ess": xr["ess"],
+                         "replay/priority_ess_frac": xr["ess_frac"]})
+        self.writer.scalars(rows, step=lstep)
+        if self.hp.rollback and det.should_rollback():
+            return "+".join(anomalies) or "anomaly streak"
+        return None
+
+    def _fatal(self, lstep: int, msg: str) -> None:
+        self.recorder.record("divergence-fatal", step=lstep, detail=msg)
+        flight_recorder.dump_all(f"learner divergence: {msg}")
+        self.close()
+        raise RuntimeError(f"[health] {msg}")
+
+    def rollback(self, reason: str, lstep: int, gen: torch.Generator,
+                 skipped: int) -> Tuple[TrainState, int, int]:
+        """Restore the newest complete epoch older than the last restore
+        point and fence every newer one: ``(state, lstep, lstep0)``, with
+        the ring (under ``checkpoint_replay``) and ``gen`` restored in
+        place and the clock's learner step and rollback count set.
+        ``skipped`` is the running skipped count, which the next window
+        starts from.  Raises past ``max_rollbacks`` or with no epoch."""
+        opt, hp = self.opt, self.hp
+        if self.used >= hp.max_rollbacks:
+            self._fatal(lstep, f"divergence persists after {self.used} "
+                               f"rollback(s) (max_rollbacks="
+                               f"{hp.max_rollbacks}): {reason}")
+        t0 = time.perf_counter()
+        target = ckpt.resolve_epoch(opt.model_name, before=self.before)
+        if target is None:
+            self._fatal(lstep, f"sustained divergence ({reason}) with no "
+                               f"checkpoint epoch to roll back to")
+        ckpt.fence_epochs_after(opt.model_name, target.epoch, reason=reason)
+        state = ckpt.load_epoch_state(target, self.device)
+        if opt.memory_params.checkpoint_replay and target.has_replay:
+            rows = ckpt.load_epoch_replay(target, self.memory)
+            print(f"[health] replay rolled back with the epoch: {rows} rows",
+                  flush=True)
+        lstep = (target.learner_step if target.learner_step >= 0
+                 else int(state.step))
+        lstep0 = int(target.extras.get("lstep0", lstep))
+        ckpt.restore_torch_rng(
+            gen, target.extras.get("rng", {}).get("learner_device"))
+        self.clock.set_learner_step(lstep)
+        with self.clock.rollbacks.get_lock():
+            self.clock.rollbacks.value += 1
+        self.used += 1
+        self.before = target.epoch
+        self.detector.reset()
+        self._win_base = skipped  # the dead tail's skips start no streak
+        self.rollback_s += time.perf_counter() - t0
+        self.recorder.record("rollback", epoch=target.epoch, step=lstep,
+                             reason=reason, used=self.used)
+        flight_recorder.dump_all(f"health rollback #{self.used} to epoch "
+                                 f"{target.epoch} ({reason})")
+        print(f"[health] rolled back to epoch {target.epoch} (step {lstep}) "
+              f"after {reason}; {hp.max_rollbacks - self.used} rollback(s) "
+              f"left", flush=True)
+        return state, lstep, lstep0
+
+    def close(self) -> None:
+        self.writer.close()
 
 
 def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
@@ -168,7 +352,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     ap = opt.agent_params
     device = resolve_device(opt)
     model = build_model(opt, spec)
-    params = init_params(opt, spec, seed=opt.seed, device=device)
+    params = initial_params(opt, spec, device)
     state, step_fn = build_train_state_and_step(opt, model, params)
     host_flat = torch.empty(param_store.num_params)
 
@@ -218,6 +402,8 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     lstep_resumed = lstep
     clock.set_learner_step(lstep)
     saver = EpochSaver(opt, clock, memory, device)
+    sentinel = HealthSentinel(opt, clock, memory, device)
+    faults = FaultInjector.from_env("learner")
 
     # gate until the replay warms up; clamped below the ring's capacity,
     # whose fill never exceeds it
@@ -236,12 +422,17 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     beta, next_beta = replay.beta(0), 0
     t_start = t_window = time.monotonic()
     window_lstep = lstep
+    updates = 0  # dispatched, rolled-back ones included
     actor_step0 = clock.actor_step.value
     spent = dict.fromkeys(("pacing", "drain", "step", "publish"), 0.0)
     while lstep < ap.steps and not clock.stop.is_set() \
             and time.monotonic() < deadline:
         t0 = time.perf_counter()
         clock.bump_progress("learner")
+        if faults.data_frame(("poison_grad",)):
+            print("[faults:learner] poison_grad targets the host-sampled "
+                  "batch; inert on the fused device path (drill with "
+                  "poison_chunk instead)", flush=True)
         if ap.max_replay_ratio > 0:
             while (not clock.stop.is_set() and time.monotonic() < deadline
                    and (lstep - lstep0 + 1) * ap.batch_size
@@ -259,6 +450,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
         us = torch.rand((K, ap.batch_size), generator=gen, device=device)
         state, metrics = fused(state, replay.state, us, beta)
         skipped = skipped + metrics.get(SKIPPED_KEY, 0.0)
+        updates += K
         prev, lstep = lstep, lstep + K
         clock.set_learner_step(lstep)
         t3 = time.perf_counter()
@@ -288,6 +480,12 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                           q_mean=vals.get("learner/q_mean", 0.0),
                           grad_norm=vals.get("learner/grad_norm", 0.0),
                           steps_per_sec=rate)
+            n_skipped = saver.count_skipped(skipped)
+            reason = sentinel.window(lstep, vals, n_skipped)
+            if reason is not None:
+                state, lstep, lstep0 = sentinel.rollback(reason, lstep, gen,
+                                                         n_skipped)
+                next_beta = lstep  # beta follows the restored step
             t_window, window_lstep = now, lstep
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -300,11 +498,12 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     publish_inline(state.params)  # the finished weights
     # the final epoch, also on a preemption: a next run resumes from it
     saver.save(state, lstep, lstep0, gen, skipped)
+    sentinel.close()
     summary = {k: float(v) for k, v in metrics.items()}
     summary.update({
         "learner/steps": lstep,
-        "learner/updates_per_sec": (lstep - lstep_resumed)
-        / max(seconds, 1e-9),
+        "learner/updates": updates,
+        "learner/updates_per_sec": updates / max(seconds, 1e-9),
         "learner/resumed_from_step": lstep_resumed,
         "checkpoint/epochs_committed": saver.epochs,
         "checkpoint/save_seconds": saver.seconds,
@@ -313,6 +512,13 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
         "replay/restored_rows": restored_rows,
         "learner/train_seconds": seconds,
         SKIPPED_KEY: float(skipped),
+        "health/rollbacks": clock.rollbacks.value,
+        "health/rollback_seconds": sentinel.rollback_s,
+        "health/xrays": sentinel.xrays,
+        "health/xray_seconds": sentinel.xray_s,
+        "ingest/validated": memory.validated,
+        "ingest/quarantined": memory.quarantined,
+        "ingest/validate_seconds": memory.validate_s,
         **{f"learner/host_s_{k}": v for k, v in spent.items()},
         "learner/async_publishes": published,
         "replay/size": memory.size,

@@ -150,9 +150,32 @@ class AgentParams:
 
 @dataclass
 class HealthParams:
+    """The training health sentinel's knobs (utils/health.py, reference
+    config.py:428-465).  Every field is overridable from the environment
+    as ``TPU_APEX_HEALTH_<FIELD>`` (``health.resolve``), which spawn
+    children inherit."""
+
     # the in-step finite check (ops/losses.finite_guard): a non-finite
     # step is skipped and reported as learner/skipped
     numeric_guards: bool = True
+    # the anomaly detector on the learner's stats cadence: the loss's
+    # z-score bound against its EWMA, the grad-norm spike ratio against
+    # its EWMA, and the consecutive anomalous windows that trip a rollback
+    anomaly_zmax: float = 8.0
+    grad_spike: float = 100.0
+    anomaly_threshold: int = 3
+    # the priority-collapse floor on the PER X-ray's ESS / rows
+    ess_floor: float = 0.02
+    # roll back in process to an older committed checkpoint epoch on a
+    # tripped streak, at most ``max_rollbacks`` times; then the learner
+    # raises
+    rollback: bool = True
+    max_rollbacks: int = 2
+    # validate every drained row and divert offenders to
+    # {log_dir}/quarantine/ (also switched off by TPU_APEX_QUARANTINE=0);
+    # past ``quarantine_max_files`` files a source only counts
+    quarantine: bool = True
+    quarantine_max_files: int = 64
     # the hang watchdog (runtime.py): seconds a worker may go without a
     # progress mark before it is SIGKILLed and respawned; 0 turns it off.
     # ``hang_grace`` is added before a worker's first mark

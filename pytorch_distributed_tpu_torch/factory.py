@@ -45,6 +45,7 @@ from pytorch_distributed_tpu_torch.ops.cuda_torso import build_torso_apply
 from pytorch_distributed_tpu_torch.ops.losses import (
     TrainState, build_dqn_train_step, init_train_state,
 )
+from pytorch_distributed_tpu_torch.utils import health
 from pytorch_distributed_tpu_torch.utils.native_build import build_library
 
 ENVS = {"pong-sim": PongSimEnv}
@@ -304,6 +305,7 @@ def build_memory(opt: Options, spec: EnvSpec,
     if opt.memory_type != "device-per":
         raise _not_ported(f"memory_type {opt.memory_type!r}")
     mp_ = opt.memory_params
+    hp = health.resolve(opt.health_params)
     if mp_.state_dtype != "uint8":
         raise _not_ported(f"state_dtype {mp_.state_dtype!r}")
     ingest = DevicePerIngest(
@@ -313,5 +315,7 @@ def build_memory(opt: Options, spec: EnvSpec,
         priority_exponent=mp_.priority_exponent,
         importance_weight=mp_.priority_weight,
         importance_anneal_steps=opt.agent_params.steps,
-        in_process=in_process, slots=max(1, opt.num_actors))
+        in_process=in_process, slots=max(1, opt.num_actors),
+        quarantine=hp.quarantine,
+        quarantine_max_files=hp.quarantine_max_files)
     return MemoryHandles(actor_side=ingest.make_feeder(), learner_side=ingest)

@@ -2,8 +2,9 @@
 port of pytorch_distributed_tpu/memory/device_per.py: ``per_feed``
 (:59-64), ``per_sample`` (:86-120), ``per_update_priorities`` (:153-161),
 ``DevicePerReplay`` (:203-257) with its checkpoint surface
-(``snapshot``/``restore`` :355-392) and the sequential
-``build_fused_step`` (:327-351).
+(``snapshot``/``restore`` :355-392), the sequential
+``build_fused_step`` (:327-351) and the priority X-ray
+(``priority_xray_device`` :127-154).
 
 Priorities are stored pre-exponentiated (``p = (|td| + eps) ** alpha``);
 new rows enter at the running max priority so every row is replayed at
@@ -94,6 +95,37 @@ def per_sample(state: PerReplayState, u: torch.Tensor, beta,
         reward=state.reward[idx], gamma_n=state.gamma_n[idx],
         state1=state.state1[idx], terminal1=state.terminal1[idx],
         weight=weights.float(), index=idx)
+
+
+PRIORITY_XRAY_LOG10_LO = -6.0   # the log10 grid's floor (p ** alpha)
+PRIORITY_XRAY_LOG10_HI = 3.0    # and its ceiling
+
+
+def priority_xray_device(state: PerReplayState, bins: int = 16):
+    """The priority X-ray of the ring's non-empty rows on the ring's own
+    device (reference memory/device_per.py:127-154): a histogram over the
+    fixed [1e-6, 1e3) log10 grid of utils/health.priority_xray, the
+    effective sample size ``(sum p)^2 / sum p^2``, the row count and the
+    priority mass.  Returns ``(counts (bins,) int32, ess, rows, mass)`` as
+    device tensors; the learner reads them once a stats window, outside
+    the captured graph, in one small copy to the host."""
+    p = state.priority
+    valid = p > 0
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    rows = valid.sum(dtype=torch.int32)
+    s1 = torch.where(valid, p, zero).sum()
+    s2 = torch.where(valid, p * p, zero).sum()
+    ess = torch.where(s2 > 0, s1 * s1 / torch.clamp(s2, min=1e-30), zero)
+    logp = torch.log10(torch.clamp(p, min=10.0 ** PRIORITY_XRAY_LOG10_LO))
+    t = (logp - PRIORITY_XRAY_LOG10_LO) / (
+        PRIORITY_XRAY_LOG10_HI - PRIORITY_XRAY_LOG10_LO)
+    b = torch.clamp((t * bins).to(torch.int64), 0, bins - 1)
+    # empty rows go to an overflow bin that is dropped: no mask indexing,
+    # which would wait on the device for the row count
+    counts = torch.zeros(bins + 1, dtype=torch.int32, device=p.device)
+    counts.scatter_add_(0, torch.where(valid, b, bins),
+                        torch.ones_like(b, dtype=torch.int32))
+    return counts[:bins], ess, rows, s1
 
 
 def per_update_priorities(state: PerReplayState, idx: torch.Tensor,

@@ -1,19 +1,20 @@
 """Replay ring in device memory — the port of
 pytorch_distributed_tpu/memory/device_replay.py: ``ReplayState`` and
 ``ring_write`` (:34-85), ``DeviceReplay`` (:265-388), and the queue front
-end ``DeviceReplayIngest`` / ``drain`` (:389-611) without the flow-shed and
-quarantine planes, plus ``DevicePerIngest`` (:614-638), and the rings'
-checkpoint surface (``snapshot``/``restore``, :343-377, :517-542).  The
-feed is the reference's (memory/feeder.py ``QueueFeeder`` :30): chunks of
-transitions put on a spawn-context ``multiprocessing.Queue``.  Where the
-reference shares one queue among every actor, the port gives each actor
-slot a queue of its own (``make_feeder(slot)``), so every pipe has one
-writer: an actor killed inside a put tears only its own queue, and its
-respawn is handed a fresh one (``replace_slot``) while the old one is
-read to its end.  The total bound of queued chunks is split over the
-slots.  For the thread backend (``in_process``) one ``queue.Queue`` with
-the whole bound serves every slot, where the reference swaps one in
-before any worker starts (runtime.py ``_use_thread_queue`` :357-372).
+end ``DeviceReplayIngest`` / ``drain`` (:389-611) with its quarantine
+boundary and without the flow-shed plane, plus ``DevicePerIngest``
+(:614-638), and the rings' checkpoint surface (``snapshot``/``restore``,
+:343-377, :517-542). The feed is the reference's (memory/feeder.py
+``QueueFeeder`` :30): chunks of transitions put on a spawn-context
+``multiprocessing.Queue``. Where the reference shares one queue among
+every actor, the port gives each actor slot a queue of its own
+(``make_feeder(slot)``), so every pipe has one writer: an actor killed
+inside a put tears only its own queue, and its respawn is handed a fresh
+one (``replace_slot``) while the old one is read to its end. The total
+bound of queued chunks is split over the slots. For the thread backend
+(``in_process``) one ``queue.Queue`` with the whole bound serves every
+slot, where the reference swaps one in before any worker starts
+(runtime.py ``_use_thread_queue`` :357-372).
 
 The six transition columns live as tensors on the learner's device.  Where
 the reference's functional ring returns a new state from every write, the
@@ -28,6 +29,7 @@ from __future__ import annotations
 import multiprocessing as mp
 import queue
 import threading
+import time
 from dataclasses import dataclass
 from multiprocessing import connection
 from typing import Dict, List, Optional, Tuple
@@ -35,9 +37,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pytorch_distributed_tpu_torch.utils import health
 from pytorch_distributed_tpu_torch.utils.experience import (
     REPLAY_FIELDS, Transition,
 )
+from pytorch_distributed_tpu_torch.utils.faults import FaultInjector
 
 _CTX = mp.get_context("spawn")
 
@@ -239,13 +243,24 @@ class QueueFeeder:
     """Actor-side feed endpoint (reference memory/feeder.py QueueFeeder):
     buffers ``chunk`` transitions, then puts them on the ingest queue as
     one list.  A put blocked on a full queue gives up once the run's stop
-    event is set."""
+    event is set.  Each flush is one frame of the ``FEEDER_FAULTS`` plane
+    (utils/faults.py), whose ``poison_chunk@N`` NaNs the rewards of flush
+    N's rows (``health.poison_items``), as reference feeder.py:149-160
+    does; the injector is built in the process that flushes."""
 
     def __init__(self, q, chunk: int = 16):
         self._q = q
         self._chunk = chunk
         self._buf: List[Transition] = []
         self._stop = None
+        self._faults: Optional[FaultInjector] = None
+
+    def __getstate__(self):
+        # the injector holds a lock; a spawn child builds its own from the
+        # FEEDER_FAULTS it inherits
+        d = self.__dict__.copy()
+        d["_faults"] = None
+        return d
 
     def set_stop(self, event) -> None:
         self._stop = event
@@ -265,6 +280,13 @@ class QueueFeeder:
     def flush(self) -> None:
         if not self._buf:
             return
+        if self._faults is None:
+            self._faults = FaultInjector.from_env("feeder")
+        if self._faults.data_frame(("poison_chunk",)):
+            self._buf = [t for t, _p in health.poison_items(
+                [(t, None) for t in self._buf])]
+            print("[faults:feeder] poison_chunk: chunk poisoned before "
+                  "flush", flush=True)
         while True:
             if self._stop is not None and self._stop.is_set():
                 break  # shutdown: the learner no longer drains
@@ -294,13 +316,23 @@ class DeviceReplayIngest:
     then means that every writer is gone: if the queue's producer has
     exited (or the queue was replaced), what was left is dropped, the
     read is counted in ``torn_reads`` and the queue is closed; if the
-    producer is still alive the drain raises."""
+    producer is still alive the drain raises.
+
+    The drain is also the ingest's quarantine boundary (reference
+    :561-581): with ``quarantine`` on and ``TPU_APEX_QUARANTINE`` not 0,
+    a ``health.ChunkValidator`` (built on the first drain, against the
+    ring's state shape and dtype) checks every row read, and the rows it
+    rejects go to ``health.get_quarantine("feeder-device")``, which
+    writes ``{log_dir}/quarantine/``, instead of the ring.  ``validated``,
+    ``quarantined`` and ``validate_s`` count the rows checked, the rows
+    diverted and the host seconds the checks took."""
 
     def __init__(self, capacity: int, state_shape: Tuple[int, ...],
                  action_shape: Tuple[int, ...] = (),
                  state_dtype=np.uint8, action_dtype=np.int32,
                  max_queue_chunks: int = 4096, in_process: bool = False,
-                 slots: int = 1):
+                 slots: int = 1, quarantine: bool = True,
+                 quarantine_max_files: int = 64):
         self.capacity = capacity
         self.state_shape = tuple(state_shape)
         self.action_shape = tuple(action_shape)
@@ -321,6 +353,11 @@ class DeviceReplayIngest:
         self._staging: Optional[StagedWriter] = None
         self._pending: List[Transition] = []
         self._fed_total = 0
+        self.quarantine = quarantine
+        self.quarantine_max_files = quarantine_max_files
+        self._validator: Optional[health.ChunkValidator] = None
+        self.validated = self.quarantined = 0
+        self.validate_s = 0.0
 
     def _slot_queue(self, slot: int):
         with self._lock:
@@ -446,10 +483,11 @@ class DeviceReplayIngest:
         if self.replay is None:
             raise RuntimeError("attach() first")
         budget = max_chunks
+        fresh: List[Transition] = []
         for slot, q in self._sources():
             while budget > 0:
                 try:
-                    self._pending.extend(q.get_nowait())
+                    fresh.extend(q.get_nowait())
                     budget -= 1
                 except queue.Empty:
                     if slot is None:  # a replaced queue, read to its end
@@ -463,12 +501,31 @@ class DeviceReplayIngest:
                     self.torn_reads += 1
                     self._retire(q)
                     break
+        if fresh and self.quarantine and health.quarantine_active():
+            fresh = self._validate(fresh)
+        self._pending.extend(fresh)
         n = min(len(self._pending), max_rows)
         rows, self._pending = self._pending[:n], self._pending[n:]
         if n:
             self._staging.write(rows)
         self._fed_total += n
         return n
+
+    def _validate(self, rows: List[Transition]) -> List[Transition]:
+        """The rows the validator passes; the others are quarantined."""
+        t0 = time.perf_counter()
+        if self._validator is None:
+            self._validator = health.ChunkValidator(
+                state_shape=self.state_shape, state_dtype=self.state_dtype)
+        good, bad = self._validator.filter([(t, None) for t in rows])
+        if bad:
+            health.get_quarantine(
+                "feeder-device", max_files=self.quarantine_max_files).put(bad)
+            rows = [t for t, _p in good]
+            self.quarantined += len(bad)
+        self.validated += len(good) + len(bad)
+        self.validate_s += time.perf_counter() - t0
+        return rows
 
     def snapshot(self) -> dict:
         """Drain every queued chunk into the ring, then its snapshot."""

@@ -48,6 +48,16 @@ Backends:
 SIGTERM is a preemption notice on either backend when ``run`` is called
 from the main thread: the run drains, the learner commits its final
 checkpoint epoch, and ``run`` returns with ``runtime/preempted`` 1.
+
+The flight recorder (utils/flight_recorder.py, reference :71-97,
+:244-282, :394-505): ``run`` makes ``{log_dir}`` the process's blackbox
+home and exports it, with the run id, to the spawn children; a child
+records its crash and dumps its rings before re-raising; the supervisor
+records and dumps (into ``runtime.jsonl``) a dead inference server, each
+worker restarted or fatal, each hung worker before its SIGKILL, a hung
+learner before the exit, and the SIGTERM notice before the drain.  The
+watchdog reads ``HealthParams`` through ``health.resolve``, so
+``TPU_APEX_HEALTH_HANG_DEADLINE`` and its siblings apply.
 """
 
 from __future__ import annotations
@@ -77,6 +87,7 @@ from pytorch_distributed_tpu_torch.factory import (
     needs_inference_server, prebuild_native, probe_env,
     resolve_actor_backend, resolve_device,
 )
+from pytorch_distributed_tpu_torch.utils import flight_recorder, health
 from pytorch_distributed_tpu_torch.utils.supervision import (
     EXIT_HUNG, ProgressBoard, RestartBudget, describe_exit,
 )
@@ -101,11 +112,22 @@ def _child_main(role: str, args: tuple, num_threads: int,
                 children_with_cuda) -> None:
     """Spawn trampoline: ``enter_child``, set the run's device to the CPU
     before the worker resolves one, run the worker, and count the child in
-    ``children_with_cuda`` if CUDA was initialised in it all the same."""
+    ``children_with_cuda`` if CUDA was initialised in it all the same.  A
+    worker's exception is recorded and every ring dumped before it
+    propagates, so the respawn erases nothing."""
     enter_child(num_threads)
-    args[0].device = "cpu"  # args[0] is this child's copy of the Options
+    opt = args[0]  # this child's copy of the Options
+    opt.device = "cpu"
+    flight_recorder.configure(opt.log_dir, run_id=opt.refs)
+    label = role
+    if role in ("actor", "evaluator") and len(args) > 2:
+        label = f"{role}-{args[2]}"
     try:
         WORKERS[role](*args)
+    except BaseException as e:
+        flight_recorder.get_recorder(label).record("crash", error=repr(e))
+        flight_recorder.dump_all(f"{label} crashed: {e!r}")
+        raise
     finally:
         if torch.cuda.is_initialized():
             with children_with_cuda.get_lock():
@@ -162,6 +184,8 @@ class Topology:
             ["learner", "evaluator-0"]
             + [f"actor-{i}" for i in range(self._num_actor_workers())])
         self.clock.progress = self.progress_board
+        self.health = health.resolve(opt.health_params)
+        self.recorder = flight_recorder.get_recorder("runtime")
         self.max_restarts = max_restarts
         self.restarts = 0
         self.hang_kills = 0
@@ -214,6 +238,8 @@ class Topology:
                 if self.preempted.wait(0.2):
                     print("[runtime] SIGTERM: preemption notice; draining "
                           "for a final checkpoint epoch", flush=True)
+                    self.recorder.record("sigterm-preemption")
+                    flight_recorder.dump_all("SIGTERM preemption notice")
                     self.clock.stop.set()
                     return
 
@@ -227,6 +253,9 @@ class Topology:
         raises if any worker failed for good."""
         opt = self.opt
         prebuild_native(opt)  # once, before N actors race one g++
+        # the run's blackbox home, exported so spawn children inherit it
+        flight_recorder.configure(opt.log_dir, export_env=True,
+                                  run_id=opt.refs)
         specs = self._worker_specs()
         threads_before = torch.get_num_threads()
         run_over = threading.Event()
@@ -343,6 +372,10 @@ class Topology:
             print(f"[runtime] actor-{ind} died ({describe_exit(code)}); "
                   f"restart {budget.count(ind)}/{budget.max_restarts}",
                   flush=True)
+            self.recorder.record("worker-restarted", role=role, slot=ind,
+                                 exit=code, restarts=budget.count(ind))
+            flight_recorder.dump_all(f"actor-{ind} died "
+                                     f"({describe_exit(code)}); restarted")
             feeder = self.handles.learner_side.replace_slot(ind)
             srv = self.inference_server
             client = srv.replace_client(ind) if srv is not None else None
@@ -354,6 +387,9 @@ class Topology:
         self._errors.append(f"{role}-{ind} {describe_exit(code)}")
         print(f"[runtime] {role}-{ind} died ({describe_exit(code)}); "
               f"stopping the run", flush=True)
+        self.recorder.record("worker-fatal", role=role, slot=ind, exit=code)
+        flight_recorder.dump_all(f"{role}-{ind} died ({describe_exit(code)}); "
+                                 f"run stopped")
         self.clock.stop.set()
         return False
 
@@ -362,7 +398,7 @@ class Topology:
         both backends: a dead server would turn every actor respawn into
         a ``collect`` timeout); on the process backend, supervise the
         children (``_supervise``)."""
-        hp = self.opt.health_params
+        hp = self.health
         budget = RestartBudget(max_restarts=self.max_restarts)
         for role, ind, _args in self._meta.values():
             if role == "actor":
@@ -373,6 +409,9 @@ class Topology:
                 self._note_server_death()
                 print("[runtime] inference server died; stopping the run",
                       flush=True)
+                self.recorder.record("inference-server-dead")
+                flight_recorder.dump_all("inference server died; run "
+                                         "stopped")
                 self.clock.stop.set()
                 return
             if self.backend == "process" and not self._supervise(budget,
@@ -404,10 +443,16 @@ class Topology:
             for p in list(self._workers):
                 if p.name not in hung or p.exitcode is not None:
                     continue
+                age = self.progress_board.age(p.name)
                 print(f"[runtime] {p.name} made no progress for "
-                      f"{self.progress_board.age(p.name):.1f} s; "
-                      f"killing it", flush=True)
+                      f"{age:.1f} s; killing it", flush=True)
                 self.hang_kills += 1
+                role, ind, _args = self._meta[p]
+                self.recorder.record("worker-hung", role=role, slot=ind,
+                                     age=round(age, 1))
+                flight_recorder.dump_all(
+                    f"{p.name} hung (> {hp.hang_deadline:g}s without "
+                    f"progress); watchdog SIGKILL")
                 p.kill()
                 p.join(5.0)
                 self._last_kill = time.monotonic()
@@ -421,6 +466,10 @@ class Topology:
                                       > hp.hang_deadline):
                 print(f"[runtime] learner ({describe_exit(EXIT_HUNG)}); "
                       f"ending the process for a resume", flush=True)
+                self.recorder.record("learner-hung")
+                flight_recorder.dump_all(
+                    f"learner hung (> {hp.hang_deadline:g}s without "
+                    f"progress); failing host fast")
                 self.clock.stop.set()
                 os._exit(EXIT_HUNG)
         return True
@@ -432,7 +481,7 @@ class Topology:
         drain nothing: it is killed at once (an actor's kill is counted
         in ``hang_kills``, any other child's is a failure)."""
         deadline = time.monotonic() + timeout
-        hp = self.opt.health_params
+        hp = self.health
         stale_killed = set()
         while hp.hang_deadline > 0 and time.monotonic() < deadline:
             alive = [w for w in self._workers

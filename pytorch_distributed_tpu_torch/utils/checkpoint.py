@@ -465,11 +465,15 @@ def verify_epoch(path: str) -> Tuple[str, List[str]]:
     return ("complete" if not bad else "corrupt"), bad
 
 
-def resolve_epoch(model_name: str) -> Optional[EpochInfo]:
+def resolve_epoch(model_name: str,
+                  before: Optional[int] = None) -> Optional[EpochInfo]:
     """The newest complete epoch under ``{model_name}_ckpt``, or None.
     Incomplete, corrupt and fenced epochs are skipped (a corrupt one with
-    a note)."""
+    a note).  ``before`` keeps to epochs numbered strictly below it: the
+    rollback ladder's step to a restore point older than the last one."""
     for k, path in _list_epochs(ckpt_root(model_name)):
+        if before is not None and k >= before:
+            continue
         status, bad = verify_epoch(path)
         if status == "complete":
             with open(os.path.join(path, MANIFEST)) as f:

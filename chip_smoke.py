@@ -90,7 +90,8 @@ Phases, each printed as one JSON line:
    with inference on the card: finite stats of one episode, and the peak
    of allocated device memory up by at least the weights' bytes;
 15. process_trace: the process run again with the device traced by
-   ``torch.profiler`` (CUDA activity only) over updates 600 to 850: the
+   ``torch.profiler`` (CUDA activity only, started and stopped in the
+   learner's thread between graph replays) over updates 600 to 850: the
    device's idle share in that window as traced, its busy ms per update,
    and, labelled as an estimate, the idle share that busy time would
    leave at train_process's unprofiled rate;
@@ -135,7 +136,9 @@ Phases, each printed as one JSON line:
    process-backend run here, paced (``max_replay_ratio`` 8), with the
    hang watchdog at 10 s and an epoch every 500 steps: a timer thread
    SIGKILLs ``actor-0`` once the learner passes step 300 and SIGSTOPs
-   ``actor-1`` after step 900; the run must finish its steps with 2
+   ``actor-1`` after step 900; the run must finish its 3,500 steps
+   (enough that, on a fast host, the watchdog's 10 s and the respawn
+   fall well before the end) with 2
    restarts and 1 hang kill, no child with CUDA and the same launches
    per update; the time from the kill to the respawned child's first
    tick. (2) ``main`` in a subprocess with ``checkpoint_replay`` on, sent
@@ -168,15 +171,53 @@ Phases, each printed as one JSON line:
    unpaced runs) and off: updates/s, frames/s, the drain's host seconds
    and the validator's own seconds side by side. (d) The X-ray of a full
    ring: host ms a stats window (the one copy included) and device ms,
-   against the host X-ray.
+   against the host X-ray.  The quarantine drill runs unpaced, 600
+   updates, its poison early in the warm-up (it needs no epoch).
+23. megabatch: config 12's learner alone at full width in groups of M
+   (``megabatch``): a graphed dispatch of groups of 4 against its eager
+   twin, with the kernel torso and with the module's forward (``vmap``
+   over the weight copies), to the bit; a group of one minibatch against
+   the sequential step, to the bit with the kernel torso (the module's
+   ``vmap`` forward: its difference recorded); B1 drawing a group's 512
+   rows in one
+   launch against ``sample_plain`` (identical); B2's products of a group
+   of 4 (the forward and ``dx`` over 512 rows, ``dw`` on each
+   minibatch's row slice) against ``gemm_plain``, with kernel, plain,
+   library and bound ms; updates/s at M = 1, 2, 4 and 8 with the
+   launches per update counted in each timed window (1/M draws, 10/M
+   forward and (4 + 5M)/M backward GEMMs), the fp32 torso and the
+   module's forward at M = 4; then the split-process learner with
+   ``megabatch=4`` through ``main`` (pipelined actors, 2,000 updates),
+   its launches held to one draw and 10 + 24 GEMMs a group;
+24. anakin_megabatch: Anakin through ``main`` at ``rollout_ratio`` 16
+   with ``megabatch=4`` and ``double_buffer=true``, 4,000 updates: the
+   launches per group, updates/s, frames/s, the duty cycle and the
+   device ms a learner update over the run, and the median of its stats
+   windows past step 400 (the warm-up and the graphs' captures left
+   out), beside train_anakin's ratio-16 run;
+25. train_uniform: CONFIGS row 8 (the uniform device ring) through
+   ``main``, pipelined actors at replay ratio 8 and Anakin at ratio 16
+   (the same ratio at batch 128), as users run it: no draw, 10 + 9
+   GEMMs an update; updates/s, frames/s;
+26. train_host: rows 4 (``shared``) and 6 (``prioritized``) through
+   ``main`` on the process backend at replay ratio 8, 500 updates
+   each, row 6 with ``LEARNER_FAULTS=poison_grad@250`` (exactly one
+   skipped update, its batch the NaN one, its params unchanged, no
+   rollback), then row 4 on ``memory_type=native`` unpaced; no draw, 10
+   + 9 GEMMs an update;
+27. small_rows: rows 1 and 3 (``dqn-mlp``, no kernel on their path)
+   through ``main``: row 1 learns the chain (the evaluator reaches 1.0,
+   mode 2 on its best params solves every episode in 7 steps).
 
 ``python3 chip_smoke.py PHASE ...`` runs ``build`` and the named phases
 only.  Then a ``kernels`` line (the table PERF.md is written from: B1's
 and the bf16 GEMM's launches from the train_process phase, the fp32
 GEMM's from the fp32 learner run, and each kernel's launches on the
 process runs with pipelined, batched and device actors, on the two
-Anakin runs and on the two health drills), the card's name and power
-limit, and the verdict as the last line.  Exits non-zero, with no
+Anakin runs, on the two health drills, on the megabatch learner and
+Anakin runs, on row 8's two runs and on the three host runs; B1 and
+B2 held at a megabatch group beside their per-update numbers), the
+card's name and power limit, and the verdict as the last line.  Exits non-zero, with no
 verdict, if there is no GPU, if the package is missing, or if any phase
 fails.  TF32 is off throughout, so fp32 references are full fp32.
 """
@@ -201,7 +242,9 @@ import torch
 # imported (not run) again by the spawn children of the train_process
 # phase, which must not touch the card: the check for a GPU is in
 # ``__main__`` below
-from pytorch_distributed_tpu_torch.bench_gemm import time_ms, update_gemms
+from pytorch_distributed_tpu_torch.bench_gemm import (
+    TORSO_GEMMS, time_ms, update_gemms,
+)
 from pytorch_distributed_tpu_torch.ops import cuda_sampling, cuda_torso
 from pytorch_distributed_tpu_torch.ops import kernels
 
@@ -667,33 +710,39 @@ def torso_apply():
     return out
 
 
-def _graph_matches_eager(compute_dtype: str) -> float:
+def _graph_matches_eager(compute_dtype: str, megabatch: int = 1,
+                         torso: bool = True) -> float:
     """Six dispatches of four updates each replayed from the CUDA graph
     against six eager ones, from the same state, ring and uniforms, with
-    the kernel torso in ``compute_dtype``: the largest difference over
-    params and priorities (the same kernels in the same order: 0 in every
-    run so far)."""
+    the kernel torso (or, ``torso=False``, the module's forward) in
+    ``compute_dtype``, in groups of ``megabatch``: the largest difference
+    over params and priorities (the same kernels in the same order: 0 in
+    every run so far)."""
     from pytorch_distributed_tpu_torch import bench_learner
     from pytorch_distributed_tpu_torch.config import build_options
     from pytorch_distributed_tpu_torch.factory import (
         EnvSpec, build_model, build_train_state_and_step, init_params,
+        resolve_fused_step,
     )
     from pytorch_distributed_tpu_torch.memory.device_per import (
         DevicePerReplay, GraphedFusedStep,
     )
 
-    opt = build_options(12, device="cuda", pallas_torso=True,
-                        compute_dtype=compute_dtype)
+    opt = build_options(12, device="cuda", pallas_torso=torso,
+                        compute_dtype=compute_dtype, megabatch=megabatch,
+                        steps_per_dispatch=4)
     spec = EnvSpec(FRAME, ACTIONS, 255.0)
     runs = []
     for graphed in (False, True):
         ring = DevicePerReplay(4096, FRAME, device=DEV)
         bench_learner.fill_ring(ring, ACTIONS,
                                 torch.Generator(device=DEV).manual_seed(5))
+        model = build_model(opt, spec)
         state, step = build_train_state_and_step(
-            opt, build_model(opt, spec),
-            init_params(opt, spec, seed=0, device=DEV))
-        fused = ring.build_fused_step(step, BATCH, steps_per_call=4)
+            opt, model, init_params(opt, spec, seed=0, device=DEV))
+        m, k, mega = resolve_fused_step(opt, model, "chip_smoke")
+        fused = ring.build_fused_step(step, BATCH, steps_per_call=k,
+                                      megabatch=m, megabatch_step=mega)
         if graphed:
             fused = GraphedFusedStep(fused, ring.state)
         gen = torch.Generator(device=DEV).manual_seed(6)
@@ -752,15 +801,17 @@ def learner_alone():
     return out
 
 
-def _e2e_argv(backend: str, refs: str = "", *sets: str) -> list:
-    """Config 12 at full width, 2 actors x 16 envs (native Pong,
-    pipelined: the defaults), the kernel torso, an evaluator of one capped
-    episode, logs and checkpoints in RUN_DIR; ``sets`` are more ``--set``
-    values."""
-    argv = ["--config", "12", "--backend", backend, "--device", "cuda",
+def _e2e_argv(backend: str, refs: str = "", *sets: str,
+              config: int = 12, steps: int = TRAIN_STEPS) -> list:
+    """A CONFIGS row (config 12 unless said) at full width, 2 actors x 16
+    envs (native Pong, pipelined: the defaults), the kernel torso, an
+    evaluator of one capped episode, logs and checkpoints in RUN_DIR;
+    ``sets`` are more ``--set`` values."""
+    argv = ["--config", str(config), "--backend", backend,
+            "--device", "cuda",
             "--num-actors", "2", "--num-envs-per-actor", "16",
             "--memory-size", str(RING_ROWS), "--batch-size", str(BATCH),
-            "--steps", str(TRAIN_STEPS),
+            "--steps", str(steps),
             "--set", "learn_start=2000", "--set", "pallas_torso=true",
             "--set", "learner_freq=100", "--set", "evaluator_nepisodes=1",
             "--set", f"early_stop={EARLY_STOP}",
@@ -770,40 +821,52 @@ def _e2e_argv(backend: str, refs: str = "", *sets: str) -> list:
     return argv
 
 
+def expected_launches(updates: int, megabatch: int = 1, draws: bool = True,
+                      torso: bool = True) -> dict:
+    """The kernels' launches over ``updates`` bf16 updates with double DQN
+    off: a draw (B1) per group of ``megabatch`` updates on a PER device
+    ring (none on a uniform or host ring); per group, 10 forward GEMMs (5
+    layers, the online and the target net, each over the group's M*B
+    rows), 4 ``dx`` GEMMs over the M*B rows and 5 ``dw`` GEMMs a minibatch
+    (the kernel torso; none with the module's forward); no fp32 GEMM."""
+    groups = updates // megabatch
+    return {"per_sample": groups if draws else 0,
+            "torso_gemm_fwd": 10 * groups if torso else 0,
+            "torso_gemm_bwd": (4 + 5 * megabatch) * groups if torso else 0,
+            "torso_gemm_f32": 0}
+
+
 def _train_through_main(backend: str, refs: str = "", *sets: str,
-                        phases=("env", "advance", "tick")) -> tuple:
+                        phases=("env", "advance", "tick"), config: int = 12,
+                        steps: int = TRAIN_STEPS, megabatch: int = 1,
+                        draws: bool = True) -> tuple:
     """One end-to-end run through ``main``; the kernels' launch counters
-    are zeroed just before it and read just after, in this process.
-    ``phases``: the actors' timer phases the run must have logged."""
+    are zeroed just before it and read just after, in this process, and
+    held to ``expected_launches``.  ``phases``: the actors' timer phases
+    the run must have logged."""
     from pytorch_distributed_tpu_torch import main as port_main
     from pytorch_distributed_tpu_torch.config import build_options
     from pytorch_distributed_tpu_torch.utils.metrics import timer_phases
 
-    argv = _e2e_argv(backend, refs, *sets)
-    cuda_sampling.hierarchical_sample.launches = 0
-    cuda_torso.gemm_bf16.launches = 0
-    cuda_torso.gemm_bf16_grad.launches = 0
-    cuda_torso.gemm_f32.launches = 0
+    argv = _e2e_argv(backend, refs, *sets, config=config, steps=steps)
+    _zero_launches()
     summary = port_main.main(argv)
     launches = {"per_sample": cuda_sampling.hierarchical_sample.launches,
                 "torso_gemm_fwd": cuda_torso.gemm_bf16.launches,
                 "torso_gemm_bwd": cuda_torso.gemm_bf16_grad.launches,
                 "torso_gemm_f32": cuda_torso.gemm_f32.launches}
-    steps = summary["learner/steps"]
-    if steps < TRAIN_STEPS or not math.isfinite(
+    steps_done = summary["learner/steps"]
+    if steps_done < steps or not math.isfinite(
             summary["learner/critic_loss"]):
         raise AssertionError(f"{backend} train: {summary}")
-    # per update with double-DQN off: one draw; 10 bf16 forward GEMMs (5
-    # layers, online and target nets) and 9 bf16 backward GEMMs (5 dw, 4
-    # dx); the fp32 kernel is off the bf16 torso's path
-    if (launches["per_sample"] != steps
-            or launches["torso_gemm_fwd"] != 10 * steps
-            or launches["torso_gemm_bwd"] != 9 * steps
-            or launches["torso_gemm_f32"] != 0):
-        raise AssertionError(f"launch counts {launches} for {steps} steps")
+    want = expected_launches(steps_done, megabatch, draws)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} for {steps_done} "
+                             f"steps, not {want}")
     seconds = summary["learner/train_seconds"]
     actor_steps = summary["actor/steps_per_sec"] * seconds
-    log_dir = build_options(12, root_dir=RUN_DIR, refs=refs or backend).log_dir
+    log_dir = build_options(config, root_dir=RUN_DIR,
+                            refs=refs or backend).log_dir
     logged = timer_phases(log_dir)
     if not set(phases) <= logged.keys():
         raise AssertionError(f"no actor timer rows in {log_dir}: {logged}")
@@ -812,7 +875,7 @@ def _train_through_main(backend: str, refs: str = "", *sets: str,
            "actor_frames_per_sec": summary["actor/steps_per_sec"],
            "actor_phases_ms": logged,
            # samples drawn per transition stored, over the train loop
-           "replay_ratio": steps * BATCH / max(actor_steps, 1.0),
+           "replay_ratio": steps_done * BATCH / max(actor_steps, 1.0),
            "host_s": {k: summary.get(f"learner/host_s_{k}")
                       for k in ("pacing", "drain", "step", "publish")},
            "train_seconds": seconds,
@@ -1167,34 +1230,6 @@ def staged_drain():
             "us_per_row": {k: v / rows * 1e6 for k, v in secs.items()}}
 
 
-def _profile_window(clock, start_step: int, stop_step: int,
-                    name: str = "process_trace") -> dict:
-    """Trace the device with ``torch.profiler`` while the learner goes
-    from ``start_step`` to ``stop_step``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    while clock.learner_step.value < start_step:
-        if clock.stop.is_set():
-            return {}
-        time.sleep(0.002)
-    out = {}
-    # CUDA activity only: tracing the host's ops slows the learner's loop
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0, s0 = time.perf_counter(), clock.learner_step.value
-        while clock.learner_step.value < stop_step \
-                and not clock.stop.is_set():
-            time.sleep(0.002)
-        out["window_s"] = time.perf_counter() - t0
-        out["updates"] = clock.learner_step.value - s0
-    out["trace"] = os.path.join(RUN_DIR, f"{name}.json")
-    prof.export_chrome_trace(out["trace"])
-    out["top_kernels_ms"] = sorted(
-        ((e.key[:60], e.self_device_time_total / 1e3)
-         for e in prof.key_averages() if e.self_device_time_total > 0),
-        key=lambda kv: -kv[1])[:8]
-    return out
-
-
 def _busy_us(trace_path: str) -> tuple:
     """The union of the device's kernel, copy and set intervals in a
     chrome trace, in us, and their count."""
@@ -1541,8 +1576,7 @@ def train_batched():
 
 
 def _zero_launches() -> None:
-    for fn in (cuda_sampling.hierarchical_sample, cuda_torso.gemm_bf16,
-               cuda_torso.gemm_bf16_grad, cuda_torso.gemm_f32):
+    for fn in (cuda_sampling.hierarchical_sample, *cuda_torso.COUNTERS):
         fn.launches = 0
 
 
@@ -1553,10 +1587,7 @@ def _launches_per_update(updates: int) -> dict:
            "torso_gemm_fwd": cuda_torso.gemm_bf16.launches,
            "torso_gemm_bwd": cuda_torso.gemm_bf16_grad.launches,
            "torso_gemm_f32": cuda_torso.gemm_f32.launches}
-    if updates <= 0 or got != {"per_sample": updates,
-                               "torso_gemm_fwd": 10 * updates,
-                               "torso_gemm_bwd": 9 * updates,
-                               "torso_gemm_f32": 0}:
+    if updates <= 0 or got != expected_launches(updates):
         raise AssertionError(f"launch counts {got} for {updates} updates")
     return got
 
@@ -1598,6 +1629,11 @@ def _drill_timer(topology, out: dict) -> None:
         out["error"] = repr(e)
 
 
+# leg 1's updates: after the SIGSTOP (about step 1,000 on a fast host)
+# the paced run needs time for the 10 s watchdog and the respawn
+DRILL_STEPS = 3500
+
+
 def _resume_leg_drill() -> dict:
     import threading
 
@@ -1607,7 +1643,7 @@ def _resume_leg_drill() -> dict:
     opt = port_main.options_from_args(port_main.parse_args(_e2e_argv(
         "process", "resume_drill", "max_replay_ratio=8",
         "hang_deadline=10", "hang_grace=120", "checkpoint_freq=500",
-        "evaluator_nepisodes=0")))
+        "evaluator_nepisodes=0", steps=DRILL_STEPS)))
     topology = runtime.Topology(opt, backend="process")
     faults: dict = {}
     timer = threading.Thread(target=_drill_timer, args=(topology, faults),
@@ -1617,7 +1653,7 @@ def _resume_leg_drill() -> dict:
     summary = topology.run()
     launches = _launches_per_update(summary["learner/steps"])
     timer.join(timeout=10.0)
-    if "error" in faults or summary["learner/steps"] < TRAIN_STEPS:
+    if "error" in faults or summary["learner/steps"] < DRILL_STEPS:
         raise AssertionError(f"leg 1: {faults} {summary}")
     counts = {k: summary[f"runtime/{k}"] for k in (
         "restarts", "hang_kills", "children_with_cuda", "preempted")}
@@ -1964,38 +2000,61 @@ def fused_rollout():
 
 
 def _traced_run(argv, start: int, stop: int, name: str) -> tuple:
-    """``argv`` run as ``main`` runs it (``runtime.Topology``) with the
-    learner on a thread of its own and the device traced by
-    ``torch.profiler`` from learner step ``start`` to ``stop``; returns
-    (summary, the window)."""
-    import threading
+    """``argv`` run as ``main`` runs it (``runtime.Topology``, the learner
+    on this thread) with the device traced by ``torch.profiler`` (CUDA
+    activity only: tracing the host's ops slows the loop) from learner
+    step ``start`` to ``stop``.  The profiler starts and stops in the
+    learner's own thread, between two replays of its graph (a hook on
+    ``GraphedFusedStep``): one started from another thread hung beside
+    the replays.  Returns (summary, the window)."""
+    from torch.profiler import ProfilerActivity, profile
 
     from pytorch_distributed_tpu_torch import main as port_main
     from pytorch_distributed_tpu_torch import runtime
+    from pytorch_distributed_tpu_torch.memory.device_per import (
+        GraphedFusedStep,
+    )
 
     opt = port_main.options_from_args(port_main.parse_args(argv))
     topology = runtime.Topology(opt, backend="process")
-    ran: dict = {}
+    clock = topology.clock
+    window: dict = {}
+    traced: dict = {}
+    replay = GraphedFusedStep.__call__
 
-    def run():
-        try:
-            ran["summary"] = topology.run()
-        except BaseException as e:  # raised below, in this thread
-            ran["error"] = e
-            topology.clock.stop.set()
+    def hooked(self, *args, **kw):
+        step = clock.learner_step.value
+        if "prof" not in traced and start <= step < stop:
+            traced["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            traced["prof"].__enter__()
+            traced["t0"], traced["s0"] = time.perf_counter(), step
+        elif "prof" in traced and "window" not in traced and step >= stop:
+            torch.cuda.synchronize()
+            window["window_s"] = time.perf_counter() - traced["t0"]
+            window["updates"] = step - traced["s0"]
+            traced["prof"].__exit__(None, None, None)
+            traced["window"] = True
+        return replay(self, *args, **kw)
 
-    learner = threading.Thread(target=run, name=f"{name}-run")
-    learner.start()
+    GraphedFusedStep.__call__ = hooked
     try:
-        window = _profile_window(topology.clock, start, stop, name)
+        summary = topology.run()
     finally:
-        learner.join()
-    if "error" in ran:
-        raise ran["error"]
-    if "trace" not in window:
-        raise AssertionError(f"no trace window: {window}")
+        GraphedFusedStep.__call__ = replay
+        if "prof" in traced and "window" not in traced:
+            traced["prof"].__exit__(None, None, None)
+    if "window" not in traced:
+        raise AssertionError(f"no trace window from step {start} to "
+                             f"{stop}: {summary}")
+    prof = traced["prof"]
+    window["trace"] = os.path.join(RUN_DIR, f"{name}.json")
+    prof.export_chrome_trace(window["trace"])
+    window["top_kernels_ms"] = sorted(
+        ((e.key[:60], e.self_device_time_total / 1e3)
+         for e in prof.key_averages() if e.self_device_time_total > 0),
+        key=lambda kv: -kv[1])[:8]
     _busy_share(window)
-    return ran["summary"], window
+    return summary, window
 
 
 def _busy_share(window: dict) -> None:
@@ -2202,6 +2261,12 @@ HEALTH_POISON = ",".join(f"poison_chunk@{n}" for n in range(480, 484))
 HEALTH_STEPS, HEALTH_EPOCH = 1500, 800
 
 
+# the quarantine drill needs no epoch before its poison: four flushes of
+# actor-0 early in the warm-up, and a short unpaced run
+QUARANTINE_POISON = ",".join(f"poison_chunk@{n}" for n in range(40, 44))
+QUARANTINE_STEPS = 600
+
+
 def _tree_equal(a, b) -> bool:
     if isinstance(a, torch.Tensor):
         return a.dtype == b.dtype and torch.equal(a, b)
@@ -2379,20 +2444,20 @@ def _health_rollback() -> dict:
 
 
 def _health_quarantine() -> dict:
-    """(b) The same poison with the quarantine on: files, no rollback, no
-    NaN in the ring, no skipped step."""
+    """(b) A poison of four flushes with the quarantine on, unpaced and
+    early (QUARANTINE_POISON, during the warm-up; QUARANTINE_STEPS
+    updates): files, no rollback, no NaN in the ring, no skipped step."""
     from pytorch_distributed_tpu_torch import main as port_main
     from pytorch_distributed_tpu_torch import runtime
     from pytorch_distributed_tpu_torch.utils import flight_recorder, health
 
     opt = port_main.options_from_args(port_main.parse_args(_e2e_argv(
-        "process", "health_quarantine", "max_replay_ratio=8",
-        "evaluator_nepisodes=0")))
-    opt.agent_params.steps = HEALTH_STEPS
+        "process", "health_quarantine", "evaluator_nepisodes=0",
+        steps=QUARANTINE_STEPS)))
     flight_recorder.reset()
     health.reset()
     topology = runtime.Topology(opt, backend="process")
-    _poison_actor_0(topology, HEALTH_POISON)
+    _poison_actor_0(topology, QUARANTINE_POISON)
     _zero_launches()
     summary = topology.run()
     launches = _launches_per_update(summary["learner/updates"])
@@ -2459,7 +2524,7 @@ def _xray_cost() -> dict:
     learner reads it once a stats window (``read_xray``: the histogram,
     ESS, rows and mass, then one copy to the host): host ms a window and
     device ms, against the host X-ray of the same leaves."""
-    from pytorch_distributed_tpu_torch.agents.learner import read_xray
+    from pytorch_distributed_tpu_torch.memory.device_per import read_xray
     from pytorch_distributed_tpu_torch.memory.device_per import (
         DevicePerReplay, priority_xray_device,
     )
@@ -2502,6 +2567,491 @@ def health_phase():
 health_phase.__name__ = "health"
 
 
+# ---------------------------------------------------------------------------
+# megabatch, the uniform device ring, the host rings and the small rows
+# ---------------------------------------------------------------------------
+
+MEGABATCHES = (1, 2, 4, 8)
+MB_DISPATCH = 8        # updates a dispatch in the megabatch rates
+MB_UPDATES = 400       # timed updates a rate
+MB_GROUP = 4           # the group the kernels are held at
+ANAKIN_MB_STEPS = 4000
+HOST_STEPS = 500       # each host row, paced at replay ratio 8
+NATIVE_STEPS = 500
+POISON_AT = 250        # the learner dispatch row 6's poison_grad hits
+ROW1_STEPS = 1500
+
+
+def _b1_at_group_width(m: int) -> dict:
+    """B1 drawing one megabatch group, M*B uniforms in one launch, over a
+    50,000-row priority vector: indices and probabilities against
+    ``sample_plain`` (identical), kernel, plain and library times."""
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    p = torch.rand(RING_ROWS, generator=gen, device=DEV)
+    p = torch.where(torch.rand(RING_ROWS, generator=gen, device=DEV) < 0.1,
+                    torch.zeros_like(p), p)
+    n = m * BATCH
+    mismatches, worst = 0, 0.0
+    for _ in range(10):
+        us = torch.rand(n, generator=gen, device=DEV)
+        before = cuda_sampling.hierarchical_sample.launches
+        idx_k, pr_k = cuda_sampling.hierarchical_sample(p, us)
+        if cuda_sampling.hierarchical_sample.launches != before + 1:
+            raise AssertionError("B1 took more than one launch a group")
+        idx_p, pr_p = cuda_sampling.sample_plain(p, us)
+        mismatches += int((idx_k != idx_p).sum())
+        worst = max(worst, float((pr_k - pr_p).abs().max()))
+    if mismatches or worst:
+        raise AssertionError(f"B1 at {n} draws: {mismatches} index "
+                             f"mismatches, probs err {worst}")
+    u = torch.rand(n, generator=gen, device=DEV)
+
+    def library():
+        cdf = torch.cumsum(p, 0)
+        idx = torch.searchsorted(cdf, u * cdf[-1], right=True).clamp_(
+            max=RING_ROWS - 1)
+        return idx, p[idx] / cdf[-1]
+
+    nblocks = -(-RING_ROWS // cuda_sampling.BLOCK)
+    b, by = bound_ms(RING_ROWS * 4 + n * 4 + n * 12,
+                     RING_ROWS + 2 * n * cuda_sampling.BLOCK + 2 * nblocks,
+                     torch.float32)
+    return dict(draws=n, index_mismatches=mismatches, max_abs_err=worst,
+                ms=time_ms(lambda: cuda_sampling.hierarchical_sample(p, u),
+                           200),
+                plain_ms=time_ms(lambda: cuda_sampling.sample_plain(p, u),
+                                 200),
+                library_ms=time_ms(library, 200), bound_ms=b, bound_by=by,
+                tolerance="identical indices and probs")
+
+
+def _group_products(m: int) -> dict:
+    """B2's products of one megabatch group of ``m`` at config 12's width
+    (bf16), with the operands laid out as the group step hands them over:
+    each layer's forward over the M*B rows (twice: the online and the
+    target net), its ``dx = g w^T`` over the M*B rows (but Conv_0's) and
+    its ``dw_m = x_m^T g_m`` on each minibatch's row slice, each against
+    ``gemm_plain`` on the same operands; the group's kernel, plain and
+    library times (``torch.matmul``, and one ``torch.bmm`` for a layer's
+    M ``dw``) and bound, forward and backward apart."""
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    calls = {"fwd": [], "bwd": []}   # (a, b, grad, times a group)
+    library = {"fwd": [], "bwd": []}
+    for i, (_name, rows, k, n) in enumerate(TORSO_GEMMS):
+        x = torch.randn(m * rows, k, generator=gen, device=DEV).to(
+            torch.bfloat16)
+        w = (torch.randn(n, k, generator=gen, device=DEV)
+             / math.sqrt(k)).to(torch.bfloat16).t()
+        g = cuda_torso.tma_rows((torch.randn(m * rows, n, generator=gen,
+                                             device=DEV) / rows).to(
+            torch.bfloat16))
+        calls["fwd"].append((x, w, False, 2))
+        library["fwd"].append((lambda x=x, w=w: torch.matmul(x, w), 2))
+        if i > 0:
+            calls["bwd"].append((g, w.t(), True, 1))
+            library["bwd"].append((lambda g=g, w=w: torch.matmul(g, w.t()),
+                                   1))
+        for j in range(m):
+            sl = slice(j * rows, (j + 1) * rows)
+            calls["bwd"].append((x[sl].t(), g[sl], True, 1))
+        library["bwd"].append((lambda x=x, g=g, rows=rows: torch.bmm(
+            x.view(m, rows, -1).transpose(1, 2), g.view(m, rows, -1)), 1))
+    out = {}
+    for part, cs in calls.items():
+        worst_abs = worst_rel = 0.0
+        t_bytes = t_ops = 0.0
+        for a, b, grad, times in cs:
+            err, rel = _rel_err(cuda_torso.gemm(a, b, grad=grad),
+                                cuda_torso.gemm_plain(a, b))
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            (rows_a, kk), nn = a.shape, b.shape[1]
+            bd, by = bound_ms((rows_a * kk + kk * nn) * 2 + rows_a * nn * 4,
+                              2.0 * rows_a * nn * kk, torch.bfloat16)
+            if by == "bytes":
+                t_bytes += times * bd
+            else:
+                t_ops += times * bd
+        # tolerance: the same bf16 products, exact in fp32, summed in
+        # another order (as torso_gemm)
+        if worst_rel > 1e-4:
+            raise AssertionError(f"B2 group {part}: {worst_rel:.2e} of the "
+                                 f"output scale")
+
+        def run(fn, cs=cs):
+            for a, b, grad, times in cs:
+                for _ in range(times):
+                    fn(a, b, grad)
+
+        out[part] = dict(
+            launches_per_group=sum(c[3] for c in cs),
+            max_abs_err=worst_abs, max_rel_err=worst_rel,
+            ms=time_ms(lambda: run(lambda a, b, grad: cuda_torso.gemm(
+                a, b, grad=grad)), 50),
+            plain_ms=time_ms(lambda: run(
+                lambda a, b, grad: cuda_torso.gemm_plain(a, b)), 50),
+            library_ms=time_ms(lambda lib=library[part]: [
+                f() for f, times in lib for _ in range(times)], 50),
+            bound_ms=t_bytes + t_ops,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            tolerance="max |kernel - plain| <= 1e-4 x max |plain|")
+    return out
+
+
+def _one_minibatch_group_is_sequential() -> dict:
+    """On the card, bf16: the group step of one minibatch against the
+    sequential step on the same batch, state and ring rows, over 3
+    updates.  Through the kernel torso every tensor of the new state,
+    |TD| and the metrics to the bit.  Through the module's forward, which
+    the group step runs under ``vmap`` (a group of one never runs in
+    training: ``megabatch=1`` takes the sequential step), the largest
+    parameter difference is recorded, not held."""
+    from pytorch_distributed_tpu_torch import bench_learner
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.factory import (
+        EnvSpec, build_megabatch_train_step, build_model,
+        build_train_state_and_step, init_params,
+    )
+    from pytorch_distributed_tpu_torch.memory.device_per import (
+        DevicePerReplay, per_sample,
+    )
+    from pytorch_distributed_tpu_torch.memory.device_replay import (
+        group_batches,
+    )
+
+    spec = EnvSpec(FRAME, ACTIONS, 255.0)
+    ring = DevicePerReplay(4096, FRAME, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    bench_learner.fill_ring(ring, ACTIONS, gen)
+    out = {}
+    for torso in (True, False):
+        opt = build_options(12, device="cuda", pallas_torso=torso)
+        model = build_model(opt, spec)
+        state, step = build_train_state_and_step(
+            opt, model, init_params(opt, spec, seed=0, device=DEV))
+        mega = build_megabatch_train_step(opt, model)
+        diff = 0.0
+        for _ in range(3):
+            batch = per_sample(ring.state, torch.rand(BATCH, generator=gen,
+                                                      device=DEV), 0.4)
+            s_seq, m_seq, td_seq = step(state, batch)
+            s_grp, m_grp, td_grp, ok = mega(state, group_batches(batch, 1))
+            if not torso:
+                diff = max(diff, max(
+                    float((s_seq.params[k] - s_grp.params[k]).abs().max())
+                    for k in s_seq.params))
+            elif not (_tree_equal(s_seq, s_grp)
+                    and torch.equal(td_seq, td_grp[0])
+                    and all(torch.equal(m_seq[k], m_grp[k])
+                            for k in m_seq) and bool(ok.all())):
+                raise AssertionError("the group of one minibatch is not "
+                                     "the sequential step (kernel torso)")
+            state = s_seq
+        out["kernel" if torso else "module_max_abs_param_diff"] = (
+            "identical over 3 updates" if torso else diff)
+    return out
+
+
+def megabatch():
+    """Megabatch on config 12's learner alone at full width (batch 128, a
+    full 50,000-row ring, bf16, the kernel torso): a graphed dispatch in
+    groups of 4 against its eager twin (identical); a group of one
+    minibatch against the sequential step (identical, both torsos); B1
+    drawing a group's 512 rows in one launch against ``sample_plain``;
+    B2's group products against ``gemm_plain``; updates/s at M = 1, 2, 4
+    and 8 (dispatches of 8 updates, replayed from a CUDA graph) with the
+    launches per update by kernel counted in each timed window and, at
+    M = 1 and 4, the profiler's device ms per update; the fp32 torso once
+    at M = 4; the module's forward (vmap over the weight copies)
+    captured into a CUDA graph at M = 4.  Then the split-process learner
+    with ``megabatch=4`` through ``main`` (process backend, pipelined
+    actors): its launches, counted over that run, held to
+    ``expected_launches`` and printed in the kernels line."""
+    from pytorch_distributed_tpu_torch import bench_learner
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    out = {"card": card_name_and_power_limit()}
+    for torso in (True, False):
+        diff = _graph_matches_eager("bfloat16", MB_GROUP, torso)
+        # tolerance: none, for either torso (the same kernels in the same
+        # order; 0 in every run so far)
+        if diff > 0.0:
+            raise AssertionError(f"megabatch graph replay differs from "
+                                 f"eager by {diff}")
+        out[f"graph_vs_eager_{'kernel' if torso else 'module'}"] = diff
+    out["one_minibatch"] = _one_minibatch_group_is_sequential()
+    b1 = _b1_at_group_width(MB_GROUP)
+    products = _group_products(MB_GROUP)
+    RESULTS.setdefault("per_sample", {})["megabatch_group"] = b1
+    RESULTS.setdefault("torso_gemm_fwd", {})["megabatch_group"] = \
+        products["fwd"]
+    RESULTS.setdefault("torso_gemm_bwd", {})["megabatch_group"] = \
+        products["bwd"]
+    out.update(b1_group=b1, b2_group=products)
+    rates = {}
+    for cd, m, torso in ([("bfloat16", m, "kernel") for m in MEGABATCHES]
+                         + [("float32", MB_GROUP, "kernel"),
+                            ("bfloat16", MB_GROUP, "module")]):
+        r = bench_learner.run(
+            build_options(12, device="cuda", pallas_torso=torso == "kernel",
+                          compute_dtype=cd, megabatch=m,
+                          steps_per_dispatch=MB_DISPATCH),
+            updates=MB_UPDATES, profile=(torso == "kernel" and cd ==
+                                         "bfloat16" and m in (1, MB_GROUP)))
+        own = "gemm_bf16" if cd == "bfloat16" else "gemm_f32"
+        other = "gemm_f32" if cd == "bfloat16" else "gemm_bf16"
+        on = 1.0 if torso == "kernel" else 0.0
+        want = {"hierarchical_sample": 1 / m, own: on * 10 / m,
+                f"{own}_grad": on * (4 + 5 * m) / m, other: 0.0,
+                f"{other}_grad": 0.0}
+        got = r["launches_per_update"]
+        if (r["megabatch"] != m or not r["cuda_graph"]
+                or any(abs(got[k] - v) > 1e-9 for k, v in want.items())):
+            raise AssertionError(f"M={m} {cd} {torso}: {r}")
+        emit({"megabatch_learner": r})
+        rates[f"{cd}_{torso}_M{m}"] = {k: r.get(k) for k in (
+            "updates_per_sec", "wall_ms_per_update", "launches_per_update",
+            "device_ms_per_update", "kernel_device_ms")}
+    out["rates"] = rates
+    r, _summary = _train_through_main(
+        "process", "mb_learner", f"megabatch={MB_GROUP}",
+        megabatch=MB_GROUP)
+    RESULTS["launches_megabatch_learner"] = r["launches"]
+    out["learner_through_main"] = {k: r[k] for k in (
+        "launches", "updates_per_sec", "actor_frames_per_sec",
+        "replay_ratio", "host_s", "train_seconds", "critic_loss")}
+    return out
+
+
+# the stats windows a run's rate is read over: past the captures and the
+# warm-up's rollouts, which the whole run's rates include
+STEADY_AFTER = 400
+
+
+def _steady_windows(refs: str) -> dict:
+    """The median of an Anakin run's stats windows (``learner_freq``
+    updates each) past step STEADY_AFTER, from its ``scalars.jsonl``:
+    updates/s, frames/s and the duty cycle."""
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.utils import metrics
+
+    rows = metrics.read_scalars(build_options(12, root_dir=RUN_DIR,
+                                              refs=refs).log_dir)
+    out = {}
+    for tag, key in (("anakin/updates_per_s", "updates_per_sec"),
+                     ("anakin/rollout_frames_per_s", "frames_per_sec"),
+                     ("anakin/duty_cycle", "duty_cycle")):
+        vals = [r["value"] for r in rows
+                if r["tag"] == tag and r["step"] > STEADY_AFTER]
+        out[key] = float(np.median(vals)) if vals else None
+    out["windows"] = len(vals)
+    return out
+
+
+def anakin_megabatch():
+    """Anakin at full width through ``main`` (process backend) at
+    ``rollout_ratio`` 16 with ``megabatch=4`` and ``double_buffer=true``
+    (two 25,000-row halves), ANAKIN_MB_STEPS updates: one draw and 10 +
+    24 bf16 GEMMs a group of 4, a finite loss, no actor child and no child
+    with CUDA; updates/s, frames/s, the duty cycle and the device ms a
+    learner update over the whole run (warm-up and captures included),
+    and the median of its stats windows past step STEADY_AFTER, beside
+    train_anakin's ratio-16 run (M = 1, one ring)."""
+    r, summary = _train_through_main(
+        "process", "anakin_mb", "actor_backend=anakin", "rollout_ratio=16",
+        f"megabatch={MB_GROUP}", "double_buffer=true", phases=(),
+        steps=ANAKIN_MB_STEPS, megabatch=MB_GROUP)
+    RESULTS["launches_anakin_megabatch"] = r["launches"]
+    if (summary["runtime/children_with_cuda"] != 0
+            or summary["anakin/rollouts"] <= 0
+            or summary["runtime/actor_steps"] != summary["anakin/frames"]):
+        raise AssertionError(f"anakin megabatch: {summary}")
+    steps = summary["learner/steps"]
+    out = dict(updates_per_sec=r["updates_per_sec"],
+               frames_per_sec=r["actor_frames_per_sec"],
+               duty_cycle=summary["anakin/duty_cycle"],
+               learn_device_ms_per_update=1e3 * summary["anakin/learn_s"]
+               / steps,
+               rollout_device_s=summary["anakin/rollout_s"],
+               learn_device_s=summary["anakin/learn_s"],
+               rollouts=summary["anakin/rollouts"],
+               learns=summary["anakin/learns"], steps=steps,
+               replay_fill=summary["anakin/replay_fill"],
+               replay_ratio=r["replay_ratio"], launches=r["launches"],
+               critic_loss=r["critic_loss"], train_seconds=r["train_seconds"],
+               steady=_steady_windows("anakin_mb"))
+    base = RESULTS.get("e2e_anakin_ratio16", {}).get("summary")
+    if base:
+        out["beside_M1_single_ring"] = dict(
+            updates_per_sec=base["learner/updates_per_sec"],
+            frames_per_sec=base["actor/steps_per_sec"],
+            duty_cycle=base["anakin/duty_cycle"],
+            learn_device_ms_per_update=1e3 * base["anakin/learn_s"]
+            / base["learner/steps"],
+            steady=_steady_windows("anakin_ratio16"))
+    return dict(out, card=card_name_and_power_limit())
+
+
+def train_uniform():
+    """CONFIGS row 8 (dqn/pong-sim/device/dqn-cnn: the uniform device
+    ring) at full width through ``main``: on the process backend with
+    pipelined actors paced at replay ratio 8, and under Anakin at
+    ``rollout_ratio`` 16 (the same ratio); no draw
+    (the uniform draw is torch ops) and 10 + 9 bf16 GEMMs an update, a
+    finite loss, no child with CUDA; updates/s and frames/s."""
+    out = {}
+    for name, sets, phases in (
+            ("process", ("max_replay_ratio=8",), ("env", "advance", "tick")),
+            ("anakin", ("actor_backend=anakin", "rollout_ratio=16"), ())):
+        r, summary = _train_through_main("process", f"uniform_{name}",
+                                         *sets, phases=phases, config=8,
+                                         draws=False)
+        RESULTS[f"launches_uniform_{name}"] = r["launches"]
+        if summary["runtime/children_with_cuda"] != 0:
+            raise AssertionError("a child made a CUDA context")
+        out[name] = dict(updates_per_sec=r["updates_per_sec"],
+                         frames_per_sec=r["actor_frames_per_sec"],
+                         replay_ratio=r["replay_ratio"],
+                         host_s=r["host_s"], launches=r["launches"],
+                         train_seconds=r["train_seconds"],
+                         critic_loss=r["critic_loss"])
+        if name == "anakin":
+            out[name]["duty_cycle"] = summary["anakin/duty_cycle"]
+    return dict(out, card=card_name_and_power_limit())
+
+
+def _poison_spy(seen: list):
+    """Wrap the learner's train step so that every update records, on the
+    device (no wait), its skip flag, whether its batch held a NaN reward
+    and whether its params came out as they went in."""
+    from pytorch_distributed_tpu_torch.agents import learner
+    from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY
+
+    real = learner.build_train_state_and_step
+
+    def spy(opt, model, params):
+        state, step = real(opt, model, params)
+
+        def step_spy(st, batch):
+            out = step(st, batch)
+            same = torch.stack([(st.params[k] == out[0].params[k]).all()
+                                for k in st.params]).all()
+            seen.append(torch.stack([out[1][SKIPPED_KEY].float(),
+                                     torch.isnan(batch.reward).any().float(),
+                                     same.float()]))
+            return out
+        return state, step_spy
+
+    return learner, real, spy
+
+
+def train_host():
+    """The host rings at full width through ``main`` on the process
+    backend: row 4 (``shared``: the actors write process-shared pages)
+    and row 6 (``prioritized``: the learner's sum tree behind the queues)
+    paced at the reference's replay ratio (``max_replay_ratio`` 8,
+    ``learn_start`` 5,000), HOST_STEPS updates each; row 6 with the
+    ``poison_grad`` drill (``LEARNER_FAULTS=poison_grad@250``): exactly
+    one skipped update, its batch the NaN one, its params unchanged, no
+    rollback; then row 4 on ``memory_type=native`` (the C++ ring) once,
+    unpaced.  Each update: no draw, 10 + 9 bf16 GEMMs (an eager step);
+    updates/s, frames/s, the learner's host seconds."""
+    out = {}
+    for name, config, sets, steps in (
+            ("shared", 4, ("max_replay_ratio=8", "learn_start=5000"),
+             HOST_STEPS),
+            ("prioritized", 6, ("max_replay_ratio=8", "learn_start=5000"),
+             HOST_STEPS),
+            ("native", 4, ("memory_type=native",), NATIVE_STEPS)):
+        seen: list = []
+        if name == "prioritized":
+            module, real, spy = _poison_spy(seen)
+            module.build_train_state_and_step = spy
+            os.environ["LEARNER_FAULTS"] = f"poison_grad@{POISON_AT}"
+        try:
+            r, summary = _train_through_main("process", f"host_{name}",
+                                             *sets, config=config,
+                                             steps=steps, draws=False)
+        finally:
+            if name == "prioritized":
+                module.build_train_state_and_step = real
+                os.environ.pop("LEARNER_FAULTS", None)
+        RESULTS[f"launches_host_{name}"] = r["launches"]
+        if summary["runtime/children_with_cuda"] != 0:
+            raise AssertionError("a child made a CUDA context")
+        row = dict(updates_per_sec=r["updates_per_sec"],
+                   frames_per_sec=r["actor_frames_per_sec"],
+                   replay_ratio=r["replay_ratio"], host_s=r["host_s"],
+                   launches=r["launches"], train_seconds=r["train_seconds"],
+                   critic_loss=r["critic_loss"],
+                   skipped=summary["learner/skipped"])
+        if name == "prioritized":
+            flags = torch.stack(seen).cpu().numpy()
+            hit = np.nonzero(flags[:, 0] == 1.0)[0]
+            if (summary["learner/skipped"] != 1.0
+                    or summary["health/rollbacks"] != 0 or len(hit) != 1
+                    or flags[hit[0], 1] != 1.0 or flags[hit[0], 2] != 1.0
+                    or flags[:, 1].sum() != 1.0
+                    or (flags[flags[:, 0] == 0.0, 2] != 0.0).any()):
+                raise AssertionError(f"poison_grad drill: skipped at "
+                                     f"{hit.tolist()}, {summary}")
+            row["poison_grad"] = dict(skipped_update=int(hit[0]) + 1,
+                                      params_unchanged=True, rollbacks=0)
+        out[name] = row
+    return dict(out, card=card_name_and_power_limit())
+
+
+def small_rows():
+    """Rows 1 and 3 (``dqn-mlp`` on the host ring, no kernel on their
+    path) on the card through ``main`` on the process backend, 2 actors
+    of one env, batch 32: row 1 learns the chain (the evaluator reaches
+    ``avg_reward`` 1.0, and mode 2 on its best params solves every
+    episode in 7 steps), row 3 runs; no kernel launch."""
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.utils import metrics
+
+    out = {}
+    for config, steps in ((1, ROW1_STEPS), (3, 500)):
+        refs = f"row{config}"
+        argv = ["--config", str(config), "--backend", "process",
+                "--device", "cuda", "--num-actors", "2", "--steps",
+                str(steps), "--memory-size", "4096", "--batch-size", "32",
+                "--set", "learn_start=64", "--set", "evaluator_freq=1",
+                "--set", "evaluator_nepisodes=2", "--set", "early_stop=50",
+                "--set", "max_replay_ratio=4",
+                "--set", f"root_dir={RUN_DIR}", "--set", f"refs={refs}"]
+        _zero_launches()
+        summary = port_main.main(argv)
+        launches = sum(c.launches for c in (
+            cuda_sampling.hierarchical_sample, *cuda_torso.COUNTERS))
+        if (summary["learner/steps"] < steps or launches
+                or not math.isfinite(summary["learner/critic_loss"])
+                or summary["runtime/children_with_cuda"] != 0):
+            raise AssertionError(f"row {config}: {launches} launches, "
+                                 f"{summary}")
+        log_dir = build_options(config, root_dir=RUN_DIR, refs=refs).log_dir
+        rewards = [row["value"] for row in metrics.read_scalars(log_dir)
+                   if row["tag"] == "evaluator/avg_reward"]
+        row = dict(updates_per_sec=summary["learner/updates_per_sec"],
+                   frames_per_sec=summary["actor/steps_per_sec"],
+                   evals=len(rewards),
+                   best_avg_reward=max(rewards) if rewards else None)
+        if config == 1:
+            stats = port_main.main([
+                "--config", "1", "--mode", "2", "--device", "cuda",
+                "--model-file", os.path.join(RUN_DIR, "models",
+                                             f"{refs}_best"),
+                "--set", "tester_nepisodes=3", "--set", "early_stop=50"])
+            if not (rewards and max(rewards) == 1.0
+                    and stats["avg_reward"] == 1.0
+                    and stats["avg_steps"] == 7.0):
+                raise AssertionError(f"row 1 did not learn the chain: "
+                                     f"evals {rewards}, mode 2 {stats}")
+            row["mode2"] = stats
+        out[f"row{config}"] = row
+    return dict(out, card=card_name_and_power_limit())
+
+
 KERNELS = (
     ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
      "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
@@ -2526,7 +3076,8 @@ def main() -> int:
               native_pong, device_env, fused_rollout, actor_tick, actor_gpu,
               staged_drain, train, train_process, test_mode, process_trace,
               train_paced, inference, train_batched, train_anakin,
-              train_device, resume, health_phase)
+              train_device, resume, health_phase, megabatch,
+              anakin_megabatch, train_uniform, train_host, small_rows)
     only = set(sys.argv[1:])  # phase names to run after build; none: all
     unknown = only - {fn.__name__ for fn in phases}
     if unknown:
@@ -2551,13 +3102,22 @@ def main() -> int:
             ("anakin_ratio16", "launches_anakin_ratio16"),
             ("train_device", "launches_device"),
             ("health_rollback", "launches_health_rollback"),
-            ("health_quarantine", "launches_health_quarantine"))}
+            ("health_quarantine", "launches_health_quarantine"),
+            ("megabatch_learner_M4", "launches_megabatch_learner"),
+            ("anakin_megabatch_M4", "launches_anakin_megabatch"),
+            ("uniform_process", "launches_uniform_process"),
+            ("uniform_anakin", "launches_uniform_anakin"),
+            ("host_shared", "launches_host_shared"),
+            ("host_prioritized", "launches_host_prioritized"),
+            ("host_native", "launches_host_native"))}
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=launches.get(name, 0),
                           launches_by_path=by_path,
                           **{k: r.get(k) for k in (
                               "max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}))
+        if "megabatch_group" in r:  # held at a group of MB_GROUP
+            table[-1]["megabatch_group"] = r["megabatch_group"]
         if name == "torso_gemm_f32":
             table[-1].update(parts=r.get("parts"),
                              fp32_run=RESULTS.get("f32_launches"))

@@ -85,7 +85,7 @@ from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, build_device_env, build_env_vector, build_model, init_params,
     module_apply, probe_env, resolve_actor_backend, resolve_device,
-    role_seed,
+    role_seed, state_dtype,
 )
 from pytorch_distributed_tpu_torch.models.policies import (
     RolloutChunk, apex_epsilons, build_fused_rollout, epsilon_greedy_act,
@@ -105,7 +105,7 @@ class _DqnEngine:
 
     def __init__(self, apply_fn, eps: np.ndarray, gen: torch.Generator,
                  num_actions: int, obs_shape, device: torch.device, stream,
-                 pipelined: bool):
+                 pipelined: bool, obs_dtype=np.uint8):
         n = len(eps)
         self._apply = apply_fn
         self._gen = gen
@@ -118,8 +118,8 @@ class _DqnEngine:
             # actor's stream and the host waits only in collect.  One set
             # suffices: collect(k) has waited for tick k's copies before
             # submit(k+1) refills them
-            self._obs = torch.empty((n, *obs_shape), dtype=torch.uint8,
-                                    pin_memory=True)
+            self._obs = torch.from_numpy(
+                np.empty((n, *obs_shape), dtype=obs_dtype)).pin_memory()
             self._u = torch.empty(n, pin_memory=True)
             self._a = torch.empty(n, dtype=torch.int64, pin_memory=True)
             self._actions = torch.empty(n, dtype=torch.int64,
@@ -290,7 +290,8 @@ class DqnActor:
         self.engine = _DqnEngine(
             module_apply(model), eps, gen, spec.num_actions,
             spec.state_shape, device, stream,
-            pipelined=self.backend == "pipelined")
+            pipelined=self.backend == "pipelined",
+            obs_dtype=state_dtype(opt))
 
     def tick_sync(self) -> None:
         """Once per tick, after the env step and before the next dispatch:

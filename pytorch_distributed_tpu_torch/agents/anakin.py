@@ -8,11 +8,16 @@ The env fleet and the learner share one process and one device:
   (envs/device_env.py) on the fleet's slot and epsilon contract (env j of
   virtual actor i takes seed slot and epsilon slot i*N + j);
 - one driver alternates the fused rollout with ``emit="replay"``
-  (models/policies.py: the valid rows go straight into the PER ring at
-  its device cursor, new rows at the running max priority,
+  (models/policies.py: the valid rows go straight into the ring at its
+  device cursor; on the PER ring new rows at the running max priority,
   ``memory/device_per.per_write_masked``) and the learner's fused
-  dispatch (memory/device_per.py) on the same ring: no actor process, no
-  queue, no copy of experience to the host;
+  dispatch (memory/device_per.py, or memory/device_replay.py for the
+  uniform ring of row 8) on the same ring: no actor process, no queue, no
+  copy of experience to the host;
+- the learner's dispatch is resolved as the split learner's
+  (``factory.resolve_fused_step``, reference :255-275): with
+  ``megabatch`` M > 1 it runs K/M group steps, K rounded up to a multiple
+  of M;
 - the rollout acts on the train state's params, copied into its graph's
   weights before each dispatch: the acting version is the newest;
 - a duty-cycle scheduler (``AnakinParams.rollout_ratio``) aims at a ratio
@@ -65,7 +70,8 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 from pytorch_distributed_tpu_torch.config import AnakinParams, Options
 from pytorch_distributed_tpu_torch.factory import (
     anakin_eligible, build_device_env, build_model,
-    build_train_state_and_step, module_apply, resolve_device, role_seed,
+    build_train_state_and_step, module_apply, resolve_device,
+    resolve_fused_step, role_seed,
 )
 from pytorch_distributed_tpu_torch.memory.device_per import (
     GraphedFusedStep, per_write_masked,
@@ -200,6 +206,7 @@ class AnakinDriver:
         self._host_flat = torch.empty(param_store.num_params)
 
         # ---- ring(s): one, or two halves ----
+        self.is_per = memory.prioritized
         self.rings = (list(memory.attach_halves(device))
                       if self.an.double_buffer else [memory.attach(device)])
         self.sample_ix = self.write_ix = 0
@@ -229,16 +236,19 @@ class AnakinDriver:
         self.rollouts = [build_fused_rollout(
             apply_fn, self.env, nstep=ap.nstep, gamma=ap.gamma,
             rollout_ticks=self.K_roll, eps=eps, emit="replay",
-            ring=r.state, ring_write_fn=per_write_masked)
+            ring=r.state,
+            ring_write_fn=per_write_masked if self.is_per else None)
             for r in self.rings]
         self.carry = init_rollout_carry(self.env, ap.nstep)
         self.act_gen = torch.Generator(device=device).manual_seed(
             role_seed(opt.seed, "actor", 0))
 
         # ---- the learner's fused dispatch, one per ring it samples ----
-        self.K_learn = K = max(1, ap.steps_per_dispatch)
+        M, K, mega_step = resolve_fused_step(opt, model, "anakin")
+        self.K_learn = K
         self._fused = [r.build_fused_step(step_fn, ap.batch_size,
-                                          steps_per_call=K)
+                                          steps_per_call=K, megabatch=M,
+                                          megabatch_step=mega_step)
                        for r in self.rings]
         if self.cuda:
             self._fused = [GraphedFusedStep(f, r.state, counters=(
@@ -258,7 +268,8 @@ class AnakinDriver:
                 self.gen, epoch.extras.get("rng", {}).get("learner_device"))
         self.lstep_resumed = self.lstep
         clock.set_learner_step(self.lstep)
-        self._beta, self._next_beta = self.rings[0].beta(0), 0
+        self._beta = self.rings[0].beta(0) if self.is_per else None
+        self._next_beta = 0
         self._skipped = torch.zeros((), device=device)
         self._last_metrics: Dict[str, torch.Tensor] = {}
         self._last_was_rollout = False
@@ -402,7 +413,8 @@ class AnakinDriver:
         draws them."""
         t0 = time.perf_counter()
         ring = self.rings[self.sample_ix]
-        if self.lstep >= self._next_beta:  # refreshed every 64 K updates
+        if self.is_per and self.lstep >= self._next_beta:
+            # refreshed every 64 K updates
             self._beta = self.rings[0].beta(self.lstep)
             self._next_beta = self.lstep + 64 * self.K_learn
         start = self.dispatch_clock.begin()
@@ -454,6 +466,7 @@ class AnakinDriver:
                 grad_norm=vals.get("learner/grad_norm", 0.0),
                 steps_per_sec=rate)
         self.writer.scalars({"anakin/duty_cycle": duty,
+                             "anakin/updates_per_s": rate,
                              "anakin/rollout_frames_per_s": frames_rate,
                              "anakin/replay_fill": self.replay_fill()},
                             step=self.lstep)

@@ -72,7 +72,7 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 )
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
-    EnvSpec, build_model, module_apply, resolve_device,
+    EnvSpec, build_model, module_apply, resolve_device, state_dtype,
 )
 from pytorch_distributed_tpu_torch.models.policies import (
     packed_act_rows, packed_roll_act,
@@ -292,6 +292,11 @@ class InferenceServer:
                 f"the inference server serves the dqn family, not "
                 f"{opt.agent_type!r}")
         self.opt, self.spec = opt, spec
+        # the rows programs take the run's observations as they come:
+        # uint8 frame stacks, or the low-dim rows' float32 states (which
+        # are never frame-packed)
+        self.obs_dtype = torch.from_numpy(
+            np.zeros(0, dtype=state_dtype(opt))).dtype
         self.param_store = param_store
         self.device = resolve_device(opt)
         self.sync_secs = sync_secs
@@ -428,7 +433,7 @@ class InferenceServer:
             prog = _Program(
                 lambda obs, ctl: packed_act_rows(apply, params, obs, ctl[0],
                                                  ctl[1], ctl[2].long()),
-                {"obs": ((rows, *self.spec.state_shape), torch.uint8),
+                {"obs": ((rows, *self.spec.state_shape), self.obs_dtype),
                  "ctl": ((3, rows), torch.float32)},
                 rows, self.device, self._stream)
             self._rows_progs[rows] = prog

@@ -1,19 +1,30 @@
-"""The learner loop — the port of the device-PER branch of
-pytorch_distributed_tpu/agents/learner.py ``run_learner`` (:56-, :166-204,
-:299-351, :455-485, :474-760, :907-916): resume from the newest complete
-checkpoint epoch unless ``resume`` is "never" (the state, the actors' step
-count added to the clock, the best evaluation, the pacing baseline, the
-device generator and, with ``checkpoint_replay``, the ring), publish the
-initial weights, wait for ``learn_start`` rows, then loop until ``steps``:
+"""The learner loop — the port of pytorch_distributed_tpu/agents/learner.py
+``run_learner`` (:56-, :166-204, :264-351, :455-485, :474-760, :907-916),
+its device branch (the ``device-per`` and ``device`` rings, with or
+without megabatch) and its host branch (``shared``, ``native`` and
+``prioritized``, :680-760): resume from the newest complete checkpoint
+epoch unless ``resume`` is "never" (the state, the actors' step count
+added to the clock, the best evaluation, the pacing baseline, the device
+generator and, with ``checkpoint_replay``, the ring; the host generator on
+a host ring), publish the initial weights, wait for ``learn_start`` rows,
+then loop until ``steps``:
 
 - ``max_replay_ratio`` pacing (keep draining while throttled, so a full
   ingest queue never blocks the actors that advance the clock);
 - drain the ingest queue into the ring;
-- one fused dispatch of K = ``steps_per_dispatch`` sub-steps of sample ->
-  train -> priority write-back (memory/device_per.py), on uniforms drawn
-  from the learner's device generator; on a GPU it is replayed from a
-  CUDA graph;
-- beta annealed on the dispatch cadence;
+- on a device ring, one fused dispatch of K = ``steps_per_dispatch``
+  sub-steps of sample -> train (-> priority write-back on the PER ring;
+  memory/device_per.py, memory/device_replay.py), on uniforms drawn from
+  the learner's device generator; on a GPU it is replayed from a CUDA
+  graph.  With ``megabatch`` M > 1 (``factory.resolve_fused_step``) K is
+  rounded up to a multiple of M and the dispatch runs K/M group steps;
+- on a host ring, one update: a batch drawn on the host with the
+  learner's numpy generator, uploaded through pinned memory with
+  non-blocking copies, the train step, and on the PER ring the |TD|
+  written back unless the guard skipped the update.  Megabatch does not
+  apply there (the reference's line says so and the run goes on
+  unbatched);
+- beta annealed on the dispatch cadence (device PER);
 - a published snapshot every ``param_publish_freq`` steps (on a GPU
   through ``DevicePublisher``, off the loop, as the reference's
   ``_publish_async`` :223-263; on the CPU inline), and on every
@@ -43,8 +54,11 @@ point, with every newer epoch fenced, the train state, the ring (with
 restored and the actors' step count left as it is; after
 ``max_rollbacks`` rollbacks, or with no epoch to go back to, the learner
 raises ``RuntimeError("[health] ...")``.  ``LEARNER_FAULTS`` counts one
-frame per dispatch; its ``poison_grad`` targets a host-sampled batch and
-stays inert on this fused path, with the reference's notice (:662-667).
+frame per dispatch; its ``poison_grad`` NaNs the rewards of the next
+host-sampled batch (the guard then skips that update, reference
+:699-709) and stays inert on the fused device path, with the reference's
+notice (:662-667).  The X-ray is the device ring's, the host PER ring's
+leaves (``health.priority_xray``), or none on a uniform ring.
 
 On a GPU the resume comes before the CUDA graph's capture, which clones
 its static buffers from the state it is first handed, and an epoch reads
@@ -65,6 +79,7 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.agents.clocks import (
@@ -76,13 +91,11 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, anakin_active, build_model, build_train_state_and_step,
-    init_params, resolve_device, role_seed,
+    init_params, resolve_device, resolve_fused_step, role_seed,
 )
-from pytorch_distributed_tpu_torch.memory.device_per import (
-    GraphedFusedStep, priority_xray_device,
-)
+from pytorch_distributed_tpu_torch.memory.device_per import GraphedFusedStep
 from pytorch_distributed_tpu_torch.memory.device_replay import (
-    DevicePerIngest,
+    DeviceReplayIngest,
 )
 from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
@@ -94,7 +107,9 @@ from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY, TrainState
 from pytorch_distributed_tpu_torch.utils import checkpoint as ckpt
 from pytorch_distributed_tpu_torch.utils import flight_recorder, health
 from pytorch_distributed_tpu_torch.utils.faults import FaultInjector
+from pytorch_distributed_tpu_torch.utils.experience import Batch
 from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
+from pytorch_distributed_tpu_torch.utils.perf import resolve_mxu
 
 
 def initial_params(opt: Options, spec: EnvSpec,
@@ -140,8 +155,13 @@ def resume_epoch(opt: Options) -> Optional[ckpt.EpochInfo]:
 
 
 def epoch_extras(clock: GlobalClock, lstep: int, lstep0: int,
-                 replay_size: int, gen: torch.Generator) -> dict:
-    """What an epoch records beside the state (reference :526-552)."""
+                 replay_size: int, gen: torch.Generator,
+                 host_rng: Optional[np.random.Generator] = None) -> dict:
+    """What an epoch records beside the state (reference :526-552); the
+    host generator too on a host ring."""
+    rng = dict(learner_device=ckpt.serialize_torch_rng(gen))
+    if host_rng is not None:
+        rng["learner_host"] = ckpt.serialize_np_rng(host_rng)
     return dict(
         learner_step=lstep,
         lstep0=lstep0,
@@ -150,7 +170,7 @@ def epoch_extras(clock: GlobalClock, lstep: int, lstep0: int,
         replay_size=replay_size,
         rollbacks=int(clock.rollbacks.value),
         skipped_steps=int(clock.skipped_steps.value),
-        rng=dict(learner_device=ckpt.serialize_torch_rng(gen)))
+        rng=rng)
 
 
 def restore_epoch(opt: Options, epoch: ckpt.EpochInfo, clock: GlobalClock,
@@ -178,9 +198,11 @@ class EpochSaver:
     newest epoch's ``bytes``.  On a GPU it synchronizes first, so no
     replay of a graph is in flight while the state is copied out."""
 
-    def __init__(self, opt: Options, clock: GlobalClock, memory, device):
+    def __init__(self, opt: Options, clock: GlobalClock, memory, device,
+                 host_rng: Optional[np.random.Generator] = None):
         self.opt, self.clock, self.memory = opt, clock, memory
         self.device = torch.device(device)
+        self.host_rng = host_rng
         self.epochs, self.seconds, self.bytes = 0, 0.0, 0
         self._skipped = 0
 
@@ -204,26 +226,12 @@ class EpochSaver:
             memory=(self.memory if opt.memory_params.checkpoint_replay
                     else None),
             extras=epoch_extras(self.clock, lstep, lstep0, self.memory.size,
-                                gen),
+                                gen, self.host_rng),
             retain=opt.agent_params.checkpoint_retain)
         self.epochs += 1
         self.seconds += time.perf_counter() - t0
         self.bytes = ckpt.epoch_bytes(path)
         self.clock.bump_progress("learner")
-
-
-def read_xray(ring_state) -> dict:
-    """The priority X-ray of a PER ring (``priority_xray_device``) on the
-    host, in one copy: ``counts``, ``ess``, ``rows``, ``mass`` and
-    ``ess_frac`` (None for an empty ring)."""
-    counts, ess, rows, mass = priority_xray_device(ring_state)
-    host = torch.cat([counts.to(torch.float64),
-                      torch.stack([ess, rows.to(ess.dtype), mass]
-                                  ).to(torch.float64)]).cpu()
-    ess, n = float(host[-3]), int(host[-2])
-    return {"counts": host[:-3].to(torch.int64).numpy(), "ess": ess,
-            "rows": n, "mass": float(host[-1]),
-            "ess_frac": ess / n if n else None}
 
 
 class HealthSentinel:
@@ -247,19 +255,24 @@ class HealthSentinel:
         self.xrays, self.xray_s, self.rollback_s = 0, 0.0, 0.0
 
     def window(self, lstep: int, vals: Dict[str, float],
-               skipped: int) -> Optional[str]:
-        """One stats window: ``vals`` are the window's last metrics and
-        ``skipped`` the running skipped count.  Feeds the detector, writes
+               skipped: int, td_mean: Optional[float] = None
+               ) -> Optional[str]:
+        """One stats window: ``vals`` are the window's last metrics,
+        ``skipped`` the running skipped count and ``td_mean`` the last
+        host write-back's mean |TD| (host PER).  Feeds the detector, writes
         the health rows; returns the reason when a rollback is due."""
         skipped_w = skipped - self._win_base
         self._win_base = skipped
         t0 = time.perf_counter()
-        xr = read_xray(self.memory.replay.state)
-        self.xrays += 1
-        self.xray_s += time.perf_counter() - t0
+        xr = self.memory.xray()
+        if xr is not None:
+            self.xrays += 1
+            self.xray_s += time.perf_counter() - t0
+        else:
+            xr = {"rows": 0, "mass": None, "ess_frac": None}
         anomalies = self.detector.observe(
             loss=vals.get("learner/critic_loss"),
-            grad_norm=vals.get("learner/grad_norm"),
+            grad_norm=vals.get("learner/grad_norm"), td_mean=td_mean,
             priority_mass=xr["mass"], replay_rows=xr["rows"],
             skipped=skipped_w, priority_ess=xr["ess_frac"])
         det = self.detector
@@ -287,7 +300,9 @@ class HealthSentinel:
         raise RuntimeError(f"[health] {msg}")
 
     def rollback(self, reason: str, lstep: int, gen: torch.Generator,
-                 skipped: int) -> Tuple[TrainState, int, int]:
+                 skipped: int,
+                 host_rng: Optional[np.random.Generator] = None
+                 ) -> Tuple[TrainState, int, int]:
         """Restore the newest complete epoch older than the last restore
         point and fence every newer one: ``(state, lstep, lstep0)``, with
         the ring (under ``checkpoint_replay``) and ``gen`` restored in
@@ -313,8 +328,10 @@ class HealthSentinel:
         lstep = (target.learner_step if target.learner_step >= 0
                  else int(state.step))
         lstep0 = int(target.extras.get("lstep0", lstep))
-        ckpt.restore_torch_rng(
-            gen, target.extras.get("rng", {}).get("learner_device"))
+        rng = target.extras.get("rng", {})
+        ckpt.restore_torch_rng(gen, rng.get("learner_device"))
+        if host_rng is not None:
+            ckpt.restore_np_rng(host_rng, rng.get("learner_host"))
         self.clock.set_learner_step(lstep)
         with self.clock.rollbacks.get_lock():
             self.clock.rollbacks.value += 1
@@ -336,8 +353,19 @@ class HealthSentinel:
         self.writer.close()
 
 
+def upload_batch(batch: Batch, device) -> Batch:
+    """A host batch (numpy columns) on ``device``: on a GPU each column is
+    staged through pinned memory and copied without blocking, in order on
+    the current stream, before the update that reads it."""
+    cols = [torch.from_numpy(np.ascontiguousarray(c)) for c in batch]
+    if torch.device(device).type == "cuda":
+        return Batch(*(c.pin_memory().to(device, non_blocking=True)
+                       for c in cols))
+    return Batch(*cols)
+
+
 def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
-                memory: DevicePerIngest, param_store: ParamStore,
+                memory, param_store: ParamStore,
                 clock: GlobalClock,
                 stats: Optional[LearnerStats] = None) -> Dict[str, float]:
     if anakin_active(opt):
@@ -355,6 +383,15 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     params = initial_params(opt, spec, device)
     state, step_fn = build_train_state_and_step(opt, model, params)
     host_flat = torch.empty(param_store.num_params)
+    on_device = isinstance(memory, DeviceReplayIngest)
+    is_device_per = on_device and memory.prioritized
+    is_per = not on_device and memory.prioritized  # the host PER ring
+    if not on_device:
+        m_req = resolve_mxu(opt.learner_perf_params).megabatch
+        if m_req > 1:  # reference :287-300
+            print(f"[learner] megabatch={m_req} requires a device replay "
+                  f"(memory_type device/device-per; got {opt.memory_type}); "
+                  f"host-path learner runs unbatched", flush=True)
 
     # the counters come back before the first publication, so no worker
     # sees the values from before the resume
@@ -372,7 +409,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     publisher = (DevicePublisher(param_store, spec.state_shape, device)
                  if device.type == "cuda" else None)
 
-    replay = memory.attach(device)
+    replay = memory.attach(device) if on_device else None
     restored_rows = 0
     if epoch is not None and opt.memory_params.checkpoint_replay:
         # the ring from the same epoch as the state, never a mix; a
@@ -383,13 +420,20 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                   f"{restored_rows} rows", flush=True)
     restore_s = time.perf_counter() - t_restore if epoch is not None \
         else 0.0
-    K = max(1, ap.steps_per_dispatch)
-    fused = replay.build_fused_step(step_fn, ap.batch_size,
-                                    steps_per_call=K)
-    if device.type == "cuda":
-        fused = GraphedFusedStep(fused, replay.state,
-                                 counters=(hierarchical_sample,
-                                           *GEMM_COUNTERS))
+    host_rng = None
+    if on_device:
+        M, K, mega_step = resolve_fused_step(opt, model, "learner")
+        fused = replay.build_fused_step(step_fn, ap.batch_size,
+                                        steps_per_call=K, megabatch=M,
+                                        megabatch_step=mega_step)
+        if device.type == "cuda":
+            fused = GraphedFusedStep(fused, replay.state,
+                                     counters=(hierarchical_sample,
+                                               *GEMM_COUNTERS))
+    else:
+        K = 1
+        host_rng = np.random.default_rng(
+            role_seed(opt.seed, "learner_host", process_ind))
     gen = torch.Generator(device=device).manual_seed(
         role_seed(opt.seed, "learner", process_ind))
     lstep = lstep0 = int(state.step)
@@ -397,11 +441,13 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
         # pacing goes on from the epoch's baseline against the restored
         # actor count, and the draws from where the epoch froze them
         lstep0 = int(epoch.extras.get("lstep0", lstep0))
-        ckpt.restore_torch_rng(
-            gen, epoch.extras.get("rng", {}).get("learner_device"))
+        rng = epoch.extras.get("rng", {})
+        ckpt.restore_torch_rng(gen, rng.get("learner_device"))
+        if host_rng is not None:
+            ckpt.restore_np_rng(host_rng, rng.get("learner_host"))
     lstep_resumed = lstep
     clock.set_learner_step(lstep)
-    saver = EpochSaver(opt, clock, memory, device)
+    saver = EpochSaver(opt, clock, memory, device, host_rng)
     sentinel = HealthSentinel(opt, clock, memory, device)
     faults = FaultInjector.from_env("learner")
 
@@ -419,7 +465,9 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
 
     metrics: Dict[str, torch.Tensor] = {}
     skipped = torch.zeros((), device=device)
-    beta, next_beta = replay.beta(0), 0
+    beta, next_beta = (replay.beta(0) if is_device_per else None), 0
+    poison = False
+    td_mean: Optional[float] = None  # the last host PER write-back's
     t_start = t_window = time.monotonic()
     window_lstep = lstep
     updates = 0  # dispatched, rolled-back ones included
@@ -430,9 +478,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
         t0 = time.perf_counter()
         clock.bump_progress("learner")
         if faults.data_frame(("poison_grad",)):
-            print("[faults:learner] poison_grad targets the host-sampled "
-                  "batch; inert on the fused device path (drill with "
-                  "poison_chunk instead)", flush=True)
+            poison = True
         if ap.max_replay_ratio > 0:
             while (not clock.stop.is_set() and time.monotonic() < deadline
                    and (lstep - lstep0 + 1) * ap.batch_size
@@ -445,10 +491,39 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
         t1 = time.perf_counter()
         memory.drain()
         t2 = time.perf_counter()
-        if lstep >= next_beta:  # beta anneals slowly: refresh every 64 K
-            beta, next_beta = replay.beta(lstep), lstep + 64 * K
-        us = torch.rand((K, ap.batch_size), generator=gen, device=device)
-        state, metrics = fused(state, replay.state, us, beta)
+        if on_device:
+            if poison:
+                poison = False
+                print("[faults:learner] poison_grad targets the "
+                      "host-sampled batch; inert on the fused device path "
+                      "(drill with poison_chunk instead)", flush=True)
+            if is_device_per and lstep >= next_beta:
+                # beta anneals slowly: refresh every 64 K
+                beta, next_beta = replay.beta(lstep), lstep + 64 * K
+            us = torch.rand((K, ap.batch_size), generator=gen, device=device)
+            state, metrics = fused(state, replay.state, us, beta)
+        else:
+            batch = memory.sample(ap.batch_size, host_rng)
+            if poison:
+                # the guard must skip this update, params unchanged
+                poison = False
+                batch = batch._replace(reward=np.full_like(
+                    np.asarray(batch.reward), np.nan))
+                print("[faults:learner] poison_grad: NaN rewards injected "
+                      "into this update's batch", flush=True)
+            state, metrics, td_abs = step_fn(state,
+                                             upload_batch(batch, device))
+            if is_per:
+                # the write-back needs |TD| on the host now, and the skip
+                # flag rides the same copy
+                sk = metrics.get(SKIPPED_KEY)
+                host = torch.cat([td_abs.float(), (
+                    sk if sk is not None else torch.zeros(
+                        (), device=td_abs.device)).view(1)]).cpu().numpy()
+                if host[-1] < 0.5:
+                    td_mean = float(np.mean(host[:-1]))
+                    memory.update_priorities(np.asarray(batch.index),
+                                             host[:-1])
         skipped = skipped + metrics.get(SKIPPED_KEY, 0.0)
         updates += K
         prev, lstep = lstep, lstep + K
@@ -481,10 +556,10 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                           grad_norm=vals.get("learner/grad_norm", 0.0),
                           steps_per_sec=rate)
             n_skipped = saver.count_skipped(skipped)
-            reason = sentinel.window(lstep, vals, n_skipped)
+            reason = sentinel.window(lstep, vals, n_skipped, td_mean)
             if reason is not None:
-                state, lstep, lstep0 = sentinel.rollback(reason, lstep, gen,
-                                                         n_skipped)
+                state, lstep, lstep0 = sentinel.rollback(
+                    reason, lstep, gen, n_skipped, host_rng)
                 next_beta = lstep  # beta follows the restored step
             t_window, window_lstep = now, lstep
     if device.type == "cuda":

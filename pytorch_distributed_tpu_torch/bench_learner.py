@@ -9,6 +9,13 @@ beside busy threads, on a ring filled with random rows.
     # the torso with compute_dtype float32 (the fp32 GEMM kernel)
     python -m pytorch_distributed_tpu_torch.bench_learner --profile \\
         --set compute_dtype=float32
+    # megabatch groups of 4 in dispatches of 8 updates
+    python -m pytorch_distributed_tpu_torch.bench_learner \\
+        --set megabatch=4 --set steps_per_dispatch=8
+
+The dispatch is resolved as the learner resolves it
+(``factory.resolve_fused_step``): with ``megabatch`` M > 1 it runs K/M
+group steps, K rounded up to a multiple of M.
 
 ``--busy`` starts threads beside the learner, as the thread backend's
 actors would run: ``host`` steps 16 Pong simulators with random actions
@@ -39,7 +46,7 @@ from pytorch_distributed_tpu_torch.config import (
 )
 from pytorch_distributed_tpu_torch.factory import (
     build_env_vector, build_model, build_train_state_and_step, init_params,
-    module_apply, probe_env, resolve_device,
+    module_apply, probe_env, resolve_device, resolve_fused_step,
 )
 from pytorch_distributed_tpu_torch.memory.device_per import (
     DevicePerReplay, GraphedFusedStep,
@@ -126,8 +133,9 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     model = build_model(opt, spec)
     state, step = build_train_state_and_step(
         opt, model, init_params(opt, spec, seed=opt.seed, device=device))
-    K = max(1, ap.steps_per_dispatch)
-    fused = ring.build_fused_step(step, ap.batch_size, steps_per_call=K)
+    M, K, mega_step = resolve_fused_step(opt, model, "bench_learner")
+    fused = ring.build_fused_step(step, ap.batch_size, steps_per_call=K,
+                                  megabatch=M, megabatch_step=mega_step)
     if device.type == "cuda" and graph:
         fused = GraphedFusedStep(fused, ring.state, counters=COUNTED)
 
@@ -171,7 +179,7 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     out = {"torso": "kernel" if opt.learner_perf_params.pallas_torso
            else "module", "compute_dtype": opt.model_params.compute_dtype,
            "cuda_graph": isinstance(fused, GraphedFusedStep),
-           "steps_per_dispatch": K, "busy": busy,
+           "steps_per_dispatch": K, "megabatch": M, "busy": busy,
            "busy_threads": len(threads), "updates": updates,
            "wall_ms_per_update": seconds * 1e3 / updates,
            "updates_per_sec": updates / seconds,

@@ -20,7 +20,8 @@ from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 # [agent_type, env_type, game, memory_type, model_type] — the reference's
-# table (pytorch_distributed_tpu/config.py:37-59); this slice runs row 12
+# table (pytorch_distributed_tpu/config.py:37-59); the port runs the rows
+# of PORTED_CONFIGS
 CONFIGS = [
     ["dqn",  "atari",    "pong",        "shared",          "dqn-cnn"],      # 0
     ["dqn",  "fake",     "chain",       "shared",          "dqn-mlp"],      # 1
@@ -45,7 +46,7 @@ CONFIGS = [
 ]
 
 # the rows this port runs end to end so far
-PORTED_CONFIGS = (12,)
+PORTED_CONFIGS = (1, 3, 4, 6, 8, 12)
 
 
 def _default_refs() -> str:
@@ -111,6 +112,8 @@ class ModelParams:
     model_type: str = "dqn-cnn"
     orthogonal_init: bool = True
     compute_dtype: str = "bfloat16"
+    # dqn-mlp width (reference config.py:269)
+    hidden_dim: int = 256
 
 
 @dataclass
@@ -185,6 +188,17 @@ class HealthParams:
 
 @dataclass
 class LearnerPerfParams:
+    """The learner's MFU knobs (reference config.py:851-888), each
+    overridable from the environment as ``TPU_APEX_MXU_<FIELD>``
+    (``utils/perf.resolve_mxu``)."""
+
+    # megabatch factor M of the fused device-replay step: each group of M
+    # minibatches is drawn in one widened draw and its M gradients are
+    # taken at the group-entry params in one forward and backward over
+    # M*B rows, then the M optimizer updates apply in turn
+    # (ops/losses.build_dqn_megabatch_step); 1 = off.  A dispatch's
+    # ``steps_per_dispatch`` is rounded up to a multiple of M
+    megabatch: int = 1
     # the learner's train apply runs the dqn-cnn torso through the
     # hand-written GEMM kernel (ops/cuda_torso.py)
     pallas_torso: bool = False
@@ -213,7 +227,9 @@ class AnakinParams:
 
 _SUBS = ("env_params", "memory_params", "model_params", "agent_params",
          "health_params", "learner_perf_params", "anakin_params")
-_SELECTORS = ("agent_type", "env_type", "game", "memory_type", "model_type")
+# the CONFIGS columns a run may not override; ``memory_type`` may
+# (``--set memory_type=native``)
+_SELECTORS = ("agent_type", "env_type", "game", "model_type")
 
 
 @dataclass
@@ -291,11 +307,24 @@ def build_options(config: int = 12, **overrides: Any) -> Options:
             f"config {config} ({'/'.join(CONFIGS[config])}) is not ported "
             f"yet; this slice runs {PORTED_CONFIGS} (ROADMAP.md Queue A)")
     agent_type, env_type, game, memory_type, model_type = CONFIGS[config]
+    # ``--set memory_type=native`` lands before the sub-params are made,
+    # as the reference's selector overrides do (:1021-1028); a ring the
+    # port cannot build raises in factory.py
+    memory_type = overrides.pop("memory_type", memory_type)
+    if "cnn" in model_type:
+        env_shape = dict(state_cha=4, state_hei=84, state_wid=84)
+        state_dtype = "uint8"
+    else:
+        # low-dim envs: the env probe gives the width (reference
+        # config.py:1030-1037)
+        env_shape = dict(state_cha=1, state_hei=1, state_wid=0)
+        state_dtype = "float32"
     opt = Options(
         config=config, agent_type=agent_type, env_type=env_type, game=game,
         memory_type=memory_type, model_type=model_type,
-        env_params=EnvParams(env_type=env_type, game=game),
-        memory_params=MemoryParams(memory_type=memory_type),
+        env_params=EnvParams(env_type=env_type, game=game, **env_shape),
+        memory_params=MemoryParams(memory_type=memory_type,
+                                   state_dtype=state_dtype),
         model_params=ModelParams(model_type=model_type),
         agent_params=AgentParams(agent_type=agent_type),
     )

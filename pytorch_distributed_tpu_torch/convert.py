@@ -1,4 +1,5 @@
-"""Reference ``DqnCnnModel`` params -> the port's ``state_dict``.
+"""Reference ``DqnCnnModel`` and ``DqnMlpModel`` params -> the port's
+``state_dict``.
 
 Takes the flax param tree of pytorch_distributed_tpu/models/dqn_cnn.py as
 nested dicts of array-likes (numpy, or anything ``np.asarray`` reads) and
@@ -11,11 +12,14 @@ layout traps:
   ``Dense_0`` (reference dqn_cnn.py:64) where the port's NCHW flatten is
   (c, h, w), so ``Dense_0``'s input rows are permuted.
 
+The MLP (``convert_dqn_mlp``) has only the second: its ``Dense_0`` to
+``Dense_2`` are ``fc0`` to ``fc2`` and ``Dense_3`` is ``head``.
+
 The transform is linear and per-leaf, so Adam moments (and gradients) of
 the same tree go through it unchanged in meaning.  ``flax_leaves`` is its
-inverse: the port's state_dict as the reference's leaves, in the order
-``ravel_pytree`` flattens them, which fixes the layout of the published
-parameter vector (agents/param_store.py).
+inverse, for either model: the port's state_dict as the reference's
+leaves, in the order ``ravel_pytree`` flattens them, which fixes the
+layout of the published parameter vector (agents/param_store.py).
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ import torch
 from pytorch_distributed_tpu_torch.models.dqn_cnn import (
     CONV_LAYERS, torso_out_hw,
 )
+from pytorch_distributed_tpu_torch.models.dqn_mlp import HIDDEN_LAYERS
+
+# the MLP's flax scopes in order, the head last
+MLP_LAYERS = HIDDEN_LAYERS + ("head",)
 
 
 def convert_dqn_cnn(params: Mapping, state_shape: Sequence[int]
@@ -54,13 +62,32 @@ def convert_dqn_cnn(params: Mapping, state_shape: Sequence[int]
             for k, v in out.items()}
 
 
+def convert_dqn_mlp(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``params`` is ``{"params": {...}}`` or the inner tree of the
+    reference's ``DqnMlpModel``."""
+    p = params["params"] if "params" in params else params
+    out: Dict[str, np.ndarray] = {}
+    for i, name in enumerate(MLP_LAYERS):
+        out[f"{name}.weight"] = np.asarray(p[f"Dense_{i}"]["kernel"]).T
+        out[f"{name}.bias"] = np.asarray(p[f"Dense_{i}"]["bias"])
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in out.items()}
+
+
 def flax_leaves(state_dict: Mapping[str, torch.Tensor],
                 state_shape: Sequence[int]
                 ) -> List[Tuple[str, torch.Tensor]]:
-    """The port's ``DqnCnnModel`` state_dict as the reference's flax leaves
-    (``Conv_0/bias``, ``Conv_0/kernel``, ..., ``Dense_1/kernel``: keys
-    sorted at every level, as ``ravel_pytree`` orders a flax tree), each a
-    view of the torch tensor in the flax layout.  No data is copied."""
+    """The port's ``DqnCnnModel`` or ``DqnMlpModel`` state_dict as the
+    reference's flax leaves (``Conv_0/bias``, ``Conv_0/kernel``, ...,
+    ``Dense_1/kernel``: keys sorted at every level, as ``ravel_pytree``
+    orders a flax tree), each a view of the torch tensor in the flax
+    layout.  No data is copied."""
+    if "conv0.weight" not in state_dict:
+        out = []
+        for i, name in enumerate(MLP_LAYERS):
+            out += [(f"Dense_{i}/bias", state_dict[f"{name}.bias"]),
+                    (f"Dense_{i}/kernel", state_dict[f"{name}.weight"].t())]
+        return out
     oh, ow = torso_out_hw(*state_shape[1:])
     fc = state_dict["fc.weight"]                      # cols (c, h, w)
     c = fc.shape[1] // (oh * ow)

@@ -5,13 +5,19 @@ and ``anakin_active`` (:108-141), the actor backend's gate
 ``needs_inference_server`` (:228-232), the env probe and ``EnvSpec``
 (:239), the device-env predicate ``device_backend_active`` (:270-277),
 the actors' env vector and the stepper's prebuild (:280-353),
-the dqn branch of ``build_train_state_and_step`` (:636-647), the learner's
-train apply gate ``_dqn_train_apply`` (:674-723) and the device-PER branch
-of ``build_memory`` (:887).
+``build_model`` for ``dqn-cnn`` and ``dqn-mlp`` (:400-436), the dqn branch
+of ``build_train_state_and_step`` (:636-647), the learner's train apply
+gate ``_dqn_train_apply`` (:674-723), ``build_megabatch_train_step``
+(:726-771), ``resolve_megabatch`` (:774-791) and ``build_memory`` for the
+``shared``, ``native``, ``prioritized``, ``device`` and ``device-per``
+rings (:862-940).
 
-Only CONFIGS row 12 runs in this slice: the pong-sim env, the ``dqn-cnn``
-model and the ``device-per`` ring.  Anything else raises
+The port runs CONFIGS rows 1, 3, 4, 6, 8 and 12 (config.PORTED_CONFIGS):
+the pong-sim, fake-chain and cartpole envs, the ``dqn-cnn`` and ``dqn-mlp``
+models and those five rings.  Anything else raises
 ``NotImplementedError`` naming the ROADMAP queue that will bring it.
+Where the reference warns and takes the Python ring for a native ring
+that cannot be built (:891-905), the port raises with g++'s stderr.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.func import functional_call
+from torch.func import functional_call, vmap
 
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.envs.device_env import (
@@ -32,23 +38,37 @@ from pytorch_distributed_tpu_torch.envs.device_env import (
 from pytorch_distributed_tpu_torch.envs.device_env import (
     build_device_env as _build_device_env,
 )
+from pytorch_distributed_tpu_torch.envs.classic import make_classic_env
+from pytorch_distributed_tpu_torch.envs.fake_env import FakeChainEnv
 from pytorch_distributed_tpu_torch.envs.native_pong import (
     NativePongVectorEnv,
 )
 from pytorch_distributed_tpu_torch.envs.pong_sim import PongSimEnv
 from pytorch_distributed_tpu_torch.envs.vector import VectorEnv
 from pytorch_distributed_tpu_torch.memory.device_replay import (
-    DevicePerIngest,
+    DevicePerIngest, DeviceReplayIngest,
 )
+from pytorch_distributed_tpu_torch.memory.feeder import QueueOwner
+from pytorch_distributed_tpu_torch.memory.prioritized import (
+    PrioritizedReplay,
+)
+from pytorch_distributed_tpu_torch.memory.shared_replay import SharedReplay
 from pytorch_distributed_tpu_torch.models.dqn_cnn import DqnCnnModel
-from pytorch_distributed_tpu_torch.ops.cuda_torso import build_torso_apply
+from pytorch_distributed_tpu_torch.models.dqn_mlp import DqnMlpModel
+from pytorch_distributed_tpu_torch.ops.cuda_torso import (
+    build_torso_apply, build_torso_group_apply,
+)
 from pytorch_distributed_tpu_torch.ops.losses import (
-    TrainState, build_dqn_train_step, init_train_state,
+    TrainState, build_dqn_megabatch_step, build_dqn_train_step,
+    init_train_state,
 )
 from pytorch_distributed_tpu_torch.utils import health
 from pytorch_distributed_tpu_torch.utils.native_build import build_library
+from pytorch_distributed_tpu_torch.utils.perf import resolve_mxu
 
-ENVS = {"pong-sim": PongSimEnv}
+ENVS = {"pong-sim": PongSimEnv, "fake": FakeChainEnv,
+        "classic": make_classic_env}
+MODELS = ("dqn-cnn", "dqn-mlp")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -172,6 +192,12 @@ def compute_dtype(opt: Options) -> torch.dtype:
             "float32": torch.float32}[opt.model_params.compute_dtype]
 
 
+def state_dtype(opt: Options) -> np.dtype:
+    """The rings' and the actors' observation type: uint8 frames for the
+    pixel rows, float32 for the low-dim ones (config.build_options)."""
+    return np.dtype(opt.memory_params.state_dtype)
+
+
 @dataclass(frozen=True)
 class EnvSpec:
     """What the model and the ring need to know about the env."""
@@ -232,19 +258,25 @@ def probe_env(opt: Options) -> EnvSpec:
 
 def build_model(opt: Options, spec: EnvSpec, device=None,
                 generator: Optional[torch.Generator] = None,
-                init_weights: bool = True) -> DqnCnnModel:
+                init_weights: bool = True) -> torch.nn.Module:
     """The configured model on ``device``, initialised from
     ``generator``.  ``init_weights=False`` skips the orthogonal init (a QR
     per layer, seconds on a busy host) for a caller that wants only the
     forward's structure and brings its own weights."""
-    if opt.model_type != "dqn-cnn":
+    if opt.model_type not in MODELS:
         raise _not_ported(f"model_type {opt.model_type!r}")
-    model = DqnCnnModel(spec.num_actions, spec.state_shape,
-                        norm_val=spec.norm_val,
-                        orthogonal_init=(init_weights and
-                                         opt.model_params.orthogonal_init),
-                        compute_dtype=compute_dtype(opt),
-                        generator=generator)
+    ortho = init_weights and opt.model_params.orthogonal_init
+    if opt.model_type == "dqn-mlp":
+        model = DqnMlpModel(spec.num_actions,
+                            int(np.prod(spec.state_shape)),
+                            hidden_dim=opt.model_params.hidden_dim,
+                            norm_val=spec.norm_val, orthogonal_init=ortho,
+                            generator=generator)
+    else:
+        model = DqnCnnModel(spec.num_actions, spec.state_shape,
+                            norm_val=spec.norm_val, orthogonal_init=ortho,
+                            compute_dtype=compute_dtype(opt),
+                            generator=generator)
     return model.to(device) if device is not None else model
 
 
@@ -262,17 +294,53 @@ def module_apply(model: torch.nn.Module) -> Callable:
     return lambda params, obs: functional_call(model, params, (obs,))
 
 
-def dqn_train_apply(opt: Options, model: DqnCnnModel) -> Callable:
+def module_group_apply(model: torch.nn.Module) -> Callable:
+    """``group_apply(stacked, obs (M, B, ...)) -> q (M, B, A)`` through the
+    module's own forward, row group m on ``stacked[k][m]``: one forward
+    over the M*B rows, batched over the M weight copies by
+    ``torch.func.vmap`` (a grouped convolution for the dqn-cnn's layers, a
+    batched product for the linear ones)."""
+    return vmap(module_apply(model))
+
+
+def _kernel_torso(opt: Options) -> bool:
+    """Whether the learner runs the dqn-cnn torso through the GEMM kernel:
+    ``pallas_torso`` (or ``TPU_APEX_MXU_PALLAS_TORSO``) on a dqn-cnn
+    model; on another model it warns and keeps the module's forward, as
+    the reference does (:693-699)."""
+    if not resolve_mxu(opt.learner_perf_params).pallas_torso:
+        return False
+    if opt.model_type != "dqn-cnn":
+        warnings.warn(f"pallas_torso=true serves the dqn-cnn torso only "
+                      f"(got model_type={opt.model_type}); keeping the "
+                      f"module's forward", stacklevel=3)
+        return False
+    return True
+
+
+def dqn_train_apply(opt: Options, model: torch.nn.Module) -> Callable:
     """The learner's train apply: the module's forward, or — with
     ``learner_perf_params.pallas_torso`` on and the ``dqn-cnn`` model —
-    the torso through the GEMM kernel (ops/cuda_torso.py).  Actors never
-    route through this; the parameters are the same either way."""
-    if opt.learner_perf_params.pallas_torso and opt.model_type == "dqn-cnn":
+    the torso through the GEMM kernel (ops/cuda_torso.py).  One gate for
+    the sequential and the megabatch steps, so both train through the
+    same torso.  Actors never route through this; the parameters are the
+    same either way."""
+    if _kernel_torso(opt):
         return build_torso_apply(model.norm_val, model.compute_dtype)
     return module_apply(model)
 
 
-def build_train_state_and_step(opt: Options, model: DqnCnnModel,
+def dqn_group_apply(opt: Options, model: torch.nn.Module) -> Callable:
+    """The megabatch group's online forward, through the same torso as
+    ``dqn_train_apply``: the GEMM kernel's group products
+    (``build_torso_group_apply``) or the module's forward
+    (``module_group_apply``)."""
+    if _kernel_torso(opt):
+        return build_torso_group_apply(model.norm_val, model.compute_dtype)
+    return module_group_apply(model)
+
+
+def build_train_state_and_step(opt: Options, model: torch.nn.Module,
                                params: Dict[str, torch.Tensor]
                                ) -> Tuple[TrainState, Callable]:
     if opt.agent_type != "dqn":
@@ -287,6 +355,62 @@ def build_train_state_and_step(opt: Options, model: DqnCnnModel,
     return state, step
 
 
+def build_megabatch_train_step(opt: Options, model: torch.nn.Module
+                               ) -> Optional[Callable]:
+    """The megabatch twin of ``build_train_state_and_step``'s step:
+    ``(state, batches (M, B)) -> (state', metrics, td_abs (M, B), ok
+    (M,))``, with the optimizer and the train apply built as the
+    sequential step's, so the state the sequential path made (or a
+    checkpoint) serves it as it is.  None for a family without a group
+    step (DDPG's waits for its slice): the caller runs the sequential
+    step and says so."""
+    if opt.agent_type != "dqn":
+        return None
+    ap = opt.agent_params
+    return build_dqn_megabatch_step(
+        dqn_train_apply(opt, model), dqn_group_apply(opt, model), lr=ap.lr,
+        clip_grad=ap.clip_grad, enable_double=ap.enable_double,
+        target_model_update=ap.target_model_update,
+        guard=health.resolve(opt.health_params).numeric_guards)
+
+
+def resolve_megabatch(opt: Options, steps_per_call: int) -> Tuple[int, int]:
+    """``(M, K)``: the megabatch factor (at least 1) and the dispatch's
+    sub-steps, rounded up to a multiple of M (an overshoot of the steps
+    budget by part of a dispatch is tolerated; dropping updates is not).
+    One resolution for the learner and the Anakin driver."""
+    M = max(1, int(resolve_mxu(opt.learner_perf_params).megabatch))
+    K = max(1, int(steps_per_call))
+    if M > 1 and K % M:
+        K = ((K + M - 1) // M) * M
+        print(f"[learner] steps_per_dispatch rounded up to {K} "
+              f"(multiple of megabatch {M})", flush=True)
+    return M, K
+
+
+def resolve_fused_step(opt: Options, model: torch.nn.Module, role: str
+                       ) -> Tuple[int, int, Optional[Callable]]:
+    """``(M, K, megabatch_step)`` of a learner's fused dispatch, as the
+    reference's learner (agents/learner.py:318-345) and Anakin driver
+    (agents/anakin.py:255-275) resolve them: K from
+    ``steps_per_dispatch``, rounded up to a multiple of M only when a
+    group step exists; a family without one runs the sequential step at
+    the configured K, with the reference's line.  ``role`` prefixes the
+    line."""
+    K = max(1, opt.agent_params.steps_per_dispatch)
+    M, K_mb = resolve_megabatch(opt, K)
+    if M == 1:
+        return 1, K, None
+    step = build_megabatch_train_step(opt, model)
+    if step is None:
+        print(f"[{role}] megabatch={M} is not supported for agent_type="
+              f"{opt.agent_type} (dqn/decoupled-ddpg only); running the "
+              f"sequential fused step at steps_per_dispatch={K}",
+              flush=True)
+        return 1, K, None
+    return M, K_mb, step
+
+
 @dataclass
 class MemoryHandles:
     """``actor_side`` is what actors feed; ``learner_side`` what the
@@ -298,24 +422,50 @@ class MemoryHandles:
 
 def build_memory(opt: Options, spec: EnvSpec,
                  in_process: bool = False) -> MemoryHandles:
-    """The device ring's ingest, with one queue per actor slot
-    (``learner_side.make_feeder(i)``; ``actor_side`` is slot 0's feeder),
-    or one in-process queue when every producer is a thread of the
-    learner's process (``in_process``, the thread backend)."""
-    if opt.memory_type != "device-per":
-        raise _not_ported(f"memory_type {opt.memory_type!r}")
+    """The run's ring and its ingest (reference :862-940):
+
+    - ``shared`` and ``native``: a host ring in process-shared pages that
+      every actor writes in place (``SharedReplay``; ``NativeRingReplay``
+      over ``native/ring_buffer.cpp``, which raises when g++ cannot build
+      it);
+    - ``prioritized``: the learner's host PER ring behind ``QueueOwner``;
+    - ``device`` and ``device-per``: the device rings behind their ingest,
+      with one queue per actor slot (``learner_side.make_feeder(i)``) or
+      one in-process queue when every producer is a thread of the
+      learner's process (``in_process``, the thread backend).
+
+    ``actor_side`` is slot 0's feeder; the runtime asks ``learner_side``
+    for each slot's."""
     mp_ = opt.memory_params
     hp = health.resolve(opt.health_params)
-    if mp_.state_dtype != "uint8":
-        raise _not_ported(f"state_dtype {mp_.state_dtype!r}")
-    ingest = DevicePerIngest(
-        capacity=mp_.memory_size, state_shape=spec.state_shape,
-        action_shape=spec.action_shape, state_dtype=np.uint8,
-        action_dtype=spec.action_dtype,
-        priority_exponent=mp_.priority_exponent,
-        importance_weight=mp_.priority_weight,
-        importance_anneal_steps=opt.agent_params.steps,
-        in_process=in_process, slots=max(1, opt.num_actors),
-        quarantine=hp.quarantine,
-        quarantine_max_files=hp.quarantine_max_files)
+    sdt = state_dtype(opt)
+    rows = dict(capacity=mp_.memory_size, state_shape=spec.state_shape,
+                action_shape=spec.action_shape, state_dtype=sdt,
+                action_dtype=spec.action_dtype)
+    queues = dict(in_process=in_process, slots=max(1, opt.num_actors),
+                  quarantine=hp.quarantine,
+                  quarantine_max_files=hp.quarantine_max_files)
+    per = dict(priority_exponent=mp_.priority_exponent,
+               importance_weight=mp_.priority_weight,
+               importance_anneal_steps=opt.agent_params.steps)
+    if opt.memory_type in ("shared", "native"):
+        if opt.memory_type == "native":
+            from pytorch_distributed_tpu_torch.memory.native_ring import (
+                NativeRingReplay,
+            )
+
+            mem = NativeRingReplay(**rows)
+        else:
+            mem = SharedReplay(**rows)
+        return MemoryHandles(actor_side=mem.make_feeder(), learner_side=mem)
+    if opt.memory_type == "prioritized":
+        owner = QueueOwner(PrioritizedReplay(**rows, **per), **queues)
+        return MemoryHandles(actor_side=owner.make_feeder(),
+                             learner_side=owner)
+    if opt.memory_type not in ("device", "device-per"):
+        raise _not_ported(f"memory_type {opt.memory_type!r}")
+    if opt.memory_type == "device":
+        ingest = DeviceReplayIngest(**rows, **queues)
+    else:
+        ingest = DevicePerIngest(**rows, **queues, **per)
     return MemoryHandles(actor_side=ingest.make_feeder(), learner_side=ingest)

@@ -2,8 +2,9 @@
 port of pytorch_distributed_tpu/memory/device_per.py: ``per_feed``
 (:59-64), ``per_sample`` (:86-120), ``per_update_priorities`` (:153-161),
 ``DevicePerReplay`` (:203-257) with its checkpoint surface
-(``snapshot``/``restore`` :355-392), the sequential
-``build_fused_step`` (:327-351) and the priority X-ray
+(``snapshot``/``restore`` :355-392), ``build_fused_step`` with its
+sequential arm (:327-351) and its megabatch arm (:259-325),
+``per_apply_writeback_groups`` (:170-190) and the priority X-ray
 (``priority_xray_device`` :127-154).
 
 Priorities are stored pre-exponentiated (``p = (|td| + eps) ** alpha``);
@@ -11,13 +12,19 @@ new rows enter at the running max priority so every row is replayed at
 least once.  IS weights are normalised by the weight of the
 minimum-probability valid row and annealed by ``beta``.
 
-The fused step runs K sub-steps of sample -> train -> priority write-back
-as a Python loop (the reference's ``lax.scan``), each sub-step sampling
-from the priorities the previous one wrote.  It takes the uniforms of all
-K draws as one (K, B) tensor, which the learner draws from its device
-generator and the tests hand in.  The draw is kernel B1
+The fused step runs K sub-steps of sample -> train -> priority write-back as
+a Python loop (the reference's ``lax.scan``), each sub-step sampling from
+the priorities the previous one wrote. Under megabatch M it runs K/M groups:
+a group draws its M*B rows in one launch of the draw from the group-entry
+priorities (the IS weights' maximum comes from the ring's minimum priority,
+not from the batch, so one widened draw is M draws), runs the group step,
+then writes the M |TD| rows back in minibatch order, one write-back each, so
+that a row drawn by two minibatches keeps the later one's priority; a
+skipped minibatch writes nothing back. It takes the uniforms of all K draws
+as one (K, B) tensor, which the learner draws from its device generator and
+the tests hand in. The draw is kernel B1
 (``ops/cuda_sampling.hierarchical_sample``): the kernel on a CUDA ring, its
-plain version on a CPU ring.  Ring and priorities are updated in place.
+plain version on a CPU ring. Ring and priorities are updated in place.
 
 On a CUDA ring the learner replays the fused step from a CUDA graph
 (``GraphedFusedStep``), the counterpart of the reference's one jitted XLA
@@ -35,8 +42,8 @@ import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.memory.device_replay import (
-    DeviceReplay, ReplayState, _masked_put, masked_write_index,
-    ring_write, ring_write_masked,
+    DeviceReplay, ReplayState, _masked_put, group_batches,
+    masked_write_index, ring_write, ring_write_masked, sum_skipped,
 )
 from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
@@ -49,7 +56,6 @@ from pytorch_distributed_tpu_torch.utils.experience import Batch, Transition
 class PerReplayState(ReplayState):
     priority: Optional[torch.Tensor] = None      # (N,) f32 p**alpha; 0 = empty
     max_priority: Optional[torch.Tensor] = None  # () f32 running max
-    fill_rows: Optional[torch.Tensor] = None     # () f32 copy of ``fill``
 
 
 def per_feed(state: PerReplayState, chunk: Transition, capacity: int,
@@ -57,22 +63,18 @@ def per_feed(state: PerReplayState, chunk: Transition, capacity: int,
     """Ring write at the cursor; the new rows take the running max."""
     for start, stop in ring_write(state, chunk, capacity, non_blocking):
         state.priority[start:stop] = state.max_priority
-    state.fill_rows.fill_(float(state.fill))
 
 
 def per_write_masked(state: PerReplayState, chunk: Transition,
                      valid: torch.Tensor, capacity: int) -> torch.Tensor:
     """The masked twin of ``per_feed`` for writes inside a device program
     (reference memory/device_per.py:67-83): ``ring_write_masked``, and
-    every written row enters at the running max priority; ``fill_rows``
-    moves on the device too, since the IS weights read it.  Returns the
+    every written row enters at the running max priority.  Returns the
     count written, on the device."""
     idx, _total = masked_write_index(state, valid, capacity)
     total = ring_write_masked(state, chunk, valid, capacity)
     _masked_put(state.priority, idx, valid,
                 state.max_priority.expand(valid.shape))
-    state.fill_rows.copy_(torch.clamp(state.fill_rows + total,
-                                      max=float(capacity)))
     return total
 
 
@@ -128,6 +130,20 @@ def priority_xray_device(state: PerReplayState, bins: int = 16):
     return counts[:bins], ess, rows, s1
 
 
+def read_xray(ring_state) -> dict:
+    """The priority X-ray of a PER ring (``priority_xray_device``) on the
+    host, in one copy: ``counts``, ``ess``, ``rows``, ``mass`` and
+    ``ess_frac`` (None for an empty ring)."""
+    counts, ess, rows, mass = priority_xray_device(ring_state)
+    host = torch.cat([counts.to(torch.float64),
+                      torch.stack([ess, rows.to(ess.dtype), mass]
+                                  ).to(torch.float64)]).cpu()
+    ess, n = float(host[-3]), int(host[-2])
+    return {"counts": host[:-3].to(torch.int64).numpy(), "ess": ess,
+            "rows": n, "mass": float(host[-1]),
+            "ess_frac": ess / n if n else None}
+
+
 def per_update_priorities(state: PerReplayState, idx: torch.Tensor,
                           td_abs: torch.Tensor, alpha: float,
                           skipped: Optional[torch.Tensor] = None,
@@ -153,6 +169,19 @@ def per_update_priorities(state: PerReplayState, idx: torch.Tensor,
     state.max_priority.copy_(new_max)
 
 
+def per_apply_writeback_groups(state: PerReplayState, groups,
+                               alpha: float) -> None:
+    """Apply an ordered list of ``(idx, td_abs)`` write-backs in turn
+    (reference :170-190), so an index that two groups share keeps the
+    later group's priority: one scatter over duplicate indices from
+    several groups would leave the order to the device."""
+    dev = state.priority.device
+    for idx, td in groups:
+        per_update_priorities(state, torch.as_tensor(idx).to(dev),
+                              torch.as_tensor(td, dtype=torch.float32).to(dev),
+                              alpha)
+
+
 class DevicePerReplay(DeviceReplay):
     """The device ring extended with priorities and their running max."""
 
@@ -173,9 +202,7 @@ class DevicePerReplay(DeviceReplay):
             priority=torch.zeros(self.capacity, dtype=torch.float32,
                                  device=self.device),
             max_priority=torch.ones((), dtype=torch.float32,
-                                    device=self.device),
-            fill_rows=torch.zeros((), dtype=torch.float32,
-                                  device=self.device))
+                                    device=self.device))
 
     def feed_chunk(self, chunk: Transition,
                    non_blocking: bool = False) -> None:
@@ -197,7 +224,6 @@ class DevicePerReplay(DeviceReplay):
         super()._reset()
         self.state.priority.zero_()
         self.state.max_priority.fill_(1.0)
-        self.state.fill_rows.zero_()
 
     def restore(self, data: dict) -> int:
         """The rows enter at the max priority through the ring write, then
@@ -220,27 +246,48 @@ class DevicePerReplay(DeviceReplay):
         return self.beta0 + (1.0 - self.beta0) * frac
 
     def build_fused_step(self, train_step, batch_size: int,
-                         steps_per_call: int = 1,
+                         steps_per_call: int = 1, megabatch: int = 1,
+                         megabatch_step=None,
                          sample_fn: Callable = hierarchical_sample):
         """``fused(ts, rs, us (K, B), beta) -> (ts', metrics)``: K sub-steps
         of sample -> train -> write-back on the ring state ``rs`` (updated
         in place); ``beta`` is a float or a () tensor.  Metrics are the last
         sub-step's, except ``learner/skipped``, which sums over the K
-        sub-steps."""
-        alpha, K = self.alpha, steps_per_call
+        sub-steps.  ``megabatch`` M > 1 (with ``megabatch_step`` from
+        ``factory.build_megabatch_train_step``) runs K/M groups of M, each
+        on the uniforms the sequential schedule would give its M
+        minibatches (rows g*M .. g*M + M - 1 of ``us``)."""
+        alpha, K, M = self.alpha, steps_per_call, megabatch
+        if M > 1:
+            if megabatch_step is None:
+                raise ValueError("megabatch > 1 needs the factory's "
+                                 "megabatch step")
+            if K % M:
+                raise ValueError(f"megabatch {M} must divide "
+                                 f"steps_per_call {K}")
 
         def fused(ts, rs: PerReplayState, us: torch.Tensor, beta):
             if tuple(us.shape) != (K, batch_size):
                 raise ValueError(f"uniforms {tuple(us.shape)}, expected "
                                  f"({K}, {batch_size})")
             skipped = None
-            for k in range(K):
-                batch = per_sample(rs, us[k], beta, sample_fn)
-                ts, metrics, td_abs = train_step(ts, batch)
-                sk = metrics.get(SKIPPED_KEY)
-                per_update_priorities(rs, batch.index, td_abs, alpha, sk)
-                if sk is not None:
-                    skipped = sk if skipped is None else skipped + sk
+            if M > 1:
+                for g in range(K // M):
+                    batch = per_sample(rs, us[g * M:(g + 1) * M].reshape(-1),
+                                       beta, sample_fn)
+                    batches = group_batches(batch, M)
+                    ts, metrics, td_abs, ok = megabatch_step(ts, batches)
+                    for m in range(M):
+                        per_update_priorities(rs, batches.index[m],
+                                              td_abs[m], alpha, 1.0 - ok[m])
+                    skipped = sum_skipped(metrics, skipped)
+            else:
+                for k in range(K):
+                    batch = per_sample(rs, us[k], beta, sample_fn)
+                    ts, metrics, td_abs = train_step(ts, batch)
+                    per_update_priorities(rs, batch.index, td_abs, alpha,
+                                          metrics.get(SKIPPED_KEY))
+                    skipped = sum_skipped(metrics, skipped)
             if skipped is not None:
                 metrics = dict(metrics, **{SKIPPED_KEY: skipped})
             return ts, metrics
@@ -269,8 +316,9 @@ def _clone_tree(tree):
 
 
 class GraphedFusedStep:
-    """A fused step (``build_fused_step``) replayed from a CUDA graph, with
-    the same call: ``(ts, rs, us (K, B), beta) -> (ts', metrics)``.
+    """A fused step (``build_fused_step`` of the PER ring or of the uniform
+    ring, whose ``beta`` is None) replayed from a CUDA graph, with the
+    same call: ``(ts, rs, us (K, B), beta) -> (ts', metrics)``.
 
     The first ``warmup`` calls run the step eagerly on a side stream (lazy
     initialisation must not happen under capture); the next call copies
@@ -288,7 +336,7 @@ class GraphedFusedStep:
     them, so the counts are put back after capture, and each replay adds
     the launches the captured step holds."""
 
-    def __init__(self, fused: Callable, ring: PerReplayState,
+    def __init__(self, fused: Callable, ring: ReplayState,
                  counters: Sequence = (), warmup: int = 2):
         self._fused = fused
         self._ring = ring
@@ -311,7 +359,8 @@ class GraphedFusedStep:
     def _capture(self, ts, us, beta) -> None:
         self._static = _clone_tree(ts)
         self._us = us.clone()
-        self._beta = torch.full((), float(beta), device=us.device)
+        self._beta = (None if beta is None
+                      else torch.full((), float(beta), device=us.device))
         before = [c.launches for c in self._counters]
         graph = torch.cuda.CUDAGraph()
         # thread_local: actor threads go on launching work on their own
@@ -326,7 +375,7 @@ class GraphedFusedStep:
             c.launches = b
         self._graph = graph
 
-    def __call__(self, ts, rs: PerReplayState, us: torch.Tensor, beta):
+    def __call__(self, ts, rs: ReplayState, us: torch.Tensor, beta=None):
         if rs is not self._ring:
             raise ValueError("the graph replays the ring it was captured on")
         if self._warmup > 0:
@@ -338,7 +387,8 @@ class GraphedFusedStep:
             if ts is not self._static:
                 _copy_tree_(self._static, ts)
             self._us.copy_(us)
-            self._beta.fill_(float(beta))
+            if self._beta is not None:
+                self._beta.fill_(float(beta))
         self._graph.replay()
         for c, d in zip(self._counters, self._deltas):
             c.launches += d

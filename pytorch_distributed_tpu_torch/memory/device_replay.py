@@ -1,20 +1,13 @@
 """Replay ring in device memory — the port of
 pytorch_distributed_tpu/memory/device_replay.py: ``ReplayState`` and
-``ring_write`` (:34-85), ``DeviceReplay`` (:265-388), and the queue front
-end ``DeviceReplayIngest`` / ``drain`` (:389-611) with its quarantine
-boundary and without the flow-shed plane, plus ``DevicePerIngest``
-(:614-638), and the rings' checkpoint surface (``snapshot``/``restore``,
-:343-377, :517-542). The feed is the reference's (memory/feeder.py
-``QueueFeeder`` :30): chunks of transitions put on a spawn-context
-``multiprocessing.Queue``. Where the reference shares one queue among
-every actor, the port gives each actor slot a queue of its own
-(``make_feeder(slot)``), so every pipe has one writer: an actor killed
-inside a put tears only its own queue, and its respawn is handed a fresh
-one (``replace_slot``) while the old one is read to its end. The total
-bound of queued chunks is split over the slots. For the thread backend
-(``in_process``) one ``queue.Queue`` with the whole bound serves every
-slot, where the reference swaps one in before any worker starts
-(runtime.py ``_use_thread_queue`` :357-372).
+``ring_write`` (:34-85), ``sample_rows`` (:174-188),
+``build_uniform_fused_step`` (:202-260) with its sequential and megabatch
+arms, ``DeviceReplay`` (:265-388), and the queue front end
+``DeviceReplayIngest`` / ``drain`` (:389-611) with its quarantine boundary
+and without the flow-shed plane, plus ``DevicePerIngest`` (:614-638), and
+the rings' checkpoint surface (``snapshot``/``restore``, :343-377,
+:517-542).  The feed is memory/feeder.py's: each actor slot puts chunks
+of transitions on a queue of its own (``SlotQueues``).
 
 The six transition columns live as tensors on the learner's device.  Where
 the reference's functional ring returns a new state from every write, the
@@ -22,28 +15,30 @@ port writes in place (a copy into the ring's slice): at config 12's 50,000
 rows the two uint8 frame columns hold 2 x 50,000 x 28,224 B (about
 2.8 GB), and a copy per ingest would double that.  The write cursor and the fill count are host
 integers: ingest is driven from the host, so the host always knows them.
+Their device copies (``cursor``, ``fill_rows``) serve the programs that
+run from a CUDA graph: the masked writes of the fused rollout and the
+uniform draw, which reads the fill.
+
+The uniform draw takes uniforms, as the PER draw does, so the fused steps
+of both rings take one (K, B) tensor of uniforms from the learner's
+generator: ``uniform_index`` turns ``u`` into ``min(floor(u * fill),
+fill - 1)`` (the reference draws ``randint(key, (B,), 0, max(fill, 1))``),
+and ``sample_rows`` gathers the rows at given indices.
 """
 
 from __future__ import annotations
 
-import multiprocessing as mp
-import queue
-import threading
-import time
 from dataclasses import dataclass
-from multiprocessing import connection
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from pytorch_distributed_tpu_torch.utils import health
+from pytorch_distributed_tpu_torch.memory.feeder import SlotQueues
+from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY
 from pytorch_distributed_tpu_torch.utils.experience import (
-    REPLAY_FIELDS, Transition,
+    REPLAY_FIELDS, Batch, Transition,
 )
-from pytorch_distributed_tpu_torch.utils.faults import FaultInjector
-
-_CTX = mp.get_context("spawn")
 
 
 @dataclass
@@ -59,6 +54,9 @@ class ReplayState:
     # the write cursor on the device, for writes inside a CUDA graph
     # (``ring_write_masked``); set from ``pos`` before each such dispatch
     cursor: Optional[torch.Tensor] = None
+    # () f32 copy of ``fill`` on the device: the uniform draw and the IS
+    # weights read it, and the masked writes move it on the device
+    fill_rows: Optional[torch.Tensor] = None
 
 
 def ring_write(state: ReplayState, chunk: Transition, capacity: int,
@@ -86,6 +84,7 @@ def ring_write(state: ReplayState, chunk: Transition, capacity: int,
             col[:n - first].copy_(host[first:], non_blocking=non_blocking)
     state.pos = (state.pos + n) % capacity
     state.fill = min(state.fill + n, capacity)
+    state.fill_rows.fill_(float(state.fill))
     return spans
 
 
@@ -125,7 +124,89 @@ def ring_write_masked(state: ReplayState, chunk: Transition,
     for f in REPLAY_FIELDS:
         _masked_put(getattr(state, f), idx, valid, getattr(chunk, f))
     state.cursor.copy_((state.cursor + total) % capacity)
+    state.fill_rows.copy_(torch.clamp(state.fill_rows + total,
+                                      max=float(capacity)))
     return total
+
+
+def uniform_index(state: ReplayState, u: torch.Tensor) -> torch.Tensor:
+    """Uniform row indices ``min(floor(u * fill), fill - 1)`` over the
+    ring's valid rows, from uniforms ``u`` in [0, 1) and the device fill
+    (at least 1): the draw of the reference's ``sample_rows``, on the
+    device, so a CUDA graph can capture it."""
+    fill = torch.clamp(state.fill_rows, min=1.0)
+    return torch.minimum(torch.floor(u * fill), fill - 1).long()
+
+
+def sample_rows(state: ReplayState, idx: torch.Tensor) -> Batch:
+    """The rows at ``idx`` as a uniform batch: IS weights 1 (reference
+    :174-188, given the draw's indices)."""
+    return Batch(
+        state0=state.state0[idx], action=state.action[idx],
+        reward=state.reward[idx], gamma_n=state.gamma_n[idx],
+        state1=state.state1[idx], terminal1=state.terminal1[idx],
+        weight=torch.ones(idx.shape, dtype=torch.float32,
+                          device=idx.device),
+        index=idx)
+
+
+def group_batches(batch: Batch, m: int) -> Batch:
+    """A batch of M*B rows as M minibatches: every field (M, B, ...)."""
+    return Batch(*(f.view(m, -1, *f.shape[1:]) for f in batch))
+
+
+def sum_skipped(metrics: dict, skipped):
+    """The running sum of the guard's skip counts over the sub-steps of a
+    dispatch (reference utils/health.py ``reduce_scan_metrics``)."""
+    sk = metrics.get(SKIPPED_KEY)
+    if sk is None:
+        return skipped
+    return sk if skipped is None else skipped + sk
+
+
+def build_uniform_fused_step(train_step, batch_size: int,
+                             steps_per_call: int = 1, megabatch: int = 1,
+                             megabatch_step=None):
+    """``fused(ts, rs, us (K, B), beta=None) -> (ts', metrics)``: K
+    sub-steps of uniform sample -> train on the ring state ``rs``, which
+    they only read (reference :202-260; ``beta`` is taken for the PER
+    step's call and unused).  Metrics are the last sub-step's, except
+    ``learner/skipped``, which sums over the K sub-steps.
+
+    ``megabatch`` M > 1 (with ``megabatch_step`` from
+    ``factory.build_megabatch_train_step``) regroups the K sub-steps into
+    K/M groups: a group draws its M minibatches from the same uniforms
+    the sequential schedule would (row m of the group's (M, B)), gathers
+    them at once and runs them as one group step."""
+    K, M = steps_per_call, megabatch
+    if M > 1:
+        if megabatch_step is None:
+            raise ValueError("megabatch > 1 needs the factory's megabatch "
+                             "step")
+        if K % M:
+            raise ValueError(f"megabatch {M} must divide steps_per_call {K}")
+
+    def fused(ts, rs: ReplayState, us: torch.Tensor, beta=None):
+        if tuple(us.shape) != (K, batch_size):
+            raise ValueError(f"uniforms {tuple(us.shape)}, expected "
+                             f"({K}, {batch_size})")
+        skipped = None
+        if M > 1:
+            for g in range(K // M):
+                idx = uniform_index(rs, us[g * M:(g + 1) * M].reshape(-1))
+                ts, metrics, _td, _ok = megabatch_step(
+                    ts, group_batches(sample_rows(rs, idx), M))
+                skipped = sum_skipped(metrics, skipped)
+        else:
+            for k in range(K):
+                ts, metrics, _td = train_step(
+                    ts, sample_rows(rs, uniform_index(rs, us[k])))
+                skipped = sum_skipped(metrics, skipped)
+        if skipped is not None:
+            metrics = dict(metrics, **{SKIPPED_KEY: skipped})
+        return ts, metrics
+
+    return fused
 
 
 class DeviceReplay:
@@ -147,7 +228,7 @@ class DeviceReplay:
             gamma_n=z((capacity,), torch.float32),
             state1=z((capacity, *self.state_shape), state_dtype),
             terminal1=z((capacity,), torch.float32),
-            cursor=z((), torch.int64)))
+            cursor=z((), torch.int64), fill_rows=z((), torch.float32)))
 
     def _extend(self, columns: dict) -> ReplayState:
         return ReplayState(**columns)
@@ -155,6 +236,14 @@ class DeviceReplay:
     def feed_chunk(self, chunk: Transition,
                    non_blocking: bool = False) -> None:
         ring_write(self.state, chunk, self.capacity, non_blocking)
+
+    def build_fused_step(self, train_step, batch_size: int,
+                         steps_per_call: int = 1, megabatch: int = 1,
+                         megabatch_step=None):
+        """The uniform ring's fused step (``build_uniform_fused_step``)."""
+        return build_uniform_fused_step(train_step, batch_size,
+                                        steps_per_call, megabatch,
+                                        megabatch_step)
 
     def _age_order(self, col: torch.Tensor) -> np.ndarray:
         """The valid rows of a column, oldest first, on the host: when the
@@ -180,6 +269,7 @@ class DeviceReplay:
         for f in REPLAY_FIELDS:
             getattr(st, f).zero_()
         st.cursor.zero_()
+        st.fill_rows.zero_()
         st.pos = st.fill = 0
 
     def restore(self, data: dict) -> int:
@@ -239,93 +329,22 @@ class StagedWriter:
                 self._events[i].record()
 
 
-class QueueFeeder:
-    """Actor-side feed endpoint (reference memory/feeder.py QueueFeeder):
-    buffers ``chunk`` transitions, then puts them on the ingest queue as
-    one list.  A put blocked on a full queue gives up once the run's stop
-    event is set.  Each flush is one frame of the ``FEEDER_FAULTS`` plane
-    (utils/faults.py), whose ``poison_chunk@N`` NaNs the rewards of flush
-    N's rows (``health.poison_items``), as reference feeder.py:149-160
-    does; the injector is built in the process that flushes."""
-
-    def __init__(self, q, chunk: int = 16):
-        self._q = q
-        self._chunk = chunk
-        self._buf: List[Transition] = []
-        self._stop = None
-        self._faults: Optional[FaultInjector] = None
-
-    def __getstate__(self):
-        # the injector holds a lock; a spawn child builds its own from the
-        # FEEDER_FAULTS it inherits
-        d = self.__dict__.copy()
-        d["_faults"] = None
-        return d
-
-    def set_stop(self, event) -> None:
-        self._stop = event
-
-    def close(self) -> None:
-        """Never block a process's exit on the queue's feeder thread: once
-        the learner stops draining, its buffered chunks cannot flush into
-        the full pipe (reference feeder.py:136-142)."""
-        if hasattr(self._q, "cancel_join_thread"):  # mp queue only
-            self._q.cancel_join_thread()
-
-    def feed(self, transition: Transition) -> None:
-        self._buf.append(transition)
-        if len(self._buf) >= self._chunk:
-            self.flush()
-
-    def flush(self) -> None:
-        if not self._buf:
-            return
-        if self._faults is None:
-            self._faults = FaultInjector.from_env("feeder")
-        if self._faults.data_frame(("poison_chunk",)):
-            self._buf = [t for t, _p in health.poison_items(
-                [(t, None) for t in self._buf])]
-            print("[faults:feeder] poison_chunk: chunk poisoned before "
-                  "flush", flush=True)
-        while True:
-            if self._stop is not None and self._stop.is_set():
-                break  # shutdown: the learner no longer drains
-            try:
-                self._q.put(self._buf, timeout=0.2)
-                break
-            except queue.Full:
-                continue
-        self._buf = []
-
-
 STAGE_ROWS = 512   # rows per staging slab: 29 MB of config 12's frames
 STAGE_SLABS = 3
 
 
-class DeviceReplayIngest:
-    """Queue front end of the device ring: actor slot ``i`` feeds through
-    ``make_feeder(i)``; the learner calls ``attach(device)`` and then
-    ``drain()`` between dispatches, which reads every slot's queue,
-    stacks the rows into the staging slabs (``StagedWriter``) and writes
-    them with one host-to-device copy per column and slab.
+class DeviceReplayIngest(SlotQueues):
+    """Queue front end of the device ring (the transport and the
+    quarantine are memory/feeder.py ``SlotQueues``'s): actor slot ``i``
+    feeds through ``make_feeder(i)``; the learner calls
+    ``attach(device)`` and then ``drain()`` between dispatches, which
+    reads every slot's queue, stacks the rows into the staging slabs
+    (``StagedWriter``) and writes them with one host-to-device copy per
+    column and slab.  Its quarantine source is ``feeder-device``
+    (reference :561-581)."""
 
-    On the process backend the topology closes its own write end of a
-    slot's queue right after the spawn that hands it over
-    (``close_write_end``) and names the child's sentinel
-    (``bind_producer``).  A read that ends in ``EOFError`` or ``OSError``
-    then means that every writer is gone: if the queue's producer has
-    exited (or the queue was replaced), what was left is dropped, the
-    read is counted in ``torn_reads`` and the queue is closed; if the
-    producer is still alive the drain raises.
-
-    The drain is also the ingest's quarantine boundary (reference
-    :561-581): with ``quarantine`` on and ``TPU_APEX_QUARANTINE`` not 0,
-    a ``health.ChunkValidator`` (built on the first drain, against the
-    ring's state shape and dtype) checks every row read, and the rows it
-    rejects go to ``health.get_quarantine("feeder-device")``, which
-    writes ``{log_dir}/quarantine/``, instead of the ring.  ``validated``,
-    ``quarantined`` and ``validate_s`` count the rows checked, the rows
-    diverted and the host seconds the checks took."""
+    source = "feeder-device"
+    prioritized = False
 
     def __init__(self, capacity: int, state_shape: Tuple[int, ...],
                  action_shape: Tuple[int, ...] = (),
@@ -333,104 +352,19 @@ class DeviceReplayIngest:
                  max_queue_chunks: int = 4096, in_process: bool = False,
                  slots: int = 1, quarantine: bool = True,
                  quarantine_max_files: int = 64):
+        super().__init__(state_shape, state_dtype,
+                         max_queue_chunks=max_queue_chunks,
+                         in_process=in_process, slots=slots,
+                         quarantine=quarantine,
+                         quarantine_max_files=quarantine_max_files)
         self.capacity = capacity
-        self.state_shape = tuple(state_shape)
         self.action_shape = tuple(action_shape)
-        self.state_dtype = np.dtype(state_dtype)
         self.action_dtype = np.dtype(action_dtype)
-        self.max_queue_chunks = max_queue_chunks  # backpressure bound
-        # in-process producers (the thread backend) hand chunks over by
-        # reference through one queue instead of pickling through pipes
-        self._shared = queue.Queue(max_queue_chunks) if in_process else None
-        self._slot_bound = max(1, max_queue_chunks // max(1, slots))
-        self._lock = threading.Lock()  # the drain vs the runtime's monitor
-        self._live: Dict[int, object] = {}     # slot -> its queue
-        self._retiring: List[object] = []      # replaced, read to the end
-        self._producer: Dict[int, object] = {}  # id(queue) -> sentinel
-        self.torn_reads = 0
         self.replay: Optional[DeviceReplay] = None
         self.replay_b: Optional[DeviceReplay] = None
         self._staging: Optional[StagedWriter] = None
         self._pending: List[Transition] = []
         self._fed_total = 0
-        self.quarantine = quarantine
-        self.quarantine_max_files = quarantine_max_files
-        self._validator: Optional[health.ChunkValidator] = None
-        self.validated = self.quarantined = 0
-        self.validate_s = 0.0
-
-    def _slot_queue(self, slot: int):
-        with self._lock:
-            if slot not in self._live:
-                self._live[slot] = _CTX.Queue(self._slot_bound)
-            return self._live[slot]
-
-    def make_feeder(self, slot: int = 0, chunk: int = 16) -> QueueFeeder:
-        """The feeder of actor slot ``slot``."""
-        if self._shared is not None:
-            return QueueFeeder(self._shared, chunk)
-        return QueueFeeder(self._slot_queue(slot), chunk)
-
-    def replace_slot(self, slot: int, chunk: int = 16) -> QueueFeeder:
-        """A fresh queue for the respawn of ``slot`` and its feeder; the
-        old queue is read to its end by the following drains."""
-        if self._shared is not None:
-            raise RuntimeError("the in-process queue has no slots")
-        with self._lock:
-            old = self._live.pop(slot, None)
-            if old is not None:
-                self._retiring.append(old)
-        return self.make_feeder(slot, chunk)
-
-    def bind_producer(self, slot: int, sentinel) -> None:
-        """Name the process that writes ``slot``'s queue, by its
-        ``Process.sentinel``."""
-        self._producer[id(self._slot_queue(slot))] = sentinel
-
-    def close_write_end(self, slot: int) -> None:
-        """Drop this process's write end of ``slot``'s queue once its
-        producer holds its own: this process never puts.  A producer that
-        dies inside a put leaves a partial message in its pipe, which a
-        read would wait on forever; with this end closed the read ends in
-        ``EOFError`` instead."""
-        self._slot_queue(slot)._writer.close()
-
-    def _sources(self) -> list:
-        """(slot or None, queue) of every queue to read: the live slots'
-        and the replaced ones'."""
-        if self._shared is not None:
-            return [(0, self._shared)]
-        with self._lock:
-            return list(self._live.items()) + [(None, q)
-                                               for q in self._retiring]
-
-    def _producer_gone(self, slot, q, timeout: float = 5.0) -> bool:
-        if slot is None:
-            return True  # replaced: its producer is dead
-        sentinel = self._producer.get(id(q))
-        return sentinel is not None and bool(
-            connection.wait([sentinel], timeout))
-
-    def _retire(self, q) -> None:
-        with self._lock:
-            if q in self._retiring:
-                self._retiring.remove(q)
-            for slot, live in list(self._live.items()):
-                if live is q:
-                    del self._live[slot]
-            self._producer.pop(id(q), None)
-        _close_queue(q)
-
-    def close(self) -> None:
-        """Shut every queue down; pending chunks are dropped (reference
-        feeder.py:339-349)."""
-        if self._shared is not None:
-            return
-        with self._lock:
-            qs = list(self._live.values()) + self._retiring
-            self._live, self._retiring = {}, []
-        for q in qs:
-            _close_queue(q)
 
     def _ring_kwargs(self, device, capacity: Optional[int] = None) -> dict:
         return dict(capacity=capacity or self.capacity,
@@ -482,27 +416,7 @@ class DeviceReplayIngest:
         written."""
         if self.replay is None:
             raise RuntimeError("attach() first")
-        budget = max_chunks
-        fresh: List[Transition] = []
-        for slot, q in self._sources():
-            while budget > 0:
-                try:
-                    fresh.extend(q.get_nowait())
-                    budget -= 1
-                except queue.Empty:
-                    if slot is None:  # a replaced queue, read to its end
-                        self._retire(q)
-                    break
-                except (EOFError, OSError) as e:
-                    if not self._producer_gone(slot, q):
-                        raise RuntimeError(
-                            "the ingest queue broke off inside a chunk: "
-                            "its producer is alive") from e
-                    self.torn_reads += 1
-                    self._retire(q)
-                    break
-        if fresh and self.quarantine and health.quarantine_active():
-            fresh = self._validate(fresh)
+        fresh, _popped = self.read(max_chunks)
         self._pending.extend(fresh)
         n = min(len(self._pending), max_rows)
         rows, self._pending = self._pending[:n], self._pending[n:]
@@ -510,22 +424,6 @@ class DeviceReplayIngest:
             self._staging.write(rows)
         self._fed_total += n
         return n
-
-    def _validate(self, rows: List[Transition]) -> List[Transition]:
-        """The rows the validator passes; the others are quarantined."""
-        t0 = time.perf_counter()
-        if self._validator is None:
-            self._validator = health.ChunkValidator(
-                state_shape=self.state_shape, state_dtype=self.state_dtype)
-        good, bad = self._validator.filter([(t, None) for t in rows])
-        if bad:
-            health.get_quarantine(
-                "feeder-device", max_files=self.quarantine_max_files).put(bad)
-            rows = [t for t, _p in good]
-            self.quarantined += len(bad)
-        self.validated += len(good) + len(bad)
-        self.validate_s += time.perf_counter() - t0
-        return rows
 
     def snapshot(self) -> dict:
         """Drain every queued chunk into the ring, then its snapshot."""
@@ -543,11 +441,18 @@ class DeviceReplayIngest:
         self._fed_total = n  # the ring was emptied first
         return n
 
+    def xray(self) -> Optional[dict]:
+        """The priority X-ray of the attached ring; None for the uniform
+        one."""
+        return None
+
 
 class DevicePerIngest(DeviceReplayIngest):
     """Queue front end of the prioritized device ring (memory/device_per.py):
     new rows enter at the running max priority; priorities live and update
     on the device only."""
+
+    prioritized = True
 
     def __init__(self, *args, priority_exponent: float = 0.6,
                  importance_weight: float = 0.4,
@@ -568,16 +473,12 @@ class DevicePerIngest(DeviceReplayIngest):
             importance_anneal_steps=self.importance_anneal_steps,
             **self._ring_kwargs(device, capacity))
 
+    def xray(self) -> dict:
+        from pytorch_distributed_tpu_torch.memory.device_per import read_xray
 
-def _close_queue(q) -> None:
-    """Close a spawn queue in this process without waiting on a feeder
-    thread.  ``close`` leaves the read end to the feeder thread, which
-    closes both ends; with no thread (this process never put) the read
-    end is closed here."""
-    q.cancel_join_thread()
-    q.close()
-    if q._thread is None:
-        q._reader.close()
+        if self.replay is None:
+            raise RuntimeError("attach() first")
+        return read_xray(self.replay.state)
 
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:

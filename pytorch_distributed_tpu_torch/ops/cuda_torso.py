@@ -31,6 +31,14 @@ kernel's source note says what bounds it on the card.
   the reference, and go to the fp32 kernel as they lie.
 - ``build_torso_apply``: the learner's ``(params, obs) -> q`` running the
   whole torso through ``matmul``, on the port's own ``state_dict``.
+- ``group_matmul(x, w_stack, out_dtype)`` and ``build_torso_group_apply``:
+  the megabatch group's products (ops/losses.build_dqn_megabatch_step;
+  the reference vmaps its Pallas VJP, losses.py:315-318).  The weights
+  are the same M copies at group entry, so the forward is one launch over
+  the M*B rows and ``dx = g w^T`` one more; ``dw_m = x_m^T g_m`` is one
+  launch per minibatch, on row slices of ``x`` and ``g`` (M launches of
+  the same kernel; the slices start a multiple of 16 bytes apart since
+  every K of the torso is).  No library GEMM stands in for any of them.
 """
 
 from __future__ import annotations
@@ -299,6 +307,46 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
     return _Matmul.apply(x, w, out_dtype)
 
 
+class _GroupMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, out_dtype):
+        ctx.save_for_backward(x, w)
+        return gemm(x, w[0]).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        x_dtype, w_dtype = x.dtype, w.dtype
+        if not g.dtype == x_dtype == w_dtype == torch.bfloat16:
+            g, x, w = g.float(), x.float(), w.float()
+        g = tma_rows(g)
+        m = w.shape[0]
+        rows = x.shape[0] // m
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = gemm(g, w[0].t(), grad=True).to(x_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.stack([
+                gemm(x[i * rows:(i + 1) * rows].t(),
+                     g[i * rows:(i + 1) * rows], grad=True)
+                for i in range(m)]).to(w_dtype)
+        return dx, dw, None
+
+
+def group_matmul(x: torch.Tensor, w: torch.Tensor,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Differentiable product of a megabatch group: ``x`` (M*R, K), ``w``
+    (M, K, N) whose M copies are equal (the group-entry weights, stacked);
+    row group m of ``x`` multiplies copy m.  The forward is ``x @ w[0]``,
+    one launch; the backward gives ``dx = g w[0]^T`` in one launch and
+    ``dw[m] = x_m^T g_m`` in one launch per copy, so each copy's gradient
+    is its minibatch's alone."""
+    if x.shape[0] % w.shape[0]:
+        raise ValueError(f"{x.shape[0]} rows do not split into "
+                         f"{w.shape[0]} groups")
+    return _GroupMatmul.apply(x, w, out_dtype)
+
+
 def _patches(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     """im2col of NHWC ``x`` -> (B, OH, OW, k*k*C), features in (kh, kw, c)
     order (reference ``_patches``, :143-155)."""
@@ -343,5 +391,50 @@ def build_torso_apply(norm_val: float = 255.0,
         x = F.relu(y + params["fc.bias"].to(cd))
         q = matmul(x, params["head.weight"].to(cd).t(), out_dtype=cd)
         return (q + params["head.bias"].to(cd)).float()
+
+    return apply_fn
+
+
+def build_torso_group_apply(norm_val: float = 255.0,
+                            compute_dtype: torch.dtype = torch.bfloat16
+                            ) -> Callable[[Dict[str, torch.Tensor],
+                                           torch.Tensor], torch.Tensor]:
+    """The megabatch twin of ``build_torso_apply``: ``apply(stacked, obs
+    (M, B, C, H, W)) -> q (M, B, A)``, where every tensor of ``stacked``
+    holds the M copies of a parameter (M leading) and row group m runs on
+    copy m.  Each layer's product is one ``group_matmul`` over the M*B
+    rows (M*B*OH*OW patch rows for a convolution); each bias is added per
+    group; every rounding is ``build_torso_apply``'s."""
+    cd = compute_dtype
+
+    def group_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        m, n = b.shape
+        return (y.view(m, -1, n) + b.to(cd)[:, None, :]).view(-1, n)
+
+    def apply_fn(stacked: Dict[str, torch.Tensor],
+                 obs: torch.Tensor) -> torch.Tensor:
+        m, b0 = obs.shape[:2]
+        x = (obs.reshape(m * b0, *obs.shape[2:]).to(cd) / norm_val
+             ).permute(0, 2, 3, 1)
+        for name, cout, k, stride in CONV_LAYERS:
+            pat = _patches(x, k, stride)
+            b, oh, ow, feat = pat.shape
+            w = stacked[f"{name}.weight"].permute(0, 1, 3, 4, 2).reshape(
+                m, cout, feat)
+            y = group_matmul(pat.reshape(-1, feat), w.to(cd).transpose(1, 2),
+                             out_dtype=cd)
+            y = group_bias(y, stacked[f"{name}.bias"])
+            x = F.relu(y).reshape(b, oh, ow, cout)
+        b, oh, ow, c = x.shape
+        w0 = stacked["fc.weight"]
+        w0 = w0.reshape(m, w0.shape[1], c, oh, ow).permute(
+            0, 1, 3, 4, 2).reshape(m, w0.shape[1], oh * ow * c)
+        y = group_matmul(x.reshape(b, -1), w0.to(cd).transpose(1, 2),
+                         out_dtype=cd)
+        x = F.relu(group_bias(y, stacked["fc.bias"]))
+        q = group_matmul(x, stacked["head.weight"].to(cd).transpose(1, 2),
+                         out_dtype=cd)
+        q = group_bias(q, stacked["head.bias"])
+        return q.float().view(m, b0, -1)
 
     return apply_fn

@@ -1,7 +1,8 @@
 """The DQN update as a plain tensor function — the port of
-pytorch_distributed_tpu/ops/losses.py:49-150, with ``update_target``
-(utils/helpers.py:18-50) and the ``finite_guard`` / ``suppress_writeback``
-semantics of utils/health.py:105-161.
+pytorch_distributed_tpu/ops/losses.py:49-150 and of its megabatch group
+step (``_per_minibatch_ok`` and ``build_dqn_megabatch_step``, :231-343),
+with ``update_target`` (utils/helpers.py:18-50) and the ``finite_guard`` /
+``suppress_writeback`` semantics of utils/health.py:105-161.
 
 ``step(state, batch) -> (state', metrics, td_abs)``:
 
@@ -19,6 +20,17 @@ semantics of utils/health.py:105-161.
 
 The state is functional: a step returns new tensors and never writes into
 the input state, so the guard can select between the two.
+
+``step(state, batches) -> (state', metrics, td_abs (M, B), ok (M,))``, the
+megabatch group step, takes M minibatches as (M, B)-leading fields and
+takes all M gradients at the group-entry params in one forward and one
+backward over M*B rows: the params are stacked M times as autograd leaves
+(expanded views, no copy) and ``group_apply_fn(stacked, obs (M, B, ...))``
+runs row group m on copy m, so one ``autograd.grad`` of the summed losses
+gives each minibatch's gradient on its own copy.  Then the M Adam
+updates apply in turn, the step counter and the target cadence advancing
+as in M sequential steps; the guard runs per minibatch, and a non-finite
+minibatch skips its own update only.
 """
 
 from __future__ import annotations
@@ -150,5 +162,87 @@ def build_dqn_train_step(apply_fn: Callable[[Params, torch.Tensor],
             metrics[SKIPPED_KEY] = 1.0 - ok.float()
             return (_select(ok, new, state), metrics,
                     torch.where(ok, td_abs, torch.zeros_like(td_abs)))
+
+    return step
+
+
+def _per_minibatch_ok(*arrays: torch.Tensor, grads=()) -> torch.Tensor:
+    """(M,) float32: 1.0 where every per-minibatch row of ``arrays`` (the
+    losses, the |TD| rows, the q means) and of every gradient leaf (M
+    leading) is finite (reference :231-248)."""
+    ok = None
+    for a in (*arrays, *grads):
+        this = torch.isfinite(a.reshape(a.shape[0], -1)).all(1)
+        ok = this if ok is None else ok & this
+    return ok.float()
+
+
+def build_dqn_megabatch_step(apply_fn: Callable[[Params, torch.Tensor],
+                                                torch.Tensor],
+                             group_apply_fn: Callable[[Params, torch.Tensor],
+                                                      torch.Tensor],
+                             *, lr: float, clip_grad: float = float("inf"),
+                             enable_double: bool = False,
+                             target_model_update: float = 250,
+                             guard: bool = True) -> Callable:
+    """The megabatch group step (reference :250-343).  ``apply_fn(params,
+    obs (R, ...)) -> q (R, A)`` serves the target (and, with double DQN,
+    the online) forward over the M*B next states, which takes no
+    gradient; ``group_apply_fn(stacked, obs (M, B, ...)) -> q (M, B, A)``
+    the online forward, whose row group m reads ``stacked[k][m]``.
+    Metrics are the last minibatch's; ``learner/skipped`` counts the
+    group's skipped minibatches."""
+
+    def step(state: TrainState, batches: Batch):
+        M, B = batches.reward.shape
+        stacked = {k: v.detach().expand(M, *v.shape).requires_grad_(True)
+                   for k, v in state.params.items()}
+        q = group_apply_fn(stacked, batches.state0)                # (M, B, A)
+        q_sel = q.gather(2, batches.action.long().view(M, B, 1))[..., 0]
+        with torch.no_grad():
+            s1 = batches.state1.reshape(M * B, *batches.state1.shape[2:])
+            q_next = apply_fn(state.target_params, s1)
+            if enable_double:
+                a_next = apply_fn(state.params, s1).argmax(-1)
+                bootstrap = q_next.gather(1, a_next[:, None])[:, 0]
+            else:
+                bootstrap = q_next.max(-1).values
+            target = (batches.reward + batches.gamma_n
+                      * bootstrap.view(M, B) * (1.0 - batches.terminal1))
+        td = q_sel - target
+        losses = torch.mean(batches.weight * td.square(), 1)
+        leaves = list(stacked.values())
+        grads = dict(zip(stacked, torch.autograd.grad(losses.sum(), leaves)))
+        with torch.no_grad():
+            losses = losses.detach()
+            q_means = q.max(-1).values.mean(1)
+            td_abs = td.detach().abs()
+            ok = (_per_minibatch_ok(losses, td_abs, q_means,
+                                    grads=grads.values()) if guard
+                  else torch.ones(M, device=losses.device))
+            params, target_p = state.params, state.target_params
+            opt, step_c = state.opt_state, state.step
+            for m in range(M):
+                new_params, new_opt = adam_update(
+                    {k: g[m] for k, g in grads.items()}, opt, params, lr,
+                    clip_grad)
+                new_step = step_c + 1
+                new_target = update_target(target_p, new_params, new_step,
+                                           target_model_update)
+                keep = ok[m] > 0.5
+                params, target_p, opt, step_c = _select(
+                    keep, TrainState(new_params, new_target, new_opt,
+                                     new_step),
+                    TrainState(params, target_p, opt, step_c))
+            metrics = {"learner/critic_loss": losses[-1],
+                       "learner/q_mean": q_means[-1],
+                       "learner/grad_norm": global_norm(
+                           {k: g[-1] for k, g in grads.items()})}
+            if guard:
+                metrics[SKIPPED_KEY] = torch.sum(1.0 - ok)
+            td_abs = torch.where(ok[:, None] > 0.5, td_abs,
+                                 torch.zeros_like(td_abs))
+            return (TrainState(params, target_p, opt, step_c), metrics,
+                    td_abs, ok)
 
     return step

@@ -11,7 +11,7 @@ scheduled at that frame fires.  The schedule comes from
 - ``CKPT_FAULTS``: the epoch writer (utils/checkpoint.py ``save_epoch``),
   one frame per write point of a save;
 - ``FEEDER_FAULTS``: an actor's ingest feeder, one frame per flush
-  (memory/device_replay.py ``QueueFeeder.flush``);
+  (memory/feeder.py ``QueueFeeder.flush``);
 - ``LEARNER_FAULTS``: the learner, one frame per update dispatch;
 - ``ACTOR_FAULTS``: an actor, one frame per vector tick (one per fused
   dispatch on the device backend).
@@ -26,10 +26,10 @@ Actions (``action@frame`` or ``action@frame:arg``):
 - ``delay@N:S``: sleep S seconds first;
 - ``poison_chunk@N`` and ``poison_grad@N``: data-plane verbs that the
   endpoint applies itself when it asks for them through ``data_frame``
-  (the feeder NaNs flush N's rows; the learner's notice for
-  ``poison_grad`` is that it targets a host-sampled batch, which config
-  12's fused device step does not have).  Scheduled on an endpoint that
-  does not ask for them they are inert and only recorded.
+  (the feeder NaNs flush N's rows; the learner NaNs the rewards of the
+  host-sampled batch of dispatch N, and on a fused device ring, which
+  has no host batch, prints that it is inert).  Scheduled on an endpoint
+  that does not ask for them they are inert and only recorded.
 
 Every fired event is recorded in the flight recorder, and a fatal one
 (``crash``, ``kill``, ``hang``) dumps every ring of the process first:

@@ -16,7 +16,8 @@ dqn-cnn) against the JAX package:
 - the entry point: ``main`` on config 12 with ``--device cpu`` at a small
   size, with the default actors and with ``actor_backend=batched`` on
   both backends, and the refusals (no GPU without ``--device cpu``, rows
-  and actor backends not ported yet, unknown backends)."""
+  and device envs not ported yet, unknown backends), with ``megabatch``
+  under Anakin and on a host-replay row."""
 
 import functools
 import tempfile
@@ -279,10 +280,10 @@ def test_main_without_a_gpu_refuses_cuda():
 @pytest.mark.parametrize("what", ["config", "backend",
                                   "actor_backend=device",
                                   "actor_backend=anakin", "option"])
-def test_refuses_what_is_not_ported(what):
+def test_refuses_what_is_not_ported(what, capsys):
     if what == "config":
         with pytest.raises(NotImplementedError):
-            build_options(8)
+            build_options(2)  # ddpg: not ported yet (ROADMAP.md Queue A)
     elif what == "backend":
         # both of the reference's backends run; any other is refused
         # before a worker starts
@@ -290,16 +291,27 @@ def test_refuses_what_is_not_ported(what):
 
         with pytest.raises(ValueError, match="unknown backend"):
             runtime.train(build_options(12, device="cpu"), backend="fleet")
-    elif what.startswith("actor_backend="):
-        # both device-env backends run (tests/test_torch_anakin.py); what
-        # they still lack is refused before a worker starts: a device env
-        # of another game, and megabatching under anakin (ROADMAP.md)
-        extra, match = {
-            "device": ("device_env_family=cartpole", "does not implement"),
-            "anakin": ("megabatch=2", "unknown option: megabatch"),
-        }[what.split("=")[1]]
-        with pytest.raises(ValueError, match=match):
-            port_main.main(_small_run("--set", what, "--set", extra))
+    elif what == "actor_backend=device":
+        # the device env backend refuses what it still lacks before a
+        # worker starts: a device env of another game
+        with pytest.raises(ValueError, match="does not implement"):
+            port_main.main(_small_run("--set", what, "--set",
+                                      "device_env_family=cartpole"))
+    elif what == "actor_backend=anakin":
+        # megabatching runs under anakin now: K rounds up to M
+        summary = port_main.main(_small_run("--set", what,
+                                            "--set", "megabatch=2"))
+        assert summary["learner/steps"] == 20
+        assert np.isfinite(summary["learner/critic_loss"])
+        assert "rounded up to 2 (multiple of megabatch 2)" in \
+            capsys.readouterr().out
     else:
-        with pytest.raises(ValueError, match="unknown option"):
-            build_options(12, megabatch=4)
+        # megabatch is an option now; a host-replay row runs unbatched and
+        # says so with the reference's line
+        argv = _small_run("--set", "megabatch=4")
+        argv[argv.index("--config") + 1] = "4"
+        summary = port_main.main(argv)
+        assert summary["learner/steps"] == 20
+        assert ("[learner] megabatch=4 requires a device replay "
+                "(memory_type device/device-per; got shared); host-path "
+                "learner runs unbatched") in capsys.readouterr().out

@@ -89,9 +89,10 @@ Phases, each printed as one JSON line:
 14. test_mode: ``main --mode 2`` on that params file, one capped episode
    with inference on the card: finite stats of one episode, and the peak
    of allocated device memory up by at least the weights' bytes;
-15. process_trace: the process run again with the device traced by
-   ``torch.profiler`` (CUDA activity only, started and stopped in the
-   learner's thread between graph replays) over updates 600 to 850: the
+15. process_trace: the process run again, 800 updates, with the device
+   traced by ``torch.profiler`` (CUDA activity only, started and stopped
+   in the learner's thread between graph replays) over updates 600 to
+   700: the
    device's idle share in that window as traced, its busy ms per update,
    and, labelled as an estimate, the idle share that busy time would
    leave at train_process's unprofiled rate;
@@ -125,7 +126,7 @@ Phases, each printed as one JSON line:
    no actor child and no child with CUDA, evaluator rows; updates/s,
    frames/s and the duty cycle; then each variant's loop driven here by
    ``AnakinDriver``'s own scheduler and traced by ``torch.profiler`` over a
-   window (40 updates strict, 200 at ratio 16, the profiler started and
+   window (20 updates strict, 100 at ratio 16, the profiler started and
    stopped between dispatches in the launching thread): the device's
    idle share as traced and, as an estimate, at the untraced rate;
 20. train_device: the process run with ``actor_backend=device`` (each
@@ -140,7 +141,7 @@ Phases, each printed as one JSON line:
    (enough that, on a fast host, the watchdog's 10 s and the respawn
    fall well before the end) with 2
    restarts and 1 hang kill, no child with CUDA and the same launches
-   per update; the time from the kill to the respawned child's first
+   per dispatched update (a rollback runs some again); the time from the kill to the respawned child's first
    tick. (2) ``main`` in a subprocess with ``checkpoint_replay`` on, sent
    SIGTERM once its log passes step 1,000: it must exit 0 within 60 s,
    and its newest epoch must pass ``ckpt_fsck`` and hold ``state.pt``,
@@ -207,7 +208,43 @@ Phases, each printed as one JSON line:
    + 9 GEMMs an update;
 27. small_rows: rows 1 and 3 (``dqn-mlp``, no kernel on their path)
    through ``main``: row 1 learns the chain (the evaluator reaches 1.0,
-   mode 2 on its best params solves every episode in 7 steps).
+   mode 2 on its best params solves every episode in 7 steps);
+28. planes: config 12's planes that are on by default (provenance,
+   tracing, the bandwidth X-ray, flow control, the histogram, bucket and
+   span rows), at full width. (a) ``main`` on the process backend, 2,000
+   updates, the defaults: the ``learner/staleness``,
+   ``learner/sample_age`` and ``replay/actor_share`` histogram rows (no
+   negative staleness or age; the provenance the learner's windows read
+   has actor ids in [0, 2) and env slots in [0, 16)), ``replay/priority``
+   bucket rows whose counts sum to their rows, ``enqueue``, ``feed`` and
+   ``learn`` span rows with a trace id seen both at the mint and at
+   ``learn``, ``replay/hbm_bytes`` equal to the ring's bytes from its
+   geometry (``prov`` included), ``wire/spawn/bytes_per_s`` rows and the
+   same launches per update; the spawn link's bytes drained at most those
+   minted, counted over the thread backend's run (``train``), where the
+   actors and the learner share one process. (b) The same run with
+   ``TPU_APEX_TRACE=0 TPU_APEX_WIRE=0``: updates/s and frames/s beside
+   (a)'s, the cost of the planes (a finding, not a gate). (c) Anakin at
+   ``rollout_ratio`` 16 driven here for 1,000 updates: every written row
+   of its ring stamped ``(0, an env row of 32, a version from 1 to the
+   published one, a birth step up to the last update)``, the launches per
+   update. (d) The fleet's rollout into a PER ring, graphed against eager
+   over 6 dispatches whose stamps change after the capture: the rings to
+   the bit, ``prov`` included. (e) A shed drill
+   (``TPU_APEX_FLOW_LOCAL_POLICY=shed``, a feeder ring of 4 chunks, an
+   ingest queue of 8 and a pending bound of 64 rows): both shed points
+   drop rows, and minted == ingested + shed + parked;
+29. wide_torso: CONFIGS row 19 (the wide residual torso, width 128,
+   batch 128, 50,000 rows) at full width: the graph replay of its fused
+   update against eager, to the bit; the learner alone
+   (``bench_learner``): updates/s, device ms an update, the peak of
+   allocated memory, 1 draw and no GEMM an update; ``main`` with
+   ``actor_backend=anakin`` at ratio 16 (1,000 updates: updates/s,
+   frames/s, the duty cycle, a finite loss) and on the thread backend
+   with the actors on the card (500 updates), each with 1 draw and no
+   GEMM an update and no evaluator (a greedy episode of the wide torso on
+   the evaluator's CPU takes minutes); one pipelined CPU actor of 16 envs
+   in a spawn child, ms a tick over 20 ticks.
 
 ``python3 chip_smoke.py PHASE ...`` runs ``build`` and the named phases
 only.  Then a ``kernels`` line (the table PERF.md is written from: B1's
@@ -215,8 +252,9 @@ and the bf16 GEMM's launches from the train_process phase, the fp32
 GEMM's from the fp32 learner run, and each kernel's launches on the
 process runs with pipelined, batched and device actors, on the two
 Anakin runs, on the two health drills, on the megabatch learner and
-Anakin runs, on row 8's two runs and on the three host runs; B1 and
-B2 held at a megabatch group beside their per-update numbers), the
+Anakin runs, on row 8's two runs, on the three host runs, on the
+planes' runs and on row 19's two runs; B1 and B2 held at a megabatch
+group beside their per-update numbers), the
 card's name and power limit, and the verdict as the last line.  Exits non-zero, with no
 verdict, if there is no GPU, if the package is missing, or if any phase
 fails.  TF32 is off throughout, so fp32 references are full fp32.
@@ -711,13 +749,13 @@ def torso_apply():
 
 
 def _graph_matches_eager(compute_dtype: str, megabatch: int = 1,
-                         torso: bool = True) -> float:
+                         torso: bool = True, config: int = 12) -> float:
     """Six dispatches of four updates each replayed from the CUDA graph
     against six eager ones, from the same state, ring and uniforms, with
     the kernel torso (or, ``torso=False``, the module's forward) in
     ``compute_dtype``, in groups of ``megabatch``: the largest difference
     over params and priorities (the same kernels in the same order: 0 in
-    every run so far)."""
+    every run so far).  ``config`` is the CONFIGS row (its model)."""
     from pytorch_distributed_tpu_torch import bench_learner
     from pytorch_distributed_tpu_torch.config import build_options
     from pytorch_distributed_tpu_torch.factory import (
@@ -728,7 +766,7 @@ def _graph_matches_eager(compute_dtype: str, megabatch: int = 1,
         DevicePerReplay, GraphedFusedStep,
     )
 
-    opt = build_options(12, device="cuda", pallas_torso=torso,
+    opt = build_options(config, device="cuda", pallas_torso=torso,
                         compute_dtype=compute_dtype, megabatch=megabatch,
                         steps_per_dispatch=4)
     spec = EnvSpec(FRAME, ACTIONS, 255.0)
@@ -737,7 +775,7 @@ def _graph_matches_eager(compute_dtype: str, megabatch: int = 1,
         ring = DevicePerReplay(4096, FRAME, device=DEV)
         bench_learner.fill_ring(ring, ACTIONS,
                                 torch.Generator(device=DEV).manual_seed(5))
-        model = build_model(opt, spec)
+        model = build_model(opt, spec, init_weights=False)
         state, step = build_train_state_and_step(
             opt, model, init_params(opt, spec, seed=0, device=DEV))
         m, k, mega = resolve_fused_step(opt, model, "chip_smoke")
@@ -839,11 +877,12 @@ def expected_launches(updates: int, megabatch: int = 1, draws: bool = True,
 def _train_through_main(backend: str, refs: str = "", *sets: str,
                         phases=("env", "advance", "tick"), config: int = 12,
                         steps: int = TRAIN_STEPS, megabatch: int = 1,
-                        draws: bool = True) -> tuple:
+                        draws: bool = True, torso: bool = True) -> tuple:
     """One end-to-end run through ``main``; the kernels' launch counters
     are zeroed just before it and read just after, in this process, and
     held to ``expected_launches``.  ``phases``: the actors' timer phases
-    the run must have logged."""
+    the run must have logged; ``torso`` False: a model the GEMM kernel
+    does not serve (0 GEMMs)."""
     from pytorch_distributed_tpu_torch import main as port_main
     from pytorch_distributed_tpu_torch.config import build_options
     from pytorch_distributed_tpu_torch.utils.metrics import timer_phases
@@ -859,7 +898,7 @@ def _train_through_main(backend: str, refs: str = "", *sets: str,
     if steps_done < steps or not math.isfinite(
             summary["learner/critic_loss"]):
         raise AssertionError(f"{backend} train: {summary}")
-    want = expected_launches(steps_done, megabatch, draws)
+    want = expected_launches(steps_done, megabatch, draws, torso)
     if launches != want:
         raise AssertionError(f"launch counts {launches} for {steps_done} "
                              f"steps, not {want}")
@@ -888,9 +927,16 @@ def _train_through_main(backend: str, refs: str = "", *sets: str,
 
 def train():
     """Config 12 at full width through the port's entry point, thread
-    backend."""
+    backend; the bandwidth X-ray's spawn link counted from its start (the
+    actors' mint and the learner's drain share this process)."""
+    from pytorch_distributed_tpu_torch.utils import bandwidth
+
+    bandwidth.reset_for_tests()
     out, _summary = _train_through_main("thread")
-    return out
+    acct = bandwidth.get_accountant()
+    RESULTS["wire_thread"] = {v: acct.totals("spawn", v)
+                              for v in ("mint", "drain")}
+    return dict(out, spawn_bytes_frames=RESULTS["wire_thread"])
 
 
 def _publisher_matches_inline() -> int:
@@ -1249,13 +1295,15 @@ def _busy_us(trace_path: str) -> tuple:
 def process_trace():
     """The unpaced process-backend run of ``train_process`` again, with the
     device traced by ``torch.profiler`` while the learner takes updates 600
-    to 850: the device's idle share in that window as traced (the
+    to 700 (the run stops at 800): the device's idle share in that window
+    as traced (the
     union of its kernels and copies against the window's wall time), its
     busy time per update, the window's updates/s beside the unprofiled
     run's, and, as an estimate, the idle share that busy time would leave
     at the unprofiled rate."""
     summary, window = _traced_run(
-        _e2e_argv("process", "process_trace"), 600, 850, "process_trace")
+        _e2e_argv("process", "process_trace", steps=PROCESS_TRACE_STEPS),
+        *PROCESS_TRACE_WINDOW, "process_trace")
     busy_ms = window["device_busy_ms_per_update"]
     rate = RESULTS.get("e2e_process", {}).get("updates_per_sec")
     return {**{k: window[k] for k in (
@@ -1651,7 +1699,9 @@ def _resume_leg_drill() -> dict:
     _zero_launches()
     timer.start()
     summary = topology.run()
-    launches = _launches_per_update(summary["learner/steps"])
+    # per dispatched update: a rollback of the health plane (on by
+    # default, as in the reference) runs again the updates past its epoch
+    launches = _launches_per_update(summary["learner/updates"])
     timer.join(timeout=10.0)
     if "error" in faults or summary["learner/steps"] < DRILL_STEPS:
         raise AssertionError(f"leg 1: {faults} {summary}")
@@ -1661,6 +1711,7 @@ def _resume_leg_drill() -> dict:
                   "preempted": 0}:
         raise AssertionError(f"leg 1: runtime counts {counts}")
     return dict(faults, **counts, launches=launches,
+                rollbacks=summary["health/rollbacks"],
                 updates_per_sec=summary["learner/updates_per_sec"],
                 epochs=summary["checkpoint/epochs_committed"],
                 epoch_bytes=summary["checkpoint/epoch_bytes"],
@@ -1798,7 +1849,9 @@ def resume():
 FLEET = 32  # config 12's fleet: 2 actors x 16 envs
 # train_anakin's traced windows, in learner steps: a strict window's
 # trace holds every kernel of 40 rollouts
-TRACE_WINDOWS = {"strict": (300, 340), "ratio16": (400, 600)}
+TRACE_WINDOWS = {"strict": (300, 320), "ratio16": (400, 500)}
+# process_trace: the traced updates, and where its run stops
+PROCESS_TRACE_WINDOW, PROCESS_TRACE_STEPS = (600, 700), 800
 ENV_SIZES = (32, 256, 1024)
 ENV_EARLY_STOP, ENV_STEPS = 100, 350  # 3 truncated episodes and a half
 ROLLOUT_TICKS, ROLLOUT_TIMED = 8, 50
@@ -3051,6 +3104,413 @@ def small_rows():
         out[f"row{config}"] = row
     return dict(out, card=card_name_and_power_limit())
 
+# ---------------------------------------------------------------------------
+# planes: config 12's default-on planes, and row 19's wide torso
+# ---------------------------------------------------------------------------
+
+# config 12's ring at full width as the reference's ring of the same
+# geometry holds it: two uint8 frame columns, int32 actions, three f32
+# columns, the (N, 4) int32 provenance column, the f32 priorities, and the
+# f32 running max and the int32 cursor and fill
+RING_BYTES = (RING_ROWS * (2 * int(np.prod(FRAME)) + 4 + 3 * 4 + 16 + 4)
+              + 3 * 4)
+PLANE_ENV = ("TPU_APEX_TRACE", "TPU_APEX_WIRE")
+SHED_ENV = {"TPU_APEX_FLOW_LOCAL_POLICY": "shed",
+            "TPU_APEX_FLOW_FEEDER_RING": "4",
+            "TPU_APEX_FLOW_MAX_PENDING_ROWS": "64"}
+SHED_FLUSHES, SHED_CHUNK, SHED_QUEUE_CHUNKS = 256, 16, 8
+
+
+def _reset_planes() -> None:
+    """Resolve the tracing and bandwidth planes again from the
+    environment in this process (the learner's)."""
+    from pytorch_distributed_tpu_torch.utils import bandwidth, tracing
+
+    bandwidth.reset_for_tests()
+    tracing.reset()
+
+
+def _planes_rows(refs: str, prov_seen: list) -> dict:
+    """The planes' rows of a process run's ``scalars.jsonl``, held to
+    what they must say; ``prov_seen`` the provenance matrices the
+    learner's windows read."""
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.utils import metrics
+
+    rows = metrics.read_rows(build_options(12, root_dir=RUN_DIR,
+                                           refs=refs).log_dir)
+    hist = {}
+    for r in rows:
+        if r.get("kind") == "histogram":
+            hist.setdefault(r["tag"], []).append(r)
+    for tag in ("learner/staleness", "learner/sample_age",
+                "replay/actor_share"):
+        if not hist.get(tag):
+            raise AssertionError(f"no {tag} histogram row")
+    if min(r["p50"] for r in hist["learner/staleness"]) < 0 or min(
+            r["p50"] for r in hist["learner/sample_age"]) < 0:
+        raise AssertionError("a negative staleness or age")
+    if not prov_seen:
+        raise AssertionError("no provenance read on the stats windows")
+    prov = np.concatenate(prov_seen)
+    known = prov[prov[:, 0] >= 0]
+    if not len(known) or not ((known[:, 0] >= 0) & (known[:, 0] < 2)).all() \
+            or not ((known[:, 1] >= 0) & (known[:, 1] < 16)).all():
+        raise AssertionError(f"provenance out of range: actors "
+                             f"{np.unique(known[:, 0])}, slots "
+                             f"{np.unique(known[:, 1])}")
+    buckets = [r for r in rows if r.get("kind") == "buckets"
+               and r["tag"] == "replay/priority"]
+    if not buckets or any(sum(r["counts"]) != r["rows"] for r in buckets):
+        raise AssertionError(f"replay/priority buckets: {buckets[-1:]}")
+    spans = [r for r in rows if r.get("kind") == "span"]
+    ids: dict = {}
+    for r in spans:
+        ids.setdefault((r["role"], r["span"]), set()).add(r["trace_id"])
+    for key in (("actor", "enqueue"), ("feeder", "feed"),
+                ("learner", "learn")):
+        if not ids.get(key):
+            raise AssertionError(f"no {key} span rows: {sorted(ids)}")
+    joined = ids[("actor", "enqueue")] & ids[("learner", "learn")]
+    if not joined:
+        raise AssertionError("no trace id seen both at the mint and at "
+                             "learn")
+    hbm = {r["value"] for r in rows if r.get("tag") == "replay/hbm_bytes"}
+    if hbm != {float(RING_BYTES)}:
+        raise AssertionError(f"replay/hbm_bytes {hbm}, the geometry gives "
+                             f"{RING_BYTES}")
+    wire = [r["value"] for r in rows if r.get("tag") ==
+            "wire/spawn/bytes_per_s"]
+    if not wire:
+        raise AssertionError("no wire/spawn/bytes_per_s rows")
+    last = lambda tag: hist[tag][-1]
+    return {"staleness_last_window": {k: last("learner/staleness")[k] for k
+                                      in ("count", "p50", "p95", "max")},
+            "sample_age_last_window": {k: last("learner/sample_age")[k] for
+                                       k in ("count", "p50", "p95", "max")},
+            "actor_share_last_window": {k: last("replay/actor_share")[k]
+                                        for k in ("count", "p50", "max")},
+            "histogram_rows": {k: len(v) for k, v in hist.items()},
+            "bucket_rows": len(buckets), "span_rows": len(spans),
+            "trace_ids_mint_and_learn": len(joined),
+            "replay_hbm_bytes": RING_BYTES,
+            "wire_spawn_bytes_per_s_median": float(np.median(wire)),
+            "prov_rows_read": int(len(prov))}
+
+
+def _anakin_prov_run() -> dict:
+    """Config 12's Anakin driver at ``rollout_ratio`` 16 run here through
+    its own loop (``run``) for 1,000 updates, then its ring's provenance
+    read: every written row ``(0, env row of 32, version <= the published
+    one, birth step <= the last update)``; the launches counted over the
+    run."""
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch.agents.anakin import AnakinDriver
+    from pytorch_distributed_tpu_torch.agents.clocks import (
+        ActorStats, GlobalClock, LearnerStats,
+    )
+    from pytorch_distributed_tpu_torch.agents.param_store import (
+        ParamStore, num_params,
+    )
+    from pytorch_distributed_tpu_torch.factory import (
+        build_memory, build_model, probe_env,
+    )
+
+    opt = port_main.options_from_args(port_main.parse_args(_e2e_argv(
+        "process", "planes_anakin", "actor_backend=anakin",
+        "rollout_ratio=16", steps=1000)))
+    spec = probe_env(opt)
+    handles = build_memory(opt, spec, in_process=True)
+    store = ParamStore(num_params(build_model(
+        opt, spec, init_weights=False).state_dict()))
+    drv = AnakinDriver(opt, spec, handles.learner_side, store, GlobalClock(),
+                       LearnerStats(), actor_stats=ActorStats())
+    _zero_launches()
+    try:
+        summary = drv.run()
+    finally:
+        handles.learner_side.close()
+    launches = _launches_per_update(summary["learner/steps"])
+    ring = drv.rings[0].state
+    prov = ring.prov[:ring.fill].cpu().numpy()
+    version = store.version
+    ok = ((prov[:, 0] == 0).all() and (prov[:, 1] >= 0).all()
+          and (prov[:, 1] < FLEET).all() and (prov[:, 2] >= 1).all()
+          and (prov[:, 2] <= version).all() and (prov[:, 3] >= 0).all()
+          and (prov[:, 3] <= summary["learner/steps"]).all())
+    if not ok or ring.fill < RING_ROWS // 4:
+        raise AssertionError(f"anakin prov: {ring.fill} rows, actors "
+                             f"{np.unique(prov[:, 0])}, versions "
+                             f"{prov[:, 2].min()}..{prov[:, 2].max()} of "
+                             f"{version}")
+    RESULTS["launches_planes_anakin"] = launches
+    return {"launches": launches,
+            "updates_per_sec": summary["learner/updates_per_sec"],
+            "frames_per_sec": summary["actor/steps_per_sec"],
+            "duty_cycle": summary["anakin/duty_cycle"],
+            "ring_rows": int(ring.fill), "published_version": version,
+            "prov_versions": sorted(int(v) for v in np.unique(prov[:, 2]))}
+
+
+def _rollout_graph_prov() -> dict:
+    """The fleet's rollout into a PER ring, graphed against eager, six
+    dispatches whose stamps change after the capture (dispatch 3 on): the
+    two rings, ``prov`` included, to the bit."""
+    from pytorch_distributed_tpu_torch.memory.device_per import (
+        DevicePerReplay,
+    )
+    from pytorch_distributed_tpu_torch.utils.experience import REPLAY_FIELDS
+
+    stamps = [(0, 1, 0), (0, 1, 8), (0, 1, 16), (0, 2, 24), (0, 3, 32),
+              (0, 3, 40)]
+    rings = [DevicePerReplay(4096, FRAME, device=DEV) for _ in range(2)]
+    runs = [_fleet_rollout("replay", graph=g, ring=r.state)
+            for g, r in zip((False, True), rings)]
+    for stamp in stamps:
+        for roll, carry, params, gen in runs:
+            roll.draw(gen)
+            roll(params, carry, prov=stamp)
+    torch.cuda.synchronize()
+    a, b = (r.state for r in rings)
+    for f in REPLAY_FIELDS + ("prov", "priority", "max_priority"):
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"graphed rollout: ring {f} differs from "
+                                 f"eager")
+    versions = sorted(int(v) for v in torch.unique(b.prov[:b.fill, 2]))
+    if versions != [1, 2, 3]:
+        raise AssertionError(f"graphed rollout stamped versions {versions}")
+    return {"dispatches": len(stamps), "rows": b.fill,
+            "versions_stamped": versions,
+            "graph_vs_eager": "bit-equal rings, prov included"}
+
+
+def _shed_drill() -> dict:
+    """Flow control's two shed points at full width, here: a feeder
+    (``local_policy=shed``, a ring of 4 chunks) flushing 256 chunks of 16
+    full-size rows into an ingest queue of 8 chunks that a device PER
+    ingest (pending bound 64 rows) drains every 16 flushes: both shed
+    points must drop rows, and the rows minted must equal those ingested
+    plus those shed plus those still parked in the feeder's ring."""
+    from pytorch_distributed_tpu_torch.memory.device_replay import (
+        DevicePerIngest,
+    )
+    from pytorch_distributed_tpu_torch.utils.experience import (
+        Transition, make_prov,
+    )
+
+    old = {k: os.environ.get(k) for k in SHED_ENV}
+    os.environ.update(SHED_ENV)
+    try:
+        ingest = DevicePerIngest(RING_ROWS, FRAME, in_process=True,
+                                 max_queue_chunks=SHED_QUEUE_CHUNKS)
+        ingest.attach(DEV)
+        feeder = ingest.make_feeder(chunk=SHED_CHUNK)
+        feeder.configure_flow(None)
+        rng = np.random.default_rng(0)
+        frames = rng.integers(0, 255, (8, *FRAME), dtype=np.uint8)
+        minted = 0
+        t0 = time.perf_counter()
+        for i in range(SHED_FLUSHES * SHED_CHUNK):
+            feeder.feed(Transition(
+                frames[i % 8], np.int32(i % ACTIONS), np.float32(1.0),
+                np.float32(0.95), frames[(i + 1) % 8], np.float32(0.0),
+                prov=make_prov(i % 2, i % 16, 1, i)))
+            minted += 1
+            if (i + 1) % (16 * SHED_CHUNK) == 0:
+                ingest.drain()
+        while ingest.drain():
+            pass
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ring = feeder._flow_ring
+    ingested = ingest.size
+    feeder_shed = ring.dropped_rows
+    ingest_shed = ingest.flow_counters.get("shed_rows", 0)
+    parked = ring.buffered_rows
+    if feeder_shed <= 0 or ingest_shed <= 0 or \
+            ingested + feeder_shed + ingest_shed + parked != minted:
+        raise AssertionError(f"shed drill: minted {minted}, ingested "
+                             f"{ingested}, shed {feeder_shed} + "
+                             f"{ingest_shed}, parked {parked}")
+    ingest.close()
+    return {"minted": minted, "ingested": ingested,
+            "shed_feeder_ring": feeder_shed, "shed_ingest_pending":
+            ingest_shed, "parked_in_feeder_ring": parked,
+            "shed_by_actor_feeder": ring.dropped_by_actor,
+            "shed_by_actor_ingest": {k: v for k, v in
+                                     ingest.flow_counters.items()
+                                     if k.startswith("shed_by_actor")},
+            "seconds": seconds}
+
+
+def planes():
+    """Config 12's default-on planes at full width (see the module
+    docstring): the process run with every plane on, the same with
+    tracing and the bandwidth X-ray off, Anakin's ring provenance, the
+    graphed rollout's stamps and the shed drill."""
+    from pytorch_distributed_tpu_torch.utils import health
+
+    seen: list = []
+    stats = health.provenance_stats
+
+    def spy(prov, *a, **kw):
+        seen.append(np.asarray(prov))
+        return stats(prov, *a, **kw)
+
+    health.provenance_stats = spy
+    try:
+        on, summary = _train_through_main("process", "planes")
+    finally:
+        health.provenance_stats = stats
+    RESULTS["launches_planes"] = on["launches"]
+    if summary["runtime/children_with_cuda"] != 0:
+        raise AssertionError("a child made a CUDA context")
+    keys = ("updates_per_sec", "actor_frames_per_sec", "host_s",
+            "train_seconds", "launches")
+    out = {"planes_on": {k: on[k] for k in keys}}
+    out["rows"] = _planes_rows("planes", seen)
+    if "wire_thread" not in RESULTS:  # run alone: the train phase first
+        train()
+    wire = RESULTS["wire_thread"]
+    (mint_b, mint_f), (drain_b, drain_f) = wire["mint"], wire["drain"]
+    if not 0 < drain_b <= mint_b or drain_f > mint_f:
+        raise AssertionError(f"spawn link: drained {wire['drain']} of "
+                             f"minted {wire['mint']}")
+    out["spawn_link_thread_run"] = {"mint_bytes": mint_b,
+                                    "drain_bytes": drain_b,
+                                    "mint_chunks": mint_f,
+                                    "drain_chunks": drain_f}
+    old = {k: os.environ.get(k) for k in PLANE_ENV}
+    os.environ.update({k: "0" for k in PLANE_ENV})
+    _reset_planes()
+    try:
+        off, _s = _train_through_main("process", "planes_off")
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        _reset_planes()
+    RESULTS["launches_planes_off"] = off["launches"]
+    out["planes_off"] = {k: off[k] for k in keys}
+    out["on_over_off"] = {k: on[k] / off[k] for k in (
+        "updates_per_sec", "actor_frames_per_sec")}
+    out["anakin"] = _anakin_prov_run()
+    out["rollout_graph"] = _rollout_graph_prov()
+    out["shed_drill"] = _shed_drill()
+    return dict(out, card=card_name_and_power_limit())
+
+
+WIDE_CPU_TICKS = 20
+
+
+def _wide_actor_child(results, root: str) -> None:
+    """Spawn child: the process backend's actor set-up, then one pipelined
+    actor of 16 envs at row 19 on the CPU for WIDE_CPU_TICKS ticks."""
+    from pytorch_distributed_tpu_torch import runtime
+    from pytorch_distributed_tpu_torch.agents.actor import bounded_actor_run
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    try:
+        opt = build_options(
+            19, device="cpu", num_actors=2, num_envs_per_actor=NATIVE_ENVS,
+            evaluator_nepisodes=1, actor_backend="pipelined",
+            actor_freq=10 ** 9, root_dir=root, refs="wide_actor")
+        threads = runtime.child_threads(opt)
+        runtime.enter_child(threads)
+        r = bounded_actor_run(opt, WIDE_CPU_TICKS)
+        t = r["timer_ms"]
+        results.put({"threads": threads,
+                     "ms_per_tick": r["seconds"] / WIDE_CPU_TICKS * 1e3,
+                     "frames_per_sec": r["env_steps"] / r["seconds"],
+                     "phases_ms": {k[len("actor/time_"):-3]: v
+                                   for k, v in t.items()
+                                   if k.endswith("_ms") and not
+                                   k.endswith(("_max_ms", "_total_ms"))},
+                     "cuda_initialized": torch.cuda.is_initialized()})
+    except BaseException as e:  # reported by the parent
+        results.put({"error": repr(e)})
+        raise
+
+
+def _wide_cpu_actor() -> dict:
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    child = ctx.Process(target=_wide_actor_child,
+                        args=(results, os.path.join(RUN_DIR, "wide_actor")))
+    child.start()
+    try:
+        out = results.get(timeout=400)
+    finally:
+        child.join(60)
+        if child.is_alive():
+            child.terminate()
+            child.join(5)
+    if "error" in out or out["cuda_initialized"]:
+        raise AssertionError(f"row 19 CPU actor: {out}")
+    return dict(out, ticks=WIDE_CPU_TICKS, envs=NATIVE_ENVS)
+
+
+def wide_torso():
+    """CONFIGS row 19 (the wide residual torso, width 128) at full width:
+    the graph replay of its fused update against eager, the learner alone,
+    Anakin at ratio 16 and the thread backend's GPU actors through
+    ``main``, and one CPU actor's ms a tick."""
+    from pytorch_distributed_tpu_torch import bench_learner
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    out = {}
+    diff = _graph_matches_eager("bfloat16", torso=False, config=19)
+    if diff != 0.0:
+        raise AssertionError(f"row 19: graph replay differs from eager by "
+                             f"{diff}")
+    out["graph_vs_eager_max_abs_diff"] = diff
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    r = bench_learner.run(build_options(19, device="cuda",
+                                        pallas_torso=True),
+                          updates=100, profile=True, graph=True)
+    want = {"hierarchical_sample": 1, "gemm_bf16": 0, "gemm_bf16_grad": 0,
+            "gemm_f32": 0, "gemm_f32_grad": 0}
+    if r["launches_per_update"] != want:
+        raise AssertionError(f"row 19 learner: launches per update "
+                             f"{r['launches_per_update']}")
+    out["learner_alone"] = {
+        "updates_per_sec": r["updates_per_sec"],
+        "device_ms_per_update": r.get("device_ms_per_update"),
+        "launches_per_update": r["launches_per_update"],
+        "peak_allocated_gb": torch.cuda.max_memory_allocated(DEV) / 1e9,
+        "top_device_ms": r.get("top_device_ms", [])[:8]}
+    for name, backend, sets, steps in (
+            ("anakin", "process", ("actor_backend=anakin",
+                                   "rollout_ratio=16"), 1000),
+            ("thread", "thread", (), 500)):
+        torch.cuda.reset_peak_memory_stats(DEV)
+        run, summary = _train_through_main(
+            backend, f"wide_{name}", *sets, "evaluator_nepisodes=0",
+            config=19, steps=steps,
+            torso=False, phases=() if name == "anakin" else (
+                "env", "advance", "tick"))
+        RESULTS[f"launches_wide_{name}"] = run["launches"]
+        out[name] = {k: run[k] for k in (
+            "updates_per_sec", "actor_frames_per_sec", "train_seconds",
+            "critic_loss", "launches", "peak_mem_gb", "replay_ratio")}
+        if name == "anakin":
+            out[name]["duty_cycle"] = summary["anakin/duty_cycle"]
+        else:
+            out[name]["actor_phases_ms"] = run["actor_phases_ms"]
+    out["cpu_actor"] = _wide_cpu_actor()
+    return dict(out, card=card_name_and_power_limit())
+
 
 KERNELS = (
     ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
@@ -3077,7 +3537,8 @@ def main() -> int:
               staged_drain, train, train_process, test_mode, process_trace,
               train_paced, inference, train_batched, train_anakin,
               train_device, resume, health_phase, megabatch,
-              anakin_megabatch, train_uniform, train_host, small_rows)
+              anakin_megabatch, train_uniform, train_host, small_rows,
+              planes, wide_torso)
     only = set(sys.argv[1:])  # phase names to run after build; none: all
     unknown = only - {fn.__name__ for fn in phases}
     if unknown:
@@ -3109,7 +3570,12 @@ def main() -> int:
             ("uniform_anakin", "launches_uniform_anakin"),
             ("host_shared", "launches_host_shared"),
             ("host_prioritized", "launches_host_prioritized"),
-            ("host_native", "launches_host_native"))}
+            ("host_native", "launches_host_native"),
+            ("planes_process", "launches_planes"),
+            ("planes_off_process", "launches_planes_off"),
+            ("planes_anakin_ratio16", "launches_planes_anakin"),
+            ("wide_anakin_ratio16", "launches_wide_anakin"),
+            ("wide_thread", "launches_wide_thread"))}
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=launches.get(name, 0),
                           launches_by_path=by_path,

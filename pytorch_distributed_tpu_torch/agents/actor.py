@@ -64,6 +64,16 @@ from the actor's generator in the inline order, so over the same env its
 transitions are the inline actor's (tests/test_torch_fused_rollout.py).
 An actor is never the co-located ``anakin`` loop (the learner is): an
 actor slot under ``anakin`` runs ``device``.
+
+Every row an actor feeds carries its provenance (reference :159-170,
+:275, :734): ``make_prov(actor index, env slot, param version,
+birth_step)``, the version that chose the tick's actions and the learner
+step the actor saw at the tick's sync point (on ``device``, once a
+dispatch: the rows of a dispatch share its stamp).  The actor's tracer
+(utils/tracing.py, role ``actor``) records the feeder's ``enqueue`` spans
+and is flushed into ``scalars.jsonl`` on the stat cadence and at the end
+(reference :224-226, :312, :391); the feeder takes the run's flow policy
+(``configure_flow``, reference :153-157).
 """
 
 from __future__ import annotations
@@ -92,7 +102,10 @@ from pytorch_distributed_tpu_torch.models.policies import (
     init_rollout_carry,
 )
 from pytorch_distributed_tpu_torch.ops.nstep import NStepAssembler
-from pytorch_distributed_tpu_torch.utils.experience import Transition
+from pytorch_distributed_tpu_torch.utils import tracing
+from pytorch_distributed_tpu_torch.utils.experience import (
+    Transition, make_prov,
+)
 from pytorch_distributed_tpu_torch.utils.faults import FaultInjector
 from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
 from pytorch_distributed_tpu_torch.utils.profiling import StepTimer
@@ -228,6 +241,12 @@ class DqnActor:
             device=device if self.backend == "device" else "cpu"
         ).manual_seed(role_seed(opt.seed, "actor", process_ind))
         memory.set_stop(clock.stop)
+        if hasattr(memory, "configure_flow"):
+            memory.configure_flow(opt.flow_params)
+        self.tracer = tracing.get_tracer("actor")
+        if hasattr(memory, "set_tracer"):
+            memory.set_tracer(self.tracer)
+        self.process_ind = process_ind
         self._prefetch: Optional[ParamPrefetcher] = None
         if self.backend == "batched":
             # no model here: the server holds the weights.  The wait stays
@@ -248,9 +267,14 @@ class DqnActor:
         self._next_sync = self.ap.actor_sync_freq
         self._next_flush = self.ap.actor_freq
         self.timer = StepTimer("actor")
-        self._writer = MetricsWriter(opt.log_dir, role=f"actor-{process_ind}",
+        self._writer = MetricsWriter(opt.log_dir, enable_tensorboard=False,
+                                     role=f"actor-{process_ind}",
                                      run_id=opt.refs)
         self._obs: Optional[np.ndarray] = None
+        # the provenance stamp of the tick's rows: the version that acts
+        # this tick and the learner step seen at its sync point
+        self._feed_version = getattr(self, "version", 0)
+        self._birth_step = int(clock.learner_step.value)
 
     def _init_local(self, opt, spec, device, param_store, clock, eps,
                     gen) -> None:
@@ -299,6 +323,9 @@ class DqnActor:
         weights (timed as ``param_swap``)."""
         n = self.num_envs
         self.env_steps += n
+        # before the swap: the swap tick's rows carry the acting version
+        self._feed_version = getattr(self, "version", 0)
+        self._birth_step = int(self.clock.learner_step.value)
         self.clock.add_actor_steps(n)
         self._bump(self._label)
         self._faults.data_frame(())
@@ -319,7 +346,9 @@ class DqnActor:
             for t in self.assemblers[j].feed(
                     self._obs[j], actions[j], float(rewards[j]), true_next,
                     bool(terminals[j]),
-                    truncated=bool(infos[j].get("truncated", False))):
+                    truncated=bool(infos[j].get("truncated", False)),
+                    prov=make_prov(self.process_ind, j, self._feed_version,
+                                   self._birth_step)):
                 self.memory.feed(t)
             self.episode_reward[j] += float(rewards[j])
             self.episode_steps[j] += 1
@@ -335,8 +364,9 @@ class DqnActor:
         if self.env_steps >= self._next_flush:
             self._next_flush += self.ap.actor_freq
             self._flush_stats()
-            self._writer.scalars(self.timer.drain(),
-                                 step=self.clock.learner_step.value)
+            step = self.clock.learner_step.value
+            self._writer.scalars(self.timer.drain(), step=step)
+            self.tracer.flush_to(self._writer, step=step)
             self.memory.flush()
 
     def _flush_stats(self) -> None:
@@ -409,6 +439,10 @@ class DqnActor:
                     t2 = time.perf_counter()
                     timer.add("rollout", t1 - t0)
                     timer.add("emit", t2 - t1)
+                    # the dispatch's stamp: the version that acted in it,
+                    # the learner step seen at its fetch
+                    self._feed_version = self.version
+                    self._birth_step = int(self.clock.learner_step.value)
                     self.env_steps += frames
                     self.clock.add_actor_steps(frames)
                     self._bump(self._label)
@@ -430,8 +464,9 @@ class DqnActor:
                     if self.env_steps >= self._next_flush:
                         self._next_flush += ap.actor_freq
                         self._flush_stats()
-                        self._writer.scalars(
-                            timer.drain(), step=self.clock.learner_step.value)
+                        step = self.clock.learner_step.value
+                        self._writer.scalars(timer.drain(), step=step)
+                        self.tracer.flush_to(self._writer, step=step)
                         self.memory.flush()
         finally:
             self.shutdown()
@@ -445,7 +480,9 @@ class DqnActor:
                 state0=ch["state0"][k, j], action=ch["action"][k, j],
                 reward=ch["reward"][k, j], gamma_n=ch["gamma_n"][k, j],
                 state1=ch["state1"][k, j],
-                terminal1=ch["terminal1"][k, j]))
+                terminal1=ch["terminal1"][k, j],
+                prov=make_prov(self.process_ind, j, self._feed_version,
+                               self._birth_step)))
 
     def shutdown(self) -> None:
         if self._prefetch is not None:
@@ -455,6 +492,7 @@ class DqnActor:
         self._flush_stats()
         self.memory.flush()
         self.memory.close()
+        self.tracer.flush_to(self._writer, step=self.clock.learner_step.value)
         self._writer.close()
 
 

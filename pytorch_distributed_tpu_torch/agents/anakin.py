@@ -19,7 +19,10 @@ The env fleet and the learner share one process and one device:
   ``megabatch`` M > 1 it runs K/M group steps, K rounded up to a multiple
   of M;
 - the rollout acts on the train state's params, copied into its graph's
-  weights before each dispatch: the acting version is the newest;
+  weights before each dispatch: the acting version is the newest; each
+  dispatch stamps its rows' provenance in the graph with
+  ``(0, the newest published version, the learner step)``
+  (``_make_prov``, reference :387-393), env slot = the fleet row;
 - a duty-cycle scheduler (``AnakinParams.rollout_ratio``) aims at a ratio
   of env frames to updates; 0 is strict alternation, the schedule the
   parity test pins (tests/test_torch_anakin.py: bit-identical to the
@@ -290,8 +293,8 @@ class AnakinDriver:
         self.dispatch_clock = _DeviceClock() if self.cuda else _HostClock()
         self._window_frames = 0
         self.totals = dict(rollout=0.0, learn=0.0)
-        self.writer = MetricsWriter(opt.log_dir, role="learner",
-                                    run_id=opt.refs)
+        self.writer = MetricsWriter(opt.log_dir, enable_tensorboard=False,
+                                    role="learner", run_id=opt.refs)
         self.publisher = None
         self.saver = EpochSaver(opt, clock, memory, device)
 
@@ -351,6 +354,12 @@ class AnakinDriver:
             self._fold(r.numpy(), t.numpy())
             self._pending = None
 
+    def _make_prov(self, birth_step: int):
+        """(actor_id, param_version, birth_step) of a rollout dispatch's
+        rows (reference :387-393): the fleet is actor 0, the version the
+        newest published one."""
+        return (0, int(self.param_store.version), birth_step)
+
     # -- the two dispatches ----------------------------------------------
 
     def dispatch_rollout(self):
@@ -361,7 +370,8 @@ class AnakinDriver:
         rollout = self.rollouts[self.write_ix]
         start = self.dispatch_clock.begin()
         rollout.draw(self.act_gen)
-        stats = rollout(self.state.params, self.carry)
+        stats = rollout(self.state.params, self.carry,
+                        prov=self._make_prov(self.lstep))
         self.dispatch_clock.end("rollout", start)
         if self.cuda:
             # the previous rollout's copy was queued before this rollout:

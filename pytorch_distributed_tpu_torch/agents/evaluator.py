@@ -1,7 +1,8 @@
 """Evaluator worker: periodic greedy evaluation and the params
 checkpoints — the port of pytorch_distributed_tpu/agents/evaluator.py
-(``greedy_episodes`` :46-104, its ``dqn-cnn`` branch, and
-``run_evaluator`` :106-248).
+(``greedy_episodes`` :46-104, its ``dqn-cnn`` branch, with the
+``render()`` calls of :93-116, and ``run_evaluator`` :106-248; with
+``env_params.render`` its env dumps frames, utils/render.py).
 
 A capture thread snapshots ``(weights, learner_step, wall)`` every
 ``evaluator_freq`` seconds, keeping at most ``MAX_BACKLOG`` snapshots
@@ -40,6 +41,7 @@ from pytorch_distributed_tpu_torch.factory import (
 )
 from pytorch_distributed_tpu_torch.models.policies import greedy_act
 from pytorch_distributed_tpu_torch.utils import checkpoint as ckpt
+from pytorch_distributed_tpu_torch.utils.render import attach_frame_dumper
 
 MAX_BACKLOG = 8
 
@@ -65,9 +67,11 @@ def greedy_episodes(opt: Options, spec: EnvSpec, model: torch.nn.Module,
     total_steps, total_reward, solved = 0, 0.0, 0
     for _ in range(nepisodes):
         obs = env.reset()
+        env.render()  # a no-op unless a FrameDumper is attached
         ep_reward, ep_steps, terminal, info = 0.0, 0, False, {}
         while not terminal:
             obs, r, terminal, info = env.step(pick(obs))
+            env.render()
             ep_reward += float(r)
             ep_steps += 1
         total_steps += ep_steps
@@ -84,6 +88,8 @@ def run_evaluator(opt: Options, spec: EnvSpec, process_ind: int, memory: Any,
     fleet = opt.num_actors * max(1, opt.env_params.num_envs_per_actor)
     env = build_env(opt, process_ind=fleet + 1)
     env.eval()
+    if opt.env_params.render:
+        attach_frame_dumper(env, opt.log_dir, "evaluator")
     model = build_model(opt, spec)
     _flat0, unflatten = make_flattener(model.state_dict(), spec.state_shape)
 

@@ -60,6 +60,19 @@ host-sampled batch (the guard then skips that update, reference
 notice (:662-667).  The X-ray is the device ring's, the host PER ring's
 leaves (``health.priority_xray``), or none on a uniform ring.
 
+The data plane (``DataXray``, reference :515-525, :687-710, :775-846,
+:896-901) rides the same windows: the provenance of what the learner
+trains on (the last host batch's rows through the ring's
+``provenance_of``, or 256 rows drawn from a device ring's ``prov``
+column, one small copy) through ``health.provenance_stats`` as the
+``learner/staleness``, ``learner/sample_age`` and ``replay/actor_share``
+histogram rows; the X-ray's ``replay/priority`` bucket row; the
+bandwidth X-ray's ``wire/*`` and ``replay/hbm_bytes`` rows; and the
+``learner`` and ``feeder`` tracers' span rows.  Each dispatch records a
+``learn`` span and each host draw a ``sample`` span against the newest
+trace id the drain saw.  The reference's ``data/*`` gauges belong to the
+perf plane (off by default) and are not written.
+
 On a GPU the resume comes before the CUDA graph's capture, which clones
 its static buffers from the state it is first handed, and an epoch reads
 the state from those buffers after a synchronize, so no replay is in
@@ -95,7 +108,7 @@ from pytorch_distributed_tpu_torch.factory import (
 )
 from pytorch_distributed_tpu_torch.memory.device_per import GraphedFusedStep
 from pytorch_distributed_tpu_torch.memory.device_replay import (
-    DeviceReplayIngest,
+    DeviceReplayIngest, provenance_sample,
 )
 from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
@@ -105,7 +118,9 @@ from pytorch_distributed_tpu_torch.ops.cuda_torso import (
 )
 from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY, TrainState
 from pytorch_distributed_tpu_torch.utils import checkpoint as ckpt
-from pytorch_distributed_tpu_torch.utils import flight_recorder, health
+from pytorch_distributed_tpu_torch.utils import (
+    bandwidth, flight_recorder, health, tracing,
+)
 from pytorch_distributed_tpu_torch.utils.faults import FaultInjector
 from pytorch_distributed_tpu_torch.utils.experience import Batch
 from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
@@ -247,8 +262,9 @@ class HealthSentinel:
             zmax=hp.anomaly_zmax, grad_spike=hp.grad_spike,
             threshold=hp.anomaly_threshold, ess_floor=hp.ess_floor)
         self.recorder = flight_recorder.get_recorder("learner")
-        self.writer = MetricsWriter(opt.log_dir, role="learner",
-                                    run_id=opt.refs)
+        self.writer = MetricsWriter(opt.log_dir, enable_tensorboard=False,
+                                    role="learner", run_id=opt.refs)
+        self.last_xray: Optional[dict] = None  # the window's X-ray
         self.used = 0          # rollbacks spent
         self.before = None     # the ladder's last restore point
         self._win_base = 0     # the skipped count at the window's start
@@ -264,7 +280,7 @@ class HealthSentinel:
         skipped_w = skipped - self._win_base
         self._win_base = skipped
         t0 = time.perf_counter()
-        xr = self.memory.xray()
+        xr = self.last_xray = self.memory.xray()
         if xr is not None:
             self.xrays += 1
             self.xray_s += time.perf_counter() - t0
@@ -351,6 +367,60 @@ class HealthSentinel:
 
     def close(self) -> None:
         self.writer.close()
+
+
+class DataXray:
+    """The learner's data plane on its stats windows (see the module
+    docstring), written through ``writer``."""
+
+    PROV_SAMPLE = 256  # rows of a device ring's provenance read a window
+
+    def __init__(self, opt: Options, memory, param_store, writer):
+        self.memory, self.param_store = memory, param_store
+        self.writer = writer
+        self.on_device = isinstance(memory, DeviceReplayIngest)
+        # the provenance draw's own generator: the learner's draws stay as
+        # they are
+        self.rng = np.random.default_rng(role_seed(opt.seed, "telemetry", 0))
+        self.tracer = tracing.get_tracer("learner")
+
+    def provenance(self, last_idx) -> Optional[np.ndarray]:
+        fn = getattr(self.memory, "provenance_of", None)
+        if fn is not None and last_idx is not None:
+            prov = fn(last_idx)
+            return None if prov is None else np.asarray(prov)
+        if self.on_device:
+            return provenance_sample(self.memory.replay.state, self.rng,
+                                     self.PROV_SAMPLE)[0]
+        return None
+
+    def window(self, lstep: int, last_idx=None,
+               xray: Optional[dict] = None) -> None:
+        w = self.writer
+        prov = self.provenance(last_idx)
+        ds = (health.provenance_stats(prov, self.param_store.version, lstep)
+              if prov is not None else None)
+        if ds is not None:
+            w.histogram("learner/staleness", ds["staleness"].tolist(),
+                        step=lstep)
+            w.histogram("learner/sample_age", ds["age"].tolist(), step=lstep)
+            w.histogram("replay/actor_share", ds["shares"].tolist(),
+                        step=lstep)
+        if xray is not None and xray.get("rows"):
+            w.bucket_histogram(
+                "replay/priority", xray["counts"],
+                log10_lo=health.PRIORITY_XRAY_LOG10_LO,
+                log10_hi=health.PRIORITY_XRAY_LOG10_HI, step=lstep,
+                extra={"ess": xray["ess"], "ess_frac": xray["ess_frac"],
+                       "mass": xray["mass"], "rows": xray["rows"]})
+        wire = bandwidth.emit_scalars()
+        if wire:
+            w.scalars(wire, step=lstep)
+        self.flush_traces(lstep)
+
+    def flush_traces(self, lstep: int) -> None:
+        for t in (self.tracer, tracing.get_tracer("feeder")):
+            t.flush_to(self.writer, step=lstep)
 
 
 def upload_batch(batch: Batch, device) -> Batch:
@@ -449,6 +519,9 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     clock.set_learner_step(lstep)
     saver = EpochSaver(opt, clock, memory, device, host_rng)
     sentinel = HealthSentinel(opt, clock, memory, device)
+    data = DataXray(opt, memory, param_store, sentinel.writer)
+    tracer = data.tracer
+    last_idx = None  # the last host batch's rows
     faults = FaultInjector.from_env("learner")
 
     # gate until the replay warms up; clamped below the ring's capacity,
@@ -501,9 +574,12 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                 # beta anneals slowly: refresh every 64 K
                 beta, next_beta = replay.beta(lstep), lstep + 64 * K
             us = torch.rand((K, ap.batch_size), generator=gen, device=device)
-            state, metrics = fused(state, replay.state, us, beta)
+            with tracer.span("learn", trace_id=tracing.current_trace()):
+                state, metrics = fused(state, replay.state, us, beta)
         else:
-            batch = memory.sample(ap.batch_size, host_rng)
+            with tracer.span("sample", trace_id=tracing.current_trace()):
+                batch = memory.sample(ap.batch_size, host_rng)
+            last_idx = np.asarray(batch.index)
             if poison:
                 # the guard must skip this update, params unchanged
                 poison = False
@@ -511,8 +587,9 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                     np.asarray(batch.reward), np.nan))
                 print("[faults:learner] poison_grad: NaN rewards injected "
                       "into this update's batch", flush=True)
-            state, metrics, td_abs = step_fn(state,
-                                             upload_batch(batch, device))
+            with tracer.span("learn", trace_id=tracing.current_trace()):
+                state, metrics, td_abs = step_fn(state,
+                                                 upload_batch(batch, device))
             if is_per:
                 # the write-back needs |TD| on the host now, and the skip
                 # flag rides the same copy
@@ -557,6 +634,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                           steps_per_sec=rate)
             n_skipped = saver.count_skipped(skipped)
             reason = sentinel.window(lstep, vals, n_skipped, td_mean)
+            data.window(lstep, last_idx, sentinel.last_xray)
             if reason is not None:
                 state, lstep, lstep0 = sentinel.rollback(
                     reason, lstep, gen, n_skipped, host_rng)
@@ -573,6 +651,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     publish_inline(state.params)  # the finished weights
     # the final epoch, also on a preemption: a next run resumes from it
     saver.save(state, lstep, lstep0, gen, skipped)
+    data.flush_traces(lstep)  # the last window's spans
     sentinel.close()
     summary = {k: float(v) for k, v in metrics.items()}
     summary.update({

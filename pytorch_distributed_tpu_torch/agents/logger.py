@@ -26,7 +26,9 @@ def run_logger(opt: Options, clock: GlobalClock, actor_stats: ActorStats,
                learner_stats: LearnerStats,
                evaluator_stats: EvaluatorStats) -> None:
     ap = opt.agent_params
-    writer = MetricsWriter(opt.log_dir, role="logger", run_id=opt.refs)
+    # the TensorBoard mirror under ``visualize`` (reference logger.py:28)
+    writer = MetricsWriter(opt.log_dir, enable_tensorboard=opt.visualize,
+                           role="logger", run_id=opt.refs)
     last_drain = time.monotonic()
     finished_at = None
     closing_at = None

@@ -6,7 +6,8 @@ path ending in ``.pt``), runs ``tester_nepisodes`` greedy episodes in
 ``env.eval()`` mode with inference on the run's device (the GPU unless
 ``device`` is ``cpu``; with no GPU visible it raises), prints
 ``avg_steps / avg_reward / nepisodes / nepisodes_solved`` and returns
-them.
+them.  With ``env_params.render`` (``main --render``) the episodes' frames
+go to ``{log_dir}/frames`` as PNGs.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, build_env, build_model, resolve_device,
 )
 from pytorch_distributed_tpu_torch.utils import checkpoint as ckpt
+from pytorch_distributed_tpu_torch.utils.render import attach_frame_dumper
 
 
 def run_tester(opt: Options, spec: EnvSpec) -> Dict[str, float]:
@@ -26,6 +28,8 @@ def run_tester(opt: Options, spec: EnvSpec) -> Dict[str, float]:
     device = resolve_device(opt)
     env = build_env(opt, process_ind=0)
     env.eval()
+    if opt.env_params.render:
+        attach_frame_dumper(env, opt.log_dir, "tester")
     model = build_model(opt, spec)
     path = opt.model_file
     if not path:

@@ -1,7 +1,8 @@
-"""The learner's fused PER update at config 12's full width, timed alone or
-beside busy threads, on a ring filled with random rows.
+"""The learner's fused PER update at config 12's full width (or another
+row's: ``--config 19``, the wide torso), timed alone or beside busy
+threads, on a ring filled with random rows.
 
-    python -m pytorch_distributed_tpu_torch.bench_learner \\
+    python -m pytorch_distributed_tpu_torch.bench_learner [--config 12] \\
         [--device cuda] [--torso kernel|module] [--updates 100] \\
         [--busy none|host|actor] [--busy-threads 2] [--eager] \\
         [--profile] [--set k=v ...]
@@ -130,7 +131,7 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     ring = DevicePerReplay(opt.memory_params.memory_size, spec.state_shape,
                            device=device)
     fill_ring(ring, spec.num_actions, gen)
-    model = build_model(opt, spec)
+    model = build_model(opt, spec, init_weights=False)  # the structure
     state, step = build_train_state_and_step(
         opt, model, init_params(opt, spec, seed=opt.seed, device=device))
     M, K, mega_step = resolve_fused_step(opt, model, "bench_learner")
@@ -214,6 +215,8 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", type=int, default=12,
+                   help="the CONFIGS row (12; 19 for the wide torso)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--torso", choices=("kernel", "module"), default="kernel")
     p.add_argument("--updates", type=int, default=100)
@@ -227,8 +230,9 @@ def main(argv=None) -> dict:
     overrides = dict(device=args.device,
                      pallas_torso=args.torso == "kernel")
     overrides.update(parse_set_overrides(args.set))
-    out = run(build_options(12, **overrides), args.updates, args.busy,
-              args.busy_threads, args.profile, graph=not args.eager)
+    out = run(build_options(args.config, **overrides), args.updates,
+              args.busy, args.busy_threads, args.profile,
+              graph=not args.eager)
     print(json.dumps(out), flush=True)
     return out
 

@@ -46,7 +46,7 @@ CONFIGS = [
 ]
 
 # the rows this port runs end to end so far
-PORTED_CONFIGS = (1, 3, 4, 6, 8, 12)
+PORTED_CONFIGS = (1, 3, 4, 6, 8, 12, 19)
 
 
 def _default_refs() -> str:
@@ -92,6 +92,9 @@ class EnvParams:
     @property
     def state_shape(self) -> Tuple[int, ...]:
         return (self.state_cha, self.state_hei, self.state_wid)
+    # dump the evaluator's and the tester's frames as PNGs under
+    # ``{log_dir}/frames`` (utils/render.py; ``main --render``)
+    render: bool = False
 
 
 @dataclass
@@ -114,6 +117,9 @@ class ModelParams:
     compute_dtype: str = "bfloat16"
     # dqn-mlp width (reference config.py:269)
     hidden_dim: int = 256
+    # dqn-cnn-wide base width: sections of (width, 2 width, 2 width)
+    # channels (models/dqn_cnn_wide.py, reference config.py:275-278)
+    cnn_wide_width: int = 128
 
 
 @dataclass
@@ -132,6 +138,10 @@ class AgentParams:
     evaluator_freq: int = 30           # secs
     evaluator_nepisodes: int = 2
     tester_nepisodes: int = 50
+    # niceness of the evaluator's process (0 = none; reference
+    # config.py:323-332): its bursty greedy episodes must not starve the
+    # learner on a busy host
+    evaluator_nice: int = 5
     param_publish_freq: int = 10
     # learner steps between checkpoint epochs; 0: the final epoch only
     checkpoint_freq: int = 0
@@ -225,11 +235,45 @@ class AnakinParams:
     drain_ingest: bool = True
 
 
+@dataclass
+class FlowParams:
+    """Flow control on the local transports (utils/flow.py, reference
+    config.py:588-641), each field overridable as ``TPU_APEX_FLOW_<FIELD>``
+    (``TPU_APEX_FLOW=0`` is ``enabled``).  On by default and inert under
+    ``local_policy="block"``.  The reference's DCN fields (the client
+    ring, the gateway's buckets, credits, thresholds and brownout dwell)
+    come with the fleet planes (ROADMAP.md Queue A item 8)."""
+
+    enabled: bool = True
+    # "block": a full ingest queue stalls the producer; "shed": bounded
+    # drop-oldest buffers, every drop counted and provenance-stamped
+    local_policy: str = "block"
+    # the feeder's shed ring (chunks) and the device ingest's pending
+    # bound (rows) under "shed"
+    feeder_ring: int = 64
+    max_pending_rows: int = 65536
+
+
+@dataclass
+class BandwidthParams:
+    """The bandwidth X-ray (utils/bandwidth.py, reference
+    config.py:644-667), each field overridable as ``TPU_APEX_WIRE_<FIELD>``
+    (``TPU_APEX_WIRE=0`` is ``enabled``).  On by default."""
+
+    enabled: bool = True
+    # count the spawn queues' mint and drain boundaries
+    spawn: bool = True
+    # least seconds between two emits for a ``wire/<link>/bytes_per_s``
+    rate_floor_s: float = 0.05
+
+
 _SUBS = ("env_params", "memory_params", "model_params", "agent_params",
-         "health_params", "learner_perf_params", "anakin_params")
-# the CONFIGS columns a run may not override; ``memory_type`` may
-# (``--set memory_type=native``)
-_SELECTORS = ("agent_type", "env_type", "game", "model_type")
+         "health_params", "learner_perf_params", "anakin_params",
+         "flow_params")
+# the CONFIGS columns a run may not override; ``memory_type`` and
+# ``model_type`` may (``--set memory_type=native``, ``--set
+# model_type=dqn-cnn-wide``), as the reference's selectors
+_SELECTORS = ("agent_type", "env_type", "game")
 
 
 @dataclass
@@ -248,6 +292,9 @@ class Options:
     # raises without one; "never" starts fresh
     resume: str = "auto"
     device: str = "cuda"
+    # the logger's TensorBoard mirror (reference config.py:950; ``main
+    # --no-tensorboard`` turns it off)
+    visualize: bool = True
 
     agent_type: str = "dqn"
     env_type: str = "pong-sim"
@@ -263,6 +310,7 @@ class Options:
     learner_perf_params: LearnerPerfParams = field(
         default_factory=LearnerPerfParams)
     anakin_params: AnakinParams = field(default_factory=AnakinParams)
+    flow_params: FlowParams = field(default_factory=FlowParams)
 
     @property
     def model_dir(self) -> str:
@@ -307,10 +355,12 @@ def build_options(config: int = 12, **overrides: Any) -> Options:
             f"config {config} ({'/'.join(CONFIGS[config])}) is not ported "
             f"yet; this slice runs {PORTED_CONFIGS} (ROADMAP.md Queue A)")
     agent_type, env_type, game, memory_type, model_type = CONFIGS[config]
-    # ``--set memory_type=native`` lands before the sub-params are made,
-    # as the reference's selector overrides do (:1021-1028); a ring the
-    # port cannot build raises in factory.py
+    # ``--set memory_type=native`` and ``--set model_type=...`` land
+    # before the sub-params are made, as the reference's selector
+    # overrides do (:1021-1028); a ring or model the port cannot build
+    # raises in factory.py
     memory_type = overrides.pop("memory_type", memory_type)
+    model_type = overrides.pop("model_type", model_type)
     if "cnn" in model_type:
         env_shape = dict(state_cha=4, state_hei=84, state_wid=84)
         state_dtype = "uint8"

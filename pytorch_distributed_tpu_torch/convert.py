@@ -1,5 +1,5 @@
-"""Reference ``DqnCnnModel`` and ``DqnMlpModel`` params -> the port's
-``state_dict``.
+"""Reference ``DqnCnnModel``, ``DqnCnnWideModel`` and ``DqnMlpModel``
+params -> the port's ``state_dict``.
 
 Takes the flax param tree of pytorch_distributed_tpu/models/dqn_cnn.py as
 nested dicts of array-likes (numpy, or anything ``np.asarray`` reads) and
@@ -13,7 +13,12 @@ layout traps:
   (c, h, w), so ``Dense_0``'s input rows are permuted.
 
 The MLP (``convert_dqn_mlp``) has only the second: its ``Dense_0`` to
-``Dense_2`` are ``fc0`` to ``fc2`` and ``Dense_3`` is ``head``.
+``Dense_2`` are ``fc0`` to ``fc2`` and ``Dense_3`` is ``head``.  The wide
+torso (``convert_dqn_cnn_wide``, models/dqn_cnn_wide.py) has all three:
+its section convolutions ``Conv_i`` are ``conv{i}``, the residual blocks
+``_ResBlock_k/Conv_j`` are ``res{k}.conv{j}``, and ``Dense_0`` (rows (h,
+w, c) of the 11 x 11 x 256 activations at 84 x 84) and ``Dense_1`` are
+``fc`` and ``head``.
 
 The transform is linear and per-leaf, so Adam moments (and gradients) of
 the same tree go through it unchanged in meaning.  ``flax_leaves`` is its
@@ -32,6 +37,7 @@ import torch
 from pytorch_distributed_tpu_torch.models.dqn_cnn import (
     CONV_LAYERS, torso_out_hw,
 )
+from pytorch_distributed_tpu_torch.models import dqn_cnn_wide as wide
 from pytorch_distributed_tpu_torch.models.dqn_mlp import HIDDEN_LAYERS
 
 # the MLP's flax scopes in order, the head last
@@ -62,6 +68,67 @@ def convert_dqn_cnn(params: Mapping, state_shape: Sequence[int]
             for k, v in out.items()}
 
 
+def _dense0_rows_to_cols(k0: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """A flax ``Dense_0`` kernel, rows (h, w, c), as a torch weight whose
+    columns are (c, h, w)."""
+    c = k0.shape[0] // (oh * ow)
+    return k0.reshape(oh, ow, c, -1).transpose(3, 2, 0, 1).reshape(
+        k0.shape[1], -1)
+
+
+def _wide_scopes(num_blocks: int):
+    """(flax scope path, torch module name) of every wide-torso layer."""
+    out = [((f"Conv_{i}",), f"conv{i}") for i in range(wide.SECTIONS)]
+    for k in range(num_blocks):
+        out += [((f"_ResBlock_{k}", f"Conv_{j}"), f"res{k}.conv{j}")
+                for j in range(2)]
+    return out
+
+
+def convert_dqn_cnn_wide(params: Mapping, state_shape: Sequence[int]
+                         ) -> Dict[str, torch.Tensor]:
+    """``params`` is ``{"params": {...}}`` or the inner tree of the
+    reference's ``DqnCnnWideModel``; ``state_shape`` the (C, H, W)
+    observation shape."""
+    p = params["params"] if "params" in params else params
+    out: Dict[str, np.ndarray] = {}
+    for path, name in _wide_scopes(wide.SECTIONS * wide.BLOCKS_PER_SECTION):
+        scope = p
+        for key in path:
+            scope = scope[key]
+        out[f"{name}.weight"] = np.asarray(scope["kernel"]).transpose(
+            3, 2, 0, 1)
+        out[f"{name}.bias"] = np.asarray(scope["bias"])
+    oh, ow = wide.torso_out_hw(*state_shape[1:])
+    out["fc.weight"] = _dense0_rows_to_cols(np.asarray(p["Dense_0"]["kernel"]),
+                                            oh, ow)
+    out["fc.bias"] = np.asarray(p["Dense_0"]["bias"])
+    out["head.weight"] = np.asarray(p["Dense_1"]["kernel"]).T
+    out["head.bias"] = np.asarray(p["Dense_1"]["bias"])
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in out.items()}
+
+
+def _flax_leaves_wide(state_dict, state_shape) -> List[Tuple[str, torch.Tensor]]:
+    """The wide torso's leaves in ``ravel_pytree`` order (scopes sorted:
+    ``Conv_*``, ``Dense_*``, then ``_ResBlock_*``)."""
+    oh, ow = wide.torso_out_hw(*state_shape[1:])
+    leaves = {}
+    blocks = sum(1 for k in state_dict if k.endswith(".conv0.weight"))
+    for path, name in _wide_scopes(blocks):
+        scope = "/".join(path)
+        leaves[f"{scope}/bias"] = state_dict[f"{name}.bias"]
+        leaves[f"{scope}/kernel"] = state_dict[f"{name}.weight"].permute(
+            2, 3, 1, 0)
+    fc = state_dict["fc.weight"]                      # cols (c, h, w)
+    c = fc.shape[1] // (oh * ow)
+    leaves["Dense_0/bias"] = state_dict["fc.bias"]
+    leaves["Dense_0/kernel"] = fc.reshape(-1, c, oh, ow).permute(2, 3, 1, 0)
+    leaves["Dense_1/bias"] = state_dict["head.bias"]
+    leaves["Dense_1/kernel"] = state_dict["head.weight"].t()
+    return sorted(leaves.items(), key=lambda kv: kv[0].split("/"))
+
+
 def convert_dqn_mlp(params: Mapping) -> Dict[str, torch.Tensor]:
     """``params`` is ``{"params": {...}}`` or the inner tree of the
     reference's ``DqnMlpModel``."""
@@ -77,11 +144,15 @@ def convert_dqn_mlp(params: Mapping) -> Dict[str, torch.Tensor]:
 def flax_leaves(state_dict: Mapping[str, torch.Tensor],
                 state_shape: Sequence[int]
                 ) -> List[Tuple[str, torch.Tensor]]:
-    """The port's ``DqnCnnModel`` or ``DqnMlpModel`` state_dict as the
-    reference's flax leaves (``Conv_0/bias``, ``Conv_0/kernel``, ...,
+    """The port's ``DqnCnnModel``, ``DqnCnnWideModel`` or ``DqnMlpModel``
+    state_dict as the reference's flax leaves (``Conv_0/bias``,
+    ``Conv_0/kernel``, ...,
     ``Dense_1/kernel``: keys sorted at every level, as ``ravel_pytree``
     orders a flax tree), each a view of the torch tensor in the flax
-    layout.  No data is copied."""
+    layout.  No data is copied.  The wide torso's state_dict (it has
+    ``res0.conv0.weight``) is laid out the same way."""
+    if "res0.conv0.weight" in state_dict:
+        return _flax_leaves_wide(state_dict, state_shape)
     if "conv0.weight" not in state_dict:
         out = []
         for i, name in enumerate(MLP_LAYERS):

@@ -1,5 +1,7 @@
-"""Env abstraction — the port's copy of pytorch_distributed_tpu/envs/base.py
-(rendering left out).
+"""Env abstraction — the port's copy of pytorch_distributed_tpu/envs/base.py,
+with its frame-dump hooks (``attach_renderer``/``render`` :99-108: each
+``render()`` hands the newest observation to a utils/render.py
+``FrameDumper``, which starts a new episode directory at every reset).
 
 Mode switches as the reference's (:73-78, reference core/env.py:29-35):
 ``train()`` is the actors' mode, ``eval()`` restores the standard episode
@@ -37,6 +39,8 @@ class Env:
         self.training = True
         self.norm_val: float = 1.0
         self._episode_steps = 0
+        self._renderer = None
+        self.last_obs = None
 
     def train(self) -> None:
         self.training = True
@@ -46,16 +50,30 @@ class Env:
 
     def reset(self) -> np.ndarray:
         self._episode_steps = 0
-        return self._reset()
+        obs = self.last_obs = self._reset()
+        if self._renderer is not None:
+            self._renderer.new_episode()
+        return obs
 
     def step(self, action) -> Tuple[np.ndarray, float, bool, Dict[str, Any]]:
         obs, reward, terminal, info = self._step(action)
+        self.last_obs = obs
         self._episode_steps += 1
         if self.params.early_stop and \
                 self._episode_steps >= self.params.early_stop:
             terminal = True
             info.setdefault("truncated", True)
         return obs, reward, terminal, info
+
+    def attach_renderer(self, dumper) -> None:
+        """Send ``render()``'s frames to a utils/render.FrameDumper."""
+        self._renderer = dumper
+
+    def render(self) -> None:
+        """Dump the newest frame through the attached renderer (a no-op
+        without one)."""
+        if self._renderer is not None and self.last_obs is not None:
+            self._renderer.add(self.last_obs)
 
     @property
     def state_shape(self) -> Tuple[int, ...]:

@@ -5,16 +5,19 @@ and ``anakin_active`` (:108-141), the actor backend's gate
 ``needs_inference_server`` (:228-232), the env probe and ``EnvSpec``
 (:239), the device-env predicate ``device_backend_active`` (:270-277),
 the actors' env vector and the stepper's prebuild (:280-353),
-``build_model`` for ``dqn-cnn`` and ``dqn-mlp`` (:400-436), the dqn branch
+``build_model`` for ``dqn-cnn``, ``dqn-cnn-wide`` and ``dqn-mlp``
+(:400-436), the dqn branch
 of ``build_train_state_and_step`` (:636-647), the learner's train apply
 gate ``_dqn_train_apply`` (:674-723), ``build_megabatch_train_step``
 (:726-771), ``resolve_megabatch`` (:774-791) and ``build_memory`` for the
 ``shared``, ``native``, ``prioritized``, ``device`` and ``device-per``
 rings (:862-940).
 
-The port runs CONFIGS rows 1, 3, 4, 6, 8 and 12 (config.PORTED_CONFIGS):
-the pong-sim, fake-chain and cartpole envs, the ``dqn-cnn`` and ``dqn-mlp``
-models and those five rings.  Anything else raises
+The port runs CONFIGS rows 1, 3, 4, 6, 8, 12 and 19
+(config.PORTED_CONFIGS): the pong-sim, fake-chain and cartpole envs, the
+``dqn-cnn``, ``dqn-cnn-wide`` and ``dqn-mlp`` models and those five
+rings.  Row 19's wide torso trains through the module's own forward, as
+every model but ``dqn-cnn`` does (``_kernel_torso``).  Anything else raises
 ``NotImplementedError`` naming the ROADMAP queue that will bring it.
 Where the reference warns and takes the Python ring for a native ring
 that cannot be built (:891-905), the port raises with g++'s stderr.
@@ -54,6 +57,7 @@ from pytorch_distributed_tpu_torch.memory.prioritized import (
 )
 from pytorch_distributed_tpu_torch.memory.shared_replay import SharedReplay
 from pytorch_distributed_tpu_torch.models.dqn_cnn import DqnCnnModel
+from pytorch_distributed_tpu_torch.models.dqn_cnn_wide import DqnCnnWideModel
 from pytorch_distributed_tpu_torch.models.dqn_mlp import DqnMlpModel
 from pytorch_distributed_tpu_torch.ops.cuda_torso import (
     build_torso_apply, build_torso_group_apply,
@@ -68,7 +72,7 @@ from pytorch_distributed_tpu_torch.utils.perf import resolve_mxu
 
 ENVS = {"pong-sim": PongSimEnv, "fake": FakeChainEnv,
         "classic": make_classic_env}
-MODELS = ("dqn-cnn", "dqn-mlp")
+MODELS = ("dqn-cnn", "dqn-cnn-wide", "dqn-mlp")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -272,6 +276,13 @@ def build_model(opt: Options, spec: EnvSpec, device=None,
                             hidden_dim=opt.model_params.hidden_dim,
                             norm_val=spec.norm_val, orthogonal_init=ortho,
                             generator=generator)
+    elif opt.model_type == "dqn-cnn-wide":
+        model = DqnCnnWideModel(spec.num_actions, spec.state_shape,
+                                norm_val=spec.norm_val,
+                                width=opt.model_params.cnn_wide_width,
+                                orthogonal_init=ortho,
+                                compute_dtype=compute_dtype(opt),
+                                generator=generator)
     else:
         model = DqnCnnModel(spec.num_actions, spec.state_shape,
                             norm_val=spec.norm_val, orthogonal_init=ortho,

@@ -6,7 +6,7 @@
     python -m pytorch_distributed_tpu_torch.main --config 12 \\
         --resume REFS [--steps N] [--set k=v ...]
     python -m pytorch_distributed_tpu_torch.main --config 12 --mode 2 \\
-        --model-file models/REFS [--device cpu]
+        --model-file models/REFS [--device cpu] [--render]
 
 Both modes run on the GPU unless ``--device cpu`` is given; with no GPU
 visible and no ``--device cpu`` they raise.  Mode 1 trains (the process
@@ -17,7 +17,11 @@ and every run ends by committing a checkpoint epoch under
 ``models/{refs}_ckpt`` (more often with ``--set checkpoint_freq=N``).  A
 run under the refs of an earlier one continues from its newest complete
 epoch; ``--resume REFS`` insists on one.  SIGTERM ends a run early with
-a final epoch and exit code 0.  Mode 2 runs the tester's greedy episodes on a params file.  The last line
+a final epoch and exit code 0.  Mode 2 runs the tester's greedy episodes on a params file.
+``--render`` dumps the evaluator's or the tester's frames as PNGs under
+``logs/{refs}/frames``; ``--no-tensorboard`` turns off the logger's
+TensorBoard mirror (on by default, as ``visualize`` in the reference;
+without the ``tensorboard`` package the JSONL stays alone).  The last line
 printed is the run's summary (mode 1) or the tester's stats (mode 2) as
 one JSON object.
 """
@@ -59,6 +63,11 @@ def parse_args(argv=None):
                         "there is none")
     p.add_argument("--backend", choices=("process", "thread"),
                    default="process")
+    p.add_argument("--no-tensorboard", action="store_true",
+                   help="no TensorBoard mirror of the logger's scalars")
+    p.add_argument("--render", action="store_true",
+                   help="dump the evaluator's (mode 1) or the tester's "
+                        "(mode 2) frames as PNGs under logs/REFS/frames")
     p.add_argument("--set", action="append", default=[], metavar="K=V",
                    help="any Options override, e.g. --set lr=2e-3 "
                         "(repeatable)")
@@ -79,6 +88,10 @@ def options_from_args(args):
         overrides.update(refs=args.resume, resume="must")
     if args.enable_double:
         overrides["enable_double"] = True
+    if args.no_tensorboard:
+        overrides["visualize"] = False
+    if args.render:
+        overrides["render"] = True
     return build_options(config=args.config, **overrides)
 
 

@@ -1,15 +1,22 @@
 """Replay ring in device memory — the port of
 pytorch_distributed_tpu/memory/device_replay.py: ``ReplayState`` and
 ``ring_write`` (:34-85), ``sample_rows`` (:174-188),
-``build_uniform_fused_step`` (:202-260) with its sequential and megabatch
-arms, ``DeviceReplay`` (:265-388), and the queue front end
-``DeviceReplayIngest`` / ``drain`` (:389-611) with its quarantine boundary
-and without the flow-shed plane, plus ``DevicePerIngest`` (:614-638), and
-the rings' checkpoint surface (``snapshot``/``restore``, :343-377,
-:517-542).  The feed is memory/feeder.py's: each actor slot puts chunks
+``provenance_sample`` (:190-199), ``build_uniform_fused_step``
+(:202-260) with its sequential and megabatch arms, ``DeviceReplay``
+(:265-388), and the queue front end ``DeviceReplayIngest`` / ``drain``
+(:389-611) with its quarantine boundary, the flow plane's pending bound
+(:439-459, :585-607) and the bandwidth gauge at attach (:477, :495), plus
+``DevicePerIngest`` (:614-638), and the rings' checkpoint surface
+(``snapshot``/``restore``, :343-377, :517-542).  The feed is memory/feeder.py's: each actor slot puts chunks
 of transitions on a queue of its own (``SlotQueues``).
 
-The six transition columns live as tensors on the learner's device.  Where
+The six transition columns live as tensors on the learner's device, and
+beside them the provenance column ``prov``: (N, 4) int32 ``(actor_id,
+env_slot, param_version, birth_step)``, -1 where unknown (reference
+:45, :78-84, :119-124).  Every write sets it (a chunk without provenance
+writes -1, so a recycled row never keeps its old stamp), snapshots carry
+it and restores read it back; a snapshot written before the column
+existed restores -1 rows.  Where
 the reference's functional ring returns a new state from every write, the
 port writes in place (a copy into the ring's slice): at config 12's 50,000
 rows the two uint8 frame columns hold 2 x 50,000 x 28,224 B (about
@@ -36,8 +43,9 @@ import torch
 
 from pytorch_distributed_tpu_torch.memory.feeder import SlotQueues
 from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY
+from pytorch_distributed_tpu_torch.utils import bandwidth, flow
 from pytorch_distributed_tpu_torch.utils.experience import (
-    REPLAY_FIELDS, Batch, Transition,
+    PROV_FIELDS, REPLAY_FIELDS, Batch, Transition, stack_prov,
 )
 
 
@@ -49,6 +57,9 @@ class ReplayState:
     gamma_n: torch.Tensor    # (N,) float32
     state1: torch.Tensor     # (N, *state_shape)
     terminal1: torch.Tensor  # (N,) float32
+    # (N, 4) int32 provenance, -1 = unknown; allocated with the ring and
+    # never re-allocated (a captured CUDA graph writes it in place)
+    prov: Optional[torch.Tensor] = None
     pos: int = 0             # write cursor
     fill: int = 0            # valid rows
     # the write cursor on the device, for writes inside a CUDA graph
@@ -75,9 +86,11 @@ def ring_write(state: ReplayState, chunk: Transition, capacity: int,
     spans = [(state.pos, state.pos + first)]
     if first < n:
         spans.append((0, n - first))
-    for f in REPLAY_FIELDS:
-        col = getattr(state, f)
-        host = torch.as_tensor(getattr(chunk, f))
+    cols = [(getattr(state, f), getattr(chunk, f)) for f in REPLAY_FIELDS]
+    if state.prov is not None:
+        cols.append((state.prov, _chunk_prov(chunk, n)))
+    for col, src in cols:
+        host = torch.as_tensor(src)
         col[spans[0][0]:spans[0][1]].copy_(host[:first],
                                            non_blocking=non_blocking)
         if first < n:
@@ -86,6 +99,14 @@ def ring_write(state: ReplayState, chunk: Transition, capacity: int,
     state.fill = min(state.fill + n, capacity)
     state.fill_rows.fill_(float(state.fill))
     return spans
+
+
+def _chunk_prov(chunk: Transition, n: int, device=None):
+    """A chunk's (n, 4) provenance rows, -1 where it carries none."""
+    if chunk.prov is None:
+        return torch.full((n, len(PROV_FIELDS)), -1, dtype=torch.int32,
+                          device=device)
+    return chunk.prov
 
 
 def masked_write_index(state: ReplayState, valid: torch.Tensor,
@@ -123,6 +144,9 @@ def ring_write_masked(state: ReplayState, chunk: Transition,
     idx, total = masked_write_index(state, valid, capacity)
     for f in REPLAY_FIELDS:
         _masked_put(getattr(state, f), idx, valid, getattr(chunk, f))
+    if state.prov is not None:
+        _masked_put(state.prov, idx, valid,
+                    _chunk_prov(chunk, valid.shape[0], valid.device))
     state.cursor.copy_((state.cursor + total) % capacity)
     state.fill_rows.copy_(torch.clamp(state.fill_rows + total,
                                       max=float(capacity)))
@@ -148,6 +172,19 @@ def sample_rows(state: ReplayState, idx: torch.Tensor) -> Batch:
         weight=torch.ones(idx.shape, dtype=torch.float32,
                           device=idx.device),
         index=idx)
+
+
+def provenance_sample(state: ReplayState, rng: np.random.Generator,
+                      n: int = 256) -> Tuple[np.ndarray, int]:
+    """The provenance of ``n`` rows drawn uniformly over the ring's valid
+    rows, on the host: one gather of n x 4 int32 on the ring's device and
+    one copy (reference :190-199, the learner's stats-window read).  The
+    draw is ``rng``'s, so the learner's own generator is untouched.
+    Returns ``(prov (n, 4) int64, fill)``."""
+    fill = max(int(state.fill), 1)
+    idx = torch.from_numpy(rng.integers(0, fill, size=n)).to(
+        state.prov.device)
+    return state.prov[idx].cpu().numpy().astype(np.int64), int(state.fill)
 
 
 def group_batches(batch: Batch, m: int) -> Batch:
@@ -228,6 +265,8 @@ class DeviceReplay:
             gamma_n=z((capacity,), torch.float32),
             state1=z((capacity, *self.state_shape), state_dtype),
             terminal1=z((capacity,), torch.float32),
+            prov=torch.full((capacity, len(PROV_FIELDS)), -1,
+                            dtype=torch.int32, device=self.device),
             cursor=z((), torch.int64), fill_rows=z((), torch.float32)))
 
     def _extend(self, columns: dict) -> ReplayState:
@@ -257,10 +296,12 @@ class DeviceReplay:
         return col.cpu().numpy().copy()
 
     def snapshot(self) -> dict:
-        """The valid rows, oldest first, as host arrays in NCHW (the
-        reference's snapshot without its provenance column)."""
-        return {f: self._age_order(getattr(self.state, f))
-                for f in REPLAY_FIELDS}
+        """The valid rows, oldest first, as host arrays in NCHW, with the
+        ``prov`` column as int64 (the reference's snapshot)."""
+        out = {f: self._age_order(getattr(self.state, f))
+               for f in REPLAY_FIELDS}
+        out["prov"] = self._age_order(self.state.prov).astype(np.int64)
+        return out
 
     def _reset(self) -> None:
         """Empty the ring in place: the tensors stay the ones a captured
@@ -268,20 +309,24 @@ class DeviceReplay:
         st = self.state
         for f in REPLAY_FIELDS:
             getattr(st, f).zero_()
+        st.prov.fill_(-1)
         st.cursor.zero_()
         st.fill_rows.zero_()
         st.pos = st.fill = 0
 
     def restore(self, data: dict) -> int:
         """Replace the contents with a snapshot's newest rows that fit,
-        written through the normal ring write.  Returns rows restored.  A
-        ``prov`` column, which the reference's snapshots carry, is
-        ignored."""
+        written through the normal ring write, in place.  Returns rows
+        restored.  The ``prov`` column is read back; a snapshot without it
+        (written before the column existed) restores -1 rows."""
         self._reset()
         n = min(len(np.asarray(data["reward"])), self.capacity)
         if n:
+            prov = (np.ascontiguousarray(np.asarray(data["prov"])[-n:],
+                                         dtype=np.int32)
+                    if "prov" in data else None)
             self.feed_chunk(Transition(*(np.asarray(data[f])[-n:]
-                                         for f in REPLAY_FIELDS)))
+                                         for f in REPLAY_FIELDS), prov=prov))
         return n
 
 
@@ -303,10 +348,11 @@ class StagedWriter:
         self.rows = max(1, min(rows, replay.capacity))
         self.pinned = replay.device.type == "cuda"
         st = replay.state
+        self._cols = REPLAY_FIELDS + ("prov",)
         self._slabs = [{f: torch.empty((self.rows, *getattr(st, f).shape[1:]),
                                        dtype=getattr(st, f).dtype,
                                        pin_memory=self.pinned)
-                        for f in REPLAY_FIELDS} for _ in range(slabs)]
+                        for f in self._cols} for _ in range(slabs)]
         self._events: List[Optional[torch.cuda.Event]] = [None] * slabs
         self._next = 0
 
@@ -321,8 +367,10 @@ class StagedWriter:
             for f in REPLAY_FIELDS:
                 np.stack([getattr(r, f) for r in part],
                          out=slab[f].numpy()[:n])
+            slab["prov"].numpy()[:n] = stack_prov(part)
             self.replay.feed_chunk(Transition(*(slab[f][:n]
-                                                for f in REPLAY_FIELDS)),
+                                                for f in REPLAY_FIELDS),
+                                              prov=slab["prov"][:n]),
                                    non_blocking=self.pinned)
             if self.pinned:
                 self._events[i] = torch.cuda.Event()
@@ -341,7 +389,13 @@ class DeviceReplayIngest(SlotQueues):
     reads every slot's queue, stacks the rows into the staging slabs
     (``StagedWriter``) and writes them with one host-to-device copy per
     column and slab.  Its quarantine source is ``feeder-device``
-    (reference :561-581)."""
+    (reference :561-581).
+
+    Flow control (reference :439-459, :585-607): under
+    ``FlowParams.local_policy`` "shed" the pending rows are bounded at
+    ``max_pending_rows``, the oldest beyond it dropped and counted in
+    ``flow_counters`` (``shed_rows``, ``shed_by_actor:<id>``); the
+    default "block" leaves the bounded queues as the backpressure."""
 
     source = "feeder-device"
     prioritized = False
@@ -365,6 +419,13 @@ class DeviceReplayIngest(SlotQueues):
         self._staging: Optional[StagedWriter] = None
         self._pending: List[Transition] = []
         self._fed_total = 0
+        self._flow_params = None  # resolved on the first drain
+        self.flow_counters: dict = {}
+
+    def configure_flow(self, params=None) -> None:
+        """Pin the shed-or-block policy (else resolved from the
+        environment on the first drain)."""
+        self._flow_params = flow.resolve_flow(params)
 
     def _ring_kwargs(self, device, capacity: Optional[int] = None) -> dict:
         return dict(capacity=capacity or self.capacity,
@@ -382,6 +443,7 @@ class DeviceReplayIngest(SlotQueues):
         """Allocate the ring on the learner's device, and its staging."""
         self.replay = self._make_replay(device)
         self._staging = StagedWriter(self.replay, STAGE_ROWS, STAGE_SLABS)
+        bandwidth.note_device_replay(self.replay.state)
         return self.replay
 
     def attach_halves(self, device) -> Tuple[DeviceReplay, DeviceReplay]:
@@ -393,6 +455,7 @@ class DeviceReplayIngest(SlotQueues):
         self.replay = self._make_replay(device, half)
         self._staging = StagedWriter(self.replay, STAGE_ROWS, STAGE_SLABS)
         self.replay_b = self._make_replay(device, half)
+        bandwidth.note_device_replay(self.replay.state, self.replay_b.state)
         return self.replay, self.replay_b
 
     def note_scatter(self, rows: int) -> None:
@@ -418,6 +481,14 @@ class DeviceReplayIngest(SlotQueues):
             raise RuntimeError("attach() first")
         fresh, _popped = self.read(max_chunks)
         self._pending.extend(fresh)
+        if self._flow_params is None:
+            self._flow_params = flow.resolve_flow()
+        fp = self._flow_params
+        if (fp.enabled and fp.local_policy == "shed"
+                and len(self._pending) > fp.max_pending_rows):
+            # the ingest's shed point: the newest rows win
+            self._pending = flow.shed_overflow(
+                self._pending, fp.max_pending_rows, self.flow_counters)
         n = min(len(self._pending), max_rows)
         rows, self._pending = self._pending[:n], self._pending[n:]
         if n:

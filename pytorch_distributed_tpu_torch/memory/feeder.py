@@ -1,8 +1,16 @@
 """Queue transport from the actors to the one process that owns a ring —
 the port of pytorch_distributed_tpu/memory/feeder.py: ``QueueFeeder``
 (:30-200), ``pop_chunks`` (:215-238) and ``QueueOwner`` (:240-349), with
-the drain's quarantine (:262-292) through ``utils/health.py``.  The flow
-shed policy and the trace spans wait for their planes (ROADMAP.md).
+the drain's quarantine (:262-292) through ``utils/health.py``, and the
+feeder's three planes: every flushed chunk is a ``tracing.TracedChunk``
+(a trace id and a birth wall minted at the flush, :160-176; plain lists
+under ``TPU_APEX_TRACE=0``) whose put records an ``enqueue`` span and
+whose read records a ``feed`` hop (:223-236); the bandwidth X-ray's
+``spawn`` link counts the chunk's bytes at the mint and at the drain
+(``bandwidth.note_spawn``); and flow control's local shed policy
+(``configure_flow``, :49-90, :164-171): under ``local_policy="shed"`` a
+full queue parks chunks in a ``flow.DropOldestRing`` instead of stalling
+the actor.
 
 Where the reference shares one queue among every actor, the port gives
 each actor slot a queue of its own (``SlotQueues.make_feeder(slot)``), so
@@ -28,7 +36,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from pytorch_distributed_tpu_torch.utils import health
+from pytorch_distributed_tpu_torch.utils import (
+    bandwidth, flow, health, tracing,
+)
 from pytorch_distributed_tpu_torch.utils.experience import Transition
 from pytorch_distributed_tpu_torch.utils.faults import FaultInjector
 
@@ -37,12 +47,14 @@ _CTX = mp.get_context("spawn")
 
 class QueueFeeder:
     """Actor-side feed endpoint (reference :30): buffers ``chunk``
-    transitions, then puts them on the ingest queue as one list.  A put
-    blocked on a full queue gives up once the run's stop event is set.
-    Each flush is one frame of the ``FEEDER_FAULTS`` plane
-    (utils/faults.py), whose ``poison_chunk@N`` NaNs the rewards of flush
-    N's rows (``health.poison_items``), as reference :149-160 does; the
-    injector is built in the process that flushes."""
+    transitions, then puts them on the ingest queue as one list (a
+    ``TracedChunk`` with tracing on).  A put blocked on a full queue gives
+    up once the run's stop event is set.  Each flush is one frame of the
+    ``FEEDER_FAULTS`` plane (utils/faults.py), whose ``poison_chunk@N``
+    NaNs the rewards of flush N's rows (``health.poison_items``), as
+    reference :149-160 does; the injector is built in the process that
+    flushes.  With a tracer attached (``set_tracer``) a delivered put
+    records an ``enqueue`` span."""
 
     def __init__(self, q, chunk: int = 16):
         self._q = q
@@ -50,13 +62,39 @@ class QueueFeeder:
         self._buf: List[Transition] = []
         self._stop = None
         self._faults: Optional[FaultInjector] = None
+        self._tracer: Optional[tracing.Tracer] = None
+        # the shed ring: None until configure_flow selects "shed"; "block"
+        # keeps the stalling put
+        self._flow_ring: Optional[flow.DropOldestRing] = None
 
     def __getstate__(self):
-        # the injector holds a lock; a spawn child builds its own from the
-        # FEEDER_FAULTS it inherits
+        # the injector, the tracer and the shed ring hold locks (and the
+        # ring this process's backlog): a spawn child builds its own
         d = self.__dict__.copy()
         d["_faults"] = None
+        d["_tracer"] = None
+        d["_flow_ring"] = None
         return d
+
+    def configure_flow(self, params=None) -> None:
+        """Select the overload policy (reference :67-90): under
+        ``local_policy="shed"`` a full queue parks chunks in a bounded
+        drop-oldest ring of ``feeder_ring`` chunks."""
+        fp = flow.resolve_flow(params)
+        if (fp.enabled and fp.local_policy == "shed"
+                and hasattr(self._q, "put_nowait")):
+            if self._flow_ring is None:
+                self._flow_ring = flow.DropOldestRing(fp.feeder_ring)
+        else:
+            self._flow_ring = None
+
+    @property
+    def flow_dropped_rows(self) -> int:
+        return self._flow_ring.dropped_rows if self._flow_ring else 0
+
+    def set_tracer(self, tracer) -> None:
+        """Attach the actor's span recorder."""
+        self._tracer = tracer
 
     def set_stop(self, event) -> None:
         self._stop = event
@@ -83,28 +121,61 @@ class QueueFeeder:
                 [(t, None) for t in self._buf])]
             print("[faults:feeder] poison_chunk: chunk poisoned before "
                   "flush", flush=True)
-        while True:
-            if self._stop is not None and self._stop.is_set():
-                break  # shutdown: the learner no longer drains
-            try:
-                self._q.put(self._buf, timeout=0.2)
-                break
-            except queue.Full:
-                continue
+        traced = tracing.active()  # TPU_APEX_TRACE=0: a plain list
+        if traced and flow.trace_shed():
+            flow.note_shed("trace", 1)
+            traced = False
+        chunk = tracing.TracedChunk(self._buf) if traced else self._buf
+        bandwidth.note_spawn("mint", chunk)
+        t0 = time.perf_counter()
+        delivered = True
+        if self._flow_ring is not None:
+            # "shed": never stall the actor; the oldest parked chunks go
+            # first as the queue frees up
+            self._flow_ring.put(chunk)
+            while True:
+                pending = self._flow_ring.pop()
+                if pending is None:
+                    break
+                try:
+                    self._q.put_nowait(pending)
+                except queue.Full:
+                    self._flow_ring.unpop(pending)
+                    delivered = False
+                    break
+        else:
+            while True:
+                if self._stop is not None and self._stop.is_set():
+                    delivered = False
+                    break  # shutdown: the learner no longer drains
+                try:
+                    self._q.put(chunk, timeout=0.2)
+                    break
+                except queue.Full:
+                    continue
+        if traced and delivered and self._tracer is not None:
+            self._tracer.record("enqueue", (time.perf_counter() - t0) * 1e3,
+                                trace_id=chunk.trace_id)
         self._buf = []
 
 
 def pop_chunks(q, out: List[Transition], max_chunks: int = 1024
                ) -> Tuple[int, bool]:
     """Read up to ``max_chunks`` chunks from one feeder queue into ``out``
-    (reference :215-238).  Returns ``(chunks read, whether the queue ran
-    empty)``.  An ``EOFError`` or ``OSError`` of a torn queue propagates,
-    with the rows read before it already in ``out``."""
+    (reference :215-238); a ``TracedChunk`` records its queue transit as a
+    ``feed`` hop of the ``feeder`` tracer.  Returns ``(chunks read,
+    whether the queue ran empty)``.  An ``EOFError`` or ``OSError`` of a
+    torn queue propagates, with the rows read before it already in
+    ``out``."""
+    tracer = tracing.get_tracer("feeder")
     for n in range(max_chunks):
         try:
-            out.extend(q.get_nowait())
+            chunk = q.get_nowait()
         except queue.Empty:
             return n, True
+        if isinstance(chunk, tracing.TracedChunk):
+            tracer.record_hop("feed", chunk.born, chunk.trace_id)
+        out.extend(chunk)
     return max_chunks, False
 
 
@@ -249,6 +320,8 @@ class SlotQueues:
                 self.torn_reads += 1
                 self._retire(q)
         popped = len(fresh)
+        # the drain boundary of the spawn link (reference :236)
+        bandwidth.note_spawn("drain", fresh, frames=max_chunks - budget)
         if fresh and self.quarantine and health.quarantine_active():
             fresh = self._validate(fresh)
         return fresh, popped
@@ -262,7 +335,8 @@ class SlotQueues:
         good, bad = self._validator.filter([(t, None) for t in rows])
         if bad:
             health.get_quarantine(
-                self.source, max_files=self.quarantine_max_files).put(bad)
+                self.source, max_files=self.quarantine_max_files).put(
+                    bad, trace_id=tracing.current_trace())
             rows = [t for t, _p in good]
             self.quarantined += len(bad)
         self.validated += len(good) + len(bad)
@@ -311,6 +385,12 @@ class QueueOwner(SlotQueues):
     def update_priorities(self, indices: np.ndarray,
                           priorities: np.ndarray) -> None:
         self.memory.update_priorities(indices, priorities)
+
+    def provenance_of(self, indices: np.ndarray):
+        """The memory's provenance of ``indices``; None without a
+        sidecar."""
+        fn = getattr(self.memory, "provenance_of", None)
+        return None if fn is None else fn(indices)
 
     @property
     def prioritized(self) -> bool:

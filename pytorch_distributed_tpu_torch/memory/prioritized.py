@@ -1,7 +1,8 @@
 """Proportional prioritized replay on the host — the port's copy of
-pytorch_distributed_tpu/memory/prioritized.py:34-207, without the
-bandwidth plane's occupancy gauge (``bandwidth.note_host_replay``, ROADMAP.md
-Queue A item 5) and the provenance sidecar.
+pytorch_distributed_tpu/memory/prioritized.py:34-207, with its
+provenance sidecar (``prov``, an (N, 4) int64 column, -1 = unknown;
+``provenance_of``, :51-55, :94, :143, :160-162, :191-194) and its
+bandwidth gauge (``bandwidth.note_host_replay``, :68).
 
 A single-owner ring (the learner's process; actors reach it through
 memory/feeder.py ``QueueOwner``): proportional sampling through the
@@ -19,7 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from pytorch_distributed_tpu_torch.memory.base import Memory
-from pytorch_distributed_tpu_torch.utils import health
+from pytorch_distributed_tpu_torch.utils import bandwidth, health
 from pytorch_distributed_tpu_torch.utils.experience import (
     REPLAY_FIELDS, Batch, Transition,
 )
@@ -46,6 +47,9 @@ class PrioritizedReplay(Memory):
         self.gamma_n = np.zeros((N,), dtype=np.float32)
         self.state1 = np.zeros((N, *self.state_shape), dtype=self.state_dtype)
         self.terminal1 = np.zeros((N,), dtype=np.float32)
+        # the provenance sidecar: not a seventh replay column, so every
+        # six-column schema keeps its shape
+        self.prov = np.full((N, 4), -1, dtype=np.int64)
         self.sum_tree = SumTree(N)
         self.min_tree = MinTree(N)
         self.alpha = priority_exponent
@@ -56,6 +60,7 @@ class PrioritizedReplay(Memory):
         self._pos = 0
         self._full = False
         self._samples_drawn = 0
+        bandwidth.note_host_replay(self)
 
     @property
     def size(self) -> int:
@@ -77,6 +82,8 @@ class PrioritizedReplay(Memory):
         i = self._pos
         for f in REPLAY_FIELDS:
             getattr(self, f)[i] = getattr(transition, f)
+        self.prov[i] = (-1 if getattr(transition, "prov", None) is None
+                        else transition.prov)
         pr = self._priority(priority)
         self.sum_tree.set(i, pr)
         self.min_tree.set(i, pr)
@@ -108,6 +115,7 @@ class PrioritizedReplay(Memory):
         shift = -self._pos if self._full else 0
         out = {f: np.roll(getattr(self, f), shift, axis=0)[:n].copy()
                for f in REPLAY_FIELDS}
+        out["prov"] = np.roll(self.prov, shift, axis=0)[:n].copy()
         out["leaf_priority"] = np.roll(
             self.sum_tree.get(np.arange(self.capacity)), shift)[:n].copy()
         out["max_priority_base"] = np.float64(self.max_priority)
@@ -118,11 +126,15 @@ class PrioritizedReplay(Memory):
     def restore(self, data: dict) -> int:
         """Refill from a snapshot, keeping the newest rows that fit;
         leaves saved under another exponent are re-exponentiated, and a
-        snapshot without leaves (a uniform ring's) enters at the max.
-        Returns the rows restored."""
+        snapshot without leaves (a uniform ring's) enters at the max.  A
+        snapshot without ``prov`` (one from before the column) restores
+        -1 rows.  Returns the rows restored."""
         n = min(len(np.asarray(data["reward"])), self.capacity)
         for f in REPLAY_FIELDS:
             getattr(self, f)[:n] = np.asarray(data[f])[-n:]
+        self.prov[:n] = (np.asarray(data["prov"], np.int64)[-n:]
+                         if "prov" in data else -1)
+        self.prov[n:] = -1
         if "leaf_priority" in data:
             leaves = np.asarray(data["leaf_priority"], dtype=np.float64)[-n:]
             saved_alpha = float(data.get("alpha", self.alpha))
@@ -144,6 +156,11 @@ class PrioritizedReplay(Memory):
         self.max_priority = float(data.get("max_priority_base", 1.0))
         self._samples_drawn = int(data.get("samples_drawn", 0))
         return n
+
+    def provenance_of(self, indices: np.ndarray) -> np.ndarray:
+        """(B, 4) int64 provenance of the given rows; -1 rows are
+        unknown."""
+        return self.prov[np.asarray(indices)]
 
     def priority_leaves(self) -> np.ndarray:
         """The valid rows' leaves (``p ** alpha``): the X-ray's input."""

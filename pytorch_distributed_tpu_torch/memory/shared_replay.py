@@ -1,7 +1,7 @@
 """Process-shared replay ring with uniform sampling — the port's copy of
-pytorch_distributed_tpu/memory/shared_replay.py:41-198 without its
-provenance sidecar (the provenance columns wait for their slice, ROADMAP.md
-Queue A).
+pytorch_distributed_tpu/memory/shared_replay.py:41-198, with its
+provenance sidecar (``prov``, an (N, 4) int64 column in the shared pages,
+-1 = unknown; ``provenance_of``; :66-78, :132, :165-171, :195-198).
 
 Six preallocated arrays of ``capacity`` rows (state0/state1 uint8 for
 frames or float32 for low-dim states, action, reward, gamma_n, terminal1)
@@ -53,6 +53,10 @@ class SharedReplay(DirectFeed, Memory):
         self._count = _CTX.Value("l", 0, lock=False)   # total feeds
         self._lock = _CTX.Lock()
         self._bind_views()
+        # shared pages come zeroed and (0, 0, 0, 0) is a valid vector:
+        # unwritten rows read -1.  Here only: spawn children share the
+        # pages and never wipe them
+        self._np_prov[:] = -1
 
     def _columns(self) -> dict:
         N = self.capacity
@@ -61,7 +65,9 @@ class SharedReplay(DirectFeed, Memory):
             action=((N, *self.action_shape), self.action_dtype),
             reward=((N,), np.float32), gamma_n=((N,), np.float32),
             state1=((N, *self.state_shape), self.state_dtype),
-            terminal1=((N,), np.float32))
+            terminal1=((N,), np.float32),
+            # the provenance sidecar, -1 rows = unknown
+            prov=((N, 4), np.int64))
 
     # -- pickling across spawn ---------------------------------------------
 
@@ -96,6 +102,8 @@ class SharedReplay(DirectFeed, Memory):
             i = self._pos.value
             for f in REPLAY_FIELDS:
                 getattr(self, f"_np_{f}")[i] = getattr(transition, f)
+            self._np_prov[i] = (-1 if getattr(transition, "prov", None)
+                                is None else transition.prov)
             nxt = i + 1
             if nxt >= self.capacity:
                 self._full.value = 1
@@ -110,18 +118,22 @@ class SharedReplay(DirectFeed, Memory):
             n = self.size
             shift = -self._pos.value if self._full.value else 0
             out = {f: np.roll(getattr(self, f"_np_{f}"), shift, axis=0)[:n]
-                   .copy() for f in REPLAY_FIELDS}
+                   .copy() for f in self._raw}
             out["count"] = np.int64(self._count.value)
             return out
 
     def restore(self, data: dict) -> int:
         """Refill from a snapshot, keeping the newest rows that fit; a
-        ``prov`` column, which the reference's snapshots carry, is
-        ignored.  Returns the rows restored."""
+        snapshot without ``prov`` (one from before the column) restores -1
+        rows.  Returns the rows restored."""
         with self._lock:
             n = min(len(np.asarray(data["reward"])), self.capacity)
             for f in REPLAY_FIELDS:
                 getattr(self, f"_np_{f}")[:n] = np.asarray(data[f])[-n:]
+            self._np_prov[:n] = (np.asarray(data["prov"], np.int64)[-n:]
+                                 if "prov" in data else -1)
+            # rows past the restored ones are dead until rewritten
+            self._np_prov[n:] = -1
             self._pos.value = n % self.capacity
             self._full.value = int(n == self.capacity)
             self._count.value = int(data.get("count", n))
@@ -139,3 +151,8 @@ class SharedReplay(DirectFeed, Memory):
                             for f in REPLAY_FIELDS},
                          weight=np.ones(batch_size, dtype=np.float32),
                          index=idx.astype(np.int32))
+
+    def provenance_of(self, indices: np.ndarray) -> np.ndarray:
+        """(B, 4) int64 provenance of the given rows; -1 rows are
+        unknown."""
+        return self._np_prov[np.asarray(indices)].copy()

@@ -25,7 +25,9 @@ import torch
 from pytorch_distributed_tpu_torch.memory.device_replay import (
     ring_write_masked,
 )
-from pytorch_distributed_tpu_torch.utils.experience import Transition
+from pytorch_distributed_tpu_torch.utils.experience import (
+    REPLAY_FIELDS, Transition,
+)
 
 
 def apex_epsilon(process_ind: int, num_actors: int,
@@ -226,7 +228,15 @@ class FusedRollout:
     (a ``ReplayState``; ``ring_write_fn``, by default the uniform
     ``ring_write_masked``) at its device cursor, set from ``ring.pos``
     before the dispatch, advances the ring's host ``pos``/``fill`` by the
-    rows the tick window holds, and returns ``RolloutStats``.
+    rows the tick window holds, and returns ``RolloutStats``.  Its
+    ``prov`` argument (reference :455-488) is this dispatch's
+    ``(actor_id, param_version, birth_step)``: each written row's
+    provenance is ``(actor_id, env row, param_version, birth_step)``, or
+    -1 in all four columns with no ``prov``.  The three values are copied
+    into the program's own (3,) int32 input before every dispatch (on a
+    GPU from pinned memory, without blocking, on the current stream), so
+    a graph replay stamps each dispatch's values, never the captured
+    ones.
 
     On a CUDA device (unless ``graph=False``) the first two calls run
     eagerly, then one dispatch is captured into a CUDA graph on a side
@@ -268,6 +278,15 @@ class FusedRollout:
         self.random_a = torch.zeros((self.K, self.N), dtype=torch.int64,
                                     device=dev)
         self._rows = torch.arange(self.N, device=dev)
+        # this dispatch's (actor_id, param_version, birth_step), the
+        # program's input; -1: no provenance
+        self._prov = torch.full((3,), -1, dtype=torch.int32, device=dev)
+        self._rows32 = self._rows.to(torch.int32)
+        # pinned staging of the stamps, a slot a dispatch, each refilled
+        # only once its last copy is done
+        self._prov_host: list = []
+        self._prov_events: list = []
+        self._prov_next = 0
         self._graphed = dev.type == "cuda" if graph is None else graph
         self._warmup = 2  # eager calls before the capture
         self._graph = None
@@ -285,6 +304,37 @@ class FusedRollout:
                                                device=gen.device))
             self.random_a[k].copy_(torch.randint(
                 na, (self.N,), generator=gen, device=gen.device))
+
+    def _stage_prov(self, prov) -> None:
+        """Copy this dispatch's stamp into ``self._prov``."""
+        vals = (-1, -1, -1) if prov is None else tuple(int(v) for v in prov)
+        if self.device.type != "cuda":
+            self._prov.copy_(torch.tensor(vals, dtype=torch.int32))
+            return
+        if not self._prov_host:
+            self._prov_host = [torch.empty(3, dtype=torch.int32,
+                                           pin_memory=True)
+                               for _ in range(4)]
+            self._prov_events = [None] * len(self._prov_host)
+        i = self._prov_next
+        self._prov_next = (i + 1) % len(self._prov_host)
+        if self._prov_events[i] is not None:
+            self._prov_events[i].synchronize()  # its last copy is done
+        host = self._prov_host[i]
+        host.numpy()[:] = vals
+        self._prov.copy_(host, non_blocking=True)
+        self._prov_events[i] = torch.cuda.Event()
+        self._prov_events[i].record()
+
+    def _rows_prov(self) -> torch.Tensor:
+        """(N, 4) int32 provenance of a tick's rows from ``self._prov``:
+        the env's row index is its slot; all -1 with no stamp."""
+        p = self._prov
+        n = self.N
+        slot = torch.where(p[0] >= 0, self._rows32,
+                           torch.full_like(self._rows32, -1))
+        return torch.stack([p[0].expand(n), slot, p[1].expand(n),
+                            p[2].expand(n)], dim=1)
 
     def rows_in_window(self, t0: int) -> int:
         """Rows the dispatch from tick ``t0`` emits: N for every tick past
@@ -368,8 +418,8 @@ class FusedRollout:
                                                  t, k)
             if self.emit == "replay":
                 fed = fed + self._write(
-                    self.ring, Transition(*(em[f] for f in
-                                            Transition._fields)),
+                    self.ring, Transition(*(em[f] for f in REPLAY_FIELDS),
+                                          prov=self._rows_prov()),
                     em["valid"], self.capacity)
                 em = {}
             for name, v in zip(("step_reward", "step_terminal",
@@ -425,9 +475,10 @@ class FusedRollout:
         self._graph.replay()
         return self._out
 
-    def __call__(self, params, carry: RolloutCarry):
+    def __call__(self, params, carry: RolloutCarry, prov=None):
         ring = self.ring
         if ring is not None:
+            self._stage_prov(prov)
             ring.cursor.fill_(ring.pos)
             if getattr(ring, "fill_rows", None) is not None:
                 ring.fill_rows.fill_(float(ring.fill))

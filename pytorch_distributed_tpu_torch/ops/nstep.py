@@ -30,8 +30,11 @@ class NStepAssembler:
         self._buf: deque = deque()  # open [s, a, r_sum, m, s_last] windows
 
     def feed(self, state0, action, reward, state1, terminal: bool,
-             truncated: bool = False) -> List[Transition]:
-        self._buf.append([state0, action, 0.0, 0, state1])
+             truncated: bool = False, prov=None) -> List[Transition]:
+        """``prov`` is the provenance minted at this action
+        (utils/experience.make_prov); it rides the window and is attached
+        to the row the window emits."""
+        self._buf.append([state0, action, 0.0, 0, state1, prov])
         for row in self._buf:  # this reward enters every open window
             row[2] += (self.gamma ** row[3]) * reward
             row[3] += 1
@@ -47,7 +50,7 @@ class NStepAssembler:
         return out
 
     def _emit(self, row, terminal: bool) -> Transition:
-        state0, action, r_sum, m, state1 = row
+        state0, action, r_sum, m, state1, prov = row
         return Transition(
             state0=np.asarray(state0),
             action=np.asarray(action),
@@ -55,4 +58,5 @@ class NStepAssembler:
             gamma_n=np.float32(self.gamma ** m),
             state1=np.asarray(state1),
             terminal1=np.float32(1.0 if terminal else 0.0),
+            prov=prov,
         )

@@ -58,6 +58,11 @@ worker restarted or fatal, each hung worker before its SIGKILL, a hung
 learner before the exit, and the SIGTERM notice before the drain.  The
 watchdog reads ``HealthParams`` through ``health.resolve``, so
 ``TPU_APEX_HEALTH_HANG_DEADLINE`` and its siblings apply.
+
+The flow plane (utils/flow.py) is resolved from ``opt.flow_params`` and
+exported to the environment before any child starts (reference
+:138-147); the evaluator's child lowers its priority by
+``evaluator_nice`` (reference :80-92).
 """
 
 from __future__ import annotations
@@ -87,7 +92,7 @@ from pytorch_distributed_tpu_torch.factory import (
     needs_inference_server, prebuild_native, probe_env,
     resolve_actor_backend, resolve_device,
 )
-from pytorch_distributed_tpu_torch.utils import flight_recorder, health
+from pytorch_distributed_tpu_torch.utils import flight_recorder, flow, health
 from pytorch_distributed_tpu_torch.utils.supervision import (
     EXIT_HUNG, ProgressBoard, RestartBudget, describe_exit,
 )
@@ -119,6 +124,13 @@ def _child_main(role: str, args: tuple, num_threads: int,
     opt = args[0]  # this child's copy of the Options
     opt.device = "cpu"
     flight_recorder.configure(opt.log_dir, run_id=opt.refs)
+    if role == "evaluator" and opt.agent_params.evaluator_nice:
+        # its bursty greedy episodes must not starve the learner
+        # (reference :80-92)
+        try:
+            os.nice(opt.agent_params.evaluator_nice)
+        except OSError:
+            pass
     label = role
     if role in ("actor", "evaluator") and len(args) > 2:
         label = f"{role}-{args[2]}"
@@ -156,6 +168,11 @@ class Topology:
         self.backend = backend
         self.spec = spec if spec is not None else probe_env(opt)
         self.clock = GlobalClock()
+        # the flow plane, resolved once and exported so the spawn children
+        # (the actors' feeders) and the ingest's pending bound resolve the
+        # same policy (reference :138-147)
+        self.flow = flow.resolve_flow(opt.flow_params)
+        flow.export_env(self.flow)
         self.actor_stats = ActorStats()
         self.learner_stats = LearnerStats()
         self.evaluator_stats = EvaluatorStats()

@@ -1,7 +1,8 @@
 """Training health sentinel — the port of
 pytorch_distributed_tpu/utils/health.py: the env overrides (``resolve``
 :73, ``quarantine_active`` :94), the host PER X-ray (``priority_xray``
-:196), the anomaly detector (``_Ewma``, ``AnomalyDetector`` :232-345),
+:196), the anomaly detector (``_Ewma``, ``AnomalyDetector`` :232-345), the
+data-plane staleness math (``provenance_stats`` :174-193),
 the ``poison_chunk`` payload (``poison_items`` :352), the ingest
 validator (``ChunkValidator`` :381-506) and the quarantine sinks
 (``QuarantineStore``, ``get_quarantine``, ``quarantine_counts``
@@ -22,9 +23,9 @@ the detection -> containment -> recovery ladder:
 
 Every ``HealthParams`` field is overridable as ``TPU_APEX_HEALTH_<FIELD>``
 and ``TPU_APEX_QUARANTINE=0`` turns the validation off, as in the JAX
-package.  The port carries no provenance or trace ids yet, so a
-quarantine file's ``prov`` rows are the reference's "unknown" sentinel
-(-1) and its ``trace_id`` is 0.
+package.  A quarantine file carries its rows' provenance (``stack_prov``:
+-1 for a row without) and the trace id of the chunk traffic the drain
+last saw (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from pytorch_distributed_tpu_torch.utils import flight_recorder
-from pytorch_distributed_tpu_torch.utils.experience import REPLAY_FIELDS
+from pytorch_distributed_tpu_torch.utils.experience import (
+    REPLAY_FIELDS, stack_prov,
+)
 
 _ENV_PREFIX = "TPU_APEX_HEALTH_"
 _OFF = ("0", "false", "off", "no", "")
@@ -49,9 +52,26 @@ _OFF = ("0", "false", "off", "no", "")
 PRIORITY_XRAY_LOG10_LO = -6.0
 PRIORITY_XRAY_LOG10_HI = 3.0
 
-# the provenance columns a quarantine file carries; the port's rows have
-# none, which the reference writes as -1
-_PROV_COLUMNS = 4
+
+
+def provenance_stats(prov, current_version: int,
+                     learner_step: int) -> Optional[Dict[str, Any]]:
+    """The learner's staleness math over an (n, 4) provenance matrix,
+    rows with ``actor_id`` < 0 masked out.  None when no row has
+    provenance, else ``staleness`` (param versions behind
+    ``current_version``), ``age`` (learner steps since birth) and
+    ``shares`` (each actor's share of the rows, by ascending actor
+    id)."""
+    prov = np.asarray(prov)
+    known = prov[prov[:, 0] >= 0]
+    if not len(known):
+        return None
+    _ids, cnt = np.unique(known[:, 0], return_counts=True)
+    return {
+        "staleness": np.maximum(current_version - known[:, 2], 0),
+        "age": np.maximum(learner_step - known[:, 3], 0),
+        "shares": cnt / float(len(known)),
+    }
 
 
 def resolve(hp) -> Any:
@@ -352,8 +372,7 @@ class QuarantineStore:
             dtype=np.float64)
         cols["reason"] = np.array([r for _t, _p, r in rejected])
         cols["trace_id"] = np.array([f"{int(trace_id):016x}"])
-        cols["prov"] = np.full((len(rejected), _PROV_COLUMNS), -1,
-                               dtype=np.int64)
+        cols["prov"] = stack_prov([(t, p) for t, p, _r in rejected])
         cols["wall"] = np.array([time.time()], dtype=np.float64)
         rid = flight_recorder.run_id()
         if rid:

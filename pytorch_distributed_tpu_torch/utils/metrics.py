@@ -1,11 +1,31 @@
-"""Metrics writer — the port of pytorch_distributed_tpu/utils/metrics.py
-(``MetricsWriter`` :56-163, ``read_scalars``) as far as the logger needs
-it: scalar rows appended to ``{log_dir}/scalars.jsonl`` in the
-reference's row layout, ``{tag, value, step, wall}`` plus ``role`` and
-``run_id`` when the writer knows them, under the reference's tag names
+"""Metrics writer — the port of pytorch_distributed_tpu/utils/metrics.py:
+``summarize_histogram`` (:39-53), ``MetricsWriter`` (:56-163) with its
+TensorBoard mirror, ``is_scalar_row`` (:230-238) and ``read_scalars``
+(:241-260).  Rows are appended to ``{log_dir}/scalars.jsonl`` in the
+reference's layout, under the reference's tag names
 (``evaluator/avg_reward``, ``actor/total_nframes``,
-``learner/critic_loss``, ...).  The TensorBoard mirror and the histogram,
-bucket and span rows are not ported yet.
+``learner/critic_loss``, ...), each with ``role`` and ``run_id`` when the
+writer knows them.  Three row kinds share the file, told apart by
+``kind`` (a scalar row has none):
+
+- scalar     ``{tag, value, step, wall}``;
+- histogram  ``{tag, kind: "histogram", count, mean, p50, p95, max, step,
+  wall}``, nearest-rank percentiles; TensorBoard gets
+  ``<tag>/p50|p95|max``;
+- buckets    ``{tag, kind: "buckets", counts, log10_lo, log10_hi, step,
+  wall, ...}``, a distribution bucketed at its source (the PER X-ray);
+- span       ``{tag, kind: "span", span, role, trace_id, value, step,
+  wall}``, one sampled trace event (utils/tracing.py).
+
+Buckets and spans go to the JSONL only.  The TensorBoard mirror
+(``enable_tensorboard``) is best effort, as in the reference: without the
+``tensorboard`` package the writer keeps the JSONL alone.  Where the
+reference writes through ``torch.utils.tensorboard`` (which imports
+TensorFlow when it is installed, seconds of start-up in the logger's
+process), the port writes the same event file with the ``tensorboard``
+package's record writer and protos alone (``_EventFile``).
+``read_scalars`` and ``timer_phases`` read scalar rows only
+(``is_scalar_row``); ``read_rows`` returns every row.
 
     python -m pytorch_distributed_tpu_torch.utils.metrics LOG_DIR
 
@@ -15,24 +35,85 @@ prints the run's actor timer phases (``timer_phases``) as one JSON line.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
+import socket
 import sys
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
+
+
+def summarize_histogram(values: Sequence[float]) -> Dict[str, float]:
+    """count/mean/p50/p95/max of a sample set, nearest-rank percentiles
+    (an observed value, no interpolation)."""
+    vals = sorted(float(v) for v in values)
+    n = len(vals)
+    if n == 0:
+        raise ValueError("summarize_histogram of an empty sample")
+
+    def pct(q: float) -> float:
+        return vals[min(n - 1, max(0, math.ceil(q * n) - 1))]
+
+    return {"count": n, "mean": sum(vals) / n,
+            "p50": pct(0.50), "p95": pct(0.95), "max": vals[-1]}
+
+
+class _EventFile:
+    """One TensorBoard event file (``events.out.tfevents.*``): a version
+    record, then a scalar ``Summary`` per ``add_scalar``, as TFRecords."""
+
+    def __init__(self, log_dir: str):
+        from tensorboard.compat.proto.event_pb2 import Event
+        from tensorboard.compat.proto.summary_pb2 import Summary
+        from tensorboard.summary.writer.record_writer import RecordWriter
+
+        self._event, self._summary = Event, Summary
+        name = (f"events.out.tfevents.{int(time.time()):010d}."
+                f"{socket.gethostname()}.{os.getpid()}.0")
+        self._rec = RecordWriter(open(os.path.join(log_dir, name), "wb"))
+        self._write(Event(wall_time=time.time(), file_version="brain.Event:2"))
+
+    def _write(self, event) -> None:
+        self._rec.write(event.SerializeToString())
+
+    def add_scalar(self, tag: str, value: float, step: int,
+                   walltime: float) -> None:
+        self._write(self._event(
+            wall_time=walltime, step=step,
+            summary=self._summary(value=[self._summary.Value(
+                tag=tag, simple_value=value)])))
+
+    def flush(self) -> None:
+        self._rec.flush()
+
+    def close(self) -> None:
+        self._rec.close()
 
 
 class MetricsWriter:
-    def __init__(self, log_dir: str, role: Optional[str] = None,
-                 run_id: Optional[str] = None):
+    def __init__(self, log_dir: str, enable_tensorboard: bool = True,
+                 role: Optional[str] = None, run_id: Optional[str] = None):
         self.log_dir = log_dir
         self.role = role
         self.run_id = run_id
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "scalars.jsonl"), "a",
                            buffering=1)
+        self._tb = None
+        if enable_tensorboard:
+            try:
+                self._tb = _EventFile(log_dir)
+            except Exception:  # noqa: BLE001 - the mirror is best effort
+                self._tb = None
+
+    @property
+    def tensorboard(self) -> bool:
+        """Whether the TensorBoard mirror is on."""
+        return self._tb is not None
 
     def _write(self, rec: dict) -> None:
+        # setdefault: a row that carries its own attribution keeps it
         if self.role is not None:
             rec.setdefault("role", self.role)
         if self.run_id is not None:
@@ -41,8 +122,12 @@ class MetricsWriter:
 
     def scalar(self, tag: str, value: float, step: int,
                wall: Optional[float] = None) -> None:
-        self._write({"tag": tag, "value": float(value), "step": int(step),
-                     "wall": wall if wall is not None else time.time()})
+        rec = {"tag": tag, "value": float(value), "step": int(step),
+               "wall": wall if wall is not None else time.time()}
+        self._write(rec)
+        if self._tb is not None:
+            self._tb.add_scalar(tag, float(value), int(step),
+                                walltime=rec["wall"])
 
     def scalars(self, kv: dict, step: int,
                 wall: Optional[float] = None) -> None:
@@ -51,17 +136,71 @@ class MetricsWriter:
         for tag, value in kv.items():
             self.scalar(tag, value, step, wall)
 
+    def histogram(self, tag: str, values: Sequence[float], step: int,
+                  wall: Optional[float] = None,
+                  count: Optional[int] = None) -> None:
+        """One summarized-distribution row; ``count`` overrides the event
+        count when ``values`` is a bounded reservoir of more events."""
+        if not len(values):
+            return
+        s = summarize_histogram(values)
+        rec = {"tag": tag, "kind": "histogram", "step": int(step),
+               "wall": wall if wall is not None else time.time()}
+        rec.update(s)
+        if count is not None:
+            rec["count"] = int(count)
+        self._write(rec)
+        if self._tb is not None:
+            for k in ("p50", "p95", "max"):
+                self._tb.add_scalar(f"{tag}/{k}", float(s[k]), int(step),
+                                    walltime=rec["wall"])
+
+    def bucket_histogram(self, tag: str, counts, *, log10_lo: float,
+                         log10_hi: float, step: int,
+                         wall: Optional[float] = None,
+                         extra: Optional[dict] = None) -> None:
+        """One pre-bucketed distribution row over the fixed log10 grid
+        [log10_lo, log10_hi); ``extra`` scalars ride the same row."""
+        rec = {"tag": tag, "kind": "buckets", "step": int(step),
+               "wall": wall if wall is not None else time.time(),
+               "counts": [int(c) for c in counts],
+               "log10_lo": float(log10_lo), "log10_hi": float(log10_hi)}
+        if extra:
+            rec.update({k: (float(v) if isinstance(v, (int, float))
+                            else v) for k, v in extra.items()})
+        self._write(rec)
+
+    def span(self, span: str, role: str, trace_id: str, dur_ms: float,
+             step: int = 0, wall: Optional[float] = None) -> None:
+        """One sampled trace event (utils/tracing.py), JSONL only."""
+        self._write({"tag": f"trace/{role}/{span}", "kind": "span",
+                     "span": span, "role": role, "trace_id": trace_id,
+                     "value": float(dur_ms), "step": int(step),
+                     "wall": wall if wall is not None else time.time()})
+
     def flush(self) -> None:
         self._jsonl.flush()
+        if self._tb is not None:
+            self._tb.flush()
 
     def close(self) -> None:
         self.flush()
         self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
-def read_scalars(log_dir: str) -> List[dict]:
-    """Every row of a run dir's ``scalars.jsonl``; a line torn by a kill
-    mid-write is skipped."""
+def is_scalar_row(rec: dict) -> bool:
+    """A plain scalar row: a ``tag``, a numeric ``value`` and no
+    distribution ``kind``."""
+    return (isinstance(rec, dict) and "tag" in rec
+            and isinstance(rec.get("value"), (int, float))
+            and rec.get("kind") in (None, "scalar"))
+
+
+def read_rows(log_dir: str) -> List[dict]:
+    """Every row of a run dir's ``scalars.jsonl``, of every kind; a line
+    torn by a kill mid-write is skipped."""
     path = os.path.join(log_dir, "scalars.jsonl")
     if not os.path.exists(path):
         return []
@@ -76,6 +215,12 @@ def read_scalars(log_dir: str) -> List[dict]:
             except ValueError:
                 continue
     return out
+
+
+def read_scalars(log_dir: str) -> List[dict]:
+    """The scalar rows of a run dir's ``scalars.jsonl`` (histogram,
+    bucket and span rows left out: ``read_rows`` has them)."""
+    return [r for r in read_rows(log_dir) if is_scalar_row(r)]
 
 
 def timer_phases(log_dir: str, prefix: str = "actor") -> dict:

@@ -118,10 +118,14 @@ def test_rings_sample_like_the_reference(kind):
         jfeeder.feed(JaxTransition(**r))
     feeder.flush()
     jfeeder.flush()
-    deadline = time.monotonic() + 10.0
-    while ref.size < CAP and time.monotonic() < deadline:
-        ref.drain()  # its spawn queue hands chunks over from a thread
+    # the reference's spawn queue hands chunks over from a thread: drain
+    # until every row fed has been popped (the ring wraps at CAP, so its
+    # size says nothing of the last rows)
+    deadline, popped = time.monotonic() + 10.0, 0
+    while popped < 55 and time.monotonic() < deadline:
+        popped += ref.drain()
         time.sleep(0.01)
+    assert popped == 55
     assert port.drain() == 55
     assert port.size == ref.size == CAP
     rng, jrng = np.random.default_rng(9), np.random.default_rng(9)

@@ -40,6 +40,31 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
+# the modules of the planes that are on by default and of row 19, each of
+# which copies what it needs of its reference module
+PLANE_MODULES = ("utils.metrics", "utils.experience", "utils.tracing",
+                 "utils.bandwidth", "utils.flow", "utils.render",
+                 "models.dqn_cnn_wide", "convert")
+
+
+@pytest.mark.parametrize("name", PLANE_MODULES)
+def test_plane_modules_are_walked_and_import_without_jax(name):
+    mod = f"{PORT}.{name}"
+    assert mod in _port_modules()
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({mod!r})\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert mod in loaded
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad
+
+
 def test_forbidden_name_matching():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("jaxlib.xla_client")

@@ -2,8 +2,7 @@
 memory/device_replay.py ``snapshot``/``restore``) against the JAX
 package's ``DevicePerReplay``: the same rows and the same priority
 write-backs into both rings give equal snapshots, array for array (the
-JAX package's ``prov`` column left out), before and after the ring
-wraps; the JAX snapshot restored into the port snapshots back to the
+``prov`` column included), before and after the ring wraps; the JAX snapshot restored into the port snapshots back to the
 same arrays; a smaller ring keeps the newest rows; the ingest drains its
 queued chunks before it snapshots; and a changed row shape or dtype
 raises ``CheckpointMismatch``.  All exact.
@@ -75,7 +74,7 @@ def _twin_rings(chunks):
 
 
 def _assert_equal(got: dict, want: dict):
-    assert set(got) == set(want) - {"prov"}
+    assert set(got) == set(want)
     for k in got:
         assert np.asarray(got[k]).dtype == np.asarray(want[k]).dtype, k
         assert np.array_equal(got[k], want[k]), k

@@ -244,8 +244,11 @@ def test_a_dead_child_makes_run_raise(tmp_path, victim):
     loop ends (its ingest read too, if the child was writing a chunk), the
     logger does not wait for a dead evaluator's last point, and ``run``
     raises naming the child, within seconds."""
+    # the evaluator at full priority: its final evaluation is in the
+    # join, and a niced one (``evaluator_nice``) waits behind every busy
+    # core of a loaded test host
     opt = port_main.options_from_args(port_main.parse_args(_process_run(
-        tmp_path, "--set", "max_seconds=45")))
+        tmp_path, "--set", "max_seconds=45", "--set", "evaluator_nice=0")))
     opt.agent_params.steps = 10 ** 6
     topo = runtime.Topology(opt, backend="process", max_restarts=0)
     killed = []

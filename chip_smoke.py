@@ -167,13 +167,15 @@ Phases, each printed as one JSON line:
    rollback, of the restore and of that first update. (b) The
    quarantine drill: the same poison with the quarantine on: its 64 rows
    in ``quarantine/``, no rollback, no skipped step, no NaN in the ring.
-   (c) The validator's cost: ``main`` with pipelined and with batched
-   actors, the quarantine on (train_process's and train_batched's
-   unpaced runs) and off: updates/s, frames/s, the drain's host seconds
-   and the validator's own seconds side by side. (d) The X-ray of a full
-   ring: host ms a stats window (the one copy included) and device ms,
-   against the host X-ray.  The quarantine drill runs unpaced, 600
-   updates, its poison early in the warm-up (it needs no epoch).
+   (c) The validator's cost: ``main`` with pipelined actors, the
+   quarantine on (train_process's run) and off: updates/s, frames/s, the
+   drain's host seconds and the validator's own seconds side by side
+   (the batched actors' pair is not run: on a slow host it took the
+   whole script past its time limit; PERF.md section 7). (d) The X-ray
+   of a full ring: host ms a stats window (the one copy included) and
+   device ms, against the host X-ray.  The quarantine drill runs
+   unpaced, 600 updates, its poison early in the warm-up (it needs no
+   epoch).
 23. megabatch: config 12's learner alone at full width in groups of M
    (``megabatch``): a graphed dispatch of groups of 4 against its eager
    twin, with the kernel torso and with the module's forward (``vmap``
@@ -201,7 +203,7 @@ Phases, each printed as one JSON line:
    (the same ratio at batch 128), as users run it: no draw, 10 + 9
    GEMMs an update; updates/s, frames/s;
 26. train_host: rows 4 (``shared``) and 6 (``prioritized``) through
-   ``main`` on the process backend at replay ratio 8, 500 updates
+   ``main`` on the process backend at replay ratio 8, 300 updates
    each, row 6 with ``LEARNER_FAULTS=poison_grad@250`` (exactly one
    skipped update, its batch the NaN one, its params unchanged, no
    rollback), then row 4 on ``memory_type=native`` unpaced; no draw, 10
@@ -239,12 +241,42 @@ Phases, each printed as one JSON line:
    update against eager, to the bit; the learner alone
    (``bench_learner``): updates/s, device ms an update, the peak of
    allocated memory, 1 draw and no GEMM an update; ``main`` with
-   ``actor_backend=anakin`` at ratio 16 (1,000 updates: updates/s,
+   ``actor_backend=anakin`` at ratio 16 (500 updates: updates/s,
    frames/s, the duty cycle, a finite loss) and on the thread backend
    with the actors on the card (500 updates), each with 1 draw and no
    GEMM an update and no evaluator (a greedy episode of the wide torso on
    the evaluator's CPU takes minutes); one pipelined CPU actor of 16 envs
-   in a spawn child, ms a tick over 20 ticks.
+   in a spawn child, ms a tick over 5 ticks.
+30. perf_plane: config 12 at full width with the perf plane and mission
+   control on as a user turns them on (``TPU_APEX_PERF=1``,
+   ``TPU_APEX_METRICS=1``, an OpenMetrics endpoint on a free port and the
+   rule ``drill_stall: learner/updates_per_s absent 3s`` in
+   ``TPU_APEX_ALERT_RULES``). (a) ``main`` on the process backend, 2,000
+   updates, beside the same run with the planes off (train_process's,
+   or one of its own when the phase runs without it): ``scalars.jsonl``
+   holds positive ``learner/updates_per_s``, ``achieved_flops_per_s`` and
+   ``mfu`` in every window (the last partial one may hold no update),
+   ``learner/flops_per_update`` within 1% of the update's GEMMs counted
+   from their shapes, both actors' ``actor/env_frames_per_s``, the
+   ``data/*`` gauges, the replay ratio, the ingest queue's depth, the
+   device and host watermarks and ``perf/learner/retraces`` at 0; while
+   the learner runs the rule never fires and a scrape of ``/metrics``
+   serves ``learner_updates_per_s``; after it stops the rule fires
+   (mission control's own poll) and resolves when a learner row comes
+   back. (b) Anakin at ``rollout_ratio`` 16 through ``main``, 1,000
+   updates: each window's achieved FLOP/s the sum of the updates' and
+   the frames' (one forward of a frame), 0 retraces. (c) The learner
+   alone with a monitor of its own: 0 retraces after the warm-up and no
+   host sync over 50 audited graph replays; 1 retrace naming
+   ``fused_step`` after a forced recapture; one audit hit, at its file
+   and line, for a deliberate ``.item()``. (d) In (b), once the learner
+   passes step 600, the watching thread asks for a 0.3 s profile window
+   (``run_profile_window``, 60 s at most to open and to close): the
+   Anakin loop's thread opens and closes it between two dispatches, and
+   the trace holds B1's and B2's kernels (the process run (a) stays
+   unprofiled, for the planes' cost; the window's stall of the loop may
+   fire the absence rule there, which is reported). Prints MFU, FLOPs per update,
+   the watermarks and updates/s with the planes on and off.
 
 ``python3 chip_smoke.py PHASE ...`` runs ``build`` and the named phases
 only.  Then a ``kernels`` line (the table PERF.md is written from: B1's
@@ -253,8 +285,9 @@ GEMM's from the fp32 learner run, and each kernel's launches on the
 process runs with pipelined, batched and device actors, on the two
 Anakin runs, on the two health drills, on the megabatch learner and
 Anakin runs, on row 8's two runs, on the three host runs, on the
-planes' runs and on row 19's two runs; B1 and B2 held at a megabatch
-group beside their per-update numbers), the
+planes' runs, on row 19's two runs and on the perf plane's three runs;
+B1 and B2 held at a megabatch group beside their per-update numbers),
+the
 card's name and power limit, and the verdict as the last line.  Exits non-zero, with no
 verdict, if there is no GPU, if the package is missing, or if any phase
 fails.  TF32 is off throughout, so fp32 references are full fp32.
@@ -271,6 +304,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -2304,13 +2338,16 @@ def train_device():
 # the health plane: rollback, quarantine, validator and X-ray costs
 # ---------------------------------------------------------------------------
 
-# the drills: actor-0 alone poisons 4 flushes (64 rows) from its 480th,
-# near learner step 970 at replay ratio 8 (2 actors x 16 envs: 32 frames
-# a tick, 16 frames an update; 830 to 1,110 if one actor runs 15% ahead):
-# the epoch of step 800 is the clean restore point, and the default
-# streak (3 windows of 50 steps) trips by about step 1,310, before the
-# run ends at 1,500 and before the next epoch (1,600)
-HEALTH_POISON = ",".join(f"poison_chunk@{n}" for n in range(480, 484))
+# the drills: actor-0 alone poisons 4 flushes (64 rows) from its 600th,
+# when replay ratio 8 lets the learner reach step 1,200 (2 actors x 16
+# envs: 32 frames a tick, 16 frames an update); the learner runs 120-170
+# updates behind that cap (the 480th flush of earlier runs landed at
+# steps 800-850, once before the epoch of step 800 was written), so the
+# rows land near step 1,050: the epoch of step 800 is the clean restore
+# point, and the default streak (3 windows of 50 steps) trips by about
+# step 1,350, before the run ends at 1,500 and before the next epoch
+# (1,600)
+HEALTH_POISON = ",".join(f"poison_chunk@{n}" for n in range(600, 604))
 HEALTH_STEPS, HEALTH_EPOCH = 1500, 800
 
 
@@ -2535,14 +2572,12 @@ def _health_quarantine() -> dict:
 
 
 def _validator_cost() -> dict:
-    """(c) ``main`` under pipelined and batched actors with the quarantine
-    on (the train_process and train_batched runs, or run here) and with
-    ``TPU_APEX_QUARANTINE=0``: updates/s, frames/s and the drain's host
-    seconds side by side, and the seconds the validator took."""
+    """(c) ``main`` under pipelined actors with the quarantine on (the
+    train_process run, or run here) and with ``TPU_APEX_QUARANTINE=0``:
+    updates/s, frames/s and the drain's host seconds side by side, and the
+    seconds the validator took."""
     out = {}
-    for backend, key, sets in (
-            ("pipelined", "e2e_process", ()),
-            ("batched", "e2e_batched_unpaced", ("actor_backend=batched",))):
+    for backend, key, sets in (("pipelined", "e2e_process", ()),):
         row = {}
         for label in ("on", "off"):
             refs = f"health_{backend}_{label}"
@@ -2629,8 +2664,8 @@ MB_DISPATCH = 8        # updates a dispatch in the megabatch rates
 MB_UPDATES = 400       # timed updates a rate
 MB_GROUP = 4           # the group the kernels are held at
 ANAKIN_MB_STEPS = 4000
-HOST_STEPS = 500       # each host row, paced at replay ratio 8
-NATIVE_STEPS = 500
+HOST_STEPS = 300       # each host row, paced at replay ratio 8
+NATIVE_STEPS = 300
 POISON_AT = 250        # the learner dispatch row 6's poison_grad hits
 ROW1_STEPS = 1500
 
@@ -3408,7 +3443,7 @@ def planes():
     return dict(out, card=card_name_and_power_limit())
 
 
-WIDE_CPU_TICKS = 20
+WIDE_CPU_TICKS = 5
 
 
 def _wide_actor_child(results, root: str) -> None:
@@ -3492,7 +3527,7 @@ def wide_torso():
         "top_device_ms": r.get("top_device_ms", [])[:8]}
     for name, backend, sets, steps in (
             ("anakin", "process", ("actor_backend=anakin",
-                                   "rollout_ratio=16"), 1000),
+                                   "rollout_ratio=16"), 500),
             ("thread", "thread", (), 500)):
         torch.cuda.reset_peak_memory_stats(DEV)
         run, summary = _train_through_main(
@@ -3509,6 +3544,384 @@ def wide_torso():
         else:
             out[name]["actor_phases_ms"] = run["actor_phases_ms"]
     out["cpu_actor"] = _wide_cpu_actor()
+    return dict(out, card=card_name_and_power_limit())
+
+
+# the perf plane's runs: the plane, mission control with an OpenMetrics
+# endpoint and one alert rule (a short absence window of the learner's
+# rate), all from the environment as a user turns them on
+PERF_ENV = {"TPU_APEX_PERF": "1", "TPU_APEX_METRICS": "1",
+            "TPU_APEX_METRICS_POLL_S": "0.5",
+            "TPU_APEX_METRICS_OPENMETRICS": "1",
+            "TPU_APEX_METRICS_OPENMETRICS_PORT": "0",
+            "TPU_APEX_ALERT_RULES": "drill_stall: learner/updates_per_s "
+                                    "absent 3s"}
+PERF_ALERT_S = 3.0
+PERF_ANAKIN_STEPS = 1000
+PERF_DRILL_UPDATES = 50
+# the profile window asked for from the watcher's thread once the learner
+# passes this step
+PROFILE_WINDOW_S, PROFILE_AT = 0.3, 600
+
+
+def _analytic_update_flops() -> float:
+    """FLOPs of one config-12 update from its GEMM shapes
+    (``bench_gemm.TORSO_GEMMS``): 2 M N K for the online and the target
+    net's forward, ``dw`` of every layer and ``dx`` of every layer but the
+    first (whose input is the observation)."""
+    return float(sum(2 * m * k * n * (3 + (i > 0)) for i, (_name, m, k, n)
+                     in enumerate(TORSO_GEMMS)))
+
+
+def _clean_plane_env() -> None:
+    """No perf, metrics or alert knob in the environment (what a run
+    exported included), and no monitor of an earlier run."""
+    from pytorch_distributed_tpu_torch.utils import perf
+
+    for k in list(os.environ):
+        if k.startswith(("TPU_APEX_PERF", "TPU_APEX_METRICS",
+                         "TPU_APEX_ALERT")):
+            del os.environ[k]
+    perf.reset()
+
+
+def _perf_env_run(backend: str, refs: str, *sets: str, steps: int,
+                  phases=("env", "advance", "tick"),
+                  window: bool = False) -> tuple:
+    """One run through ``main`` with ``PERF_ENV`` set (the monitors and
+    the exported knobs dropped before and after).  A thread watches the
+    run's mission control: the alert rule's state while the learner runs
+    and a scrape of ``/metrics``; with ``window`` it also asks for a
+    profile window (``run_profile_window``, ``PROFILE_WINDOW_S``) once the
+    learner passes step ``PROFILE_AT``, which the learner's thread opens
+    and closes between its graph replays.  Returns (run, summary, watch,
+    the topology)."""
+    import urllib.request
+
+    from pytorch_distributed_tpu_torch import runtime
+    from pytorch_distributed_tpu_torch.utils import perf
+
+    watch = {"firing_while_learning": [], "scrape": None, "polls": 0,
+             "window": None}
+    seen: dict = {}
+    run = runtime.Topology.run
+    done = threading.Event()
+
+    def watcher(topology) -> None:
+        mission = topology.mission
+        while not done.wait(0.25):
+            if topology.clock.stop.is_set():
+                continue  # the learner is done: firing is allowed now
+            watch["polls"] += 1
+            watch["firing_while_learning"] += mission.engine.firing()
+            if watch["scrape"] is None and mission.metrics.latest(
+                    "learner/updates_per_s") is not None:
+                url = f"http://127.0.0.1:{mission.exporter.port}/metrics"
+                with urllib.request.urlopen(url, timeout=10) as resp:
+                    body = resp.read().decode()
+                if "tpu_apex_learner_updates_per_s" in body:
+                    watch["scrape"] = [line for line in body.splitlines()
+                                       if "learner_updates_per_s" in line]
+            if window and watch["window"] is None and \
+                    topology.clock.learner_step.value >= PROFILE_AT:
+                t0 = time.monotonic()
+                watch["window"] = perf.run_profile_window(
+                    os.path.join(RUN_DIR, "profile_window"), refs,
+                    seconds=PROFILE_WINDOW_S)
+                watch["window"]["wall_s"] = time.monotonic() - t0
+
+    def spy(topology):
+        seen["topology"] = topology
+        t = threading.Thread(target=watcher, args=(topology,), daemon=True)
+        t.start()
+        try:
+            return run(topology)
+        finally:
+            done.set()
+            t.join(30)
+
+    _clean_plane_env()
+    os.environ.update(PERF_ENV)
+    runtime.Topology.run = spy
+    try:
+        r, summary = _train_through_main(backend, refs, *sets, steps=steps,
+                                         phases=phases)
+    finally:
+        runtime.Topology.run = run
+        _clean_plane_env()
+    return r, summary, watch, seen["topology"]
+
+
+def _perf_rows(refs: str) -> dict:
+    """``{tag: [(role, value), ...]}`` of a run's scalar rows."""
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.utils import metrics
+
+    by_tag: dict = {}
+    for row in metrics.read_scalars(build_options(
+            12, root_dir=RUN_DIR, refs=refs).log_dir):
+        by_tag.setdefault(row["tag"], []).append((row.get("role"),
+                                                  row["value"]))
+    return by_tag
+
+
+def _alert_fires_and_resolves(topology, refs: str) -> dict:
+    """After the run: the absence rule fires once the learner's rate is
+    ``PERF_ALERT_S`` stale (mission control's own poll, its real clock),
+    and resolves when a learner row comes back."""
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
+
+    mission = topology.mission
+    last = mission.metrics.latest("learner/updates_per_s")
+    time.sleep(max(0.0, last[0] + PERF_ALERT_S + 0.5 - time.time()))
+    # the run's own last poll (at its stop) may have fired it already
+    fired = [(t["rule"], t["state"]) for t in mission.poll()]
+    (rule,) = mission.engine.snapshot()
+    if rule["state"] != "firing" or rule["fired_total"] != 1:
+        raise AssertionError(f"the stale rate did not fire: {fired}, "
+                             f"{rule}")
+    writer = MetricsWriter(build_options(12, root_dir=RUN_DIR,
+                                         refs=refs).log_dir,
+                           enable_tensorboard=False, role="learner")
+    writer.scalar("learner/updates_per_s", 1.0, step=0)
+    writer.close()
+    resolved = [(t["rule"], t["state"]) for t in mission.poll()]
+    if ("drill_stall", "resolved") not in resolved:
+        raise AssertionError(f"the rule did not resolve: {resolved}")
+    return {"after_stop": fired or "fired at the run's last poll",
+            "row_back": resolved, "detail": rule["detail"]}
+
+
+def _learner_fixture(seed: int = 1):
+    """Config 12's learner alone at full width on the card (kernel torso,
+    a full random ring, the fused step replayed from a CUDA graph), as
+    ``bench_learner`` builds it: (update(audit=None), the graph)."""
+    from pytorch_distributed_tpu_torch.bench_learner import (
+        COUNTED, fill_ring,
+    )
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.factory import (
+        build_model, build_train_state_and_step, init_params, probe_env,
+        resolve_fused_step,
+    )
+    from pytorch_distributed_tpu_torch.memory.device_per import (
+        DevicePerReplay, GraphedFusedStep,
+    )
+
+    opt = build_options(12, device="cuda", pallas_torso=True, seed=seed,
+                        memory_size=RING_ROWS, batch_size=BATCH)
+    spec = probe_env(opt)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    ring = DevicePerReplay(RING_ROWS, spec.state_shape, device=DEV)
+    fill_ring(ring, spec.num_actions, gen)
+    model = build_model(opt, spec, init_weights=False)
+    box = {}
+    box["state"], step = build_train_state_and_step(
+        opt, model, init_params(opt, spec, seed=seed, device=DEV))
+    M, K, mega = resolve_fused_step(opt, model, "perf_plane")
+    graph = GraphedFusedStep(ring.build_fused_step(
+        step, BATCH, steps_per_call=K, megabatch=M, megabatch_step=mega),
+        ring.state, counters=COUNTED)
+
+    def update(audit=None):
+        us = torch.rand((K, BATCH), generator=gen, device=DEV)
+        call = graph if audit is None else (
+            lambda *a: audit.run(graph, *a))
+        box["state"], metrics = call(box["state"], ring.state, us, 0.4)
+        return metrics
+
+    return update, graph
+
+
+def _synced_update(update, audit, where: list) -> float:
+    """One audited update whose loss is read on the host: the deliberate
+    sync, on the line ``where`` records."""
+    def body():
+        metrics = update()
+        where.append(sys._getframe().f_lineno + 1)
+        return metrics["learner/critic_loss"].item()
+    return audit.run(body)
+
+
+def _retrace_and_audit_drills() -> dict:
+    """The learner alone with a monitor of its own: the recapture
+    detector warm at 0, then 1 after a forced recapture, naming the
+    graph; the audit clean over the graph's replays, then one hit at the
+    line of a deliberate ``.item()``."""
+    from pytorch_distributed_tpu_torch.config import PerfParams
+    from pytorch_distributed_tpu_torch.utils import perf
+
+    update, graph = _learner_fixture()
+    mon = perf.PerfMonitor("learner", PerfParams(
+        enabled=True, transfer_audit=True, memory_watermarks=False))
+    mon.register_jit("fused_step", lambda: graph.captures)
+    for _ in range(4):  # two eager warm-ups, the capture, a replay
+        update()
+    mon.note_updates(4)
+    mon.drain()  # the anchor, and the warm-up mark (work was done)
+    for _ in range(PERF_DRILL_UPDATES):
+        update(mon.audit)
+    mon.note_updates(PERF_DRILL_UPDATES)
+    warm = mon.drain()
+    torch.cuda.synchronize()
+    if warm["perf/learner/retraces"] != 0 or mon.audit.total:
+        raise AssertionError(f"warm replays: {warm}, audit "
+                             f"{mon.audit.sites}")
+    graph._graph = None  # the drill: the next call captures again
+    update()
+    mon.note_updates(1)
+    drill = mon.drain()
+    if drill["perf/learner/retraces"] != 1 or mon.retraces.fired != {
+            "fused_step": 1} or graph.captures != 2:
+        raise AssertionError(f"forced recapture: {drill}, "
+                             f"{mon.retraces.fired}")
+    where: list = []
+    _synced_update(update, mon.audit, where)
+    site = f"chip_smoke.py:{where[0]}"
+    if mon.audit.total != 1 or len(mon.audit.sites) != 1 or site not in \
+            next(iter(mon.audit.sites)):
+        raise AssertionError(f"deliberate sync at {site}: "
+                             f"{mon.audit.sites}")
+    return {"retraces_warm": warm["perf/learner/retraces"],
+            "replays_audited": PERF_DRILL_UPDATES,
+            "audit_hits_on_replays": 0,
+            "retraces_after_drill": drill["perf/learner/retraces"],
+            "fired": dict(mon.retraces.fired),
+            "deliberate_sync": dict(mon.audit.sites),
+            "audit_message": mon.audit.last_error}
+
+
+def _window_events(reply: dict) -> dict:
+    """The kernel events of a window's trace, by PERF.md's kernel rows."""
+    from pytorch_distributed_tpu_torch.bench_learner import kernel_label
+
+    counts: dict = {}
+    for name in os.listdir(reply["trace_dir"]):
+        with open(os.path.join(reply["trace_dir"], name)) as f:
+            events = json.load(f)["traceEvents"]
+        for e in events:
+            if e.get("cat") == "kernel":
+                label = kernel_label(e.get("name", "")) or "other"
+                counts[label] = counts.get(label, 0) + 1
+    return counts
+
+
+def perf_plane():
+    """The perf plane, the profile window and mission control on config
+    12 at full width (see the module docstring)."""
+    analytic = _analytic_update_flops()
+    off = RESULTS.get("e2e_process")  # train_process: the planes off
+    if off is None:  # the phase alone
+        off, _s = _train_through_main("process", "perf_off")
+        RESULTS["launches_perf_off"] = off["launches"]
+    on, summary, watch, topology = _perf_env_run(
+        "process", "perf_process", steps=TRAIN_STEPS)
+    RESULTS["launches_perf_process"] = on["launches"]
+    rows = _perf_rows("perf_process")
+    need = ("learner/updates_per_s", "learner/achieved_flops_per_s",
+            "learner/mfu", "learner/flops_per_update",
+            "actor/env_frames_per_s", "data/staleness_p50",
+            "data/sample_age_p95", "data/top_actor_share",
+            "data/priority_ess", "learner/replay_ratio",
+            "learner/ingest_queue_depth", "perf/learner/device_live_bytes",
+            "perf/learner/device_peak_bytes", "perf/learner/rss_bytes",
+            "perf/learner/retraces", "perf/actor/rss_bytes")
+    missing = [t for t in need if t not in rows]
+    if missing:
+        raise AssertionError(f"no rows {missing}; have {sorted(rows)}")
+    # every window positive, but for the last partial one, which may hold
+    # no update
+    for tag in ("learner/updates_per_s", "learner/achieved_flops_per_s",
+                "learner/mfu", "actor/env_frames_per_s"):
+        vals = [v for _r, v in rows[tag]]
+        if not all(v > 0 for v in vals[:-1]) or vals[-1] < 0:
+            raise AssertionError(f"{tag}: {rows[tag]}")
+    (_role, flops), = rows["learner/flops_per_update"]
+    if abs(flops - analytic) > 0.01 * analytic:
+        raise AssertionError(f"flops_per_update {flops} against the "
+                             f"analytic {analytic}")
+    if any(v != 0 for _r, v in rows["perf/learner/retraces"]):
+        raise AssertionError(f"retraces: {rows['perf/learner/retraces']}")
+    if {r for r, _v in rows["actor/env_frames_per_s"]} != {"actor-0",
+                                                           "actor-1"}:
+        raise AssertionError(f"actor rows: {rows['actor/env_frames_per_s']}")
+    if watch["firing_while_learning"] or not watch["polls"]:
+        raise AssertionError(f"alerts while the learner ran: {watch}")
+    if not watch["scrape"]:
+        raise AssertionError("no learner_updates_per_s in /metrics")
+    alert = _alert_fires_and_resolves(topology, "perf_process")
+    mfu = sorted(v for _r, v in rows["learner/mfu"])
+    out = {"process": {
+        "mfu_median": mfu[len(mfu) // 2], "mfu_windows": len(mfu),
+        "flops_per_update": flops, "analytic_flops_per_update": analytic,
+        "device_peak_bytes": max(v for _r, v in
+                                 rows["perf/learner/device_peak_bytes"]),
+        "device_live_bytes_last": rows["perf/learner/device_live_bytes"][
+            -1][1],
+        "rss_bytes_last": rows["perf/learner/rss_bytes"][-1][1],
+        "achieved_flops_per_s_median": sorted(
+            v for _r, v in rows["learner/achieved_flops_per_s"])[
+            len(mfu) // 2],
+        "updates_per_sec_plane_on": on["updates_per_sec"],
+        "updates_per_sec_plane_off": off["updates_per_sec"],
+        "frames_per_sec_plane_on": on["actor_frames_per_sec"],
+        "frames_per_sec_plane_off": off["actor_frames_per_sec"],
+        "watch_polls": watch["polls"], "scrape": watch["scrape"],
+        "alert": alert}}
+    an, an_summary, an_watch, _t = _perf_env_run(
+        "process", "perf_anakin", "actor_backend=anakin",
+        "rollout_ratio=16", steps=PERF_ANAKIN_STEPS, phases=(),
+        window=True)
+    reply = an_watch["window"] or {}
+    if "trace_dir" not in reply:
+        raise AssertionError(f"profile window: {reply}")
+    reply["kernel_events"] = _window_events(reply)
+    got = reply["kernel_events"]
+    if not (got.get("per_sample") and got.get("torso_gemm_fwd")
+            and got.get("torso_gemm_bwd")):
+        raise AssertionError(f"the trace lacks B1 or B2: {got}")
+    RESULTS["launches_perf_anakin"] = an["launches"]
+    arows = _perf_rows("perf_anakin")
+    (_r, a_flops), = arows["learner/flops_per_update"]
+    # the frame FLOPs: one forward of the Nature torso (2 M N K of each
+    # layer at one row)
+    frame = float(sum(2 * (m // BATCH) * k * n
+                      for _name, m, k, n in TORSO_GEMMS))
+    windows = [(u, f, a, m) for (_1, u), (_2, f), (_3, a), (_4, m) in zip(
+        arows["learner/updates_per_s"], arows["learner/env_frames_per_s"],
+        arows["learner/achieved_flops_per_s"], arows["learner/mfu"])]
+    if not windows or a_flops != flops:
+        raise AssertionError(f"anakin rows: {sorted(arows)}")
+    for u, f, a, _m in windows:
+        if abs(a - (u * flops + f * frame)) > 1e-6 * a:
+            raise AssertionError(f"anakin achieved {a} is not {u} "
+                                 f"updates/s x {flops} + {f} frames/s x "
+                                 f"{frame}")
+    amfu = sorted(m for *_x, m in windows)
+    out["anakin_ratio16"] = {
+        "mfu_median": amfu[len(amfu) // 2], "windows": len(windows),
+        "frame_flops": frame, "updates_per_sec": an["updates_per_sec"],
+        "frames_per_sec": an["actor_frames_per_sec"],
+        "duty_cycle": an_summary["anakin/duty_cycle"],
+        "device_peak_bytes": max(v for _r, v in
+                                 arows["perf/learner/device_peak_bytes"]),
+        "retraces": max(v for _r, v in arows["perf/learner/retraces"]),
+        "profile_window": reply,
+        # the window stalls the loop for its start and stop: the absence
+        # rule may see it (reported, not a failure)
+        "alerts_while_learning": sorted(set(
+            an_watch["firing_while_learning"]))}
+    if out["anakin_ratio16"]["retraces"] != 0:
+        raise AssertionError(f"anakin retraces: {out['anakin_ratio16']}")
+    print(f"perf_plane: mfu {out['process']['mfu_median']:.6f} (process), "
+          f"{out['anakin_ratio16']['mfu_median']:.6f} (anakin ratio 16); "
+          f"flops_per_update {flops:.0f}; device peak "
+          f"{out['process']['device_peak_bytes'] / 1e9:.3f} GB; updates/s "
+          f"plane on {on['updates_per_sec']:.2f}, off "
+          f"{off['updates_per_sec']:.2f}", flush=True)
+    emit({"perf_plane_runs": out})  # kept if a later check fails
+    out["drills"] = _retrace_and_audit_drills()
     return dict(out, card=card_name_and_power_limit())
 
 
@@ -3538,7 +3951,7 @@ def main() -> int:
               train_paced, inference, train_batched, train_anakin,
               train_device, resume, health_phase, megabatch,
               anakin_megabatch, train_uniform, train_host, small_rows,
-              planes, wide_torso)
+              planes, wide_torso, perf_plane)
     only = set(sys.argv[1:])  # phase names to run after build; none: all
     unknown = only - {fn.__name__ for fn in phases}
     if unknown:
@@ -3575,7 +3988,10 @@ def main() -> int:
             ("planes_off_process", "launches_planes_off"),
             ("planes_anakin_ratio16", "launches_planes_anakin"),
             ("wide_anakin_ratio16", "launches_wide_anakin"),
-            ("wide_thread", "launches_wide_thread"))}
+            ("wide_thread", "launches_wide_thread"),
+            ("perf_off_process", "launches_perf_off"),
+            ("perf_process", "launches_perf_process"),
+            ("perf_anakin_ratio16", "launches_perf_anakin"))}
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=launches.get(name, 0),
                           launches_by_path=by_path,

@@ -74,6 +74,14 @@ dispatch: the rows of a dispatch share its stamp).  The actor's tracer
 and is flushed into ``scalars.jsonl`` on the stat cadence and at the end
 (reference :224-226, :312, :391); the feeder takes the run's flow policy
 (``configure_flow``, reference :153-157).
+
+The perf plane (utils/perf.py, reference :195-219, :242, :309-310,
+:386-389, :551, :655-699): each actor's monitor (``actor-i``, tags
+``actor/...``) counts its env frames, anchored at start-up and drained
+on the stat cadence and at the end (``actor/env_frames_per_s`` and the
+memory rows).  The device backend also counts the FLOPs of a frame
+(``factory.frame_flops``), watches its rollout's graph for recaptures and
+with ``transfer_audit`` runs each dispatch under ``TransferAudit``.
 """
 
 from __future__ import annotations
@@ -93,16 +101,16 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 )
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
-    EnvSpec, build_device_env, build_env_vector, build_model, init_params,
-    module_apply, probe_env, resolve_actor_backend, resolve_device,
-    role_seed, state_dtype,
+    EnvSpec, build_device_env, build_env_vector, build_model, compute_dtype,
+    frame_flops, init_params, module_apply, probe_env, resolve_actor_backend,
+    resolve_device, role_seed, state_dtype,
 )
 from pytorch_distributed_tpu_torch.models.policies import (
     RolloutChunk, apex_epsilons, build_fused_rollout, epsilon_greedy_act,
     init_rollout_carry,
 )
 from pytorch_distributed_tpu_torch.ops.nstep import NStepAssembler
-from pytorch_distributed_tpu_torch.utils import tracing
+from pytorch_distributed_tpu_torch.utils import perf, tracing
 from pytorch_distributed_tpu_torch.utils.experience import (
     Transition, make_prov,
 )
@@ -270,6 +278,15 @@ class DqnActor:
         self._writer = MetricsWriter(opt.log_dir, enable_tensorboard=False,
                                      role=f"actor-{process_ind}",
                                      run_id=opt.refs)
+        self.perf = perf.get_monitor(f"actor-{process_ind}", opt.perf_params,
+                                     prefix="actor")
+        self.perf.set_compute_dtype(compute_dtype(opt))
+        if self.backend == "device" and self.perf.enabled:
+            self.perf.register_jit("device_rollout",
+                                   lambda: self.rollout.captures)
+            self.perf.capture_frame_flops(lambda: frame_flops(opt, spec),
+                                          frames_per_call=1)
+        self.perf.drain()  # the first rate window starts here
         self._obs: Optional[np.ndarray] = None
         # the provenance stamp of the tick's rows: the version that acts
         # this tick and the learner step seen at its sync point
@@ -326,6 +343,7 @@ class DqnActor:
         # before the swap: the swap tick's rows carry the acting version
         self._feed_version = getattr(self, "version", 0)
         self._birth_step = int(self.clock.learner_step.value)
+        self.perf.note_frames(n)
         self.clock.add_actor_steps(n)
         self._bump(self._label)
         self._faults.data_frame(())
@@ -364,9 +382,7 @@ class DqnActor:
         if self.env_steps >= self._next_flush:
             self._next_flush += self.ap.actor_freq
             self._flush_stats()
-            step = self.clock.learner_step.value
-            self._writer.scalars(self.timer.drain(), step=step)
-            self.tracer.flush_to(self._writer, step=step)
+            self._flush_rows(self.clock.learner_step.value)
             self.memory.flush()
 
     def _flush_stats(self) -> None:
@@ -432,7 +448,11 @@ class DqnActor:
                 while not self.clock.done(ap.steps):
                     t0 = time.perf_counter()
                     rollout.draw(self._gen)
-                    chunk = rollout(self.params, carry)
+                    if self.perf.audit is not None:
+                        chunk = self.perf.audit.run(rollout, self.params,
+                                                    carry)
+                    else:
+                        chunk = rollout(self.params, carry)
                     t1 = time.perf_counter()
                     ch = {f: getattr(chunk, f).cpu().numpy()
                           for f in RolloutChunk._fields}
@@ -444,6 +464,7 @@ class DqnActor:
                     self._feed_version = self.version
                     self._birth_step = int(self.clock.learner_step.value)
                     self.env_steps += frames
+                    self.perf.note_frames(frames)
                     self.clock.add_actor_steps(frames)
                     self._bump(self._label)
                     self._faults.data_frame(())  # one frame a dispatch
@@ -464,9 +485,7 @@ class DqnActor:
                     if self.env_steps >= self._next_flush:
                         self._next_flush += ap.actor_freq
                         self._flush_stats()
-                        step = self.clock.learner_step.value
-                        self._writer.scalars(timer.drain(), step=step)
-                        self.tracer.flush_to(self._writer, step=step)
+                        self._flush_rows(self.clock.learner_step.value)
                         self.memory.flush()
         finally:
             self.shutdown()
@@ -484,6 +503,14 @@ class DqnActor:
                 prov=make_prov(self.process_ind, j, self._feed_version,
                                self._birth_step)))
 
+    def _flush_rows(self, step: int) -> None:
+        """The stat cadence's rows: the timer's phases, the perf window
+        and the tracer's spans."""
+        self._writer.scalars(self.timer.drain(), step=step)
+        if self.perf.enabled:
+            self._writer.scalars(self.perf.drain(step=step), step=step)
+        self.tracer.flush_to(self._writer, step=step)
+
     def shutdown(self) -> None:
         if self._prefetch is not None:
             self._prefetch.close()
@@ -492,7 +519,10 @@ class DqnActor:
         self._flush_stats()
         self.memory.flush()
         self.memory.close()
-        self.tracer.flush_to(self._writer, step=self.clock.learner_step.value)
+        step = self.clock.learner_step.value
+        if self.perf.enabled:  # the last partial window: a short run's rate
+            self._writer.scalars(self.perf.drain(step=step), step=step)
+        self.tracer.flush_to(self._writer, step=step)
         self._writer.close()
 
 

@@ -48,6 +48,17 @@ the learner's (agents/learner.py), and so are the initial params
 (``initial_params``: ``--model-file`` fine-tunes).  As in the reference
 (:176-179) the Anakin loop keeps no rollback ladder.  Knobs:
 ``config.AnakinParams``, each overridable as ``TPU_APEX_ANAKIN_<FIELD>``.
+
+The perf plane (utils/perf.py, reference :302-340, :487, :559,
+:620-644): one ``learner`` monitor carries the learner's FLOPs per
+update and the rollout's per frame (``factory.update_flops``,
+``frame_flops``), so its MFU sums both programs; it watches every
+learner and rollout graph for recaptures, counts each dispatch's updates
+and frames, and with ``transfer_audit`` runs both dispatches under
+``TransferAudit``.  Each stats window's ``anakin/*`` rows become its
+gauges before the drain.  The loop holds the profile windows, as the
+learner's does: another thread's window opens and closes between two
+dispatches.
 """
 
 from __future__ import annotations
@@ -73,8 +84,8 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 from pytorch_distributed_tpu_torch.config import AnakinParams, Options
 from pytorch_distributed_tpu_torch.factory import (
     anakin_eligible, build_device_env, build_model,
-    build_train_state_and_step, module_apply, resolve_device,
-    resolve_fused_step, role_seed,
+    build_train_state_and_step, compute_dtype, frame_flops, module_apply,
+    resolve_device, resolve_fused_step, role_seed, update_flops,
 )
 from pytorch_distributed_tpu_torch.memory.device_per import (
     GraphedFusedStep, per_write_masked,
@@ -90,6 +101,7 @@ from pytorch_distributed_tpu_torch.ops.cuda_torso import (
 )
 from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY
 from pytorch_distributed_tpu_torch.utils import checkpoint as ckpt
+from pytorch_distributed_tpu_torch.utils import perf, profiling
 from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
 from pytorch_distributed_tpu_torch.utils.profiling import StepTimer
 
@@ -298,6 +310,22 @@ class AnakinDriver:
         self.publisher = None
         self.saver = EpochSaver(opt, clock, memory, device)
 
+        # ---- the perf plane: one monitor for both programs ----
+        self.perf = perf.get_monitor("learner", opt.perf_params)
+        self.perf.set_compute_dtype(compute_dtype(opt))
+        if self.perf.enabled:
+            for i, (f, r) in enumerate(zip(self._fused, self.rollouts)):
+                tag = f"_{i}" if i else ""
+                self.perf.register_jit(
+                    f"fused_step{tag}",
+                    lambda f=f: getattr(f, "captures", None))
+                self.perf.register_jit(f"anakin_rollout{tag}",
+                                       lambda r=r: r.captures)
+            self.perf.capture_flops(lambda: update_flops(opt, spec))
+            self.perf.capture_frame_flops(lambda: frame_flops(opt, spec),
+                                          frames_per_call=1)
+        self.audit = self.perf.audit
+
     # -- helpers -------------------------------------------------------
 
     def publish_inline(self) -> None:
@@ -370,8 +398,12 @@ class AnakinDriver:
         rollout = self.rollouts[self.write_ix]
         start = self.dispatch_clock.begin()
         rollout.draw(self.act_gen)
-        stats = rollout(self.state.params, self.carry,
-                        prov=self._make_prov(self.lstep))
+        if self.audit is not None:
+            stats = self.audit.run(rollout, self.state.params, self.carry,
+                                   prov=self._make_prov(self.lstep))
+        else:
+            stats = rollout(self.state.params, self.carry,
+                            prov=self._make_prov(self.lstep))
         self.dispatch_clock.end("rollout", start)
         if self.cuda:
             # the previous rollout's copy was queued before this rollout:
@@ -397,6 +429,7 @@ class AnakinDriver:
         frames = self.K_roll * self.fleet_envs
         self.frames += frames
         self._window_frames += frames
+        self.perf.note_frames(frames)
         self.clock.add_actor_steps(frames)
         ix = self.write_ix
         self._fill[ix] = min(self._fill[ix] + fed, self.rings[ix].capacity)
@@ -430,13 +463,18 @@ class AnakinDriver:
         start = self.dispatch_clock.begin()
         us = torch.rand((self.K_learn, self.ap.batch_size),
                         generator=self.gen, device=self.device)
-        self.state, m = self._fused[self.sample_ix](self.state, ring.state,
-                                                    us, self._beta)
+        fused = self._fused[self.sample_ix]
+        if self.audit is not None:
+            self.state, m = self.audit.run(fused, self.state, ring.state,
+                                           us, self._beta)
+        else:
+            self.state, m = fused(self.state, ring.state, us, self._beta)
         self.dispatch_clock.end("learn", start)
         self._skipped = self._skipped + m.get(SKIPPED_KEY, 0.0)
         self._last_metrics = m
         self.lstep += self.K_learn
         self.clock.set_learner_step(self.lstep)
+        self.perf.note_updates(self.K_learn)
         self._last_was_rollout = False
         self.counts["learns"] += 1
         self.timer.add("learn", time.perf_counter() - t0)
@@ -475,11 +513,16 @@ class AnakinDriver:
                 q_mean=vals.get("learner/q_mean", 0.0),
                 grad_norm=vals.get("learner/grad_norm", 0.0),
                 steps_per_sec=rate)
-        self.writer.scalars({"anakin/duty_cycle": duty,
-                             "anakin/updates_per_s": rate,
-                             "anakin/rollout_frames_per_s": frames_rate,
-                             "anakin/replay_fill": self.replay_fill()},
-                            step=self.lstep)
+        rows = {"anakin/duty_cycle": duty,
+                "anakin/updates_per_s": rate,
+                "anakin/rollout_frames_per_s": frames_rate,
+                "anakin/replay_fill": self.replay_fill()}
+        self.writer.scalars(rows, step=self.lstep)
+        if self.perf.enabled:
+            for tag, v in rows.items():
+                self.perf.set_gauge(tag, v)
+            self.writer.scalars(self.perf.drain(step=self.lstep),
+                                step=self.lstep)
         self.writer.scalars(self.timer.drain(), step=self.lstep)
 
     def run(self) -> Dict[str, float]:
@@ -491,41 +534,49 @@ class AnakinDriver:
             self.publisher = DevicePublisher(self.param_store,
                                              self.spec.state_shape,
                                              self.device)
+        if self.perf.enabled:  # the first rate window starts here
+            self.writer.scalars(self.perf.drain(step=self.lstep),
+                                step=self.lstep)
         t_start = t_window = time.monotonic()
         window_lstep = self.lstep
         actor_step0 = clock.actor_step.value
         spent = dict.fromkeys(("drain", "publish"), 0.0)
-        while self.lstep < ap.steps and not clock.stop.is_set() \
-                and time.monotonic() < deadline:
-            clock.bump_progress("learner")
-            if self.an.drain_ingest:
-                # rows of actors on another host, if any, land in ring 0
-                t0 = time.perf_counter()
-                fed = memory.drain()
-                if fed:
-                    self._fill[0] = min(self._fill[0] + fed,
-                                        self.rings[0].capacity)
-                spent["drain"] += time.perf_counter() - t0
-            prev = self.lstep
-            if self.want_rollout():
-                self.dispatch_rollout()
-            else:
-                self.dispatch_learn()
-            crossed = lambda freq: freq and \
-                self.lstep // freq != prev // freq
-            t0 = time.perf_counter()
-            if crossed(ap.param_publish_freq):
-                if self.publisher is not None:
-                    self.publisher.submit(self.state.params)
+        profiling.hold_windows()
+        try:
+            while self.lstep < ap.steps and not clock.stop.is_set() \
+                    and time.monotonic() < deadline:
+                clock.bump_progress("learner")
+                if self.an.drain_ingest:
+                    # rows of actors on another host, if any, land in ring 0
+                    t0 = time.perf_counter()
+                    fed = memory.drain()
+                    if fed:
+                        self._fill[0] = min(self._fill[0] + fed,
+                                            self.rings[0].capacity)
+                    spent["drain"] += time.perf_counter() - t0
+                prev = self.lstep
+                if self.want_rollout():
+                    self.dispatch_rollout()
                 else:
-                    self.publish_inline()
-            spent["publish"] += time.perf_counter() - t0
-            if crossed(ap.checkpoint_freq):
-                self.save_epoch()
-            if crossed(ap.learner_freq):
-                now = time.monotonic()
-                self._stats_line(now, t_window, window_lstep)
-                t_window, window_lstep = now, self.lstep
+                    self.dispatch_learn()
+                profiling.poll_window()
+                crossed = lambda freq: freq and \
+                    self.lstep // freq != prev // freq
+                t0 = time.perf_counter()
+                if crossed(ap.param_publish_freq):
+                    if self.publisher is not None:
+                        self.publisher.submit(self.state.params)
+                    else:
+                        self.publish_inline()
+                spent["publish"] += time.perf_counter() - t0
+                if crossed(ap.checkpoint_freq):
+                    self.save_epoch()
+                if crossed(ap.learner_freq):
+                    now = time.monotonic()
+                    self._stats_line(now, t_window, window_lstep)
+                    t_window, window_lstep = now, self.lstep
+        finally:
+            profiling.release_windows()
         if self.cuda:
             torch.cuda.synchronize(self.device)
         seconds = time.monotonic() - t_start
@@ -538,6 +589,9 @@ class AnakinDriver:
         self.publish_inline()  # the finished weights
         self.save_epoch()  # the final epoch, also on a preemption
         self.flush_actor_stats()
+        if self.perf.enabled:  # the last partial window
+            self.writer.scalars(self.perf.drain(step=self.lstep),
+                                step=self.lstep)
         self.writer.close()
         return self.summary(seconds, clock.actor_step.value - actor_step0,
                             spent, published)

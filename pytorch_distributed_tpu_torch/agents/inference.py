@@ -51,8 +51,14 @@ Where the port differs from the reference:
 
 A crash of the serve loop is recorded as ``server-crash`` in the
 ``inference`` flight recorder (reference :383-386) before every client
-is refused; the runtime's monitor dumps it when it stops the run.  Not
-ported: the perf plane's writer (ROADMAP.md, Queue A).
+is refused; the runtime's monitor dumps it when it stops the run.
+
+The perf plane (utils/perf.py, reference :189-195, :280-283, :317-334,
+:358, :397): the ``inference`` monitor counts the rows served (its
+``inference/env_frames_per_s``) and watches the server's CUDA graphs for
+recaptures (``captures``); with the plane on, the serve thread anchors
+it once the programs are built, drains it into ``scalars.jsonl`` (role
+``inference``) every 15 s and once more when it stops.
 """
 
 from __future__ import annotations
@@ -77,7 +83,8 @@ from pytorch_distributed_tpu_torch.factory import (
 from pytorch_distributed_tpu_torch.models.policies import (
     packed_act_rows, packed_roll_act,
 )
-from pytorch_distributed_tpu_torch.utils import flight_recorder
+from pytorch_distributed_tpu_torch.utils import flight_recorder, perf
+from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
 
 _CTX = mp.get_context("spawn")
 
@@ -317,6 +324,15 @@ class InferenceServer:
         self._params: Optional[Dict[str, torch.Tensor]] = None
         self._rows_progs: Dict[int, _Program] = {}
         self._roll_progs: Dict[int, _Program] = {}
+        self.perf = perf.get_monitor("inference", opt.perf_params)
+        self.perf.register_jit("inference", lambda: self.captures)
+
+    @property
+    def captures(self) -> int:
+        """The CUDA graphs captured (one a program on a GPU, none on the
+        CPU)."""
+        progs = (*self._rows_progs.values(), *self._roll_progs.values())
+        return sum(p.graph is not None for p in progs)
 
     # -- wiring (in the learner's process, before and while workers run) ---
 
@@ -547,10 +563,23 @@ class InferenceServer:
             link.dead = True  # the actor is gone
 
     def _serve(self) -> None:
+        writer = None
+        last_drain = time.monotonic()
         try:
             self._build()
+            if self.perf.enabled:
+                # the server has no stats cadence of its own: its thread
+                # drains the monitor every 15 s
+                writer = MetricsWriter(self.opt.log_dir,
+                                       enable_tensorboard=False,
+                                       role="inference", run_id=self.opt.refs)
+                self.perf.drain()  # the window starts after the build
             self._ready.set()
             while not self._stop.is_set():
+                if writer is not None \
+                        and time.monotonic() - last_drain >= 15.0:
+                    last_drain = time.monotonic()
+                    writer.scalars(self.perf.drain(), step=0)
                 got = self._gather(0.2)
                 if not got:
                     continue
@@ -573,6 +602,10 @@ class InferenceServer:
                 "server-crash", error=repr(e))
             self._refuse_until_stopped((0, 0, (_ERROR, repr(e))))
             raise
+        finally:
+            if writer is not None:
+                writer.scalars(self.perf.drain(), step=0)
+                writer.close()
 
     def _refuse_until_stopped(self, err) -> None:
         """After a failure: tell every client, then answer every request
@@ -595,6 +628,7 @@ class InferenceServer:
         st["requests"] += len(sweep)
         st["batches"] += 1
         st["rows"] += rows
+        self.perf.note_frames(rows)
         st["widest_batch"] = max(st["widest_batch"], rows)
         launched: List[Tuple[_Program, list]] = []
         for link, req in sweep:

@@ -70,8 +70,22 @@ histogram rows; the X-ray's ``replay/priority`` bucket row; the
 bandwidth X-ray's ``wire/*`` and ``replay/hbm_bytes`` rows; and the
 ``learner`` and ``feeder`` tracers' span rows.  Each dispatch records a
 ``learn`` span and each host draw a ``sample`` span against the newest
-trace id the drain saw.  The reference's ``data/*`` gauges belong to the
-perf plane (off by default) and are not written.
+trace id the drain saw.
+
+The perf plane (utils/perf.py, off by default; reference :273-286,
+:383-413, :739, :805-810, :847, :871-894, :636-637, :917-919): the
+``learner`` monitor takes the compute dtype, and on a device ring the
+FLOPs of one update (``factory.update_flops``) and the fused step's
+graph for the recapture detector; with ``transfer_audit`` each dispatch
+runs under ``TransferAudit``.  Every dispatch counts its K updates; each
+stats window sets the ``data/staleness_p50``, ``data/sample_age_p95``,
+``data/top_actor_share`` and ``data/priority_ess`` gauges (DataXray),
+``learner/replay_ratio`` and the ingest queue's depth and use, then
+drains the monitor into ``scalars.jsonl``, as the loop's entry (the
+anchor) and its end (the last partial window) do.  The loop holds the
+profile windows (``profiling.hold_windows``): one asked for from another
+thread (``perf.run_profile_window``) opens and closes in the learner's
+thread, between two dispatches or pacing waits.
 
 On a GPU the resume comes before the CUDA graph's capture, which clones
 its static buffers from the state it is first handed, and an epoch reads
@@ -104,7 +118,8 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, anakin_active, build_model, build_train_state_and_step,
-    init_params, resolve_device, resolve_fused_step, role_seed,
+    compute_dtype, init_params, resolve_device, resolve_fused_step,
+    role_seed, update_flops,
 )
 from pytorch_distributed_tpu_torch.memory.device_per import GraphedFusedStep
 from pytorch_distributed_tpu_torch.memory.device_replay import (
@@ -119,7 +134,7 @@ from pytorch_distributed_tpu_torch.ops.cuda_torso import (
 from pytorch_distributed_tpu_torch.ops.losses import SKIPPED_KEY, TrainState
 from pytorch_distributed_tpu_torch.utils import checkpoint as ckpt
 from pytorch_distributed_tpu_torch.utils import (
-    bandwidth, flight_recorder, health, tracing,
+    bandwidth, flight_recorder, health, perf, profiling, tracing,
 )
 from pytorch_distributed_tpu_torch.utils.faults import FaultInjector
 from pytorch_distributed_tpu_torch.utils.experience import Batch
@@ -378,6 +393,7 @@ class DataXray:
     def __init__(self, opt: Options, memory, param_store, writer):
         self.memory, self.param_store = memory, param_store
         self.writer = writer
+        self.perf = perf.get_monitor("learner", opt.perf_params)
         self.on_device = isinstance(memory, DeviceReplayIngest)
         # the provenance draw's own generator: the learner's draws stay as
         # they are
@@ -406,6 +422,12 @@ class DataXray:
             w.histogram("learner/sample_age", ds["age"].tolist(), step=lstep)
             w.histogram("replay/actor_share", ds["shares"].tolist(),
                         step=lstep)
+            self.perf.set_gauge("data/staleness_p50",
+                                float(np.median(ds["staleness"])))
+            self.perf.set_gauge("data/sample_age_p95",
+                                float(np.percentile(ds["age"], 95)))
+            self.perf.set_gauge("data/top_actor_share",
+                                float(ds["shares"].max()))
         if xray is not None and xray.get("rows"):
             w.bucket_histogram(
                 "replay/priority", xray["counts"],
@@ -413,6 +435,7 @@ class DataXray:
                 log10_hi=health.PRIORITY_XRAY_LOG10_HI, step=lstep,
                 extra={"ess": xray["ess"], "ess_frac": xray["ess_frac"],
                        "mass": xray["mass"], "rows": xray["rows"]})
+            self.perf.set_gauge("data/priority_ess", xray["ess_frac"])
         wire = bandwidth.emit_scalars()
         if wire:
             w.scalars(wire, step=lstep)
@@ -421,6 +444,23 @@ class DataXray:
     def flush_traces(self, lstep: int) -> None:
         for t in (self.tracer, tracing.get_tracer("feeder")):
             t.flush_to(self.writer, step=lstep)
+
+
+def drain_perf(mon, writer, memory, clock: GlobalClock, lstep: int,
+               lstep0: int, batch_size: int) -> None:
+    """The learner's gauges the monitor cannot see (reference :871-894):
+    the replay ratio over this run's steps, the ingest queue's depth and
+    use (1.0: the actors wait on it); then the window's drain."""
+    mon.set_gauge("learner/replay_ratio", (lstep - lstep0) * batch_size
+                  / max(int(clock.actor_step.value), 1))
+    depth_fn = getattr(memory, "queue_depth", None)
+    depth = depth_fn() if depth_fn is not None else None
+    if depth is not None:
+        mon.set_gauge("learner/ingest_queue_depth", depth)
+        if memory.max_queue_chunks:
+            mon.set_gauge("learner/ingest_queue_util",
+                          depth / memory.max_queue_chunks)
+    writer.scalars(mon.drain(step=lstep), step=lstep)
 
 
 def upload_batch(batch: Batch, device) -> Batch:
@@ -456,6 +496,10 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     on_device = isinstance(memory, DeviceReplayIngest)
     is_device_per = on_device and memory.prioritized
     is_per = not on_device and memory.prioritized  # the host PER ring
+    # the perf plane's monitor, on every ring; the FLOPs below on a device
+    # ring only, as the reference's
+    perf_mon = perf.get_monitor("learner", opt.perf_params)
+    perf_mon.set_compute_dtype(compute_dtype(opt))
     if not on_device:
         m_req = resolve_mxu(opt.learner_perf_params).megabatch
         if m_req > 1:  # reference :287-300
@@ -500,6 +544,12 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
             fused = GraphedFusedStep(fused, replay.state,
                                      counters=(hierarchical_sample,
                                                *GEMM_COUNTERS))
+        if perf_mon.enabled:
+            # the graph must never be captured again after the warm-up;
+            # no graph (the CPU): nothing to watch
+            perf_mon.register_jit("fused_step",
+                                  lambda: getattr(fused, "captures", None))
+            perf_mon.capture_flops(lambda: update_flops(opt, spec))
     else:
         K = 1
         host_rng = np.random.default_rng(
@@ -546,100 +596,122 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     updates = 0  # dispatched, rolled-back ones included
     actor_step0 = clock.actor_step.value
     spent = dict.fromkeys(("pacing", "drain", "step", "publish"), 0.0)
-    while lstep < ap.steps and not clock.stop.is_set() \
-            and time.monotonic() < deadline:
-        t0 = time.perf_counter()
-        clock.bump_progress("learner")
-        if faults.data_frame(("poison_grad",)):
-            poison = True
-        if ap.max_replay_ratio > 0:
-            while (not clock.stop.is_set() and time.monotonic() < deadline
-                   and (lstep - lstep0 + 1) * ap.batch_size
-                   > ap.max_replay_ratio * max(clock.actor_step.value, 1)):
-                memory.drain()
-                clock.bump_progress("learner")  # pacing is no hang
-                time.sleep(0.002)
-            if clock.stop.is_set():
-                break
-        t1 = time.perf_counter()
-        memory.drain()
-        t2 = time.perf_counter()
-        if on_device:
-            if poison:
-                poison = False
-                print("[faults:learner] poison_grad targets the "
-                      "host-sampled batch; inert on the fused device path "
-                      "(drill with poison_chunk instead)", flush=True)
-            if is_device_per and lstep >= next_beta:
-                # beta anneals slowly: refresh every 64 K
-                beta, next_beta = replay.beta(lstep), lstep + 64 * K
-            us = torch.rand((K, ap.batch_size), generator=gen, device=device)
-            with tracer.span("learn", trace_id=tracing.current_trace()):
-                state, metrics = fused(state, replay.state, us, beta)
-        else:
-            with tracer.span("sample", trace_id=tracing.current_trace()):
-                batch = memory.sample(ap.batch_size, host_rng)
-            last_idx = np.asarray(batch.index)
-            if poison:
-                # the guard must skip this update, params unchanged
-                poison = False
-                batch = batch._replace(reward=np.full_like(
-                    np.asarray(batch.reward), np.nan))
-                print("[faults:learner] poison_grad: NaN rewards injected "
-                      "into this update's batch", flush=True)
-            with tracer.span("learn", trace_id=tracing.current_trace()):
-                state, metrics, td_abs = step_fn(state,
-                                                 upload_batch(batch, device))
-            if is_per:
-                # the write-back needs |TD| on the host now, and the skip
-                # flag rides the same copy
-                sk = metrics.get(SKIPPED_KEY)
-                host = torch.cat([td_abs.float(), (
-                    sk if sk is not None else torch.zeros(
-                        (), device=td_abs.device)).view(1)]).cpu().numpy()
-                if host[-1] < 0.5:
-                    td_mean = float(np.mean(host[:-1]))
-                    memory.update_priorities(np.asarray(batch.index),
-                                             host[:-1])
-        skipped = skipped + metrics.get(SKIPPED_KEY, 0.0)
-        updates += K
-        prev, lstep = lstep, lstep + K
-        clock.set_learner_step(lstep)
-        t3 = time.perf_counter()
-
-        crossed = lambda freq: freq and lstep // freq != prev // freq
-        if crossed(ap.param_publish_freq):
-            if publisher is not None:
-                publisher.submit(state.params)
+    audit = perf_mon.audit
+    # the first rate window starts here, not at start-up; the anchor's
+    # rows carry the FLOPs per update and the first watermarks
+    if perf_mon.enabled:
+        sentinel.writer.scalars(perf_mon.drain(step=lstep), step=lstep)
+    # a profile window asked for from another thread opens and closes in
+    # this one, between two dispatches (utils/profiling.py)
+    profiling.hold_windows()
+    try:
+        while lstep < ap.steps and not clock.stop.is_set() \
+                and time.monotonic() < deadline:
+            t0 = time.perf_counter()
+            clock.bump_progress("learner")
+            if faults.data_frame(("poison_grad",)):
+                poison = True
+            if ap.max_replay_ratio > 0:
+                while (not clock.stop.is_set() and time.monotonic() < deadline
+                       and (lstep - lstep0 + 1) * ap.batch_size
+                       > ap.max_replay_ratio * max(clock.actor_step.value, 1)):
+                    memory.drain()
+                    clock.bump_progress("learner")  # pacing is no hang
+                    profiling.poll_window()
+                    time.sleep(0.002)
+                if clock.stop.is_set():
+                    break
+            t1 = time.perf_counter()
+            memory.drain()
+            t2 = time.perf_counter()
+            if on_device:
+                if poison:
+                    poison = False
+                    print("[faults:learner] poison_grad targets the "
+                          "host-sampled batch; inert on the fused device path "
+                          "(drill with poison_chunk instead)", flush=True)
+                if is_device_per and lstep >= next_beta:
+                    # beta anneals slowly: refresh every 64 K
+                    beta, next_beta = replay.beta(lstep), lstep + 64 * K
+                us = torch.rand((K, ap.batch_size), generator=gen,
+                                device=device)
+                with tracer.span("learn", trace_id=tracing.current_trace()):
+                    if audit is not None:
+                        state, metrics = audit.run(fused, state, replay.state,
+                                                   us, beta)
+                    else:
+                        state, metrics = fused(state, replay.state, us, beta)
             else:
-                publish_inline(state.params)
-        t4 = time.perf_counter()
-        for key, dt in zip(spent, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-            spent[key] += dt
-        if crossed(ap.checkpoint_freq):
-            saver.save(state, lstep, lstep0, gen, skipped)
-        if crossed(ap.learner_freq):
-            now = time.monotonic()
-            vals = {k: float(v) for k, v in metrics.items()}
-            rate = (lstep - window_lstep) / max(now - t_window, 1e-9)
-            print(f"[learner] step {lstep} "
-                  f"loss {vals['learner/critic_loss']:.5g} "
-                  f"q_mean {vals['learner/q_mean']:.5g} "
-                  f"{rate:.1f} updates/s replay {memory.size}", flush=True)
-            if stats is not None:  # reference learner.py:757-766
-                stats.add(counter=1,
-                          critic_loss=vals.get("learner/critic_loss", 0.0),
-                          q_mean=vals.get("learner/q_mean", 0.0),
-                          grad_norm=vals.get("learner/grad_norm", 0.0),
-                          steps_per_sec=rate)
-            n_skipped = saver.count_skipped(skipped)
-            reason = sentinel.window(lstep, vals, n_skipped, td_mean)
-            data.window(lstep, last_idx, sentinel.last_xray)
-            if reason is not None:
-                state, lstep, lstep0 = sentinel.rollback(
-                    reason, lstep, gen, n_skipped, host_rng)
-                next_beta = lstep  # beta follows the restored step
-            t_window, window_lstep = now, lstep
+                with tracer.span("sample", trace_id=tracing.current_trace()):
+                    batch = memory.sample(ap.batch_size, host_rng)
+                last_idx = np.asarray(batch.index)
+                if poison:
+                    # the guard must skip this update, params unchanged
+                    poison = False
+                    batch = batch._replace(reward=np.full_like(
+                        np.asarray(batch.reward), np.nan))
+                    print("[faults:learner] poison_grad: NaN rewards injected "
+                          "into this update's batch", flush=True)
+                with tracer.span("learn", trace_id=tracing.current_trace()):
+                    state, metrics, td_abs = step_fn(
+                        state, upload_batch(batch, device))
+                if is_per:
+                    # the write-back needs |TD| on the host now, and the skip
+                    # flag rides the same copy
+                    sk = metrics.get(SKIPPED_KEY)
+                    host = torch.cat([td_abs.float(), (
+                        sk if sk is not None else torch.zeros(
+                            (), device=td_abs.device)).view(1)]).cpu().numpy()
+                    if host[-1] < 0.5:
+                        td_mean = float(np.mean(host[:-1]))
+                        memory.update_priorities(np.asarray(batch.index),
+                                                 host[:-1])
+            skipped = skipped + metrics.get(SKIPPED_KEY, 0.0)
+            updates += K
+            prev, lstep = lstep, lstep + K
+            clock.set_learner_step(lstep)
+            perf_mon.note_updates(K)
+            profiling.poll_window()
+            t3 = time.perf_counter()
+
+            crossed = lambda freq: freq and lstep // freq != prev // freq
+            if crossed(ap.param_publish_freq):
+                if publisher is not None:
+                    publisher.submit(state.params)
+                else:
+                    publish_inline(state.params)
+            t4 = time.perf_counter()
+            for key, dt in zip(spent, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                spent[key] += dt
+            if crossed(ap.checkpoint_freq):
+                saver.save(state, lstep, lstep0, gen, skipped)
+            if crossed(ap.learner_freq):
+                now = time.monotonic()
+                vals = {k: float(v) for k, v in metrics.items()}
+                rate = (lstep - window_lstep) / max(now - t_window, 1e-9)
+                print(f"[learner] step {lstep} "
+                      f"loss {vals['learner/critic_loss']:.5g} "
+                      f"q_mean {vals['learner/q_mean']:.5g} "
+                      f"{rate:.1f} updates/s replay {memory.size}", flush=True)
+                if stats is not None:  # reference learner.py:757-766
+                    stats.add(counter=1,
+                              critic_loss=vals.get("learner/critic_loss", 0.0),
+                              q_mean=vals.get("learner/q_mean", 0.0),
+                              grad_norm=vals.get("learner/grad_norm", 0.0),
+                              steps_per_sec=rate)
+                n_skipped = saver.count_skipped(skipped)
+                reason = sentinel.window(lstep, vals, n_skipped, td_mean)
+                data.window(lstep, last_idx, sentinel.last_xray)
+                if reason is not None:
+                    state, lstep, lstep0 = sentinel.rollback(
+                        reason, lstep, gen, n_skipped, host_rng)
+                    next_beta = lstep  # beta follows the restored step
+                if perf_mon.enabled:
+                    drain_perf(perf_mon, sentinel.writer, memory, clock, lstep,
+                               lstep0, ap.batch_size)
+                t_window, window_lstep = now, lstep
+    finally:
+        profiling.release_windows()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.monotonic() - t_start
@@ -651,6 +723,8 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     publish_inline(state.params)  # the finished weights
     # the final epoch, also on a preemption: a next run resumes from it
     saver.save(state, lstep, lstep0, gen, skipped)
+    if perf_mon.enabled:  # the last partial window: a short run's rates
+        sentinel.writer.scalars(perf_mon.drain(step=lstep), step=lstep)
     data.flush_traces(lstep)  # the last window's spans
     sentinel.close()
     summary = {k: float(v) for k, v in metrics.items()}

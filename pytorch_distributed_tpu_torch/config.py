@@ -236,6 +236,92 @@ class AnakinParams:
 
 
 @dataclass
+class PerfParams:
+    """The perf plane's knobs (utils/perf.py, reference config.py:477-520),
+    each overridable from the environment as ``TPU_APEX_PERF_<FIELD>``
+    (``perf.resolve``; the bare ``TPU_APEX_PERF=1`` is ``enabled``), which
+    spawn children inherit."""
+
+    # export the learner's updates/s, FLOPs per update and MFU, the actors'
+    # env frames/s, the replay-ratio and data gauges and each role's memory
+    # watermarks as scalar rows on the roles' stats cadences.  Off by
+    # default: the hot path pays one counter add, start-up one FLOP count
+    # of an update
+    enabled: bool = False
+    # the card's peak FLOP/s for MFU; 0: from the card's name and the
+    # compute dtype (utils/perf.PEAK_FLOPS); a card not in the table gets
+    # achieved FLOP/s and no MFU row unless this is set
+    peak_flops: float = 0.0
+    # device live/peak bytes (the CUDA allocator) and host RSS
+    # current/peak on every drain
+    memory_watermarks: bool = True
+    # count the registered CUDA graphs' captures and flag any after the
+    # warm-up: a recapture on the hot path is the port's retrace
+    retrace_detector: bool = True
+    # run the learner's fused dispatch (and the device actor's rollout)
+    # with CUDA's sync debug mode at "warn" and attribute every host sync
+    # it makes to its call site; the call is never run twice
+    transfer_audit: bool = False
+    # upper bound, seconds, on one profile window (run_profile_window's
+    # default; TPU_APEX_PERF_PROFILE_WINDOW_MAX)
+    profile_window_max: float = 30.0
+
+
+@dataclass
+class MetricsParams:
+    """Mission control's metrics plane (utils/telemetry.py, reference
+    config.py:523-561), each field overridable as
+    ``TPU_APEX_METRICS_<FIELD>`` (``telemetry.resolve_metrics``; the bare
+    ``TPU_APEX_METRICS=1`` is ``enabled``)."""
+
+    # tail the run's scalars.jsonl into bounded time series and evaluate
+    # the alert rules on the poll cadence.  Off by default
+    enabled: bool = False
+    # the tail and alert cadence, seconds
+    poll_s: float = 2.0
+    # the remote hosts' push cadence, seconds: MetricsPusher's, which
+    # comes with the fleet planes (ROADMAP.md Queue A item 8); nothing in
+    # the port reads it until then.  Kept so that resolve_metrics takes
+    # the reference's knobs
+    push_s: float = 5.0
+    # raw points cover ``raw_span_s`` seconds (at most ``raw_points`` a
+    # series); 10 s and 60 s bucket tiers keep the older history
+    raw_span_s: float = 300.0
+    raw_points: int = 1024
+    # distinct (tag, role) series; more are counted and dropped
+    max_series: int = 512
+    # points a series in the status ``series`` block
+    series_points: int = 32
+    # more tags for the status ``series`` block, comma-separated
+    series_tags: str = ""
+    # serve the series and the alert states as OpenMetrics text (stdlib
+    # HTTP, GET /metrics)
+    openmetrics: bool = False
+    openmetrics_port: int = 9108
+
+
+@dataclass
+class AlertParams:
+    """The alert rules over mission control's series (utils/telemetry.py
+    ``AlertEngine``, reference config.py:564-584), each field overridable
+    as ``TPU_APEX_ALERT_<FIELD>``; ``TPU_APEX_ALERT_RULES`` replaces the
+    whole rule set (``;``-separated)."""
+
+    enabled: bool = True
+    # one rule a line, ``;``-separated:
+    #
+    #   name: tag absent 120s                  (absence)
+    #   name: tag > 100 for 60s                (threshold with a dwell)
+    #   name: tag < 0.02 frac 0.5 over 300s    (windowed burn rate)
+    #
+    # "": telemetry.DEFAULT_RULES
+    rules: str = ""
+    # seconds a firing rule must read clean before it resolves; 0: the
+    # first clean evaluation
+    resolve_s: float = 0.0
+
+
+@dataclass
 class FlowParams:
     """Flow control on the local transports (utils/flow.py, reference
     config.py:588-641), each field overridable as ``TPU_APEX_FLOW_<FIELD>``
@@ -268,8 +354,8 @@ class BandwidthParams:
 
 
 _SUBS = ("env_params", "memory_params", "model_params", "agent_params",
-         "health_params", "learner_perf_params", "anakin_params",
-         "flow_params")
+         "health_params", "perf_params", "metrics_params", "alert_params",
+         "learner_perf_params", "anakin_params", "flow_params")
 # the CONFIGS columns a run may not override; ``memory_type`` and
 # ``model_type`` may (``--set memory_type=native``, ``--set
 # model_type=dqn-cnn-wide``), as the reference's selectors
@@ -307,6 +393,9 @@ class Options:
     model_params: ModelParams = field(default_factory=ModelParams)
     agent_params: AgentParams = field(default_factory=AgentParams)
     health_params: HealthParams = field(default_factory=HealthParams)
+    perf_params: PerfParams = field(default_factory=PerfParams)
+    metrics_params: MetricsParams = field(default_factory=MetricsParams)
+    alert_params: AlertParams = field(default_factory=AlertParams)
     learner_perf_params: LearnerPerfParams = field(
         default_factory=LearnerPerfParams)
     anakin_params: AnakinParams = field(default_factory=AnakinParams)
@@ -381,14 +470,30 @@ def build_options(config: int = 12, **overrides: Any) -> Options:
     for key, val in overrides.items():
         if key in _SELECTORS or key in _SUBS:
             raise ValueError(f"option {key!r} is fixed by the CONFIGS row")
+        sub, dot, field_name = key.rpartition(".")
+        if dot:
+            # ``perf_params.enabled``: the group named, the field its own
+            if sub not in _SUBS or not hasattr(getattr(opt, sub),
+                                               field_name):
+                raise ValueError(f"unknown option: {key}")
+            setattr(getattr(opt, sub), field_name, val)
+            continue
         # a top-level field wins (``seed`` is mirrored into env_params
         # below); otherwise exactly one sub-dataclass owns the key
-        owner = opt if hasattr(opt, key) else next(
-            (getattr(opt, s) for s in _SUBS
-             if hasattr(getattr(opt, s), key)), None)
-        if owner is None:
+        if hasattr(opt, key):
+            setattr(opt, key, val)
+            continue
+        owners = [s for s in _SUBS if hasattr(getattr(opt, s), key)]
+        if not owners:
             raise ValueError(f"unknown option: {key}")
-        setattr(owner, key, val)
+        if len(owners) > 1:
+            # ``enabled`` is on several planes: a bare override would flip
+            # them all (reference :1071-1081)
+            raise ValueError(
+                f"ambiguous option {key!r}: lives on {', '.join(owners)}; "
+                f"name the group ({owners[0]}.{key}=...) or use the "
+                f"plane's TPU_APEX_* knob")
+        setattr(getattr(opt, owners[0]), key, val)
     opt.env_params.seed = opt.seed
     if opt.mode == 2 and opt.model_file is None:
         # reference config.py:1094-1097: test mode defaults to this run's

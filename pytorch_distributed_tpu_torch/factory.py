@@ -11,7 +11,9 @@ of ``build_train_state_and_step`` (:636-647), the learner's train apply
 gate ``_dqn_train_apply`` (:674-723), ``build_megabatch_train_step``
 (:726-771), ``resolve_megabatch`` (:774-791) and ``build_memory`` for the
 ``shared``, ``native``, ``prioritized``, ``device`` and ``device-per``
-rings (:862-940).
+rings (:862-940).  ``update_flops`` and ``frame_flops`` are the FLOP
+counts the perf plane's MFU divides by (utils/perf.py), where the
+reference reads its compiled programs' cost analysis.
 
 The port runs CONFIGS rows 1, 3, 4, 6, 8, 12 and 19
 (config.PORTED_CONFIGS): the pong-sim, fake-chain and cartpole envs, the
@@ -68,7 +70,8 @@ from pytorch_distributed_tpu_torch.ops.losses import (
 )
 from pytorch_distributed_tpu_torch.utils import health
 from pytorch_distributed_tpu_torch.utils.native_build import build_library
-from pytorch_distributed_tpu_torch.utils.perf import resolve_mxu
+from pytorch_distributed_tpu_torch.utils.experience import Batch
+from pytorch_distributed_tpu_torch.utils.perf import flops_of, resolve_mxu
 
 ENVS = {"pong-sim": PongSimEnv, "fake": FakeChainEnv,
         "classic": make_classic_env}
@@ -364,6 +367,51 @@ def build_train_state_and_step(opt: Options, model: torch.nn.Module,
         target_model_update=ap.target_model_update,
         guard=opt.health_params.numeric_guards)
     return state, step
+
+
+def _fake_model_params(opt: Options, spec: EnvSpec, mode) -> tuple:
+    """The model's structure and its state dict as fake tensors of
+    ``mode``."""
+    model = build_model(opt, spec, init_weights=False)
+    return model, {k: mode.from_tensor(v)
+                   for k, v in model.state_dict().items()}
+
+
+def update_flops(opt: Options, spec: EnvSpec) -> float:
+    """The FLOPs of one update of the run's train step at its batch size
+    (``utils/perf.flops_of``: the products and convolutions, forward and
+    backward), counted on fake tensors: nothing is computed, and the
+    tensors lie on the CPU, so the kernel torso's wrappers take their plain
+    versions, which run the same products through aten (the CUDA kernels
+    are ctypes launches the counter cannot see).  A megabatch group step
+    does the same work an update as the sequential step counted here."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    B = opt.agent_params.batch_size
+    obs = torch.from_numpy(np.zeros(0, dtype=state_dtype(opt))).dtype
+    with FakeTensorMode() as mode:
+        model, params = _fake_model_params(opt, spec, mode)
+        state, step = build_train_state_and_step(opt, model, params)
+        batch = Batch(
+            state0=torch.zeros((B, *spec.state_shape), dtype=obs),
+            action=torch.zeros(B, dtype=torch.int64),
+            reward=torch.zeros(B), gamma_n=torch.zeros(B),
+            state1=torch.zeros((B, *spec.state_shape), dtype=obs),
+            terminal1=torch.zeros(B), weight=torch.ones(B),
+            index=torch.zeros(B, dtype=torch.int64))
+        return flops_of(step, state, batch)
+
+
+def frame_flops(opt: Options, spec: EnvSpec) -> float:
+    """The FLOPs of the acting forward for one env frame (the module's
+    forward at batch 1), counted on fake tensors as ``update_flops``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    obs = torch.from_numpy(np.zeros(0, dtype=state_dtype(opt))).dtype
+    with FakeTensorMode() as mode, torch.no_grad():
+        model, params = _fake_model_params(opt, spec, mode)
+        return flops_of(module_apply(model), params,
+                        torch.zeros((1, *spec.state_shape), dtype=obs))
 
 
 def build_megabatch_train_step(opt: Options, model: torch.nn.Module

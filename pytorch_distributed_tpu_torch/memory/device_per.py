@@ -334,7 +334,8 @@ class GraphedFusedStep:
     ``counters`` are the kernel wrappers whose ``launches`` count the
     kernels they launch: capture records their launches without running
     them, so the counts are put back after capture, and each replay adds
-    the launches the captured step holds."""
+    the launches the captured step holds.  ``captures`` counts the
+    captures (one; the perf plane's recapture detector watches it)."""
 
     def __init__(self, fused: Callable, ring: ReplayState,
                  counters: Sequence = (), warmup: int = 2):
@@ -345,6 +346,7 @@ class GraphedFusedStep:
         self._graph = None
         self._deltas = ()
         self._static = self._metrics = self._us = self._beta = None
+        self.captures = 0
 
     def _eager(self, ts, us, beta):
         cur = torch.cuda.current_stream(us.device)
@@ -374,6 +376,7 @@ class GraphedFusedStep:
         for c, b in zip(self._counters, before):
             c.launches = b
         self._graph = graph
+        self.captures += 1
 
     def __call__(self, ts, rs: ReplayState, us: torch.Tensor, beta=None):
         if rs is not self._ring:

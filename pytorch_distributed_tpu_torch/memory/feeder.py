@@ -271,6 +271,14 @@ class SlotQueues:
             return list(self._live.items()) + [(None, q)
                                                for q in self._retiring]
 
+    def queue_depth(self) -> Optional[int]:
+        """Chunks waiting in every queue (the perf plane's
+        ``learner/ingest_queue_depth``); None where a queue cannot say."""
+        try:
+            return sum(q.qsize() for _slot, q in self._sources())
+        except (NotImplementedError, OSError):
+            return None
+
     def _producer_gone(self, slot, q, timeout: float = 5.0) -> bool:
         if slot is None:
             return True  # replaced: its producer is dead

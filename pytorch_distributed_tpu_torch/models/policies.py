@@ -246,6 +246,8 @@ class FusedRollout:
     dispatch.  ``params`` are copied into the graph's
     static weights before each replay unless they are those tensors.  A
     capture that fails raises; there is no eager fallback on the card.
+    ``captures`` counts the captures (the perf plane's recapture
+    detector watches it).
     The outputs of a graphed call are its static buffers, overwritten by
     the next call."""
 
@@ -292,6 +294,7 @@ class FusedRollout:
         self._graph = None
         self._params = None
         self._out = None
+        self.captures = 0
 
     # -- randomness and accounting -------------------------------------
 
@@ -450,6 +453,7 @@ class FusedRollout:
                 graph.capture_end()
         torch.cuda.current_stream(self.device).wait_stream(side)
         self._graph = graph
+        self.captures += 1
 
     def _eager_on_side_stream(self, params, carry):
         cur = torch.cuda.current_stream(self.device)

@@ -61,8 +61,14 @@ watchdog reads ``HealthParams`` through ``health.resolve``, so
 
 The flow plane (utils/flow.py) is resolved from ``opt.flow_params`` and
 exported to the environment before any child starts (reference
-:138-147); the evaluator's child lowers its priority by
-``evaluator_nice`` (reference :80-92).
+:138-147), and so is the perf plane (utils/perf.py, ``opt.perf_params``,
+reference :147-154) when it is on; the evaluator's child lowers its
+priority by ``evaluator_nice`` (reference :80-92).  With
+``MetricsParams.enabled`` the runtime builds mission control
+(utils/telemetry.py, reference :178-188), starts its poll thread once the
+blackbox home is set and the inference server runs, and stops it (a last
+tail read and alert pass) after the workers' join (reference :307-311,
+:343-347).
 """
 
 from __future__ import annotations
@@ -92,7 +98,9 @@ from pytorch_distributed_tpu_torch.factory import (
     needs_inference_server, prebuild_native, probe_env,
     resolve_actor_backend, resolve_device,
 )
-from pytorch_distributed_tpu_torch.utils import flight_recorder, flow, health
+from pytorch_distributed_tpu_torch.utils import (
+    flight_recorder, flow, health, perf, telemetry,
+)
 from pytorch_distributed_tpu_torch.utils.supervision import (
     EXIT_HUNG, ProgressBoard, RestartBudget, describe_exit,
 )
@@ -173,6 +181,17 @@ class Topology:
         # same policy (reference :138-147)
         self.flow = flow.resolve_flow(opt.flow_params)
         flow.export_env(self.flow)
+        # the perf plane, resolved once and exported the same way, also
+        # when it was turned on by ``--set`` and not by TPU_APEX_PERF
+        self.perf = perf.resolve(opt.perf_params)
+        if self.perf.enabled:
+            perf.export_env(self.perf)
+        # mission control, built here and started by run()
+        self.metrics_params = telemetry.resolve_metrics(opt.metrics_params)
+        self.mission = None
+        if self.metrics_params.enabled:
+            self.mission = telemetry.MissionControl(
+                opt.log_dir, self.metrics_params, opt.alert_params)
         self.actor_stats = ActorStats()
         self.learner_stats = LearnerStats()
         self.evaluator_stats = EvaluatorStats()
@@ -299,6 +318,10 @@ class Topology:
             if self.inference_server is not None:
                 # after the clients were wired, before anything acts
                 self.inference_server.start()
+            if self.mission is not None:
+                # after the blackbox home is set, before the learner
+                # writes the rows it reads
+                self.mission.start()
             self.progress_board.note_start("learner")
             if self.anakin:
                 # the learner is the actor fleet too; the shared
@@ -330,6 +353,8 @@ class Topology:
                 # after the join: an actor may still wait in collect
                 self._note_server_death()
                 self.inference_server.stop()
+            if self.mission is not None:
+                self.mission.stop()  # the last tail read and alert pass
             self.handles.learner_side.close()
             torch.set_num_threads(threads_before)
         if self._errors:

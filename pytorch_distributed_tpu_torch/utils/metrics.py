@@ -1,7 +1,7 @@
 """Metrics writer — the port of pytorch_distributed_tpu/utils/metrics.py:
 ``summarize_histogram`` (:39-53), ``MetricsWriter`` (:56-163) with its
-TensorBoard mirror, ``is_scalar_row`` (:230-238) and ``read_scalars``
-(:241-260).  Rows are appended to ``{log_dir}/scalars.jsonl`` in the
+TensorBoard mirror, ``ScalarsTail`` (:165-227), ``is_scalar_row``
+(:230-238) and ``read_scalars`` (:241-260).  Rows are appended to ``{log_dir}/scalars.jsonl`` in the
 reference's layout, under the reference's tag names
 (``evaluator/avg_reward``, ``actor/total_nframes``,
 ``learner/critic_loss``, ...), each with ``role`` and ``run_id`` when the
@@ -25,7 +25,9 @@ TensorFlow when it is installed, seconds of start-up in the logger's
 process), the port writes the same event file with the ``tensorboard``
 package's record writer and protos alone (``_EventFile``).
 ``read_scalars`` and ``timer_phases`` read scalar rows only
-(``is_scalar_row``); ``read_rows`` returns every row.
+(``is_scalar_row``); ``read_rows`` returns every row; ``ScalarsTail``
+reads the rows appended since its last poll (mission control,
+utils/telemetry.py).
 
     python -m pytorch_distributed_tpu_torch.utils.metrics LOG_DIR
 
@@ -188,6 +190,52 @@ class MetricsWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class ScalarsTail:
+    """Incremental reader of a run dir's ``scalars.jsonl``: ``poll()``
+    returns the rows appended since the previous poll, from the byte
+    offset after the last whole line, so a poll costs the new rows, not
+    the run's.  A trailing line without its newline is left for the next
+    poll (the writer may be mid-append); a terminated line that does not
+    decode (torn by a kill) is skipped for good; a file that shrank
+    (rotated, or a new run in the same dir) is read from the start.
+    ``max_bytes`` bounds one poll's read: a reader far behind catches up
+    over several polls, and a single line longer than the bound is
+    dropped rather than read forever."""
+
+    def __init__(self, log_dir: str, max_bytes: Optional[int] = None):
+        self.path = os.path.join(log_dir, "scalars.jsonl")
+        self._offset = 0
+        self._max_bytes = max_bytes
+
+    def poll(self) -> List[dict]:
+        try:
+            with open(self.path, "rb") as f:
+                f.seek(0, os.SEEK_END)
+                if f.tell() < self._offset:
+                    self._offset = 0  # truncated or rotated
+                f.seek(self._offset)
+                data = (f.read() if self._max_bytes is None
+                        else f.read(self._max_bytes))
+        except OSError:
+            return []
+        end = data.rfind(b"\n")
+        if end < 0:
+            if self._max_bytes is not None and len(data) >= self._max_bytes:
+                self._offset += len(data)  # one line wider than the bound
+            return []
+        self._offset += end + 1
+        out = []
+        for line in data[:end + 1].splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                out.append(json.loads(line.decode()))
+            except (ValueError, UnicodeDecodeError):
+                continue
+        return out
 
 
 def is_scalar_row(rec: dict) -> bool:

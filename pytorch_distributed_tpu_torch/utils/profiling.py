@@ -1,6 +1,6 @@
-"""Per-phase wall-time accounting — the port's copy of ``StepTimer`` from
-pytorch_distributed_tpu/utils/profiling.py (:33-100).  The trace window
-around the profiler is not ported yet.
+"""Per-phase wall-time accounting and the profiler's trace window — the
+port of pytorch_distributed_tpu/utils/profiling.py: ``StepTimer``
+(:33-100), ``sanitize_label`` (:96-105) and ``trace`` (:108-154).
 
 A worker wraps its hot loop's phases (the actors: ``act``, ``dispatch``,
 ``sync``, ``env``, ``advance``, ``param_swap``) and drains the timer on its
@@ -8,13 +8,45 @@ stats cadence into ``scalars.jsonl``, under the reference's tags:
 ``{prefix}/time_{phase}_ms`` (the window's mean), ``_max_ms``, ``_calls``,
 ``_total_ms`` and ``_last_wall`` (the wall clock of the phase's last
 occurrence).
+
+``trace(label, log_dir)`` captures a ``torch.profiler`` trace of the block
+it wraps, where the reference captures an XLA trace.  It is on when
+``log_dir`` is given or ``TPU_APEX_PROFILE`` names a directory, and yields
+``{dir}/{sanitize_label(label)}``, or None when it is off or another trace
+of this process is open (a nested capture warns and records nothing; the
+outer window goes on).  On a machine with a CUDA device it records CUDA
+activity alone: CUPTI sees every kernel and copy of the process, whatever
+thread launched them, and no host op is recorded on any thread.  Without
+one it records the host's ops.  The trace is written on exit as
+``{host}.{pid}.pt.trace.json`` in that directory, a Chrome trace that
+``chrome://tracing`` and TensorBoard's profile plugin open.
+
+Where the profiler starts and stops matters on the H100.  Its first trace
+in a process initialises Kineto's client, which only the thread that
+imported torch may do: begun on another thread it prints "External init
+callback must run in same thread as registerClient" and hung.  And a
+profiler started and stopped on one thread while another launched CUDA
+graph replays hung in ``stop_trace`` with CPU and CUDA activity, and
+with CUDA activity alone hung in one run and not in another.  So a loop that launches the card's work (the learner, the Anakin loop)
+holds the windows (``hold_windows``): a window asked for from any other
+thread is opened and closed by that loop's thread at its
+``poll_window()`` calls, between two dispatches, while the asking thread
+waits (``HOST_WAIT_S`` at most for each) and then writes the trace.  With
+no holder the asking thread opens the window itself, after the profiler
+was initialised on the main thread (``init_profiler``; ``trace`` on the
+main thread does it first); before that it refuses.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import re
+import socket
+import threading
 import time
-from typing import Dict, Iterator
+import warnings
+from typing import Dict, Iterator, Optional
 
 
 class StepTimer:
@@ -63,3 +95,190 @@ class StepTimer:
         self._n.clear()
         self._last_wall.clear()
         return out
+
+
+def sanitize_label(label: str) -> str:
+    """A trace label safe to join into a path: anything outside
+    ``[A-Za-z0-9._-]`` becomes ``-``, leading dots and dashes go, and an
+    empty result is ``trace``."""
+    clean = re.sub(r"[^A-Za-z0-9._-]+", "-", str(label)).lstrip(".-")
+    return clean or "trace"
+
+
+# one trace at a time in a process: the profiler takes no nested window
+_trace_lock = threading.Lock()
+_trace_active = False
+# the profiler was initialised on the main thread
+_initialized = False
+# the thread that opens and closes other threads' windows, and the window
+# it was asked for
+HOST_WAIT_S = 60.0
+_host_lock = threading.Lock()
+_host: Optional[int] = None
+_request: Optional["_Window"] = None
+
+
+def _activity():
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    return (ProfilerActivity.CUDA if torch.cuda.is_available()
+            else ProfilerActivity.CPU)
+
+
+def init_profiler() -> None:
+    """Initialise the profiler with one empty trace, on the main thread
+    (module docstring)."""
+    global _initialized
+    if _initialized:
+        return
+    if threading.current_thread() is not threading.main_thread():
+        raise RuntimeError("init_profiler runs on the main thread")
+    from torch.profiler import profile
+
+    with profile(activities=[_activity()]):
+        pass
+    _initialized = True
+
+
+def _open():
+    """A started profiler, on the calling thread."""
+    from torch.profiler import profile
+
+    if threading.current_thread() is threading.main_thread():
+        init_profiler()
+    elif not _initialized:
+        raise RuntimeError(
+            "the profiler is not initialised: call profiling.init_profiler() "
+            "on the main thread before a window opens on another")
+    prof = profile(activities=[_activity()])
+    prof.__enter__()
+    return prof
+
+
+class _Window:
+    """A window one thread asked the holder for."""
+
+    def __init__(self):
+        self.prof = None
+        self.error: Optional[BaseException] = None
+        self.opened = threading.Event()
+        self.close = threading.Event()
+        self.closed = threading.Event()
+
+
+def hold_windows() -> None:
+    """Make the calling thread the one that opens and closes the windows
+    other threads ask for, at its ``poll_window()`` calls."""
+    global _host
+    with _host_lock:
+        _host = threading.get_ident()
+
+
+def release_windows() -> None:
+    """The holder's loop is over: a window it holds open is closed, one it
+    never opened is refused, and later windows open on their own threads."""
+    global _host, _request
+    with _host_lock:
+        if _host != threading.get_ident():
+            return
+        _host, req, _request = None, _request, None
+    if req is not None:
+        _serve(req, final=True)
+
+
+def poll_window() -> None:
+    """The holder, between two dispatches: open the window asked for, or
+    close it once its asker is done."""
+    req = _request
+    if req is not None and _host == threading.get_ident():
+        _serve(req)
+
+
+def _serve(req: _Window, final: bool = False) -> None:
+    global _request
+    try:
+        done = final or req.close.is_set()
+        if req.prof is None and not done:
+            req.prof = _open()
+            req.opened.set()
+            return
+        if not done:
+            return
+        if req.prof is not None:
+            req.prof.__exit__(None, None, None)
+        else:
+            req.error = RuntimeError("the holder's loop ended, or the asker "
+                                     "gave up, before the window opened")
+    except Exception as e:  # noqa: BLE001 - handed to the asking thread
+        req.error = e
+    with _host_lock:
+        if _request is req:
+            _request = None
+    req.opened.set()
+    req.closed.set()
+
+
+def _ask_holder():
+    """The holder's opened window for this thread, or None when there is
+    no holder or this thread holds the windows."""
+    global _request
+    with _host_lock:
+        if _host is None or _host == threading.get_ident():
+            return None
+        req = _request = _Window()
+    if not req.opened.wait(HOST_WAIT_S):
+        req.close.set()  # dropped, or closed if it opens now
+        raise RuntimeError(f"the window was not opened within "
+                           f"{HOST_WAIT_S:g} s (the holder polls between "
+                           f"its dispatches)")
+    if req.error is not None:
+        raise req.error
+    return req
+
+
+@contextlib.contextmanager
+def trace(label: str, log_dir: Optional[str] = None
+          ) -> Iterator[Optional[str]]:
+    """A ``torch.profiler`` trace of the enclosed block (module
+    docstring); yields its directory, or None."""
+    global _trace_active
+    target = log_dir or os.environ.get("TPU_APEX_PROFILE")
+    if not target:
+        yield None
+        return
+    with _trace_lock:
+        nested = _trace_active
+        if not nested:
+            _trace_active = True
+    if nested:
+        # outside the lock: the outer window's exit must not wait on this
+        # caller's block
+        warnings.warn(
+            f"profiling.trace({label!r}): a trace is already active in "
+            f"this process; nested capture skipped (the outer window keeps "
+            f"recording)", stacklevel=3)
+        yield None
+        return
+    try:
+        path = os.path.join(target, sanitize_label(label))
+        os.makedirs(path, exist_ok=True)
+        req = _ask_holder()
+        prof = req.prof if req is not None else _open()
+        try:
+            yield path
+        finally:
+            if req is None:
+                prof.__exit__(None, None, None)
+            else:
+                req.close.set()
+                if not req.closed.wait(HOST_WAIT_S):
+                    raise RuntimeError(f"the window was not closed within "
+                                       f"{HOST_WAIT_S:g} s")
+                if req.error is not None:
+                    raise req.error
+        prof.export_chrome_trace(os.path.join(
+            path, f"{socket.gethostname()}.{os.getpid()}.pt.trace.json"))
+    finally:
+        with _trace_lock:
+            _trace_active = False

@@ -40,11 +40,14 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
-# the modules of the planes that are on by default and of row 19, each of
-# which copies what it needs of its reference module
+# the modules of the planes that are on by default, of row 19 and of the
+# planes that are off by default (the perf plane, the profile window and
+# mission control), each of which copies what it needs of its reference
+# module
 PLANE_MODULES = ("utils.metrics", "utils.experience", "utils.tracing",
                  "utils.bandwidth", "utils.flow", "utils.render",
-                 "models.dqn_cnn_wide", "convert")
+                 "models.dqn_cnn_wide", "convert", "utils.perf",
+                 "utils.profiling", "utils.telemetry")
 
 
 @pytest.mark.parametrize("name", PLANE_MODULES)

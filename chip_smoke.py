@@ -72,7 +72,8 @@ Phases, each printed as one JSON line:
 12. train: config 12 at full width through the port's entry point
    (``pytorch_distributed_tpu_torch.main``) on the thread backend with the
    kernel torso on, native Pong and pipelined actors (the defaults), an
-   evaluator of one capped episode, and logs and checkpoints under a
+   evaluator of one episode capped at 300 agent steps, and logs and
+   checkpoints under a
    temporary directory; the kernels' launch counters are zeroed just
    before and read just after: per update 1 draw, 10 forward and 9
    backward bf16 GEMMs, no fp32 GEMM; the actors' timer phases from
@@ -89,17 +90,10 @@ Phases, each printed as one JSON line:
 14. test_mode: ``main --mode 2`` on that params file, one capped episode
    with inference on the card: finite stats of one episode, and the peak
    of allocated device memory up by at least the weights' bytes;
-15. process_trace: the process run again, 800 updates, with the device
-   traced by ``torch.profiler`` (CUDA activity only, started and stopped
-   in the learner's thread between graph replays) over updates 600 to
-   700: the
-   device's idle share in that window as traced, its busy ms per update,
-   and, labelled as an estimate, the idle share that busy time would
-   leave at train_process's unprofiled rate;
-16. train_paced: the process run with the reference's config-12 pacing
+15. train_paced: the process run with the reference's config-12 pacing
    (``max_replay_ratio`` 8, ``learn_start`` 5,000): updates/s, the pacing
    seconds, the actors' phases, the same launches per update;
-17. inference: the shared inference server (``actor_backend=batched``)
+16. inference: the shared inference server (``actor_backend=batched``)
    alone on the card, on random weights: one batched actor of 16 envs,
    300 ticks of native Pong with every env reset at ticks 100 and 200
    (so full uploads reseed the server's stack between packed ones),
@@ -113,13 +107,14 @@ Phases, each printed as one JSON line:
    that; the share of equal actions; round trip ms per request, device
    ms per forward (graph replays timed by events) and rows per sweep at
    1, 2 and 6 clients;
-18. train_batched: the process run with ``actor_backend=batched``,
-   unpaced and then paced as train_paced: the same launches per update,
-   a finite loss, no child with CUDA, ``inference/rows`` equal to the
-   actors' frames within one tick per actor; updates/s, frames/s, the
-   actors' phases, the learner's host seconds and the server's counts
-   beside train_process's and train_paced's;
-19. train_anakin: config 12 at full width through ``main`` with
+17. train_batched: the process run with ``actor_backend=batched``,
+   unpaced: the same launches per update, a finite loss, no child with
+   CUDA, ``inference/rows`` equal to the actors' frames within one tick
+   per actor; updates/s, frames/s, the actors' phases, the learner's host
+   seconds and the server's counts beside train_process's and
+   train_paced's (the paced batched run, a finding whose gates are these
+   and train_paced's, is not run);
+18. train_anakin: config 12 at full width through ``main`` with
    ``actor_backend=anakin`` (the fleet and the learner in this process,
    the evaluator and the logger in children), strict and at
    ``rollout_ratio`` 16: the same launches per update, a finite loss,
@@ -129,11 +124,11 @@ Phases, each printed as one JSON line:
    window (20 updates strict, 100 at ratio 16, the profiler started and
    stopped between dispatches in the launching thread): the device's
    idle share as traced and, as an estimate, at the untraced rate;
-20. train_device: the process run with ``actor_backend=device`` (each
+19. train_device: the process run with ``actor_backend=device`` (each
    actor child one fused rollout on the CPU): the same checks, frames/s,
    the actors' phases and the learner's host seconds; then one device
    actor on the card as the thread backend runs it (40 dispatches);
-21. resume: supervision and resume at full width, in three legs. (1) A
+20. resume: supervision and resume at full width, in three legs. (1) A
    process-backend run here, paced (``max_replay_ratio`` 8), with the
    hang watchdog at 10 s and an epoch every 500 steps: a timer thread
    SIGKILLs ``actor-0`` once the learner passes step 300 and SIGSTOPs
@@ -152,7 +147,7 @@ Phases, each printed as one JSON line:
    epochs' bytes and save seconds with and without the ring, the rows
    and seconds of the restore, and ``train_process``'s updates/s.
 
-22. health: the health plane at full width on the process backend,
+21. health: the health plane at full width on the process backend,
    with the reference's defaults (detector, rollback ladder, quarantine).
    (a) The rollback drill: ``TPU_APEX_QUARANTINE=0``, actor-0 alone
    poisons four flushes after the epoch of step 800 (``FEEDER_FAULTS``
@@ -167,16 +162,16 @@ Phases, each printed as one JSON line:
    rollback, of the restore and of that first update. (b) The
    quarantine drill: the same poison with the quarantine on: its 64 rows
    in ``quarantine/``, no rollback, no skipped step, no NaN in the ring.
-   (c) The validator's cost: ``main`` with pipelined actors, the
-   quarantine on (train_process's run) and off: updates/s, frames/s, the
-   drain's host seconds and the validator's own seconds side by side
-   (the batched actors' pair is not run: on a slow host it took the
-   whole script past its time limit; PERF.md section 7). (d) The X-ray
+   (c) The validator's cost: ``main`` with pipelined actors and the
+   quarantine on (train_process's run): updates/s, frames/s, the drain's
+   host seconds and the validator's own seconds (the quarantine-off twin
+   is not run: single pairs resolved nothing and the script needs the
+   time; PERF.md section 7). (d) The X-ray
    of a full ring: host ms a stats window (the one copy included) and
    device ms, against the host X-ray.  The quarantine drill runs
    unpaced, 600 updates, its poison early in the warm-up (it needs no
    epoch).
-23. megabatch: config 12's learner alone at full width in groups of M
+22. megabatch: config 12's learner alone at full width in groups of M
    (``megabatch``): a graphed dispatch of groups of 4 against its eager
    twin, with the kernel torso and with the module's forward (``vmap``
    over the weight copies), to the bit; a group of one minibatch against
@@ -192,26 +187,26 @@ Phases, each printed as one JSON line:
    module's forward at M = 4; then the split-process learner with
    ``megabatch=4`` through ``main`` (pipelined actors, 2,000 updates),
    its launches held to one draw and 10 + 24 GEMMs a group;
-24. anakin_megabatch: Anakin through ``main`` at ``rollout_ratio`` 16
+23. anakin_megabatch: Anakin through ``main`` at ``rollout_ratio`` 16
    with ``megabatch=4`` and ``double_buffer=true``, 4,000 updates: the
    launches per group, updates/s, frames/s, the duty cycle and the
    device ms a learner update over the run, and the median of its stats
    windows past step 400 (the warm-up and the graphs' captures left
    out), beside train_anakin's ratio-16 run;
-25. train_uniform: CONFIGS row 8 (the uniform device ring) through
+24. train_uniform: CONFIGS row 8 (the uniform device ring) through
    ``main``, pipelined actors at replay ratio 8 and Anakin at ratio 16
    (the same ratio at batch 128), as users run it: no draw, 10 + 9
    GEMMs an update; updates/s, frames/s;
-26. train_host: rows 4 (``shared``) and 6 (``prioritized``) through
+25. train_host: rows 4 (``shared``) and 6 (``prioritized``) through
    ``main`` on the process backend at replay ratio 8, 300 updates
    each, row 6 with ``LEARNER_FAULTS=poison_grad@250`` (exactly one
    skipped update, its batch the NaN one, its params unchanged, no
    rollback), then row 4 on ``memory_type=native`` unpaced; no draw, 10
    + 9 GEMMs an update;
-27. small_rows: rows 1 and 3 (``dqn-mlp``, no kernel on their path)
+26. small_rows: rows 1 and 3 (``dqn-mlp``, no kernel on their path)
    through ``main``: row 1 learns the chain (the evaluator reaches 1.0,
    mode 2 on its best params solves every episode in 7 steps);
-28. planes: config 12's planes that are on by default (provenance,
+27. planes: config 12's planes that are on by default (provenance,
    tracing, the bandwidth X-ray, flow control, the histogram, bucket and
    span rows), at full width. (a) ``main`` on the process backend, 2,000
    updates, the defaults: the ``learner/staleness``,
@@ -224,9 +219,9 @@ Phases, each printed as one JSON line:
    geometry (``prov`` included), ``wire/spawn/bytes_per_s`` rows and the
    same launches per update; the spawn link's bytes drained at most those
    minted, counted over the thread backend's run (``train``), where the
-   actors and the learner share one process. (b) The same run with
-   ``TPU_APEX_TRACE=0 TPU_APEX_WIRE=0``: updates/s and frames/s beside
-   (a)'s, the cost of the planes (a finding, not a gate). (c) Anakin at
+   actors and the learner share one process. (b) (The planes-off twin
+   run, a finding that single pairs never resolved, is not run: PERF.md
+   section 7.) (c) Anakin at
    ``rollout_ratio`` 16 driven here for 1,000 updates: every written row
    of its ring stamped ``(0, an env row of 32, a version from 1 to the
    published one, a birth step up to the last update)``, the launches per
@@ -236,7 +231,7 @@ Phases, each printed as one JSON line:
    (``TPU_APEX_FLOW_LOCAL_POLICY=shed``, a feeder ring of 4 chunks, an
    ingest queue of 8 and a pending bound of 64 rows): both shed points
    drop rows, and minted == ingested + shed + parked;
-29. wide_torso: CONFIGS row 19 (the wide residual torso, width 128,
+28. wide_torso: CONFIGS row 19 (the wide residual torso, width 128,
    batch 128, 50,000 rows) at full width: the graph replay of its fused
    update against eager, to the bit; the learner alone
    (``bench_learner``): updates/s, device ms an update, the peak of
@@ -247,7 +242,7 @@ Phases, each printed as one JSON line:
    GEMM an update and no evaluator (a greedy episode of the wide torso on
    the evaluator's CPU takes minutes); one pipelined CPU actor of 16 envs
    in a spawn child, ms a tick over 5 ticks.
-30. perf_plane: config 12 at full width with the perf plane and mission
+29. perf_plane: config 12 at full width with the perf plane and mission
    control on as a user turns them on (``TPU_APEX_PERF=1``,
    ``TPU_APEX_METRICS=1``, an OpenMetrics endpoint on a free port and the
    rule ``drill_stall: learner/updates_per_s absent 3s`` in
@@ -277,6 +272,32 @@ Phases, each printed as one JSON line:
    unprofiled, for the planes' cost; the window's stall of the loop may
    fire the absence rule there, which is reported). Prints MFU, FLOPs per update,
    the watermarks and updates/s with the planes on and off.
+30. ddpg: rows 2 and 16 (the DDPG family: ``ddpg-mlp``, 300/200 actor
+   and 400/300 critic in fp32, batch 64, a 50,000-row ring, 2 actors x 4
+   envs) at the reference's widths. B1 at DDPG's draws (64 an update, 256
+   a group of 4) against its plain version, identical, with kernel,
+   plain, library and bound ms. (a) Row 2 (pendulum, the host ``shared``
+   ring) through ``main`` on the process backend, pipelined CPU actors
+   and an evaluator, 1,000 updates, with ``LEARNER_FAULTS=poison_grad@
+   700``: finite ``learner/critic_loss`` and ``learner/actor_loss`` rows,
+   the params file and its ``_best`` tier, no child with CUDA, no B1 or
+   B2 launch, exactly one skipped update with its params unchanged and no
+   rollback, then mode 2 on the params file with inference on the card.
+   (b) Row 16's learning bar at the JAX package's own test's geometry
+   (tests/test_topology.py:115-133): 8,000 updates, ``learn_start``
+   1,000, ``max_replay_ratio`` 8, ``early_stop`` 12,500, the row's
+   ``shared`` ring, on the process backend (the eager host update
+   starves for the GIL on the thread backend: about 6 updates/s); then
+   mode 2 over 5 episodes with ``avg_reward`` at least -20. (c) Row 2
+   on ``memory_type=device-per`` with ``megabatch=4`` and batched actors
+   through ``main`` (the perf plane on), 1,000 updates: the graphed group
+   dispatch against its eager twin to the bit, one B1 launch a group and
+   no GEMM over the run, finite losses, ``inference/rows`` equal to the
+   actors' frames within a tick per actor, ``learner/mfu`` over the fp32
+   peak. (d) Row 2's learner alone on a full random ring (bench_learner),
+   dispatches of 4, at M = 1 and 4, graphed and eager: updates/s, 1/M
+   draws and no GEMM an update, the profiler's device ms an update.
+   Prints updates/s, frames/s and ``learner/mfu``.
 
 ``python3 chip_smoke.py PHASE ...`` runs ``build`` and the named phases
 only.  Then a ``kernels`` line (the table PERF.md is written from: B1's
@@ -285,8 +306,9 @@ GEMM's from the fp32 learner run, and each kernel's launches on the
 process runs with pipelined, batched and device actors, on the two
 Anakin runs, on the two health drills, on the megabatch learner and
 Anakin runs, on row 8's two runs, on the three host runs, on the
-planes' runs, on row 19's two runs and on the perf plane's three runs;
-B1 and B2 held at a megabatch group beside their per-update numbers),
+planes' runs, on row 19's two runs, on the perf plane's three runs and
+on DDPG's three ``main`` runs; B1 and B2 held at a megabatch group
+beside their per-update numbers, B1 also at DDPG's draws),
 the
 card's name and power limit, and the verdict as the last line.  Exits non-zero, with no
 verdict, if there is no GPU, if the package is missing, or if any phase
@@ -328,9 +350,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # config 12 (dqn/pong-sim/device-per/dqn-cnn) at full width
 RING_ROWS, BATCH, FRAME, ACTIONS = 50_000, 128, (4, 84, 84), 6
 TRAIN_STEPS = 2000
-# the cap on an episode's agent steps in the end-to-end phases, so the
-# evaluator's and the tester's greedy episodes end in seconds
+# the cap on an episode's agent steps in the device env phases
 EARLY_STOP = 1000
+# and in the runs through ``main``: the evaluator's final greedy episode
+# on the CPU and the tester's end within a few seconds
+E2E_EARLY_STOP = 300
 RUN_DIR = ""  # the end-to-end phases' logs and checkpoints, made by main
 # (M, K, N) of each kernel's sweep, each run in all four operand layouts:
 # ragged M, N 6 to 512, K from 64 to 51,200 (136, 200 and 1,096 ragged
@@ -353,6 +377,7 @@ LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 
 RESULTS: dict = {}
 FAILED: list = []
+SECONDS: dict = {}  # each phase's wall seconds, printed before the table
 
 
 def emit(obj: dict) -> None:
@@ -365,13 +390,15 @@ def phase(fn):
     t0 = time.monotonic()
     try:
         out = fn()
+        SECONDS[fn.__name__] = time.monotonic() - t0
         emit({"phase": fn.__name__, "ok": True,
-              "seconds": time.monotonic() - t0, **(out or {})})
+              "seconds": SECONDS[fn.__name__], **(out or {})})
     except Exception:  # noqa: BLE001 - reported, and fails the run
+        SECONDS[fn.__name__] = time.monotonic() - t0
         FAILED.append(fn.__name__)
         traceback.print_exc()
         emit({"phase": fn.__name__, "ok": False,
-              "seconds": time.monotonic() - t0})
+              "seconds": SECONDS[fn.__name__]})
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -789,12 +816,13 @@ def _graph_matches_eager(compute_dtype: str, megabatch: int = 1,
     the kernel torso (or, ``torso=False``, the module's forward) in
     ``compute_dtype``, in groups of ``megabatch``: the largest difference
     over params and priorities (the same kernels in the same order: 0 in
-    every run so far).  ``config`` is the CONFIGS row (its model)."""
+    every run so far).  ``config`` is the CONFIGS row (its model; a DDPG
+    row's ring holds its low-dim states and continuous actions)."""
     from pytorch_distributed_tpu_torch import bench_learner
     from pytorch_distributed_tpu_torch.config import build_options
     from pytorch_distributed_tpu_torch.factory import (
         EnvSpec, build_model, build_train_state_and_step, init_params,
-        resolve_fused_step,
+        probe_env, resolve_fused_step,
     )
     from pytorch_distributed_tpu_torch.memory.device_per import (
         DevicePerReplay, GraphedFusedStep,
@@ -803,30 +831,36 @@ def _graph_matches_eager(compute_dtype: str, megabatch: int = 1,
     opt = build_options(config, device="cuda", pallas_torso=torso,
                         compute_dtype=compute_dtype, megabatch=megabatch,
                         steps_per_dispatch=4)
-    spec = EnvSpec(FRAME, ACTIONS, 255.0)
+    ddpg = opt.agent_type == "ddpg"
+    spec = probe_env(opt) if ddpg else EnvSpec(FRAME, ACTIONS, 255.0)
+    batch = opt.agent_params.batch_size
     runs = []
     for graphed in (False, True):
-        ring = DevicePerReplay(4096, FRAME, device=DEV)
-        bench_learner.fill_ring(ring, ACTIONS,
+        ring = DevicePerReplay(
+            4096, spec.state_shape, spec.action_shape,
+            state_dtype=torch.float32 if ddpg else torch.uint8,
+            action_dtype=torch.float32 if ddpg else torch.int32,
+            device=DEV)
+        bench_learner.fill_ring(ring, spec.num_actions,
                                 torch.Generator(device=DEV).manual_seed(5))
         model = build_model(opt, spec, init_weights=False)
         state, step = build_train_state_and_step(
             opt, model, init_params(opt, spec, seed=0, device=DEV))
         m, k, mega = resolve_fused_step(opt, model, "chip_smoke")
-        fused = ring.build_fused_step(step, BATCH, steps_per_call=k,
+        fused = ring.build_fused_step(step, batch, steps_per_call=k,
                                       megabatch=m, megabatch_step=mega)
         if graphed:
             fused = GraphedFusedStep(fused, ring.state)
         gen = torch.Generator(device=DEV).manual_seed(6)
         for _ in range(6):
-            us = torch.rand((4, BATCH), generator=gen, device=DEV)
+            us = torch.rand((4, batch), generator=gen, device=DEV)
             state, _m = fused(state, ring.state, us, 0.4)
         torch.cuda.synchronize()
         runs.append((state, ring.state.priority.clone()))
     (s_e, p_e), (s_g, p_g) = runs
-    diffs = [float((s_e.params[k] - s_g.params[k]).abs().max())
-             for k in s_e.params] + [float((p_e - p_g).abs().max())]
-    return max(diffs)
+    diffs = [float((a - b).abs().max()) for a, b in zip(
+        _tensors(s_e.params), _tensors(s_g.params))]
+    return max(diffs + [float((p_e - p_g).abs().max())])
 
 
 def learner_alone():
@@ -874,19 +908,22 @@ def learner_alone():
 
 
 def _e2e_argv(backend: str, refs: str = "", *sets: str,
-              config: int = 12, steps: int = TRAIN_STEPS) -> list:
+              config: int = 12, steps: int = TRAIN_STEPS,
+              batch: int = BATCH, envs: int = 16,
+              learn_start: int = 2000) -> list:
     """A CONFIGS row (config 12 unless said) at full width, 2 actors x 16
     envs (native Pong, pipelined: the defaults), the kernel torso, an
     evaluator of one capped episode, logs and checkpoints in RUN_DIR;
     ``sets`` are more ``--set`` values."""
     argv = ["--config", str(config), "--backend", backend,
             "--device", "cuda",
-            "--num-actors", "2", "--num-envs-per-actor", "16",
-            "--memory-size", str(RING_ROWS), "--batch-size", str(BATCH),
+            "--num-actors", "2", "--num-envs-per-actor", str(envs),
+            "--memory-size", str(RING_ROWS), "--batch-size", str(batch),
             "--steps", str(steps),
-            "--set", "learn_start=2000", "--set", "pallas_torso=true",
+            "--set", f"learn_start={learn_start}",
+            "--set", "pallas_torso=true",
             "--set", "learner_freq=100", "--set", "evaluator_nepisodes=1",
-            "--set", f"early_stop={EARLY_STOP}",
+            "--set", f"early_stop={E2E_EARLY_STOP}",
             "--set", f"root_dir={RUN_DIR}", "--set", f"refs={refs or backend}"]
     for kv in sets:
         argv += ["--set", kv]
@@ -911,17 +948,21 @@ def expected_launches(updates: int, megabatch: int = 1, draws: bool = True,
 def _train_through_main(backend: str, refs: str = "", *sets: str,
                         phases=("env", "advance", "tick"), config: int = 12,
                         steps: int = TRAIN_STEPS, megabatch: int = 1,
-                        draws: bool = True, torso: bool = True) -> tuple:
+                        draws: bool = True, torso: bool = True,
+                        **shape) -> tuple:
     """One end-to-end run through ``main``; the kernels' launch counters
     are zeroed just before it and read just after, in this process, and
     held to ``expected_launches``.  ``phases``: the actors' timer phases
     the run must have logged; ``torso`` False: a model the GEMM kernel
-    does not serve (0 GEMMs)."""
+    does not serve (0 GEMMs); ``shape``: ``_e2e_argv``'s batch, envs and
+    learn_start."""
     from pytorch_distributed_tpu_torch import main as port_main
     from pytorch_distributed_tpu_torch.config import build_options
     from pytorch_distributed_tpu_torch.utils.metrics import timer_phases
 
-    argv = _e2e_argv(backend, refs, *sets, config=config, steps=steps)
+    argv = _e2e_argv(backend, refs, *sets, config=config, steps=steps,
+                     **shape)
+    batch = shape.get("batch", BATCH)
     _zero_launches()
     summary = port_main.main(argv)
     launches = {"per_sample": cuda_sampling.hierarchical_sample.launches,
@@ -948,7 +989,7 @@ def _train_through_main(backend: str, refs: str = "", *sets: str,
            "actor_frames_per_sec": summary["actor/steps_per_sec"],
            "actor_phases_ms": logged,
            # samples drawn per transition stored, over the train loop
-           "replay_ratio": steps_done * BATCH / max(actor_steps, 1.0),
+           "replay_ratio": steps_done * batch / max(actor_steps, 1.0),
            "host_s": {k: summary.get(f"learner/host_s_{k}")
                       for k in ("pacing", "drain", "step", "publish")},
            "train_seconds": seconds,
@@ -1042,7 +1083,7 @@ def test_mode():
                                refs="process").model_name
     argv = ["--config", "12", "--mode", "2", "--device", "cuda",
             "--model-file", model_file, "--set", "tester_nepisodes=1",
-            "--set", f"early_stop={EARLY_STOP}"]
+            "--set", f"early_stop={E2E_EARLY_STOP}"]
     # the tester's weights live on the card while it plays: the peak of
     # allocated device memory rises by at least their fp32 bytes
     torch.cuda.synchronize()
@@ -1326,32 +1367,6 @@ def _busy_us(trace_path: str) -> tuple:
     return busy, len(spans)
 
 
-def process_trace():
-    """The unpaced process-backend run of ``train_process`` again, with the
-    device traced by ``torch.profiler`` while the learner takes updates 600
-    to 700 (the run stops at 800): the device's idle share in that window
-    as traced (the
-    union of its kernels and copies against the window's wall time), its
-    busy time per update, the window's updates/s beside the unprofiled
-    run's, and, as an estimate, the idle share that busy time would leave
-    at the unprofiled rate."""
-    summary, window = _traced_run(
-        _e2e_argv("process", "process_trace", steps=PROCESS_TRACE_STEPS),
-        *PROCESS_TRACE_WINDOW, "process_trace")
-    busy_ms = window["device_busy_ms_per_update"]
-    rate = RESULTS.get("e2e_process", {}).get("updates_per_sec")
-    return {**{k: window[k] for k in (
-        "window_s", "updates", "window_updates_per_sec", "device_spans",
-        "device_busy_ms_per_update", "device_idle_share_traced")},
-            "unprofiled_updates_per_sec": rate,
-            # not traced: the window's busy ms per update at the rate of
-            # train_process, which ran without the profiler
-            "device_idle_share_estimate_at_unprofiled_rate":
-                None if rate is None else 1.0 - busy_ms * rate / 1e3,
-            "top_kernels_ms": window["top_kernels_ms"],
-            "children_with_cuda": summary["runtime/children_with_cuda"]}
-
-
 def train_paced():
     """The process backend with the reference's config-12 pacing
     (``max_replay_ratio`` 8, ``learn_start`` 5,000): the rate users feel,
@@ -1625,13 +1640,12 @@ def inference():
 
 def train_batched():
     """Config 12 at full width through ``main`` on the process backend with
-    ``actor_backend=batched``, unpaced and then paced (the reference's
-    flags): the same launches per update, a finite loss, no child with
-    CUDA, ``inference/rows`` equal to the actors' frames within one tick
-    per actor, beside train_process's and train_paced's numbers."""
+    ``actor_backend=batched``, unpaced: the same launches per update, a
+    finite loss, no child with CUDA, ``inference/rows`` equal to the
+    actors' frames within one tick per actor, beside train_process's and
+    train_paced's numbers."""
     out = {}
-    for name, sets in (("unpaced", ()),
-                       ("paced", ("max_replay_ratio=8", "learn_start=5000"))):
+    for name, sets in (("unpaced", ()),):
         r, summary = _train_through_main("process", f"batched_{name}",
                                          "actor_backend=batched", *sets)
         RESULTS[f"launches_batched_{name}"] = r["launches"]
@@ -1884,8 +1898,6 @@ FLEET = 32  # config 12's fleet: 2 actors x 16 envs
 # train_anakin's traced windows, in learner steps: a strict window's
 # trace holds every kernel of 40 rollouts
 TRACE_WINDOWS = {"strict": (300, 320), "ratio16": (400, 500)}
-# process_trace: the traced updates, and where its run stops
-PROCESS_TRACE_WINDOW, PROCESS_TRACE_STEPS = (600, 700), 800
 ENV_SIZES = (32, 256, 1024)
 ENV_EARLY_STOP, ENV_STEPS = 100, 350  # 3 truncated episodes and a half
 ROLLOUT_TICKS, ROLLOUT_TIMED = 8, 50
@@ -2086,64 +2098,6 @@ def fused_rollout():
             "card": card_name_and_power_limit()}
 
 
-def _traced_run(argv, start: int, stop: int, name: str) -> tuple:
-    """``argv`` run as ``main`` runs it (``runtime.Topology``, the learner
-    on this thread) with the device traced by ``torch.profiler`` (CUDA
-    activity only: tracing the host's ops slows the loop) from learner
-    step ``start`` to ``stop``.  The profiler starts and stops in the
-    learner's own thread, between two replays of its graph (a hook on
-    ``GraphedFusedStep``): one started from another thread hung beside
-    the replays.  Returns (summary, the window)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from pytorch_distributed_tpu_torch import main as port_main
-    from pytorch_distributed_tpu_torch import runtime
-    from pytorch_distributed_tpu_torch.memory.device_per import (
-        GraphedFusedStep,
-    )
-
-    opt = port_main.options_from_args(port_main.parse_args(argv))
-    topology = runtime.Topology(opt, backend="process")
-    clock = topology.clock
-    window: dict = {}
-    traced: dict = {}
-    replay = GraphedFusedStep.__call__
-
-    def hooked(self, *args, **kw):
-        step = clock.learner_step.value
-        if "prof" not in traced and start <= step < stop:
-            traced["prof"] = profile(activities=[ProfilerActivity.CUDA])
-            traced["prof"].__enter__()
-            traced["t0"], traced["s0"] = time.perf_counter(), step
-        elif "prof" in traced and "window" not in traced and step >= stop:
-            torch.cuda.synchronize()
-            window["window_s"] = time.perf_counter() - traced["t0"]
-            window["updates"] = step - traced["s0"]
-            traced["prof"].__exit__(None, None, None)
-            traced["window"] = True
-        return replay(self, *args, **kw)
-
-    GraphedFusedStep.__call__ = hooked
-    try:
-        summary = topology.run()
-    finally:
-        GraphedFusedStep.__call__ = replay
-        if "prof" in traced and "window" not in traced:
-            traced["prof"].__exit__(None, None, None)
-    if "window" not in traced:
-        raise AssertionError(f"no trace window from step {start} to "
-                             f"{stop}: {summary}")
-    prof = traced["prof"]
-    window["trace"] = os.path.join(RUN_DIR, f"{name}.json")
-    prof.export_chrome_trace(window["trace"])
-    window["top_kernels_ms"] = sorted(
-        ((e.key[:60], e.self_device_time_total / 1e3)
-         for e in prof.key_averages() if e.self_device_time_total > 0),
-        key=lambda kv: -kv[1])[:8]
-    _busy_share(window)
-    return summary, window
-
-
 def _busy_share(window: dict) -> None:
     """Add the trace's busy ms per update and idle share to ``window``."""
     busy_us, spans = _busy_us(window["trace"])
@@ -2292,8 +2246,7 @@ def train_anakin():
     keys = ("updates_per_sec", "actor_frames_per_sec", "host_s")
     return dict(out, card=card_name_and_power_limit(), beside={
         run: {k: RESULTS.get(f"e2e_{run}", {}).get(k) for k in keys}
-        for run in ("process", "paced", "batched_unpaced",
-                    "batched_paced")})
+        for run in ("process", "paced", "batched_unpaced")})
 
 
 def train_device():
@@ -2573,25 +2526,19 @@ def _health_quarantine() -> dict:
 
 def _validator_cost() -> dict:
     """(c) ``main`` under pipelined actors with the quarantine on (the
-    train_process run, or run here) and with ``TPU_APEX_QUARANTINE=0``:
-    updates/s, frames/s and the drain's host seconds side by side, and the
-    seconds the validator took."""
+    train_process run, or run here): updates/s, frames/s, the drain's host
+    seconds and the seconds the validator took."""
     out = {}
     for backend, key, sets in (("pipelined", "e2e_process", ()),):
         row = {}
-        for label in ("on", "off"):
+        for label in ("on",):
             refs = f"health_{backend}_{label}"
-            if label == "on" and key in RESULTS:
+            if key in RESULTS:
                 summary = RESULTS[key]["summary"]
             else:
-                if label == "off":
-                    os.environ["TPU_APEX_QUARANTINE"] = "0"
-                try:
-                    _r, summary = _train_through_main("process", refs, *sets)
-                finally:
-                    os.environ.pop("TPU_APEX_QUARANTINE", None)
+                _r, summary = _train_through_main("process", refs, *sets)
             validated = summary["ingest/validated"]
-            if (label == "on") != (validated > 0):
+            if validated <= 0:
                 raise AssertionError(f"(c) {refs}: {validated} rows "
                                      f"validated")
             row[label] = {
@@ -2670,15 +2617,16 @@ POISON_AT = 250        # the learner dispatch row 6's poison_grad hits
 ROW1_STEPS = 1500
 
 
-def _b1_at_group_width(m: int) -> dict:
+def _b1_at_group_width(m: int, batch: int = BATCH) -> dict:
     """B1 drawing one megabatch group, M*B uniforms in one launch, over a
     50,000-row priority vector: indices and probabilities against
-    ``sample_plain`` (identical), kernel, plain and library times."""
+    ``sample_plain`` (identical), kernel, plain and library times.  ``m``
+    1: one update's draw."""
     gen = torch.Generator(device=DEV).manual_seed(11)
     p = torch.rand(RING_ROWS, generator=gen, device=DEV)
     p = torch.where(torch.rand(RING_ROWS, generator=gen, device=DEV) < 0.1,
                     torch.zeros_like(p), p)
-    n = m * BATCH
+    n = m * batch
     mismatches, worst = 0, 0.0
     for _ in range(10):
         us = torch.rand(n, generator=gen, device=DEV)
@@ -3007,6 +2955,14 @@ def train_uniform():
     return dict(out, card=card_name_and_power_limit())
 
 
+def _tensors(tree) -> list:
+    """The tensors of a params tree (one net's dict, or DDPG's ``{"actor",
+    "critic"}`` pair of them), in key order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for k in sorted(tree) for t in _tensors(tree[k])]
+
+
 def _poison_spy(seen: list):
     """Wrap the learner's train step so that every update records, on the
     device (no wait), its skip flag, whether its batch held a NaN reward
@@ -3021,8 +2977,8 @@ def _poison_spy(seen: list):
 
         def step_spy(st, batch):
             out = step(st, batch)
-            same = torch.stack([(st.params[k] == out[0].params[k]).all()
-                                for k in st.params]).all()
+            same = torch.stack([(a == b).all() for a, b in zip(
+                _tensors(st.params), _tensors(out[0].params))]).all()
             seen.append(torch.stack([out[1][SKIPPED_KEY].float(),
                                      torch.isnan(batch.reward).any().float(),
                                      same.float()]))
@@ -3149,20 +3105,10 @@ def small_rows():
 # f32 running max and the int32 cursor and fill
 RING_BYTES = (RING_ROWS * (2 * int(np.prod(FRAME)) + 4 + 3 * 4 + 16 + 4)
               + 3 * 4)
-PLANE_ENV = ("TPU_APEX_TRACE", "TPU_APEX_WIRE")
 SHED_ENV = {"TPU_APEX_FLOW_LOCAL_POLICY": "shed",
             "TPU_APEX_FLOW_FEEDER_RING": "4",
             "TPU_APEX_FLOW_MAX_PENDING_ROWS": "64"}
 SHED_FLUSHES, SHED_CHUNK, SHED_QUEUE_CHUNKS = 256, 16, 8
-
-
-def _reset_planes() -> None:
-    """Resolve the tracing and bandwidth planes again from the
-    environment in this process (the learner's)."""
-    from pytorch_distributed_tpu_torch.utils import bandwidth, tracing
-
-    bandwidth.reset_for_tests()
-    tracing.reset()
 
 
 def _planes_rows(refs: str, prov_seen: list) -> dict:
@@ -3386,9 +3332,8 @@ def _shed_drill() -> dict:
 
 def planes():
     """Config 12's default-on planes at full width (see the module
-    docstring): the process run with every plane on, the same with
-    tracing and the bandwidth X-ray off, Anakin's ring provenance, the
-    graphed rollout's stamps and the shed drill."""
+    docstring): the process run with every plane on, Anakin's ring
+    provenance, the graphed rollout's stamps and the shed drill."""
     from pytorch_distributed_tpu_torch.utils import health
 
     seen: list = []
@@ -3421,22 +3366,6 @@ def planes():
                                     "drain_bytes": drain_b,
                                     "mint_chunks": mint_f,
                                     "drain_chunks": drain_f}
-    old = {k: os.environ.get(k) for k in PLANE_ENV}
-    os.environ.update({k: "0" for k in PLANE_ENV})
-    _reset_planes()
-    try:
-        off, _s = _train_through_main("process", "planes_off")
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        _reset_planes()
-    RESULTS["launches_planes_off"] = off["launches"]
-    out["planes_off"] = {k: off[k] for k in keys}
-    out["on_over_off"] = {k: on[k] / off[k] for k in (
-        "updates_per_sec", "actor_frames_per_sec")}
     out["anakin"] = _anakin_prov_run()
     out["rollout_graph"] = _rollout_graph_prov()
     out["shed_drill"] = _shed_drill()
@@ -3925,6 +3854,236 @@ def perf_plane():
     return dict(out, card=card_name_and_power_limit())
 
 
+# ---------------------------------------------------------------------------
+# ddpg: rows 2 and 16 (the DDPG family) at the reference's widths
+# ---------------------------------------------------------------------------
+
+DDPG_BATCH = 64          # the reference's DDPG batch (config.py:410-421)
+DDPG_ENVS = 4            # 2 actors x 4 envs, the reference's reacher test
+DDPG_STEPS = 1000        # updates of (a) and (c)
+DDPG_POISON_AT = 700     # the learner dispatch (a)'s poison_grad hits
+DDPG_MB = 4              # (c)'s megabatch group
+# (b): tests/test_topology.py:115-133 of the JAX package
+R16_STEPS, R16_LEARN_START, R16_BAR = 8000, 1000, -20.0
+DDPG_BENCH_UPDATES = 200
+
+
+def _scalar_values(refs: str, tag: str) -> list:
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.utils import metrics
+
+    log_dir = build_options(12, root_dir=RUN_DIR, refs=refs).log_dir
+    return [r["value"] for r in metrics.read_scalars(log_dir)
+            if r["tag"] == tag]
+
+
+def _ddpg_mode2(config: int, refs: str, episodes: int) -> dict:
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    model_file = build_options(config, root_dir=RUN_DIR,
+                               refs=refs).model_name
+    stats = port_main.main(["--config", str(config), "--mode", "2",
+                            "--device", "cuda", "--model-file", model_file,
+                            "--set", f"tester_nepisodes={episodes}"])
+    if stats["nepisodes"] != episodes or not all(
+            math.isfinite(v) for v in stats.values()):
+        raise AssertionError(f"row {config} mode 2: {stats}")
+    return stats
+
+
+def _ddpg_row2_process() -> dict:
+    """(a) Row 2 on the process backend, host ring, with the poison_grad
+    drill: finite losses in ``scalars.jsonl``, the params and ``_best``
+    files, no child with CUDA, no launch of B1 or B2, mode 2 on the params
+    file, exactly one skipped update with its params unchanged."""
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.utils import checkpoint
+
+    refs = "ddpg_row2"
+    seen: list = []
+    module, real, spy = _poison_spy(seen)
+    module.build_train_state_and_step = spy
+    os.environ["LEARNER_FAULTS"] = f"poison_grad@{DDPG_POISON_AT}"
+    try:
+        r, summary = _train_through_main(
+            "process", refs, config=2, steps=DDPG_STEPS, draws=False,
+            torso=False, batch=DDPG_BATCH, envs=DDPG_ENVS, learn_start=250)
+    finally:
+        module.build_train_state_and_step = real
+        os.environ.pop("LEARNER_FAULTS", None)
+    RESULTS["launches_ddpg_row2"] = r["launches"]
+    if summary["runtime/children_with_cuda"] != 0:
+        raise AssertionError("a child made a CUDA context")
+    losses = {t: _scalar_values(refs, f"learner/{t}")
+              for t in ("critic_loss", "actor_loss")}
+    if not all(v and all(map(math.isfinite, v)) for v in losses.values()):
+        raise AssertionError(f"(a) learner rows {losses}")
+    opt = build_options(2, root_dir=RUN_DIR, refs=refs)
+    files = [checkpoint.params_path(opt.model_name),
+             checkpoint.params_path(opt.model_name + "_best")]
+    if not all(os.path.exists(f) for f in files):
+        raise AssertionError(f"(a) no params file at {files}")
+    flags = torch.stack(seen).cpu().numpy()
+    hit = np.nonzero(flags[:, 0] == 1.0)[0]
+    if (summary["learner/skipped"] != 1.0 or summary["health/rollbacks"]
+            or len(hit) != 1 or flags[hit[0], 1] != 1.0
+            or flags[hit[0], 2] != 1.0 or flags[:, 1].sum() != 1.0
+            or (flags[flags[:, 0] == 0.0, 2] != 0.0).any()):
+        raise AssertionError(f"(a) poison_grad drill: skipped at "
+                             f"{hit.tolist()}, {summary}")
+    return dict(
+        updates_per_sec=r["updates_per_sec"],
+        frames_per_sec=r["actor_frames_per_sec"],
+        replay_ratio=r["replay_ratio"], host_s=r["host_s"],
+        train_seconds=r["train_seconds"], launches=r["launches"],
+        last_losses={t: v[-1] for t, v in losses.items()},
+        poison_grad=dict(skipped_update=int(hit[0]) + 1,
+                         params_unchanged=True, rollbacks=0),
+        mode2=_ddpg_mode2(2, refs, 1))
+
+
+def _ddpg_row16_learns() -> dict:
+    """(b) Row 16's learning bar at the geometry of the JAX package's own
+    test (2 actors x 4 envs, R16_STEPS updates, ``max_replay_ratio`` 8,
+    the row's ``shared`` ring), on the process backend: on the thread
+    backend the learner's eager host update starves behind the actors'
+    numpy envs for the GIL (PERF.md section 7); then mode 2 over 5
+    episodes, whose average return must reach R16_BAR."""
+    from pytorch_distributed_tpu_torch import main as port_main
+
+    refs = "ddpg_row16"
+    argv = ["--config", "16", "--backend", "process", "--device", "cuda",
+            "--num-actors", "2", "--num-envs-per-actor", str(DDPG_ENVS),
+            "--memory-size", str(RING_ROWS), "--batch-size",
+            str(DDPG_BATCH), "--steps", str(R16_STEPS),
+            "--set", f"learn_start={R16_LEARN_START}",
+            "--set", "max_replay_ratio=8", "--set", "early_stop=12500",
+            "--set", "evaluator_freq=60", "--set", f"root_dir={RUN_DIR}",
+            "--set", f"refs={refs}"]
+    _zero_launches()
+    t0 = time.monotonic()
+    summary = port_main.main(argv)
+    wall = time.monotonic() - t0
+    launches = {"per_sample": cuda_sampling.hierarchical_sample.launches,
+                **{c.__name__: c.launches for c in cuda_torso.COUNTERS}}
+    RESULTS["launches_ddpg_row16"] = {"per_sample": launches["per_sample"],
+                                      "torso_gemm_fwd": 0,
+                                      "torso_gemm_bwd": 0,
+                                      "torso_gemm_f32": 0}
+    if (summary["learner/steps"] < R16_STEPS or any(launches.values())
+            or not math.isfinite(summary["learner/critic_loss"])
+            or summary["runtime/children_with_cuda"] != 0):
+        raise AssertionError(f"(b) {launches} launches, {summary}")
+    stats = _ddpg_mode2(16, refs, 5)
+    if stats["avg_reward"] < R16_BAR:
+        raise AssertionError(f"(b) row 16 missed the learning bar "
+                             f"{R16_BAR}: {stats}")
+    return dict(updates_per_sec=summary["learner/updates_per_sec"],
+                frames_per_sec=summary["actor/steps_per_sec"],
+                train_seconds=summary["learner/train_seconds"],
+                run_seconds=wall,
+                evaluator_avg_reward=_scalar_values(
+                    refs, "evaluator/avg_reward"),
+                mode2=stats)
+
+
+def _ddpg_per_megabatch() -> dict:
+    """(c) Row 2 on the ``device-per`` ring in megabatch groups of
+    DDPG_MB with batched actors, through ``main`` on the process backend
+    with the perf plane on: the graphed group dispatch against its eager
+    twin to the bit, one B1 launch a group and no GEMM over the run,
+    finite losses, ``inference/rows`` equal to the actors' frames within
+    a tick per actor, ``learner/mfu`` over the fp32 peak."""
+    diff = _graph_matches_eager("float32", megabatch=DDPG_MB, torso=False,
+                                config=2)
+    if diff != 0.0:
+        raise AssertionError(f"(c) the graphed group dispatch differs "
+                             f"from eager by {diff}")
+    refs = "ddpg_per_m4"
+    _clean_plane_env()
+    os.environ["TPU_APEX_PERF"] = "1"
+    try:
+        r, summary = _train_through_main(
+            "process", refs, "memory_type=device-per",
+            f"megabatch={DDPG_MB}", "actor_backend=batched", config=2,
+            steps=DDPG_STEPS, megabatch=DDPG_MB, torso=False,
+            batch=DDPG_BATCH, envs=DDPG_ENVS, learn_start=250)
+    finally:
+        _clean_plane_env()
+    RESULTS["launches_ddpg_per_m4"] = r["launches"]
+    if summary["runtime/children_with_cuda"] != 0:
+        raise AssertionError("a child made a CUDA context")
+    if not math.isfinite(summary["learner/actor_loss"]):
+        raise AssertionError(f"(c) {summary}")
+    over = summary["inference/rows"] - summary["runtime/actor_steps"]
+    if not 0 <= over <= 2 * DDPG_ENVS:
+        raise AssertionError(f"(c) inference/rows {summary['inference/rows']}"
+                             f" for {summary['runtime/actor_steps']} frames")
+    mfu = _scalar_values(refs, "learner/mfu")
+    flops = _scalar_values(refs, "learner/flops_per_update")
+    if not mfu or not flops or min(mfu) < 0:
+        raise AssertionError(f"(c) perf rows: mfu {mfu}, flops {flops}")
+    return dict(graph_vs_eager_max_abs_diff=diff,
+                updates_per_sec=r["updates_per_sec"],
+                frames_per_sec=r["actor_frames_per_sec"],
+                train_seconds=r["train_seconds"], host_s=r["host_s"],
+                launches=r["launches"], rows_over_frames=over,
+                inference={k.split("/", 1)[1]: v for k, v in summary.items()
+                           if k.startswith("inference/")},
+                flops_per_update=flops[-1], mfu_windows=mfu,
+                mfu_median=float(np.median(mfu)))
+
+
+def _ddpg_learner_alone() -> dict:
+    """(d) Row 2's learner alone on a full random 50,000-row ``device-per``
+    ring (``bench_learner.run``), dispatches of 4 updates, at M = 1 and M
+    = DDPG_MB, graphed and eager: updates/s, the launches per update in
+    each timed window (1/M draws, no GEMM) and, graphed, the profiler's
+    device ms an update."""
+    from pytorch_distributed_tpu_torch import bench_learner
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    out = {}
+    for m in (1, DDPG_MB):
+        for graph in (True, False):
+            r = bench_learner.run(
+                build_options(2, device="cuda", megabatch=m,
+                              steps_per_dispatch=DDPG_MB),
+                updates=DDPG_BENCH_UPDATES, profile=graph, graph=graph)
+            emit({"ddpg_learner_alone": r})
+            want = {c.__name__: 0.0 for c in cuda_torso.COUNTERS}
+            want["hierarchical_sample"] = 1.0 / m
+            if r["launches_per_update"] != want:
+                raise AssertionError(f"(d) M={m}: launches per update "
+                                     f"{r['launches_per_update']}")
+            run = f"M{m}_{'graph' if graph else 'eager'}"
+            out[run] = {k: r.get(k) for k in (
+                "updates_per_sec", "wall_ms_per_update",
+                "device_ms_per_update", "kernel_device_ms")}
+    return out
+
+
+def ddpg():
+    """Rows 2 and 16, the DDPG family, at the reference's widths (300/200
+    actor, 400/300 critic, batch 64, a 50,000-row ring): B1 at DDPG's
+    draws (64 an update, 256 a group of 4) against its plain version, then
+    (a) to (d) above."""
+    RESULTS["per_sample_ddpg"] = {
+        "update": _b1_at_group_width(1, DDPG_BATCH),
+        "group": _b1_at_group_width(DDPG_MB, DDPG_BATCH)}
+    out = {"b1": RESULTS["per_sample_ddpg"]}
+    for part, fn in (("row2_process", _ddpg_row2_process),
+                     ("row16_learning", _ddpg_row16_learns),
+                     ("row2_per_megabatch", _ddpg_per_megabatch),
+                     ("learner_alone", _ddpg_learner_alone)):
+        t0 = time.monotonic()
+        out[part] = fn()
+        out[part]["seconds"] = time.monotonic() - t0
+        emit({"ddpg": part, **out[part]})
+    return dict(out, card=card_name_and_power_limit())
+
+
 KERNELS = (
     ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
      "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
@@ -3947,11 +4106,11 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0)})
     phases = (build, per_sample, torso_gemm, torso_apply, learner_alone,
               native_pong, device_env, fused_rollout, actor_tick, actor_gpu,
-              staged_drain, train, train_process, test_mode, process_trace,
+              staged_drain, train, train_process, test_mode,
               train_paced, inference, train_batched, train_anakin,
               train_device, resume, health_phase, megabatch,
               anakin_megabatch, train_uniform, train_host, small_rows,
-              planes, wide_torso, perf_plane)
+              planes, wide_torso, perf_plane, ddpg)
     only = set(sys.argv[1:])  # phase names to run after build; none: all
     unknown = only - {fn.__name__ for fn in phases}
     if unknown:
@@ -3971,7 +4130,6 @@ def main() -> int:
         by_path = {path: RESULTS.get(key, {}).get(name) for path, key in (
             ("train_process", "launches"),
             ("train_batched_unpaced", "launches_batched_unpaced"),
-            ("train_batched_paced", "launches_batched_paced"),
             ("anakin", "launches_anakin_strict"),
             ("anakin_ratio16", "launches_anakin_ratio16"),
             ("train_device", "launches_device"),
@@ -3985,13 +4143,15 @@ def main() -> int:
             ("host_prioritized", "launches_host_prioritized"),
             ("host_native", "launches_host_native"),
             ("planes_process", "launches_planes"),
-            ("planes_off_process", "launches_planes_off"),
             ("planes_anakin_ratio16", "launches_planes_anakin"),
             ("wide_anakin_ratio16", "launches_wide_anakin"),
             ("wide_thread", "launches_wide_thread"),
             ("perf_off_process", "launches_perf_off"),
             ("perf_process", "launches_perf_process"),
-            ("perf_anakin_ratio16", "launches_perf_anakin"))}
+            ("perf_anakin_ratio16", "launches_perf_anakin"),
+            ("ddpg_row2_process", "launches_ddpg_row2"),
+            ("ddpg_row16_process", "launches_ddpg_row16"),
+            ("ddpg_per_M4_batched", "launches_ddpg_per_m4"))}
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=launches.get(name, 0),
                           launches_by_path=by_path,
@@ -4000,9 +4160,14 @@ def main() -> int:
                               "bound_by", "library_ms")}))
         if "megabatch_group" in r:  # held at a group of MB_GROUP
             table[-1]["megabatch_group"] = r["megabatch_group"]
+        if name == "per_sample" and "per_sample_ddpg" in RESULTS:
+            # held at DDPG's 64 draws an update and 256 a group of 4
+            table[-1]["ddpg_draws"] = RESULTS["per_sample_ddpg"]
         if name == "torso_gemm_f32":
             table[-1].update(parts=r.get("parts"),
                              fp32_run=RESULTS.get("f32_launches"))
+    emit({"phase_seconds": SECONDS,
+          "total_seconds": time.monotonic() - t0})
     emit({"kernels": table})
     print(card_name_and_power_limit(), flush=True)
     print(f"chip_smoke: {time.monotonic() - t0:.1f} s", file=sys.stderr)

@@ -1,11 +1,14 @@
-"""Actor workers: epsilon-greedy experience collection — the port of
-pytorch_distributed_tpu/agents/actor.py for the dqn family: the harness
-(``_ActorHarness`` :120-390: ``tick_sync``, ``advance``, the stat and
-timer cadences), the local act engine (``_LocalDqnEngine`` :415-437), the
-batched engine (``_BatchedDqnEngine`` :479-497), the loop
-(``_drive_actor_loop`` :524-590), ``fold_rollout_episode_stats``
-(:592-614), the device loop (``_drive_device_actor_loop`` :616-745),
-``run_dqn_actor`` (:748-773) and ``bounded_actor_run`` (:828).
+"""Actor workers: experience collection — the port of
+pytorch_distributed_tpu/agents/actor.py: the harness (``_ActorHarness``
+:120-390: ``tick_sync``, ``advance``, ``on_env_reset``, the stat and timer
+cadences), the local act engines (``_LocalDqnEngine`` :415-437,
+``_LocalDdpgEngine`` :453-475), the batched engines (``_BatchedDqnEngine``
+:479-497, ``_BatchedDdpgEngine`` :500-516), DDPG's ``_ou_explore``
+(:443-450), the loop (``_drive_actor_loop`` :524-590),
+``fold_rollout_episode_stats`` (:592-614), the device loop
+(``_drive_device_actor_loop`` :616-745), ``run_dqn_actor`` and
+``run_ddpg_actor`` (:748-810, one ``run_actor`` here) and
+``bounded_actor_run`` (:828).
 
 Each actor steps ``num_envs_per_actor`` Pong games as one vector (the C++
 stepper unless ``native_env`` is false), runs ONE batched forward per
@@ -65,6 +68,19 @@ transitions are the inline actor's (tests/test_torch_fused_rollout.py).
 An actor is never the co-located ``anakin`` loop (the learner is): an
 actor slot under ``anakin`` runs ``device``.
 
+DDPG actors (``DdpgActor``) run the same harness and schedules
+(``inline``, ``pipelined``, ``batched``; ``device`` and ``anakin`` step
+down to ``pipelined``, factory.resolve_actor_backend) with the policy's
+deterministic forward in place of the epsilon-greedy one (on the server
+under ``batched``), and add Ornstein-Uhlenbeck noise on the host when the
+tick's actions are collected (``ou_explore``), clipped to [-1, 1]: one
+process of ``num_envs * action_dim`` components (utils/random_process.py),
+seeded as the reference seeds it (``ou_seed``), its sigma annealed over
+``memory_size * 100`` samples, each env's slice reset to ``x0`` when its
+episode ends.  Collection is in tick order on every schedule, so the
+noise stream, and with it the transition stream, is the same on all
+three (tests/test_torch_ddpg_actor.py).
+
 Every row an actor feeds carries its provenance (reference :159-170,
 :275, :734): ``make_prov(actor index, env slot, param version,
 birth_step)``, the version that chose the tick's actions and the learner
@@ -106,8 +122,8 @@ from pytorch_distributed_tpu_torch.factory import (
     resolve_device, role_seed, state_dtype,
 )
 from pytorch_distributed_tpu_torch.models.policies import (
-    RolloutChunk, apex_epsilons, build_fused_rollout, epsilon_greedy_act,
-    init_rollout_carry,
+    RolloutChunk, apex_epsilons, build_fused_rollout, ddpg_act,
+    epsilon_greedy_act, init_rollout_carry,
 )
 from pytorch_distributed_tpu_torch.ops.nstep import NStepAssembler
 from pytorch_distributed_tpu_torch.utils import perf, tracing
@@ -117,6 +133,9 @@ from pytorch_distributed_tpu_torch.utils.experience import (
 from pytorch_distributed_tpu_torch.utils.faults import FaultInjector
 from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
 from pytorch_distributed_tpu_torch.utils.profiling import StepTimer
+from pytorch_distributed_tpu_torch.utils.random_process import (
+    OrnsteinUhlenbeckProcess,
+)
 
 class _DqnEngine:
     """The tick's fused epsilon-greedy forward as ``submit(params, obs)``,
@@ -183,6 +202,10 @@ class _DqnEngine:
             return pending.result()
         return pending
 
+    def discard(self, pending) -> None:
+        """Wait for a dispatch whose actions are never used."""
+        self.collect(pending)
+
     def close(self) -> None:
         if self._pool is not None:
             self._pool.shutdown(wait=True)
@@ -210,13 +233,114 @@ class _BatchedDqnEngine:
     def collect(self, pending) -> np.ndarray:
         return self._client.collect(pending)[0].astype(np.int64)
 
+    def discard(self, pending) -> None:
+        self._client.collect(pending)
+
+    def close(self) -> None:
+        pass
+
+
+def ou_seed(seed: int, process_ind: int) -> int:
+    """The OU process's seed of actor ``process_ind``: the reference's
+    ``process_seed(seed, "actor", i) + 17`` (utils/rngs.py:32,
+    agents/actor.py:808), so both packages draw the same noise."""
+    return (seed + 1_000_000 + process_ind) % (2 ** 31 - 1) + 17
+
+
+def ou_explore(ou: OrnsteinUhlenbeckProcess, actions: np.ndarray
+               ) -> np.ndarray:
+    """The policy's (N, d) actions plus one OU sample, clipped to [-1, 1]:
+    one function for the local and the batched engines, whose noise
+    streams must stay the same."""
+    noise = ou.sample().reshape(actions.shape)
+    return np.clip(actions + noise, -1.0, 1.0).astype(np.float32)
+
+
+class _DdpgEngine:
+    """The tick's deterministic policy forward as ``submit(params, obs)``
+    and ``collect(pending)``, as ``_DqnEngine``'s (pinned staging and an
+    event on a GPU, a one-thread executor when pipelined on the CPU);
+    ``collect`` adds the noise."""
+
+    def __init__(self, actor_fn, noise, n: int, action_dim: int, obs_shape,
+                 device: torch.device, stream, pipelined: bool):
+        self._apply, self._noise = actor_fn, noise
+        self._device, self._stream = device, stream
+        self._pool = None
+        if device.type == "cuda":
+            self._obs = torch.empty((n, *obs_shape), pin_memory=True)
+            self._actions = torch.empty((n, action_dim), pin_memory=True)
+            self._done = torch.cuda.Event()
+        elif pipelined:
+            self._pool = ThreadPoolExecutor(1, thread_name_prefix="act")
+
+    def _act_cpu(self, params, obs: np.ndarray) -> np.ndarray:
+        return ddpg_act(self._apply, params,
+                        torch.from_numpy(np.asarray(obs, np.float32))
+                        ).numpy()
+
+    def submit(self, params, obs: np.ndarray):
+        if self._device.type == "cuda":
+            self._obs.numpy()[...] = obs
+            with torch.cuda.stream(self._stream):
+                a = ddpg_act(self._apply, params,
+                             self._obs.to(self._device, non_blocking=True))
+                self._actions.copy_(a, non_blocking=True)
+                self._done.record(self._stream)
+            return self._done
+        if self._pool is not None:
+            return self._pool.submit(self._act_cpu, params, obs)
+        return self._act_cpu(params, obs)
+
+    def _wait(self, pending) -> np.ndarray:
+        if self._device.type == "cuda":
+            pending.synchronize()
+            return self._actions.numpy()
+        if self._pool is not None:
+            return pending.result()
+        return pending
+
+    def collect(self, pending) -> np.ndarray:
+        return self._noise(self._wait(pending))
+
+    def discard(self, pending) -> None:
+        """Wait for a dispatch whose actions are never used; the noise
+        process draws nothing for it, as the reference's loop, which
+        never collects it."""
+        self._wait(pending)
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+
+
+class _BatchedDdpgEngine:
+    """The engine interface over an ``InferenceClient`` for DDPG: the
+    server returns the policy's actions, ``collect`` adds the noise."""
+
+    def __init__(self, client, noise):
+        self._client, self._noise = client, noise
+        self._tick = 0
+        client.begin_session(None)
+
+    def submit(self, params, obs: np.ndarray):
+        self._tick += 1
+        return self._client.submit(obs, self._tick)
+
+    def collect(self, pending) -> np.ndarray:
+        return self._noise(self._client.collect(pending))
+
+    def discard(self, pending) -> None:
+        self._client.collect(pending)
+
     def close(self) -> None:
         pass
 
 
 class DqnActor:
     """One actor's state: its env vector, assemblers, weights, stat and
-    timer cadences (reference ``_ActorHarness``)."""
+    timer cadences (reference ``_ActorHarness``); the dqn family's
+    engines.  ``DdpgActor`` swaps the engines."""
 
     def __init__(self, opt: Options, spec: EnvSpec, process_ind: int,
                  memory: Any, param_store: ParamStore, clock: GlobalClock,
@@ -261,8 +385,7 @@ class DqnActor:
             # as the barrier every worker starts behind (the learner is up)
             self.params = None
             _flat, self.version = param_store.wait(0, stop=clock.stop)
-            self.engine = _BatchedDqnEngine(inference, eps, gen,
-                                            spec.num_actions)
+            self.engine = self._batched_engine(inference, eps, gen, spec)
         else:
             self._init_local(opt, spec, device, param_store, clock, eps,
                              gen)
@@ -328,11 +451,22 @@ class DqnActor:
                 rollout_ticks=max(1, opt.env_params.device_rollout_ticks),
                 eps=eps)
             return
-        self.engine = _DqnEngine(
+        self.engine = self._local_engine(opt, spec, model, eps, gen, device,
+                                         stream)
+
+    def _batched_engine(self, inference, eps, gen, spec):
+        return _BatchedDqnEngine(inference, eps, gen, spec.num_actions)
+
+    def _local_engine(self, opt, spec, model, eps, gen, device, stream):
+        return _DqnEngine(
             module_apply(model), eps, gen, spec.num_actions,
             spec.state_shape, device, stream,
             pipelined=self.backend == "pipelined",
             obs_dtype=state_dtype(opt))
+
+    def on_env_reset(self, j: int) -> None:
+        """Per-env exploration state to reset when env ``j``'s episode
+        ends (DDPG's OU path); none for the dqn family."""
 
     def tick_sync(self) -> None:
         """Once per tick, after the env step and before the next dispatch:
@@ -378,6 +512,7 @@ class DqnActor:
                 self._acc["total_reward"] += self.episode_reward[j]
                 self.episode_reward[j] = 0.0
                 self.episode_steps[j] = 0
+                self.on_env_reset(j)
         self._obs = next_obs
         if self.env_steps >= self._next_flush:
             self._next_flush += self.ap.actor_freq
@@ -431,7 +566,7 @@ class DqnActor:
                     self.advance(actions, next_obs, rewards, terminals,
                                  infos)
             if pipelined:  # the last dispatch is never fed
-                engine.collect(pending)
+                engine.discard(pending)
         finally:
             self.shutdown()
         return self.env_steps
@@ -546,14 +681,50 @@ def fold_rollout_episode_stats(step_reward, step_terminal, episode_reward,
             episode_reward[j] = 0.0
 
 
-def run_dqn_actor(opt: Options, spec: EnvSpec, process_ind: int,
-                  memory: Any, param_store: ParamStore, clock: GlobalClock,
-                  stats: ActorStats, inference: Any = None) -> int:
-    """Collect experience until the learner clock ends the run; under
-    ``batched`` through the client ``inference``.  Returns the env steps
-    this actor took."""
-    return DqnActor(opt, spec, process_ind, memory, param_store, clock,
-                    stats, inference).run()
+class DdpgActor(DqnActor):
+    """The DDPG actor: the harness with the policy's engines and the OU
+    process (see the module docstring)."""
+
+    def __init__(self, opt: Options, spec: EnvSpec, process_ind: int,
+                 *args, **kwargs):
+        n = max(1, opt.env_params.num_envs_per_actor)
+        ap = opt.agent_params
+        self.ou = OrnsteinUhlenbeckProcess(
+            size=n * spec.action_dim, theta=ap.ou_theta, mu=ap.ou_mu,
+            sigma=ap.ou_sigma,
+            n_steps_annealing=opt.memory_params.memory_size * 100,
+            seed=ou_seed(opt.seed, process_ind))
+        super().__init__(opt, spec, process_ind, *args, **kwargs)
+
+    def _noise(self, actions: np.ndarray) -> np.ndarray:
+        return ou_explore(self.ou, actions)
+
+    def _batched_engine(self, inference, eps, gen, spec):
+        return _BatchedDdpgEngine(inference, self._noise)
+
+    def _local_engine(self, opt, spec, model, eps, gen, device, stream):
+        return _DdpgEngine(module_apply(model), self._noise, self.num_envs,
+                           spec.action_dim, spec.state_shape, device, stream,
+                           pipelined=self.backend == "pipelined")
+
+    def on_env_reset(self, j: int) -> None:
+        # a fresh noise path per episode, per env
+        self.ou.x_prev.reshape(self.num_envs, -1)[j] = self.ou.x0
+
+
+# the actor of each agent family (reference factory.py:22-31)
+ACTORS = {"dqn": DqnActor, "ddpg": DdpgActor}
+
+
+def run_actor(opt: Options, spec: EnvSpec, process_ind: int, memory: Any,
+              param_store: ParamStore, clock: GlobalClock,
+              stats: ActorStats, inference: Any = None) -> int:
+    """Collect experience with the run's family's actor until the learner
+    clock ends the run; under ``batched`` through the client
+    ``inference``.  Returns the env steps this actor took."""
+    return ACTORS[opt.agent_type](opt, spec, process_ind, memory,
+                                  param_store, clock, stats,
+                                  inference).run()
 
 
 class RecordingSink:
@@ -640,8 +811,8 @@ def bounded_actor_run(opt: Options, ticks: int, spec: EnvSpec = None,
                                 spec.state_shape)[0]
     sink = RecordingSink()
     clock = _BoundedClock(ticks)
-    actor = DqnActor(opt, spec, process_ind, sink, store, clock,
-                     ActorStats(), inference)
+    actor = ACTORS[opt.agent_type](opt, spec, process_ind, sink, store,
+                                   clock, ActorStats(), inference)
 
     def publish(k: int) -> None:
         if k == publish_at:

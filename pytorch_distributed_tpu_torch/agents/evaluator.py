@@ -1,7 +1,7 @@
 """Evaluator worker: periodic greedy evaluation and the params
 checkpoints — the port of pytorch_distributed_tpu/agents/evaluator.py
-(``greedy_episodes`` :46-104, its ``dqn-cnn`` branch, with the
-``render()`` calls of :93-116, and ``run_evaluator`` :106-248; with
+(``greedy_episodes`` :46-104, its dqn and DDPG branches (:57-65, :80-88),
+with the ``render()`` calls of :93-116, and ``run_evaluator`` :106-248; with
 ``env_params.render`` its env dumps frames, utils/render.py).
 
 A capture thread snapshots ``(weights, learner_step, wall)`` every
@@ -15,8 +15,10 @@ so far.  When the run ends it evaluates the finished weights once more,
 and then raises the handshake's ``done``.
 
 Inference is one observation at a time, through the port's ``greedy_act``
-on the module's forward: on the CPU in the evaluator, as the reference
-pins its evaluator to the CPU, and on the run's device in the tester.
+on the module's forward (DDPG: ``ddpg_act``, the policy's action with no
+noise, in [-1, 1]; the env rescales it): on the CPU in the evaluator, as
+the reference pins its evaluator to the CPU, and on the run's device in
+the tester.
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, build_env, build_model, module_apply,
 )
-from pytorch_distributed_tpu_torch.models.policies import greedy_act
+from pytorch_distributed_tpu_torch.models.policies import (
+    ddpg_act, greedy_act,
+)
 from pytorch_distributed_tpu_torch.utils import checkpoint as ckpt
 from pytorch_distributed_tpu_torch.utils.render import attach_frame_dumper
 
@@ -53,15 +57,17 @@ def greedy_episodes(opt: Options, spec: EnvSpec, model: torch.nn.Module,
     """Run ``nepisodes`` greedy episodes with inference on ``device`` (the
     evaluator's CPU by default); returns ``(avg_steps, avg_reward,
     solved)``."""
-    if opt.agent_type != "dqn":
+    if opt.agent_type not in ("dqn", "ddpg"):
         raise NotImplementedError(f"greedy episodes for agent_type "
                                   f"{opt.agent_type!r} are not ported yet")
     apply_fn = module_apply(model.to(device))
     params = {k: v.detach().to(device) for k, v in params.items()}
 
-    def pick(obs) -> int:
-        a, _ = greedy_act(apply_fn, params,
-                          torch.from_numpy(obs[None]).to(device))
+    def pick(obs):
+        x = torch.from_numpy(obs[None]).to(device)
+        if opt.agent_type == "ddpg":
+            return ddpg_act(apply_fn, params, x)[0].cpu().numpy()
+        a, _ = greedy_act(apply_fn, params, x)
         return int(a[0])
 
     total_steps, total_reward, solved = 0, 0.0, 0

@@ -1,6 +1,7 @@
 """Shared inference server (``actor_backend=batched``) — the port of
 pytorch_distributed_tpu/agents/inference.py (:1-477): ``InferenceClient``
-(:55-144) and ``InferenceServer`` (:147-477) for the dqn family.
+(:55-144) and ``InferenceServer`` (:147-477) for the dqn and DDPG
+families.
 
 Actor processes hold no model.  Each tick an actor sends its observations,
 its epsilons and the tick's explore uniforms and random actions (drawn
@@ -49,6 +50,12 @@ Where the port differs from the reference:
   the CPU the programs run eagerly.  A graph that fails to capture
   raises; nothing falls back to the eager path or to the CPU.
 
+For DDPG (reference :263-267) a request carries the observations alone
+and the response is the policy's deterministic actions, (N, d) float32:
+the rows program is the actor's forward (``models/policies.ddpg_act``),
+the low-dim observations are never frame-packed, so there is no roll-act
+program, and the OU noise stays with the actor (agents/actor.py).
+
 A crash of the serve loop is recorded as ``server-crash`` in the
 ``inference`` flight recorder (reference :383-386) before every client
 is refused; the runtime's monitor dumps it when it stops the run.
@@ -81,7 +88,7 @@ from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, build_model, module_apply, resolve_device, state_dtype,
 )
 from pytorch_distributed_tpu_torch.models.policies import (
-    packed_act_rows, packed_roll_act,
+    ddpg_act, packed_act_rows, packed_roll_act,
 )
 from pytorch_distributed_tpu_torch.utils import flight_recorder, perf
 from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
@@ -142,12 +149,13 @@ class InferenceClient:
         self._eps: Optional[np.ndarray] = None
         self._prev_obs: Optional[np.ndarray] = None
 
-    def begin_session(self, eps) -> None:
+    def begin_session(self, eps=None) -> None:
         """A fresh incarnation: stamp a nonce, bind the per-env epsilons
         (sent with every request, so the server keeps no client state but
-        the frame stack) and drop any response already waiting."""
+        the frame stack; None for DDPG) and drop any response already
+        waiting."""
         self._nonce = int(time.monotonic_ns() & 0x7FFFFFFF) or 1
-        self._eps = np.asarray(eps, np.float32)
+        self._eps = None if eps is None else np.asarray(eps, np.float32)
         self._prev_obs = None  # the first request reseeds the stack
         while True:
             try:
@@ -155,11 +163,13 @@ class InferenceClient:
             except (queue.Empty, EOFError, OSError):
                 break
 
-    def submit(self, obs: np.ndarray, tick: int, explore_u: np.ndarray,
-               random_a: np.ndarray) -> int:
+    def submit(self, obs: np.ndarray, tick: int,
+               explore_u: Optional[np.ndarray] = None,
+               random_a: Optional[np.ndarray] = None) -> int:
         """Send this tick's observations with its explore uniforms and
-        random actions, frame-packed when every row rolled by one frame
-        since the last request.  Returns the handle ``collect`` takes."""
+        random actions (none for DDPG), frame-packed when every row rolled
+        by one frame since the last request.  Returns the handle
+        ``collect`` takes."""
         obs = np.ascontiguousarray(obs)
         prev = self._prev_obs
         mode, payload = "full", obs
@@ -168,14 +178,16 @@ class InferenceClient:
                 and np.array_equal(obs[:, :-1], prev[:, 1:])):
             mode, payload = "packed", np.ascontiguousarray(obs[:, -1])
         self._prev_obs = obs
+        if explore_u is not None:
+            explore_u = np.asarray(explore_u, np.float32)
+            random_a = np.asarray(random_a, np.int64)
         _send(self._req, (self.client_id, self._nonce, int(tick), mode,
-                          payload, self._eps,
-                          np.asarray(explore_u, np.float32),
-                          np.asarray(random_a, np.int64)))
+                          payload, self._eps, explore_u, random_a))
         return int(tick)
 
     def collect(self, handle: int, timeout: float = 300.0) -> np.ndarray:
-        """The packed ``(3, N)`` response to ``handle``.  A response of an
+        """The packed ``(3, N)`` response to ``handle`` (DDPG: the (N, d)
+        actions).  A response of an
         older incarnation is dropped; the server's error raises
         ``RuntimeError``; no response within ``timeout`` raises
         ``TimeoutError``."""
@@ -222,13 +234,15 @@ class _Link:
 class _Program:
     """One act program at a fixed row count: static inputs on the run's
     device (``dev``) that ``launch`` fills from host arrays and then runs
-    ``fn(**dev)``.  On a GPU the inputs are uploaded from pinned staging,
+    ``fn(**dev)``, whose output is ``out_shape`` fp32.  On a GPU the
+    inputs are uploaded from pinned staging,
     ``fn`` is replayed from a CUDA graph on the server's stream, and the
     packed output comes back by a non-blocking copy that an event marks;
     ``result`` waits for the event.  On the CPU ``fn`` runs eagerly."""
 
     def __init__(self, fn: Callable, inputs: Dict[str, Tuple[tuple, Any]],
-                 rows: int, device: torch.device, stream):
+                 rows: int, device: torch.device, stream,
+                 out_shape: Optional[tuple] = None):
         self.rows = rows
         self._fn, self._stream = fn, stream
         self.graph = None
@@ -240,7 +254,8 @@ class _Program:
             return
         self.host = {k: torch.zeros(s, dtype=d, pin_memory=True)
                      for k, (s, d) in inputs.items()}
-        self.out_host = torch.zeros((3, rows), pin_memory=True)
+        self.out_host = torch.zeros(out_shape or (3, rows),
+                                    pin_memory=True)
         self.done = torch.cuda.Event()
         with torch.cuda.stream(stream):
             for _ in range(2):  # cuDNN's plans and lazy set-up, uncaptured
@@ -294,11 +309,13 @@ class InferenceServer:
 
     def __init__(self, opt: Options, spec: EnvSpec, param_store: ParamStore,
                  in_process: bool = False, sync_secs: float = 1.0):
-        if opt.agent_type != "dqn":
+        if opt.agent_type not in ("dqn", "ddpg"):
             raise NotImplementedError(
-                f"the inference server serves the dqn family, not "
-                f"{opt.agent_type!r}")
+                f"the inference server serves the dqn and ddpg families, "
+                f"not {opt.agent_type!r}")
         self.opt, self.spec = opt, spec
+        # DDPG: the policy's actions, no explore arguments, no frame stacks
+        self._ddpg = opt.agent_type == "ddpg"
         # the rows programs take the run's observations as they come:
         # uint8 frame stacks, or the low-dim rows' float32 states (which
         # are never frame-packed)
@@ -438,6 +455,8 @@ class InferenceServer:
                 sizes.add(p)
         for rows in sorted(sizes):
             self._rows_program(rows)
+        if self._ddpg:
+            return
         for slot in slots:
             self._roll_program(slot, n)
 
@@ -446,6 +465,14 @@ class InferenceServer:
         if prog is None:
             self._check_unbuilt(f"a rows program of {rows} rows")
             apply, params = self._apply, self._params
+            obs = ((rows, *self.spec.state_shape), self.obs_dtype)
+            if self._ddpg:
+                prog = _Program(lambda obs: ddpg_act(apply, params, obs),
+                                {"obs": obs}, rows, self.device,
+                                self._stream,
+                                out_shape=(rows, self.spec.action_dim))
+                self._rows_progs[rows] = prog
+                return prog
             prog = _Program(
                 lambda obs, ctl: packed_act_rows(apply, params, obs, ctl[0],
                                                  ctl[1], ctl[2].long()),
@@ -646,8 +673,8 @@ class InferenceServer:
         for prog, parts in launched:
             out = prog.result()
             for link, req, lo, hi in parts:
-                self._respond(link, (req[1], req[2],
-                                     np.array(out[:, lo:hi])))
+                part = out[lo:hi] if self._ddpg else out[:, lo:hi]
+                self._respond(link, (req[1], req[2], np.array(part)))
         st["forwards"] += len(launched)
 
     def _launch_full(self, full: List[Tuple[_Link, tuple]]
@@ -667,9 +694,13 @@ class InferenceServer:
         for (link, req), n in zip(full, sizes):
             _cid, _nonce, _tick, _m, obs, eps, u, a = req
             prog.stage("obs", lo, lo + n, obs)
-            prog.stage("ctl", lo, lo + n, np.stack([eps, u, a]))
+            if not self._ddpg:
+                prog.stage("ctl", lo, lo + n, np.stack([eps, u, a]))
             parts.append((link, req, lo, lo + n))
             lo += n
+        if self._ddpg:
+            prog.launch(("obs",))
+            return prog, parts
         prog.launch(("obs", "ctl"))
         with torch.cuda.stream(self._stream):
             for link, _req, lo, hi in parts:

@@ -2,12 +2,15 @@
 ``run_learner`` (:56-, :166-204, :264-351, :455-485, :474-760, :907-916),
 its device branch (the ``device-per`` and ``device`` rings, with or
 without megabatch) and its host branch (``shared``, ``native`` and
-``prioritized``, :680-760): resume from the newest complete checkpoint
-epoch unless ``resume`` is "never" (the state, the actors' step count
-added to the clock, the best evaluation, the pacing baseline, the device
-generator and, with ``checkpoint_replay``, the ring; the host generator on
-a host ring), publish the initial weights, wait for ``learn_start`` rows,
-then loop until ``steps``:
+``prioritized``, :680-760), for the dqn and the DDPG families (the step
+is the factory's; what is published and checkpointed as params is the
+model's whole state dict, ``factory.published_params``, merged back from
+the decoupled DDPG state's two nets): resume from the newest complete
+checkpoint epoch unless ``resume`` is "never" (the state, the actors' step
+count added to the clock, the best evaluation, the pacing baseline, the
+device generator and, with ``checkpoint_replay``, the ring; the host
+generator on a host ring), publish the initial weights, wait for
+``learn_start`` rows, then loop until ``steps``:
 
 - ``max_replay_ratio`` pacing (keep draining while throttled, so a full
   ingest queue never blocks the actors that advance the clock);
@@ -118,8 +121,8 @@ from pytorch_distributed_tpu_torch.agents.param_store import (
 from pytorch_distributed_tpu_torch.config import Options
 from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, anakin_active, build_model, build_train_state_and_step,
-    compute_dtype, init_params, resolve_device, resolve_fused_step,
-    role_seed, update_flops,
+    compute_dtype, init_params, published_params, resolve_device,
+    resolve_fused_step, role_seed, update_flops,
 )
 from pytorch_distributed_tpu_torch.memory.device_per import GraphedFusedStep
 from pytorch_distributed_tpu_torch.memory.device_replay import (
@@ -519,7 +522,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                      spec.state_shape)
         param_store.publish(host_flat.numpy())
 
-    publish_inline(state.params)  # actors block on version 1
+    publish_inline(published_params(opt, state))  # actors block on v1
     publisher = (DevicePublisher(param_store, spec.state_shape, device)
                  if device.type == "cuda" else None)
 
@@ -677,9 +680,9 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
             crossed = lambda freq: freq and lstep // freq != prev // freq
             if crossed(ap.param_publish_freq):
                 if publisher is not None:
-                    publisher.submit(state.params)
+                    publisher.submit(published_params(opt, state))
                 else:
-                    publish_inline(state.params)
+                    publish_inline(published_params(opt, state))
             t4 = time.perf_counter()
             for key, dt in zip(spent, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
                 spent[key] += dt
@@ -689,13 +692,17 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                 now = time.monotonic()
                 vals = {k: float(v) for k, v in metrics.items()}
                 rate = (lstep - window_lstep) / max(now - t_window, 1e-9)
+                # DDPG reports its policy loss where DQN has q_mean
+                second = ("actor_loss" if "learner/actor_loss" in vals
+                          else "q_mean")
                 print(f"[learner] step {lstep} "
                       f"loss {vals['learner/critic_loss']:.5g} "
-                      f"q_mean {vals['learner/q_mean']:.5g} "
+                      f"{second} {vals['learner/' + second]:.5g} "
                       f"{rate:.1f} updates/s replay {memory.size}", flush=True)
                 if stats is not None:  # reference learner.py:757-766
                     stats.add(counter=1,
                               critic_loss=vals.get("learner/critic_loss", 0.0),
+                              actor_loss=vals.get("learner/actor_loss", 0.0),
                               q_mean=vals.get("learner/q_mean", 0.0),
                               grad_norm=vals.get("learner/grad_norm", 0.0),
                               steps_per_sec=rate)
@@ -720,7 +727,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     if publisher is not None:
         publisher.close()
         published = publisher.published
-    publish_inline(state.params)  # the finished weights
+    publish_inline(published_params(opt, state))  # the finished weights
     # the final epoch, also on a preemption: a next run resumes from it
     saver.save(state, lstep, lstep0, gen, skipped)
     if perf_mon.enabled:  # the last partial window: a short run's rates

@@ -1,5 +1,6 @@
 """The learner's fused PER update at config 12's full width (or another
-row's: ``--config 19``, the wide torso), timed alone or beside busy
+row's: ``--config 19``, the wide torso; ``--config 2`` or ``16``, DDPG on
+a ``device-per`` ring of low-dim rows), timed alone or beside busy
 threads, on a ring filled with random rows.
 
     python -m pytorch_distributed_tpu_torch.bench_learner [--config 12] \\
@@ -13,6 +14,8 @@ threads, on a ring filled with random rows.
     # megabatch groups of 4 in dispatches of 8 updates
     python -m pytorch_distributed_tpu_torch.bench_learner \\
         --set megabatch=4 --set steps_per_dispatch=8
+    # DDPG (row 16's reacher: 10-d states, 2-d actions, batch 64)
+    python -m pytorch_distributed_tpu_torch.bench_learner --config 16
 
 The dispatch is resolved as the learner resolves it
 (``factory.resolve_fused_step``): with ``megabatch`` M > 1 it runs K/M
@@ -47,7 +50,8 @@ from pytorch_distributed_tpu_torch.config import (
 )
 from pytorch_distributed_tpu_torch.factory import (
     build_env_vector, build_model, build_train_state_and_step, init_params,
-    module_apply, probe_env, resolve_device, resolve_fused_step,
+    compute_dtype, module_apply, probe_env, resolve_device,
+    resolve_fused_step, state_dtype,
 )
 from pytorch_distributed_tpu_torch.memory.device_per import (
     DevicePerReplay, GraphedFusedStep,
@@ -86,14 +90,22 @@ def kernel_label(name: str):
 
 def fill_ring(ring: DevicePerReplay, num_actions: int,
               gen: torch.Generator) -> None:
-    """Every row valid, random frames, actions and rewards, and random
+    """Every row valid, random frames (or standard normal low-dim states),
+    actions (discrete, or uniform in [-1, 1]) and rewards, and random
     priorities."""
     st = ring.state
     for col in (st.state0, st.state1):
-        col.copy_(torch.randint(0, 255, col.shape, generator=gen,
-                                device=col.device, dtype=torch.uint8))
-    st.action.copy_(torch.randint(0, num_actions, st.action.shape,
-                                  generator=gen, device=st.action.device))
+        if col.dtype == torch.uint8:
+            col.copy_(torch.randint(0, 255, col.shape, generator=gen,
+                                    device=col.device, dtype=torch.uint8))
+        else:
+            col.normal_(generator=gen)
+    if st.action.dtype.is_floating_point:
+        st.action.uniform_(-1.0, 1.0, generator=gen)
+    else:
+        st.action.copy_(torch.randint(0, num_actions, st.action.shape,
+                                      generator=gen,
+                                      device=st.action.device))
     st.reward.normal_(generator=gen)
     st.gamma_n.fill_(0.99 ** 5)
     st.priority.uniform_(0.1, 1.0, generator=gen)
@@ -128,8 +140,11 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     spec = probe_env(opt)
     ap = opt.agent_params
     gen = torch.Generator(device=device).manual_seed(opt.seed)
-    ring = DevicePerReplay(opt.memory_params.memory_size, spec.state_shape,
-                           device=device)
+    ring = DevicePerReplay(
+        opt.memory_params.memory_size, spec.state_shape, spec.action_shape,
+        state_dtype=torch.from_numpy(np.zeros(0, state_dtype(opt))).dtype,
+        action_dtype=torch.from_numpy(np.zeros(0, spec.action_dtype)).dtype,
+        device=device)
     fill_ring(ring, spec.num_actions, gen)
     model = build_model(opt, spec, init_weights=False)  # the structure
     state, step = build_train_state_and_step(
@@ -177,8 +192,11 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     updates = -(-updates // K) * K
     launches = {c.__name__: c.launches / updates for c in COUNTED}
     busy_ticks = sum(ticks) - ticks0
-    out = {"torso": "kernel" if opt.learner_perf_params.pallas_torso
-           else "module", "compute_dtype": opt.model_params.compute_dtype,
+    kernel_torso = (opt.model_type == "dqn-cnn"
+                    and opt.learner_perf_params.pallas_torso)
+    out = {"config": opt.config,
+           "torso": "kernel" if kernel_torso else "module",
+           "compute_dtype": str(compute_dtype(opt)).split(".")[-1],
            "cuda_graph": isinstance(fused, GraphedFusedStep),
            "steps_per_dispatch": K, "megabatch": M, "busy": busy,
            "busy_threads": len(threads), "updates": updates,

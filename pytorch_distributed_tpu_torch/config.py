@@ -46,7 +46,7 @@ CONFIGS = [
 ]
 
 # the rows this port runs end to end so far
-PORTED_CONFIGS = (1, 3, 4, 6, 8, 12, 19)
+PORTED_CONFIGS = (1, 2, 3, 4, 6, 8, 9, 10, 12, 16, 19)
 
 
 def _default_refs() -> str:
@@ -128,14 +128,21 @@ class AgentParams:
     steps: int = 500000
     max_seconds: float = 0.0
     gamma: float = 0.99
-    clip_grad: float = float("inf")
+    clip_grad: float = float("inf")    # dqn: inf; ddpg: 40.0
     lr: float = 1e-4
-    actor_sync_freq: int = 100
+    # anneal the learning rate linearly to 0 over ``steps`` (optax's
+    # ``linear_schedule``, reference config.py:313; ops/losses.adam_update)
+    lr_decay: bool = False
+    # decoupled weight decay added to the gradient after the clip
+    # (``add_decayed_weights``); the dqn family's optimizer only, as the
+    # reference's (factory.py:548 vs :658-661)
+    weight_decay: float = 0.0
+    actor_sync_freq: int = 100         # dqn: 100; ddpg: 400
     # logger cadences (reference config.py:315-322)
     logger_freq: int = 15              # secs
-    actor_freq: int = 250
-    learner_freq: int = 100
-    evaluator_freq: int = 30           # secs
+    actor_freq: int = 250              # ddpg: 2500
+    learner_freq: int = 100            # ddpg: 1000
+    evaluator_freq: int = 30           # secs; ddpg: 60
     evaluator_nepisodes: int = 2
     tester_nepisodes: int = 50
     # niceness of the evaluator's process (0 = none; reference
@@ -147,18 +154,41 @@ class AgentParams:
     checkpoint_freq: int = 0
     # committed epochs kept on disk (utils/checkpoint.py gc_epochs)
     checkpoint_retain: int = 3
-    learn_start: int = 5000
-    batch_size: int = 128
+    learn_start: int = 5000            # ddpg: 250
+    batch_size: int = 128              # ddpg: 64
     max_replay_ratio: float = 0.0
     # 0 = auto: 1 sub-step per dispatch.  On the GPU a dispatch is one
     # CUDA-graph replay; 32 per dispatch measured slower end to end in the
     # thread backend (PERF.md)
     steps_per_dispatch: int = 0
-    target_model_update: float = 250
+    target_model_update: float = 250   # >= 1: hard every N; < 1: tau
     nstep: int = 5
     enable_double: bool = False
     eps: float = 0.4
     eps_alpha: float = 7.0
+    # ddpg (reference config.py:382-392): the critic's learning rate (the
+    # actor's is ``lr``) and the actors' Ornstein-Uhlenbeck noise
+    # (utils/random_process.py)
+    critic_lr: float = 1e-3
+    ou_theta: float = 0.15
+    ou_sigma: float = 0.3
+    ou_mu: float = 0.0
+    # one Adam over both nets, the policy loss's gradient reaching the
+    # critic, as the original DDPG learner; false: an optimizer a net
+    # (ops/losses.build_ddpg_train_step)
+    ddpg_coupled_update: bool = False
+
+
+def build_agent_params(agent_type: str) -> AgentParams:
+    """The family's defaults (reference config.py:400-425)."""
+    if agent_type == "dqn":
+        return AgentParams(agent_type="dqn")
+    if agent_type == "ddpg":
+        return AgentParams(
+            agent_type="ddpg", clip_grad=40.0, actor_sync_freq=400,
+            actor_freq=2500, learner_freq=1000, evaluator_freq=60,
+            learn_start=250, batch_size=64, target_model_update=1e-3)
+    raise ValueError(f"unknown agent_type: {agent_type}")
 
 
 @dataclass
@@ -465,7 +495,7 @@ def build_options(config: int = 12, **overrides: Any) -> Options:
         memory_params=MemoryParams(memory_type=memory_type,
                                    state_dtype=state_dtype),
         model_params=ModelParams(model_type=model_type),
-        agent_params=AgentParams(agent_type=agent_type),
+        agent_params=build_agent_params(agent_type),
     )
     for key, val in overrides.items():
         if key in _SELECTORS or key in _SUBS:

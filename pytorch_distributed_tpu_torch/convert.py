@@ -1,5 +1,5 @@
-"""Reference ``DqnCnnModel``, ``DqnCnnWideModel`` and ``DqnMlpModel``
-params -> the port's ``state_dict``.
+"""Reference ``DqnCnnModel``, ``DqnCnnWideModel``, ``DqnMlpModel`` and
+``DdpgMlpModel`` params -> the port's ``state_dict``.
 
 Takes the flax param tree of pytorch_distributed_tpu/models/dqn_cnn.py as
 nested dicts of array-likes (numpy, or anything ``np.asarray`` reads) and
@@ -12,7 +12,8 @@ layout traps:
   ``Dense_0`` (reference dqn_cnn.py:64) where the port's NCHW flatten is
   (c, h, w), so ``Dense_0``'s input rows are permuted.
 
-The MLP (``convert_dqn_mlp``) has only the second: its ``Dense_0`` to
+The MLPs (``convert_dqn_mlp``, ``convert_ddpg_mlp``) have only the
+second.  The DQN MLP: its ``Dense_0`` to
 ``Dense_2`` are ``fc0`` to ``fc2`` and ``Dense_3`` is ``head``.  The wide
 torso (``convert_dqn_cnn_wide``, models/dqn_cnn_wide.py) has all three:
 its section convolutions ``Conv_i`` are ``conv{i}``, the residual blocks
@@ -38,10 +39,15 @@ from pytorch_distributed_tpu_torch.models.dqn_cnn import (
     CONV_LAYERS, torso_out_hw,
 )
 from pytorch_distributed_tpu_torch.models import dqn_cnn_wide as wide
+from pytorch_distributed_tpu_torch.models.ddpg_mlp import (
+    ACTOR_LAYERS, CRITIC_LAYERS,
+)
 from pytorch_distributed_tpu_torch.models.dqn_mlp import HIDDEN_LAYERS
 
 # the MLP's flax scopes in order, the head last
 MLP_LAYERS = HIDDEN_LAYERS + ("head",)
+# the DDPG model's scopes, in ``ravel_pytree``'s (sorted) order
+DDPG_LAYERS = ACTOR_LAYERS + CRITIC_LAYERS
 
 
 def convert_dqn_cnn(params: Mapping, state_shape: Sequence[int]
@@ -141,6 +147,26 @@ def convert_dqn_mlp(params: Mapping) -> Dict[str, torch.Tensor]:
             for k, v in out.items()}
 
 
+def convert_ddpg_mlp(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``params`` is ``{"params": {...}}`` or the inner tree of the
+    reference's ``DdpgMlpModel``: each ``Dense`` scope (``actor_l1`` ...
+    ``critic_out``) is the module of the same name, its kernel transposed.
+    ``critic_l2``'s kernel has 400 + d input rows, the action's last, as
+    the port's concatenation orders them.  A tree of one net (the
+    decoupled state's ``{"actor": ...}`` half, or its Adam moments)
+    converts to that net's keys."""
+    p = params["params"] if "params" in params else params
+    out: Dict[str, np.ndarray] = {}
+    names = [name for name in DDPG_LAYERS if name in p]
+    if not names:
+        raise KeyError(f"no DDPG scope in {sorted(p)}")
+    for name in names:
+        out[f"{name}.weight"] = np.asarray(p[name]["kernel"]).T
+        out[f"{name}.bias"] = np.asarray(p[name]["bias"])
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in out.items()}
+
+
 def flax_leaves(state_dict: Mapping[str, torch.Tensor],
                 state_shape: Sequence[int]
                 ) -> List[Tuple[str, torch.Tensor]]:
@@ -150,9 +176,17 @@ def flax_leaves(state_dict: Mapping[str, torch.Tensor],
     ``Dense_1/kernel``: keys sorted at every level, as ``ravel_pytree``
     orders a flax tree), each a view of the torch tensor in the flax
     layout.  No data is copied.  The wide torso's state_dict (it has
-    ``res0.conv0.weight``) is laid out the same way."""
+    ``res0.conv0.weight``) and the DDPG model's (``actor_l1.weight``) are
+    laid out the same way."""
     if "res0.conv0.weight" in state_dict:
         return _flax_leaves_wide(state_dict, state_shape)
+    if "actor_l1.weight" in state_dict:
+        # the DDPG scopes sort as DDPG_LAYERS lists them
+        out = []
+        for name in DDPG_LAYERS:
+            out += [(f"{name}/bias", state_dict[f"{name}.bias"]),
+                    (f"{name}/kernel", state_dict[f"{name}.weight"].t())]
+        return out
     if "conv0.weight" not in state_dict:
         out = []
         for i, name in enumerate(MLP_LAYERS):

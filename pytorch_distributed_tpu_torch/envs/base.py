@@ -3,6 +3,9 @@ with its frame-dump hooks (``attach_renderer``/``render`` :99-108: each
 ``render()`` hands the newest observation to a utils/render.py
 ``FrameDumper``, which starts a new episode directory at every reset).
 
+``ContinuousSpace`` (:33-47) is the DDPG rows' action box: policies act
+in [-1, 1] and the env rescales (``denormalize``).
+
 Mode switches as the reference's (:73-78, reference core/env.py:29-35):
 ``train()`` is the actors' mode, ``eval()`` restores the standard episode
 boundaries for the evaluator and the tester.  Pong has no lives, so the
@@ -25,6 +28,23 @@ import numpy as np
 @dataclass(frozen=True)
 class DiscreteSpace:
     n: int
+
+
+@dataclass(frozen=True)
+class ContinuousSpace:
+    """A box of ``dim`` actions (reference :33-47): policies emit actions
+    in [-1, 1] and the env rescales them to [low, high]."""
+
+    dim: int
+    low: float = -1.0
+    high: float = 1.0
+
+    def sample(self, rng: np.random.Generator) -> np.ndarray:
+        return rng.uniform(-1.0, 1.0, size=(self.dim,)).astype(np.float32)
+
+    def denormalize(self, action: np.ndarray) -> np.ndarray:
+        a = np.clip(np.asarray(action, dtype=np.float32), -1.0, 1.0)
+        return self.low + (a + 1.0) * 0.5 * (self.high - self.low)
 
 
 class Env:

@@ -3,23 +3,26 @@ pytorch_distributed_tpu/factory.py: the Anakin gates ``anakin_eligible``
 and ``anakin_active`` (:108-141), the actor backend's gate
 ``resolve_actor_backend`` (:144-215), ``build_device_env`` (:216-230),
 ``needs_inference_server`` (:228-232), the env probe and ``EnvSpec``
-(:239), the device-env predicate ``device_backend_active`` (:270-277),
+(:239-258) with continuous actions, the gym entry of the env table
+(:35-46), the device-env predicate ``device_backend_active`` (:270-277),
 the actors' env vector and the stepper's prebuild (:280-353),
-``build_model`` for ``dqn-cnn``, ``dqn-cnn-wide`` and ``dqn-mlp``
-(:400-436), the dqn branch
-of ``build_train_state_and_step`` (:636-647), the learner's train apply
-gate ``_dqn_train_apply`` (:674-723), ``build_megabatch_train_step``
-(:726-771), ``resolve_megabatch`` (:774-791) and ``build_memory`` for the
+``build_model`` for ``dqn-cnn``, ``dqn-cnn-wide``, ``dqn-mlp`` and
+``ddpg-mlp`` (:400-439), ``ddpg_applies`` (:506-510), the dqn and ddpg
+branches of ``build_train_state_and_step`` (:636-669), the learner's
+train apply gate ``_dqn_train_apply`` (:674-723),
+``build_megabatch_train_step`` (:726-771), ``resolve_megabatch``
+(:774-791), ``published_params`` (:830-839) and ``build_memory`` for the
 ``shared``, ``native``, ``prioritized``, ``device`` and ``device-per``
 rings (:862-940).  ``update_flops`` and ``frame_flops`` are the FLOP
 counts the perf plane's MFU divides by (utils/perf.py), where the
 reference reads its compiled programs' cost analysis.
 
-The port runs CONFIGS rows 1, 3, 4, 6, 8, 12 and 19
-(config.PORTED_CONFIGS): the pong-sim, fake-chain and cartpole envs, the
-``dqn-cnn``, ``dqn-cnn-wide`` and ``dqn-mlp`` models and those five
-rings.  Row 19's wide torso trains through the module's own forward, as
-every model but ``dqn-cnn`` does (``_kernel_torso``).  Anything else raises
+The port runs CONFIGS rows 1, 2, 3, 4, 6, 8, 9, 10, 12, 16 and 19
+(config.PORTED_CONFIGS): the pong-sim, fake-chain, classic (cartpole,
+pendulum, reacher) and gym envs, the ``dqn-cnn``, ``dqn-cnn-wide``,
+``dqn-mlp`` and ``ddpg-mlp`` models and those five rings.  Row 19's wide
+torso trains through the module's own forward, as every model but
+``dqn-cnn`` does (``_kernel_torso``).  Anything else raises
 ``NotImplementedError`` naming the ROADMAP queue that will bring it.
 Where the reference warns and takes the Python ring for a native ring
 that cannot be built (:891-905), the port raises with g++'s stderr.
@@ -43,6 +46,7 @@ from pytorch_distributed_tpu_torch.envs.device_env import (
 from pytorch_distributed_tpu_torch.envs.device_env import (
     build_device_env as _build_device_env,
 )
+from pytorch_distributed_tpu_torch.envs.base import DiscreteSpace
 from pytorch_distributed_tpu_torch.envs.classic import make_classic_env
 from pytorch_distributed_tpu_torch.envs.fake_env import FakeChainEnv
 from pytorch_distributed_tpu_torch.envs.native_pong import (
@@ -60,22 +64,34 @@ from pytorch_distributed_tpu_torch.memory.prioritized import (
 from pytorch_distributed_tpu_torch.memory.shared_replay import SharedReplay
 from pytorch_distributed_tpu_torch.models.dqn_cnn import DqnCnnModel
 from pytorch_distributed_tpu_torch.models.dqn_cnn_wide import DqnCnnWideModel
+from pytorch_distributed_tpu_torch.models.ddpg_mlp import (
+    DdpgMlpModel, actor_apply, critic_apply,
+)
 from pytorch_distributed_tpu_torch.models.dqn_mlp import DqnMlpModel
 from pytorch_distributed_tpu_torch.ops.cuda_torso import (
     build_torso_apply, build_torso_group_apply,
 )
 from pytorch_distributed_tpu_torch.ops.losses import (
-    TrainState, build_dqn_megabatch_step, build_dqn_train_step,
-    init_train_state,
+    TrainState, build_ddpg_megabatch_step, build_ddpg_train_step,
+    build_ddpg_train_step_coupled, build_dqn_megabatch_step,
+    build_dqn_train_step, init_ddpg_train_state, init_train_state,
+    make_optimizer, merge_ddpg_params,
 )
 from pytorch_distributed_tpu_torch.utils import health
 from pytorch_distributed_tpu_torch.utils.native_build import build_library
 from pytorch_distributed_tpu_torch.utils.experience import Batch
 from pytorch_distributed_tpu_torch.utils.perf import flops_of, resolve_mxu
 
+def _gym_env(env_params, process_ind: int = 0):
+    # gymnasium is imported when a gym env is made, never before
+    from pytorch_distributed_tpu_torch.envs.gym_adapter import GymEnv
+
+    return GymEnv(env_params, process_ind)
+
+
 ENVS = {"pong-sim": PongSimEnv, "fake": FakeChainEnv,
-        "classic": make_classic_env}
-MODELS = ("dqn-cnn", "dqn-cnn-wide", "dqn-mlp")
+        "classic": make_classic_env, "gym": _gym_env}
+MODELS = ("dqn-cnn", "dqn-cnn-wide", "dqn-mlp", "ddpg-mlp")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -195,6 +211,12 @@ def role_seed(seed: int, role: str, index: int = 0) -> int:
 
 
 def compute_dtype(opt: Options) -> torch.dtype:
+    """The dtype the model computes in: ``compute_dtype`` for the dqn-cnn
+    torsos; the DDPG MLP computes in fp32 whatever it says, as the
+    reference's (its ``Dense`` layers take no compute dtype), so its MFU
+    divides by the fp32 peak."""
+    if opt.model_type == "ddpg-mlp":
+        return torch.float32
     return {"bfloat16": torch.bfloat16,
             "float32": torch.float32}[opt.model_params.compute_dtype]
 
@@ -207,19 +229,23 @@ def state_dtype(opt: Options) -> np.dtype:
 
 @dataclass(frozen=True)
 class EnvSpec:
-    """What the model and the ring need to know about the env."""
+    """What the model and the ring need to know about the env: a discrete
+    env's ``num_actions``, or a continuous one's ``action_dim`` (actions
+    of shape (d,), float32, in [-1, 1])."""
 
     state_shape: Tuple[int, ...]
     num_actions: int
     norm_val: float
+    discrete: bool = True
+    action_dim: int = 0
 
     @property
     def action_shape(self) -> Tuple[int, ...]:
-        return ()
+        return () if self.discrete else (self.action_dim,)
 
     @property
     def action_dtype(self):
-        return np.int32
+        return np.int32 if self.discrete else np.float32
 
 
 def build_env(opt: Options, process_ind: int = 0):
@@ -258,22 +284,32 @@ def prebuild_native(opt: Options) -> None:
 
 def probe_env(opt: Options) -> EnvSpec:
     env = build_env(opt, process_ind=0)
-    return EnvSpec(state_shape=tuple(env.state_shape),
-                   num_actions=env.action_space.n,
-                   norm_val=float(env.norm_val))
+    space = env.action_space
+    if isinstance(space, DiscreteSpace):
+        return EnvSpec(state_shape=tuple(env.state_shape),
+                       num_actions=space.n, norm_val=float(env.norm_val))
+    return EnvSpec(state_shape=tuple(env.state_shape), num_actions=0,
+                   norm_val=float(env.norm_val), discrete=False,
+                   action_dim=space.dim)
 
 
 def build_model(opt: Options, spec: EnvSpec, device=None,
                 generator: Optional[torch.Generator] = None,
                 init_weights: bool = True) -> torch.nn.Module:
     """The configured model on ``device``, initialised from
-    ``generator``.  ``init_weights=False`` skips the orthogonal init (a QR
-    per layer, seconds on a busy host) for a caller that wants only the
-    forward's structure and brings its own weights."""
+    ``generator``.  ``init_weights=False`` skips the init (the orthogonal
+    one is a QR per layer, seconds on a busy host) for a caller that wants
+    only the forward's structure and brings its own weights."""
     if opt.model_type not in MODELS:
         raise _not_ported(f"model_type {opt.model_type!r}")
     ortho = init_weights and opt.model_params.orthogonal_init
-    if opt.model_type == "dqn-mlp":
+    if opt.model_type == "ddpg-mlp":
+        if spec.discrete:
+            raise ValueError("ddpg-mlp needs a continuous action space")
+        model = DdpgMlpModel(spec.action_dim, int(np.prod(spec.state_shape)),
+                             norm_val=spec.norm_val, generator=generator,
+                             init_weights=init_weights)
+    elif opt.model_type == "dqn-mlp":
         model = DqnMlpModel(spec.num_actions,
                             int(np.prod(spec.state_shape)),
                             hidden_dim=opt.model_params.hidden_dim,
@@ -304,8 +340,19 @@ def init_params(opt: Options, spec: EnvSpec, seed: int,
 
 
 def module_apply(model: torch.nn.Module) -> Callable:
-    """``apply(params, obs) -> q`` through the module's own forward."""
+    """``apply(params, obs) -> q`` through the module's own forward; for
+    the DDPG model the policy's deterministic forward, ``actor_apply``."""
+    if isinstance(model, DdpgMlpModel):
+        return ddpg_applies(model)[0]
     return lambda params, obs: functional_call(model, params, (obs,))
+
+
+def ddpg_applies(model: DdpgMlpModel) -> Tuple[Callable, Callable]:
+    """``(actor_fn(params, obs), critic_fn(params, obs, a))`` over the
+    state-dict keys of ``model``'s nets, at its ``norm_val``."""
+    nv = model.norm_val
+    return (lambda p, o: actor_apply(p, o, nv),
+            lambda p, o, a: critic_apply(p, o, a, nv))
 
 
 def module_group_apply(model: torch.nn.Module) -> Callable:
@@ -354,19 +401,55 @@ def dqn_group_apply(opt: Options, model: torch.nn.Module) -> Callable:
     return module_group_apply(model)
 
 
+def make_optimizers(opt: Options):
+    """The run's optimizers, as the reference's factory makes them
+    (:636-669): one for the dqn family (with ``weight_decay``) and for
+    coupled DDPG, ``(actor_tx, critic_tx)`` for decoupled DDPG (neither
+    with weight decay); ``lr_decay`` anneals each over ``steps``."""
+    ap = opt.agent_params
+    decay = ap.steps if ap.lr_decay else 0
+    if opt.agent_type == "dqn":
+        return make_optimizer(ap.lr, ap.clip_grad, ap.weight_decay, decay)
+    actor_tx = make_optimizer(ap.lr, ap.clip_grad, lr_decay_steps=decay)
+    if ap.ddpg_coupled_update:
+        return actor_tx
+    return actor_tx, make_optimizer(ap.critic_lr, ap.clip_grad,
+                                    lr_decay_steps=decay)
+
+
 def build_train_state_and_step(opt: Options, model: torch.nn.Module,
                                params: Dict[str, torch.Tensor]
                                ) -> Tuple[TrainState, Callable]:
-    if opt.agent_type != "dqn":
+    if opt.agent_type not in ("dqn", "ddpg"):
         raise _not_ported(f"agent_type {opt.agent_type!r}")
     ap = opt.agent_params
-    state = init_train_state(params)
-    step = build_dqn_train_step(
-        dqn_train_apply(opt, model), lr=ap.lr, clip_grad=ap.clip_grad,
-        enable_double=ap.enable_double,
-        target_model_update=ap.target_model_update,
-        guard=opt.health_params.numeric_guards)
-    return state, step
+    guard = health.resolve(opt.health_params).numeric_guards
+    if opt.agent_type == "dqn":
+        step = build_dqn_train_step(
+            dqn_train_apply(opt, model), make_optimizers(opt),
+            enable_double=ap.enable_double,
+            target_model_update=ap.target_model_update, guard=guard)
+        return init_train_state(params), step
+    actor_fn, critic_fn = ddpg_applies(model)
+    if ap.ddpg_coupled_update:
+        step = build_ddpg_train_step_coupled(
+            actor_fn, critic_fn, make_optimizers(opt),
+            target_model_update=ap.target_model_update, guard=guard)
+        return init_train_state(params), step
+    step = build_ddpg_train_step(
+        actor_fn, critic_fn, *make_optimizers(opt),
+        target_model_update=ap.target_model_update, guard=guard)
+    return init_ddpg_train_state(params), step
+
+
+def published_params(opt: Options, state: TrainState
+                     ) -> Dict[str, torch.Tensor]:
+    """The params the learner publishes and checkpoints: the model's whole
+    state dict (merged back from the decoupled DDPG state's split)."""
+    if opt.agent_type == "ddpg" and not opt.agent_params.ddpg_coupled_update:
+        return merge_ddpg_params(state.params["actor"],
+                                 state.params["critic"])
+    return state.params
 
 
 def _fake_model_params(opt: Options, spec: EnvSpec, mode) -> tuple:
@@ -389,12 +472,13 @@ def update_flops(opt: Options, spec: EnvSpec) -> float:
 
     B = opt.agent_params.batch_size
     obs = torch.from_numpy(np.zeros(0, dtype=state_dtype(opt))).dtype
+    act = torch.from_numpy(np.zeros(0, dtype=spec.action_dtype)).dtype
     with FakeTensorMode() as mode:
         model, params = _fake_model_params(opt, spec, mode)
         state, step = build_train_state_and_step(opt, model, params)
         batch = Batch(
             state0=torch.zeros((B, *spec.state_shape), dtype=obs),
-            action=torch.zeros(B, dtype=torch.int64),
+            action=torch.zeros((B, *spec.action_shape), dtype=act),
             reward=torch.zeros(B), gamma_n=torch.zeros(B),
             state1=torch.zeros((B, *spec.state_shape), dtype=obs),
             terminal1=torch.zeros(B), weight=torch.ones(B),
@@ -404,7 +488,8 @@ def update_flops(opt: Options, spec: EnvSpec) -> float:
 
 def frame_flops(opt: Options, spec: EnvSpec) -> float:
     """The FLOPs of the acting forward for one env frame (the module's
-    forward at batch 1), counted on fake tensors as ``update_flops``."""
+    forward at batch 1; DDPG's policy forward), counted on fake tensors as
+    ``update_flops``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     obs = torch.from_numpy(np.zeros(0, dtype=state_dtype(opt))).dtype
@@ -418,19 +503,23 @@ def build_megabatch_train_step(opt: Options, model: torch.nn.Module
                                ) -> Optional[Callable]:
     """The megabatch twin of ``build_train_state_and_step``'s step:
     ``(state, batches (M, B)) -> (state', metrics, td_abs (M, B), ok
-    (M,))``, with the optimizer and the train apply built as the
+    (M,))``, with the optimizers and the train apply built as the
     sequential step's, so the state the sequential path made (or a
-    checkpoint) serves it as it is.  None for a family without a group
-    step (DDPG's waits for its slice): the caller runs the sequential
-    step and says so."""
-    if opt.agent_type != "dqn":
-        return None
+    checkpoint) serves it as it is.  None for coupled DDPG, which has no
+    group step (reference :726-771): the caller runs the sequential step
+    and says so."""
     ap = opt.agent_params
-    return build_dqn_megabatch_step(
-        dqn_train_apply(opt, model), dqn_group_apply(opt, model), lr=ap.lr,
-        clip_grad=ap.clip_grad, enable_double=ap.enable_double,
-        target_model_update=ap.target_model_update,
-        guard=health.resolve(opt.health_params).numeric_guards)
+    guard = health.resolve(opt.health_params).numeric_guards
+    if opt.agent_type == "dqn":
+        return build_dqn_megabatch_step(
+            dqn_train_apply(opt, model), dqn_group_apply(opt, model),
+            make_optimizers(opt), enable_double=ap.enable_double,
+            target_model_update=ap.target_model_update, guard=guard)
+    if opt.agent_type == "ddpg" and not ap.ddpg_coupled_update:
+        return build_ddpg_megabatch_step(
+            *ddpg_applies(model), *make_optimizers(opt),
+            target_model_update=ap.target_model_update, guard=guard)
+    return None
 
 
 def resolve_megabatch(opt: Options, steps_per_call: int) -> Tuple[int, int]:

@@ -4,7 +4,8 @@ server's packed acts (``_pack_dqn`` :100-108, ``build_packed_roll_act``
 :140-165, ``build_packed_act_rowkeys`` :168-180), greedy act (:517), and
 the fused device rollout (``RolloutCarry``/``RolloutChunk``/
 ``RolloutStats``, ``init_rollout_carry`` :190-274, ``build_fused_rollout``
-:277-491, ``rollout_priorities`` :494-514).
+:277-491, ``rollout_priorities`` :494-514) and DDPG's deterministic act
+(``build_ddpg_act`` :594-606).
 
 The reference derives per-(tick, row) JAX keys on the device; those
 streams cannot be replayed in torch, so the port's act takes its
@@ -106,6 +107,14 @@ def greedy_act(apply_fn: Callable, params, obs: torch.Tensor
     """Pure-greedy act, for evaluation: ``(action, q_max)``."""
     q = apply_fn(params, obs)
     return q.argmax(-1), q.max(-1).values
+
+
+@torch.no_grad()
+def ddpg_act(actor_fn: Callable, params, obs: torch.Tensor) -> torch.Tensor:
+    """The deterministic policy forward (reference :594-606): actions
+    (B, d) in [-1, 1].  Exploration noise stays with the actor, which
+    owns the OU state; the evaluator and the tester act with none."""
+    return actor_fn(params, obs)
 
 
 # ---------------------------------------------------------------------------

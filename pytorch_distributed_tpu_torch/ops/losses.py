@@ -1,17 +1,25 @@
-"""The DQN update as a plain tensor function — the port of
-pytorch_distributed_tpu/ops/losses.py:49-150 and of its megabatch group
+"""The learner's updates as plain tensor functions — the port of
+pytorch_distributed_tpu/ops/losses.py: ``make_optimizer`` (:67-82),
+``_value_loss`` (:85-95), the DQN update (:98-150) and its megabatch group
 step (``_per_minibatch_ok`` and ``build_dqn_megabatch_step``, :231-343),
-with ``update_target`` (utils/helpers.py:18-50) and the ``finite_guard`` /
-``suppress_writeback`` semantics of utils/health.py:105-161.
+the DDPG updates (``build_ddpg_megabatch_step`` :346-470,
+``init_ddpg_train_state`` :473, ``build_ddpg_train_step`` :491,
+``build_ddpg_train_step_coupled`` :568, ``split_ddpg_params`` /
+``merge_ddpg_params`` :624-634), with ``update_target``
+(utils/helpers.py:18-50) and the ``finite_guard`` / ``suppress_writeback``
+semantics of utils/health.py:105-161.
 
 ``step(state, batch) -> (state', metrics, td_abs)``:
 
 - n-step target ``r + gamma_n * bootstrap(s1) * (1 - terminal)``, optional
   double-DQN action selection by the online net;
 - squared error with no 1/2 factor, weighted by the IS weights (:85-95);
-- the optimizer is optax's ``chain(clip(c), adam(lr))`` written out as
-  tensor code (clip by value, then Adam with b1 0.9, b2 0.999, eps 1e-8 and
-  bias correction), so its moments can be compared with the reference's;
+- the optimizer is optax's ``chain(clip(c), add_decayed_weights(wd),
+  adam(lr or linear_schedule(lr, 0, steps)))`` written out as tensor code
+  (clip by value, the decayed weights added, then Adam with b1 0.9, b2
+  0.999, eps 1e-8 and bias correction, its step size read at the count
+  before the update's increment, as optax's schedule is), so its moments
+  can be compared with the reference's;
 - the target net is hard-copied every N steps (N >= 1) or Polyak-averaged
   with tau (< 1), from the post-update params;
 - the guard: when the loss, ``q_mean``, the grad norm or any |TD| is
@@ -31,10 +39,27 @@ gives each minibatch's gradient on its own copy.  Then the M Adam
 updates apply in turn, the step counter and the target cadence advancing
 as in M sequential steps; the guard runs per minibatch, and a non-finite
 minibatch skips its own update only.
+
+DDPG (the actor-critic of models/ddpg_mlp.py): ``actor_fn(params, obs) ->
+a`` and ``critic_fn(params, obs, a) -> q`` over the nets' own params.
+The decoupled step's state holds ``{"actor": ..., "critic": ...}`` params,
+targets and Adam states: the critic takes its TD step (the target ``r +
+gamma_n Q'(s1, pi'(s1)) (1 - terminal)`` from the target nets), then the
+actor its step on ``-mean Q(s, pi(s))`` through the *updated* critic, then
+both targets move by tau; the guard is the whole step's.  The coupled step
+(``ddpg_coupled_update``) holds the merged params under one Adam and
+descends ``critic_loss + actor_loss`` at once, so the policy loss's
+gradient reaches the critic, as the original learner did.  The DDPG group
+step takes the M critic gradients at the group-entry params, applies them
+in turn, then the M actor gradients at (the entry actor, the final critic),
+applied in turn with the targets chained on each (actor_m, critic_m); its
+guard has two masks a minibatch: the critic's gates the critic chain, the
+combined one the actor, the targets, the step counter and |TD|.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
@@ -63,22 +88,28 @@ class TrainState(NamedTuple):
 def init_train_state(params: Params) -> TrainState:
     """Fresh state with the target hard-synced to (a copy of) ``params``."""
     params = {k: v.detach().clone() for k, v in params.items()}
-    dev = next(iter(params.values())).device
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    opt = init_adam(params)
     return TrainState(
         params=params,
         target_params={k: v.clone() for k, v in params.items()},
-        opt_state=AdamState(zero.clone(),
-                            {k: torch.zeros_like(v) for k, v in params.items()},
-                            {k: torch.zeros_like(v) for k, v in params.items()}),
-        step=zero.clone())
+        opt_state=opt, step=opt.count.clone())
 
 
 def adam_update(grads: Params, opt: AdamState, params: Params, lr: float,
-                clip_grad: float = float("inf")) -> Tuple[Params, AdamState]:
-    """optax ``chain(clip(clip_grad), adam(lr))`` applied once."""
+                clip_grad: float = float("inf"), weight_decay: float = 0.0,
+                lr_decay_steps: int = 0) -> Tuple[Params, AdamState]:
+    """optax ``chain(clip(clip_grad), add_decayed_weights(weight_decay),
+    adam(lr))`` applied once; ``lr_decay_steps`` > 0 takes the step size
+    from ``linear_schedule(lr, 0, lr_decay_steps)`` at the count before
+    this update."""
     if clip_grad != float("inf"):
         grads = {k: g.clamp(-clip_grad, clip_grad) for k, g in grads.items()}
+    if weight_decay > 0.0:
+        grads = {k: g + weight_decay * params[k] for k, g in grads.items()}
+    step_size = lr
+    if lr_decay_steps > 0:
+        done = torch.clamp(opt.count.float(), 0.0, float(lr_decay_steps))
+        step_size = lr * (1.0 - done / lr_decay_steps)
     count = opt.count + 1
     c = count.float()
     bc1 = 1.0 - torch.pow(ADAM_B1, c)
@@ -88,8 +119,26 @@ def adam_update(grads: Params, opt: AdamState, params: Params, lr: float,
         mu[k] = (1.0 - ADAM_B1) * g + ADAM_B1 * opt.mu[k]
         nu[k] = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * opt.nu[k]
         upd = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + ADAM_EPS)
-        new[k] = params[k] + upd * (-lr)
+        new[k] = params[k] + upd * (-step_size)
     return new, AdamState(count, mu, nu)
+
+
+def make_optimizer(lr: float, clip_grad: float = float("inf"),
+                   weight_decay: float = 0.0, lr_decay_steps: int = 0
+                   ) -> Callable[[Params, AdamState, Params],
+                                 Tuple[Params, AdamState]]:
+    """``tx(grads, opt, params) -> (params', opt')``: ``adam_update`` with
+    the reference's chain fixed (reference :67-82)."""
+    return functools.partial(adam_update, lr=lr, clip_grad=clip_grad,
+                             weight_decay=weight_decay,
+                             lr_decay_steps=lr_decay_steps)
+
+
+def init_adam(params: Params) -> AdamState:
+    dev = next(iter(params.values())).device
+    return AdamState(torch.zeros((), dtype=torch.int32, device=dev),
+                     {k: torch.zeros_like(v) for k, v in params.items()},
+                     {k: torch.zeros_like(v) for k, v in params.items()})
 
 
 def update_target(target: Params, online: Params, step: torch.Tensor,
@@ -111,18 +160,51 @@ def _select(ok: torch.Tensor, new, old):
     if isinstance(new, torch.Tensor):
         return torch.where(ok, new, old)
     if isinstance(new, dict):
-        return {k: torch.where(ok, new[k], old[k]) for k in new}
-    return type(new)(*(_select(ok, n, o) for n, o in zip(new, old)))
+        return {k: _select(ok, new[k], old[k]) for k in new}
+    picked = [_select(ok, n, o) for n, o in zip(new, old)]
+    return tuple(picked) if type(new) is tuple else type(new)(*picked)
+
+
+def _value_loss(pred: torch.Tensor, target: torch.Tensor,
+                weight: torch.Tensor, huber: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(mean(weight * per-row loss), |TD|)``: the squared error with no
+    1/2 factor, or optax's Huber loss at delta 1 (reference :85-95);
+    ``target`` takes no gradient."""
+    td = pred - target.detach()
+    if huber:
+        a = td.abs()
+        per = torch.where(a <= 1.0, 0.5 * td.square(), a - 0.5)
+    else:
+        per = td.square()
+    return torch.mean(weight * per, dim=-1), td.detach().abs()
+
+
+def _grad_leaves(params: Params) -> Params:
+    return {k: v.detach().requires_grad_(True) for k, v in params.items()}
+
+
+def _guarded(guard: bool, new, old, metrics: dict, td_abs: torch.Tensor):
+    """The whole-step finite guard (utils/health.py finite_guard): a
+    non-finite |TD| or metric keeps ``old`` and zeroes |TD|."""
+    if not guard:
+        return new, metrics, td_abs
+    ok = torch.isfinite(td_abs).all()
+    for v in metrics.values():
+        ok = ok & torch.isfinite(v)
+    metrics[SKIPPED_KEY] = 1.0 - ok.float()
+    return (_select(ok, new, old), metrics,
+            torch.where(ok, td_abs, torch.zeros_like(td_abs)))
 
 
 def build_dqn_train_step(apply_fn: Callable[[Params, torch.Tensor],
                                             torch.Tensor],
-                         *, lr: float, clip_grad: float = float("inf"),
-                         enable_double: bool = False,
+                         tx: Callable, *, enable_double: bool = False,
                          target_model_update: float = 250,
                          guard: bool = True) -> Callable:
-    """``apply_fn(params, obs) -> q (B, A) fp32``; returns
-    ``step(state, batch) -> (state', metrics, td_abs)``."""
+    """``apply_fn(params, obs) -> q (B, A) fp32``, ``tx`` from
+    ``make_optimizer``; returns ``step(state, batch) -> (state', metrics,
+    td_abs)``."""
 
     def step(state: TrainState, batch: Batch):
         params = {k: v.detach().requires_grad_(True)
@@ -144,8 +226,7 @@ def build_dqn_train_step(apply_fn: Callable[[Params, torch.Tensor],
                                                      list(params.values()))))
         with torch.no_grad():
             q_mean = q.max(-1).values.mean()
-            new_params, opt = adam_update(grads, state.opt_state,
-                                          state.params, lr, clip_grad)
+            new_params, opt = tx(grads, state.opt_state, state.params)
             new_step = state.step + 1
             new_target = update_target(state.target_params, new_params,
                                        new_step, target_model_update)
@@ -153,15 +234,7 @@ def build_dqn_train_step(apply_fn: Callable[[Params, torch.Tensor],
             metrics = {"learner/critic_loss": loss.detach(),
                        "learner/q_mean": q_mean,
                        "learner/grad_norm": global_norm(grads)}
-            td_abs = td.detach().abs()
-            if not guard:
-                return new, metrics, td_abs
-            ok = torch.isfinite(td_abs).all()
-            for v in metrics.values():
-                ok = ok & torch.isfinite(v)
-            metrics[SKIPPED_KEY] = 1.0 - ok.float()
-            return (_select(ok, new, state), metrics,
-                    torch.where(ok, td_abs, torch.zeros_like(td_abs)))
+            return _guarded(guard, new, state, metrics, td.detach().abs())
 
     return step
 
@@ -181,8 +254,7 @@ def build_dqn_megabatch_step(apply_fn: Callable[[Params, torch.Tensor],
                                                 torch.Tensor],
                              group_apply_fn: Callable[[Params, torch.Tensor],
                                                       torch.Tensor],
-                             *, lr: float, clip_grad: float = float("inf"),
-                             enable_double: bool = False,
+                             tx: Callable, *, enable_double: bool = False,
                              target_model_update: float = 250,
                              guard: bool = True) -> Callable:
     """The megabatch group step (reference :250-343).  ``apply_fn(params,
@@ -223,9 +295,8 @@ def build_dqn_megabatch_step(apply_fn: Callable[[Params, torch.Tensor],
             params, target_p = state.params, state.target_params
             opt, step_c = state.opt_state, state.step
             for m in range(M):
-                new_params, new_opt = adam_update(
-                    {k: g[m] for k, g in grads.items()}, opt, params, lr,
-                    clip_grad)
+                new_params, new_opt = tx(
+                    {k: g[m] for k, g in grads.items()}, opt, params)
                 new_step = step_c + 1
                 new_target = update_target(target_p, new_params, new_step,
                                            target_model_update)
@@ -244,5 +315,207 @@ def build_dqn_megabatch_step(apply_fn: Callable[[Params, torch.Tensor],
                                  torch.zeros_like(td_abs))
             return (TrainState(params, target_p, opt, step_c), metrics,
                     td_abs, ok)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# DDPG.  The model's state dict splits by key prefix into its two nets
+# (models/ddpg_mlp.py), so each optimizer owns exactly its net.
+# ---------------------------------------------------------------------------
+
+def split_ddpg_params(full: Params) -> Dict[str, Params]:
+    actor = {k: v for k, v in full.items() if k.startswith("actor")}
+    critic = {k: v for k, v in full.items() if k.startswith("critic")}
+    if not actor or not critic or len(actor) + len(critic) != len(full):
+        raise ValueError(f"unexpected DDPG param layout: {list(full)}")
+    return {"actor": actor, "critic": critic}
+
+
+def merge_ddpg_params(actor: Params, critic: Params) -> Params:
+    return {**actor, **critic}
+
+
+def init_ddpg_train_state(full_params: Params) -> TrainState:
+    """The decoupled step's state: params, targets and Adam states as
+    ``{"actor": ..., "critic": ...}``, the targets copies of the params."""
+    split = {net: {k: v.detach().clone() for k, v in p.items()}
+             for net, p in split_ddpg_params(full_params).items()}
+    opt = {net: init_adam(p) for net, p in split.items()}
+    return TrainState(
+        params=split,
+        target_params={net: {k: v.clone() for k, v in p.items()}
+                       for net, p in split.items()},
+        opt_state=opt, step=opt["actor"].count.clone())
+
+
+def _ddpg_target(actor_fn, critic_fn, target: Dict[str, Params],
+                 batch: Batch) -> torch.Tensor:
+    """``r + gamma_n Q'(s1, pi'(s1)) (1 - terminal)``, no gradient."""
+    with torch.no_grad():
+        a_next = actor_fn(target["actor"], batch.state1)
+        q_next = critic_fn(target["critic"], batch.state1, a_next)
+        return (batch.reward
+                + batch.gamma_n * q_next * (1.0 - batch.terminal1))
+
+
+def _soft_targets(target: Dict[str, Params], online: Dict[str, Params],
+                  step: torch.Tensor, target_model_update: float):
+    return {net: update_target(target[net], online[net], step,
+                               target_model_update) for net in target}
+
+
+def build_ddpg_train_step(actor_fn: Callable, critic_fn: Callable,
+                          actor_tx: Callable, critic_tx: Callable, *,
+                          target_model_update: float = 1e-3,
+                          huber: bool = False, guard: bool = True
+                          ) -> Callable:
+    """The decoupled update (reference :491-565): ``step(state, batch) ->
+    (state', metrics, td_abs)`` over the split state of
+    ``init_ddpg_train_state``."""
+
+    def step(state: TrainState, batch: Batch):
+        params, opt = state.params, state.opt_state
+        tgt = _ddpg_target(actor_fn, critic_fn, state.target_params, batch)
+        cp = _grad_leaves(params["critic"])
+        q = critic_fn(cp, batch.state0, batch.action)
+        critic_loss, td_abs = _value_loss(q, tgt, batch.weight, huber)
+        cgrads = dict(zip(cp, torch.autograd.grad(critic_loss,
+                                                  list(cp.values()))))
+        with torch.no_grad():
+            new_critic, copt = critic_tx(cgrads, opt["critic"],
+                                         params["critic"])
+        ap = _grad_leaves(params["actor"])
+        actor_loss = -torch.mean(critic_fn(
+            new_critic, batch.state0, actor_fn(ap, batch.state0)))
+        agrads = dict(zip(ap, torch.autograd.grad(actor_loss,
+                                                  list(ap.values()))))
+        with torch.no_grad():
+            new_actor, aopt = actor_tx(agrads, opt["actor"], params["actor"])
+            new_params = {"actor": new_actor, "critic": new_critic}
+            new_step = state.step + 1
+            new = TrainState(new_params, _soft_targets(
+                state.target_params, new_params, new_step,
+                target_model_update),
+                {"actor": aopt, "critic": copt}, new_step)
+            metrics = {"learner/critic_loss": critic_loss.detach(),
+                       "learner/actor_loss": actor_loss.detach(),
+                       "learner/grad_norm": global_norm(
+                           {**agrads, **cgrads})}
+            return _guarded(guard, new, state, metrics, td_abs)
+
+    return step
+
+
+def build_ddpg_train_step_coupled(actor_fn: Callable, critic_fn: Callable,
+                                  tx: Callable, *,
+                                  target_model_update: float = 1e-3,
+                                  huber: bool = False, guard: bool = True
+                                  ) -> Callable:
+    """The coupled update (reference :568-621): one Adam over the merged
+    params, one gradient of ``critic_loss + actor_loss``; the state is
+    ``init_train_state``'s over the whole state dict."""
+
+    def step(state: TrainState, batch: Batch):
+        target = split_ddpg_params(state.target_params)
+        tgt = _ddpg_target(actor_fn, critic_fn, target, batch)
+        p = _grad_leaves(state.params)
+        q = critic_fn(p, batch.state0, batch.action)
+        critic_loss, td_abs = _value_loss(q, tgt, batch.weight, huber)
+        actor_loss = -torch.mean(critic_fn(p, batch.state0,
+                                           actor_fn(p, batch.state0)))
+        grads = dict(zip(p, torch.autograd.grad(critic_loss + actor_loss,
+                                                list(p.values()))))
+        with torch.no_grad():
+            new_params, opt = tx(grads, state.opt_state, state.params)
+            new_step = state.step + 1
+            new = TrainState(new_params, update_target(
+                state.target_params, new_params, new_step,
+                target_model_update), opt, new_step)
+            metrics = {"learner/critic_loss": critic_loss.detach(),
+                       "learner/actor_loss": actor_loss.detach(),
+                       "learner/grad_norm": global_norm(grads)}
+            return _guarded(guard, new, state, metrics, td_abs)
+
+    return step
+
+
+def _stacked_leaves(params: Params, m: int) -> Params:
+    return {k: v.detach().expand(m, *v.shape).requires_grad_(True)
+            for k, v in params.items()}
+
+
+def build_ddpg_megabatch_step(actor_fn: Callable, critic_fn: Callable,
+                              actor_tx: Callable, critic_tx: Callable, *,
+                              target_model_update: float = 1e-3,
+                              huber: bool = False, guard: bool = True
+                              ) -> Callable:
+    """The decoupled DDPG group step (reference :346-470): ``step(state,
+    batches (M, B)) -> (state', metrics, td_abs (M, B), ok (M,))``.
+    ``actor_fn`` and ``critic_fn`` take stacked (M, ...) weights over
+    (M, B, ...) rows as well as plain ones (models/ddpg_mlp.py)."""
+
+    def step(state: TrainState, batches: Batch):
+        M, B = batches.reward.shape
+        params, opt, target = (state.params, state.opt_state,
+                               state.target_params)
+        flat = lambda t: t.reshape(M * B, *t.shape[2:])
+        flat_batch = Batch(*(flat(t) for t in batches))
+        tgt = _ddpg_target(actor_fn, critic_fn, target,
+                           flat_batch).view(M, B)
+        # stage 1: the M critic gradients at the group-entry critic
+        cs = _stacked_leaves(params["critic"], M)
+        q = critic_fn(cs, batches.state0, batches.action)        # (M, B)
+        closs, td_abs = _value_loss(q, tgt, batches.weight, huber)
+        cgrads = dict(zip(cs, torch.autograd.grad(closs.sum(),
+                                                  list(cs.values()))))
+        ones = torch.ones(M, device=closs.device)
+        with torch.no_grad():
+            closs = closs.detach()
+            ok_c = (_per_minibatch_ok(closs, td_abs, grads=cgrads.values())
+                    if guard else ones)
+            cp, copt, critics = params["critic"], opt["critic"], []
+            for m in range(M):
+                new_cp, new_copt = critic_tx(
+                    {k: g[m] for k, g in cgrads.items()}, copt, cp)
+                cp, copt = _select(ok_c[m] > 0.5, (new_cp, new_copt),
+                                   (cp, copt))
+                critics.append(cp)
+        # stage 2: the M actor gradients at (the entry actor, the final
+        # critic)
+        acts = _stacked_leaves(params["actor"], M)
+        a = actor_fn(acts, batches.state0)                       # (M, B, d)
+        aq = critic_fn(cp, flat(batches.state0), flat(a)).view(M, B)
+        aloss = -aq.mean(1)
+        agrads = dict(zip(acts, torch.autograd.grad(aloss.sum(),
+                                                    list(acts.values()))))
+        with torch.no_grad():
+            aloss = aloss.detach()
+            ok = ok_c * (_per_minibatch_ok(aloss, grads=agrads.values())
+                         if guard else ones)
+            ap, aopt, tgt_p, step_c = (params["actor"], opt["actor"],
+                                       target, state.step)
+            for m in range(M):
+                new_ap, new_aopt = actor_tx(
+                    {k: g[m] for k, g in agrads.items()}, aopt, ap)
+                new_step = step_c + 1
+                new_tgt = _soft_targets(
+                    tgt_p, {"actor": new_ap, "critic": critics[m]},
+                    new_step, target_model_update)
+                ap, aopt, tgt_p, step_c = _select(
+                    ok[m] > 0.5, (new_ap, new_aopt, new_tgt, new_step),
+                    (ap, aopt, tgt_p, step_c))
+            metrics = {"learner/critic_loss": closs[-1],
+                       "learner/actor_loss": aloss[-1],
+                       "learner/grad_norm": global_norm(
+                           {**{k: g[-1] for k, g in agrads.items()},
+                            **{k: g[-1] for k, g in cgrads.items()}})}
+            if guard:
+                metrics[SKIPPED_KEY] = torch.sum(1.0 - ok)
+            td_abs = torch.where(ok[:, None] > 0.5, td_abs,
+                                 torch.zeros_like(td_abs))
+            new = TrainState({"actor": ap, "critic": cp}, tgt_p,
+                             {"actor": aopt, "critic": copt}, step_c)
+            return new, metrics, td_abs, ok
 
     return step

@@ -82,7 +82,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from pytorch_distributed_tpu_torch.agents.actor import run_dqn_actor
+from pytorch_distributed_tpu_torch.agents.actor import run_actor
 from pytorch_distributed_tpu_torch.agents.clocks import (
     ActorStats, EvaluatorStats, GlobalClock, LearnerStats,
 )
@@ -109,7 +109,7 @@ _CTX = mp.get_context("spawn")
 
 WORKERS: Dict[str, Callable] = {
     "logger": run_logger,
-    "actor": run_dqn_actor,
+    "actor": run_actor,  # the run's agent family's (agents/actor.py)
     "evaluator": run_evaluator,
 }
 

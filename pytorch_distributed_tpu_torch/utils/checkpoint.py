@@ -27,8 +27,10 @@ the previous one untouched.  ``gc_epochs`` keeps the newest ``retain``;
 checks a root offline, also one the JAX package wrote.
 
 Where the port differs: the state artifact is one file, a ``torch.save``
-of the ``TrainState`` as fp32 and integer CPU tensors, not an Orbax
-directory, and its manifest key is its file name; a torch generator's
+of the ``TrainState`` as fp32 and integer CPU tensors (nested dicts: the
+decoupled DDPG state's params, targets and Adam states are ``{"actor",
+"critic"}`` pairs), not an Orbax directory, and its manifest key is its
+file name; a torch generator's
 state goes into the extras as a list of ints.  Every save consults the
 ``CKPT_FAULTS`` injector (utils/faults.py) at the reference's six write
 points (``_FRAME_POINTS``), so a drill can SIGKILL a save at an exact
@@ -270,16 +272,31 @@ def _savez(path: str, data: dict) -> None:
         np.savez_compressed(f, **data)
 
 
+def _to_tree(x):
+    """A train-state part as nested dicts of CPU tensors; an
+    ``AdamState`` becomes ``{"count", "mu", "nu"}``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu").clone()
+    if isinstance(x, AdamState):
+        x = x._asdict()
+    return {k: _to_tree(v) for k, v in x.items()}
+
+
+def _from_tree(d, device):
+    """``_to_tree``'s inverse, on ``device``."""
+    if isinstance(d, torch.Tensor):
+        return d.to(device)
+    if set(d) == set(AdamState._fields):
+        return AdamState(*(_from_tree(d[f], device)
+                           for f in AdamState._fields))
+    return {k: _from_tree(v, device) for k, v in d.items()}
+
+
 def _state_dict(state: TrainState) -> dict:
-    """The train state as fp32 and integer CPU tensors."""
-    cpu = lambda t: t.detach().to("cpu").clone()
-    tree = lambda d: {k: cpu(v) for k, v in d.items()}
-    return {"params": tree(state.params),
-            "target_params": tree(state.target_params),
-            "opt_state": {"count": cpu(state.opt_state.count),
-                          "mu": tree(state.opt_state.mu),
-                          "nu": tree(state.opt_state.nu)},
-            "step": cpu(state.step)}
+    """The train state as fp32 and integer CPU tensors, nested as it is:
+    one net's params and one Adam state, or DDPG's ``{"actor",
+    "critic"}`` pairs of each."""
+    return {f: _to_tree(v) for f, v in state._asdict().items()}
 
 
 @dataclass
@@ -498,14 +515,8 @@ def load_epoch_state(info: EpochInfo, device="cpu") -> TrainState:
                                 f"no {STATE}")
     d = torch.load(os.path.join(info.path, STATE), map_location="cpu",
                    weights_only=True)
-    to = lambda t: t.to(device)
-    tree = lambda m: {k: to(v) for k, v in m.items()}
-    opt = d["opt_state"]
-    return TrainState(params=tree(d["params"]),
-                      target_params=tree(d["target_params"]),
-                      opt_state=AdamState(to(opt["count"]), tree(opt["mu"]),
-                                          tree(opt["nu"])),
-                      step=to(d["step"]))
+    return TrainState(**{f: _from_tree(d[f], device)
+                         for f in TrainState._fields})
 
 
 def load_epoch_replay(info: EpochInfo, memory: Any) -> int:

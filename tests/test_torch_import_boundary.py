@@ -40,14 +40,17 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
-# the modules of the planes that are on by default, of row 19 and of the
+# the modules of the planes that are on by default, of row 19, of the
 # planes that are off by default (the perf plane, the profile window and
-# mission control), each of which copies what it needs of its reference
-# module
+# mission control) and of DDPG, each of which copies what it needs of its
+# reference module
 PLANE_MODULES = ("utils.metrics", "utils.experience", "utils.tracing",
                  "utils.bandwidth", "utils.flow", "utils.render",
                  "models.dqn_cnn_wide", "convert", "utils.perf",
-                 "utils.profiling", "utils.telemetry")
+                 "utils.profiling", "utils.telemetry",
+                 # DDPG's: the noise, the envs, the model and its steps
+                 "utils.random_process", "envs.classic", "envs.gym_adapter",
+                 "models.ddpg_mlp", "ops.losses")
 
 
 @pytest.mark.parametrize("name", PLANE_MODULES)
@@ -108,3 +111,27 @@ def test_sources_name_no_forbidden_import(path):
             names.append(node.module)
     bad = [n for n in names if _forbidden(n)]
     assert not bad, (path, bad)
+
+
+def test_gym_adapter_imports_without_gymnasium():
+    """The card's machine has no gymnasium: the adapter, and the factory
+    that routes ``env_type`` "gym" to it, import with gymnasium and gym
+    blocked, and only making a gym env raises, naming what is missing."""
+    code = (
+        "import sys\n"
+        "sys.modules['gymnasium'] = None\n"
+        "sys.modules['gym'] = None\n"
+        f"from {PORT}.envs import gym_adapter\n"
+        f"from {PORT} import factory\n"
+        f"from {PORT}.config import build_options\n"
+        "assert 'gymnasium' in sys.modules and sys.modules['gymnasium'] "
+        "is None\n"
+        "try:\n"
+        "    factory.build_env(build_options(9))\n"
+        "except ImportError as e:\n"
+        "    print('refused:', e)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert "refused: env_type 'gym' needs gymnasium" in out.stdout

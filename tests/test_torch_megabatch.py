@@ -359,8 +359,7 @@ def test_resolve_megabatch_and_the_overrides(monkeypatch, capsys):
     assert (lp.megabatch, lp.pallas_torso) == (2, True)
     assert opt.learner_perf_params.megabatch == 4  # the input is unchanged
     assert resolve_megabatch(opt, 3) == (2, 4)
-    # a family without a group step: none is built
-    ddpg = build_options(1, device="cpu")
-    ddpg.agent_type = "ddpg"
+    # a family without a group step (coupled DDPG): none is built
+    ddpg = build_options(2, device="cpu", ddpg_coupled_update=True)
     assert build_megabatch_train_step(
-        ddpg, build_model(ddpg, EnvSpec((8,), 2, 1.0))) is None
+        ddpg, build_model(ddpg, EnvSpec((3,), 0, 1.0, False, 1))) is None

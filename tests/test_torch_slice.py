@@ -283,7 +283,7 @@ def test_main_without_a_gpu_refuses_cuda():
 def test_refuses_what_is_not_ported(what, capsys):
     if what == "config":
         with pytest.raises(NotImplementedError):
-            build_options(2)  # ddpg: not ported yet (ROADMAP.md Queue A)
+            build_options(13)  # r2d2: not ported yet (ROADMAP.md Queue A)
     elif what == "backend":
         # both of the reference's backends run; any other is refused
         # before a worker starts

@@ -54,13 +54,13 @@ Phases, each printed as one JSON line:
    ``emit="chunk"`` fed into a ring, the rings to the bit; device ms per
    dispatch and frames/s of the rollout alone;
 9. actor_tick: one CPU actor in a spawn child set up as the process
-   backend's (the CPU, its thread share), 300 ticks of 16 envs inline and
+   backend's (the CPU, its thread share), 150 ticks of 16 envs inline and
    pipelined on native and numpy Pong: the StepTimer's phases in ms a
    tick, frames/s, and the inline and pipelined transition streams
    identical (sha256 of every row);
 10. actor_gpu: one actor in this process inferring on the card, as the
    thread backend runs it (its own stream; pinned staging; a
-   non-blocking copy of the actions and an event), 300 ticks of 16 envs
+   non-blocking copy of the actions and an event), 150 ticks of 16 envs
    inline and pipelined, with a second snapshot published at tick 100 so
    that the prefetcher's stream path (a copy on its own stream, an
    event, ``record_stream``) runs inside the window: the two transition
@@ -91,8 +91,9 @@ Phases, each printed as one JSON line:
    with inference on the card: finite stats of one episode, and the peak
    of allocated device memory up by at least the weights' bytes;
 15. train_paced: the process run with the reference's config-12 pacing
-   (``max_replay_ratio`` 8, ``learn_start`` 5,000): updates/s, the pacing
-   seconds, the actors' phases, the same launches per update;
+   (``max_replay_ratio`` 8, ``learn_start`` 5,000), PACED_STEPS updates:
+   updates/s, the pacing seconds, the actors' phases, the same launches
+   per update;
 16. inference: the shared inference server (``actor_backend=batched``)
    alone on the card, on random weights: one batched actor of 16 envs,
    300 ticks of native Pong with every env reset at ticks 100 and 200
@@ -121,7 +122,7 @@ Phases, each printed as one JSON line:
    no actor child and no child with CUDA, evaluator rows; updates/s,
    frames/s and the duty cycle; then each variant's loop driven here by
    ``AnakinDriver``'s own scheduler and traced by ``torch.profiler`` over a
-   window (20 updates strict, 100 at ratio 16, the profiler started and
+   window (10 updates strict, 30 at ratio 16, the profiler started and
    stopped between dispatches in the launching thread): the device's
    idle share as traced and, as an estimate, at the untraced rate;
 19. train_device: the process run with ``actor_backend=device`` (each
@@ -132,7 +133,7 @@ Phases, each printed as one JSON line:
    process-backend run here, paced (``max_replay_ratio`` 8), with the
    hang watchdog at 10 s and an epoch every 500 steps: a timer thread
    SIGKILLs ``actor-0`` once the learner passes step 300 and SIGSTOPs
-   ``actor-1`` after step 900; the run must finish its 3,500 steps
+   ``actor-1`` after step 900; the run must finish its 3,000 steps
    (enough that, on a fast host, the watchdog's 10 s and the respawn
    fall well before the end) with 2
    restarts and 1 hang kill, no child with CUDA and the same launches
@@ -185,7 +186,7 @@ Phases, each printed as one JSON line:
    launches per update counted in each timed window (1/M draws, 10/M
    forward and (4 + 5M)/M backward GEMMs), the fp32 torso and the
    module's forward at M = 4; then the split-process learner with
-   ``megabatch=4`` through ``main`` (pipelined actors, 2,000 updates),
+   ``megabatch=4`` through ``main`` (pipelined actors, 1,000 updates),
    its launches held to one draw and 10 + 24 GEMMs a group;
 23. anakin_megabatch: Anakin through ``main`` at ``rollout_ratio`` 16
    with ``megabatch=4`` and ``double_buffer=true``, 4,000 updates: the
@@ -198,8 +199,8 @@ Phases, each printed as one JSON line:
    (the same ratio at batch 128), as users run it: no draw, 10 + 9
    GEMMs an update; updates/s, frames/s;
 25. train_host: rows 4 (``shared``) and 6 (``prioritized``) through
-   ``main`` on the process backend at replay ratio 8, 300 updates
-   each, row 6 with ``LEARNER_FAULTS=poison_grad@250`` (exactly one
+   ``main`` on the process backend at replay ratio 8, 200 updates
+   each, row 6 with ``LEARNER_FAULTS=poison_grad@150`` (exactly one
    skipped update, its batch the NaN one, its params unchanged, no
    rollback), then row 4 on ``memory_type=native`` unpaced; no draw, 10
    + 9 GEMMs an update;
@@ -208,7 +209,7 @@ Phases, each printed as one JSON line:
    mode 2 on its best params solves every episode in 7 steps);
 27. planes: config 12's planes that are on by default (provenance,
    tracing, the bandwidth X-ray, flow control, the histogram, bucket and
-   span rows), at full width. (a) ``main`` on the process backend, 2,000
+   span rows), at full width. (a) ``main`` on the process backend, 1,000
    updates, the defaults: the ``learner/staleness``,
    ``learner/sample_age`` and ``replay/actor_share`` histogram rows (no
    negative staleness or age; the provenance the learner's windows read
@@ -236,17 +237,17 @@ Phases, each printed as one JSON line:
    update against eager, to the bit; the learner alone
    (``bench_learner``): updates/s, device ms an update, the peak of
    allocated memory, 1 draw and no GEMM an update; ``main`` with
-   ``actor_backend=anakin`` at ratio 16 (500 updates: updates/s,
+   ``actor_backend=anakin`` at ratio 16 (300 updates: updates/s,
    frames/s, the duty cycle, a finite loss) and on the thread backend
-   with the actors on the card (500 updates), each with 1 draw and no
+   with the actors on the card (200 updates), each with 1 draw and no
    GEMM an update and no evaluator (a greedy episode of the wide torso on
    the evaluator's CPU takes minutes); one pipelined CPU actor of 16 envs
-   in a spawn child, ms a tick over 5 ticks.
+   in a spawn child, ms a tick over 2 ticks.
 29. perf_plane: config 12 at full width with the perf plane and mission
    control on as a user turns them on (``TPU_APEX_PERF=1``,
    ``TPU_APEX_METRICS=1``, an OpenMetrics endpoint on a free port and the
    rule ``drill_stall: learner/updates_per_s absent 3s`` in
-   ``TPU_APEX_ALERT_RULES``). (a) ``main`` on the process backend, 2,000
+   ``TPU_APEX_ALERT_RULES``). (a) ``main`` on the process backend, 1,000
    updates, beside the same run with the planes off (train_process's,
    or one of its own when the phase runs without it): ``scalars.jsonl``
    holds positive ``learner/updates_per_s``, ``achieved_flops_per_s`` and
@@ -278,8 +279,8 @@ Phases, each printed as one JSON line:
    a group of 4) against its plain version, identical, with kernel,
    plain, library and bound ms. (a) Row 2 (pendulum, the host ``shared``
    ring) through ``main`` on the process backend, pipelined CPU actors
-   and an evaluator, 1,000 updates, with ``LEARNER_FAULTS=poison_grad@
-   700``: finite ``learner/critic_loss`` and ``learner/actor_loss`` rows,
+   and an evaluator, 600 updates, with ``LEARNER_FAULTS=poison_grad@
+   400``: finite ``learner/critic_loss`` and ``learner/actor_loss`` rows,
    the params file and its ``_best`` tier, no child with CUDA, no B1 or
    B2 launch, exactly one skipped update with its params unchanged and no
    rollback, then mode 2 on the params file with inference on the card.
@@ -298,6 +299,34 @@ Phases, each printed as one JSON line:
    dispatches of 4, at M = 1 and 4, graphed and eager: updates/s, 1/M
    draws and no GEMM an update, the profiler's device ms an update.
    Prints updates/s, frames/s and ``learner/mfu``.
+31. r2d2: rows 13 and 14 (the R2D2 family: ``drqn-mlp`` on the host
+   segment ring, ``drqn-cnn`` on the device segment ring) at the
+   reference's widths; no kernel of ours is on their path (the DRQN
+   torso is the module's cuDNN forward, the segment draw cumsum +
+   searchsorted, as the JAX package's). (a) Row 14's learner alone at
+   full width (64 segments of 80 steps, burn-in 40, n-step 5, LSTM 512,
+   a full ring of 1,250 random frame-packed segments): three dispatches
+   replayed from the CUDA graph against the same dispatches run eagerly
+   from the same state, ring and uniforms, at one update a dispatch and
+   at two, with cuDNN deterministic on both sides: every leaf of the
+   train state and the ring's priorities identical after each dispatch;
+   graphed updates/s with the counters zeroed
+   before the window (0 B1 and 0 B2 launches an update), the profiler's
+   device ms an update, ``update_flops`` and the peak of allocated
+   memory. (b) Row 14 through ``main`` on the process backend, 2
+   pipelined CPU actors x 16 envs, unpaced, 200 updates: no launch, a
+   finite loss, no child with CUDA, updates/s, frames/s, the actors'
+   phases; then mode 2, one capped episode on the card. (c) Row 13's
+   learning bar at the JAX package's geometry (tests/test_sequence.py:
+   265-283, tests/test_device_sequence.py:180-200), on the host
+   ``sequence`` ring and on ``device-sequence`` (dispatches of 4),
+   process backend, 1,200 updates each: mode 2 over 5 episodes reaches
+   ``avg_reward`` 0.9 in at most 10 steps; no launch. (d)
+   ``actor_backend=batched`` on row 14 steps down to ``pipelined`` with
+   the reference's warning and builds no server. (e) Row 14's actor on
+   the card in this thread (the thread backend's), 120 ticks of 16 envs
+   inline and pipelined, a second snapshot published at tick 100: the
+   segment streams identical (sha256), both swapped to version 2.
 
 ``python3 chip_smoke.py PHASE ...`` runs ``build`` and the named phases
 only.  Then a ``kernels`` line (the table PERF.md is written from: B1's
@@ -307,7 +336,8 @@ process runs with pipelined, batched and device actors, on the two
 Anakin runs, on the two health drills, on the megabatch learner and
 Anakin runs, on row 8's two runs, on the three host runs, on the
 planes' runs, on row 19's two runs, on the perf plane's three runs and
-on DDPG's three ``main`` runs; B1 and B2 held at a megabatch group
+on DDPG's three ``main`` runs and R2D2's learner alone and three
+``main`` runs, all 0; B1 and B2 held at a megabatch group
 beside their per-update numbers, B1 also at DDPG's draws),
 the
 card's name and power limit, and the verdict as the last line.  Exits non-zero, with no
@@ -349,7 +379,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # config 12 (dqn/pong-sim/device-per/dqn-cnn) at full width
 RING_ROWS, BATCH, FRAME, ACTIONS = 50_000, 128, (4, 84, 84), 6
-TRAIN_STEPS = 2000
+TRAIN_STEPS = 1000
 # the cap on an episode's agent steps in the device env phases
 EARLY_STOP = 1000
 # and in the runs through ``main``: the evaluator's final greedy episode
@@ -965,10 +995,7 @@ def _train_through_main(backend: str, refs: str = "", *sets: str,
     batch = shape.get("batch", BATCH)
     _zero_launches()
     summary = port_main.main(argv)
-    launches = {"per_sample": cuda_sampling.hierarchical_sample.launches,
-                "torso_gemm_fwd": cuda_torso.gemm_bf16.launches,
-                "torso_gemm_bwd": cuda_torso.gemm_bf16_grad.launches,
-                "torso_gemm_f32": cuda_torso.gemm_f32.launches}
+    launches = _kernel_launches()
     steps_done = summary["learner/steps"]
     if steps_done < steps or not math.isfinite(
             summary["learner/critic_loss"]):
@@ -1104,7 +1131,7 @@ def test_mode():
 
 
 NATIVE_ENVS, NATIVE_TICKS = 16, 1000
-ACTOR_TICKS = 300
+ACTOR_TICKS = 150
 
 
 def _pong_ms_per_tick(env, ticks: int, seed: int) -> float:
@@ -1367,13 +1394,16 @@ def _busy_us(trace_path: str) -> tuple:
     return busy, len(spans)
 
 
+PACED_STEPS = 500
+
+
 def train_paced():
     """The process backend with the reference's config-12 pacing
-    (``max_replay_ratio`` 8, ``learn_start`` 5,000): the rate users feel,
-    set by the actors' frames."""
+    (``max_replay_ratio`` 8, ``learn_start`` 5,000), PACED_STEPS updates:
+    the rate users feel, set by the actors' frames."""
     out, summary = _train_through_main("process", "paced",
                                        "max_replay_ratio=8",
-                                       "learn_start=5000")
+                                       "learn_start=5000", steps=PACED_STEPS)
     if summary["runtime/children_with_cuda"] != 0:
         raise AssertionError("a child made a CUDA context")
     return dict(out, pacing_s=summary["learner/host_s_pacing"],
@@ -1387,6 +1417,7 @@ def train_paced():
 # convolution algorithms)
 SWEEP_RTOL = SWEEP_ATOL = 1e-2
 INFER_EARLY_STOP = 100  # every env resets at ticks 100 and 200 of 300
+INFER_TICKS = 300
 TIMED_TICKS = 200
 
 
@@ -1603,12 +1634,12 @@ def inference():
     srv.start()
     try:
         graph_vs_eager = _graph_vs_eager(srv, spec, gen)
-        batched = bounded_actor_run(opt_b, ACTOR_TICKS, spec=spec,
+        batched = bounded_actor_run(opt_b, INFER_TICKS, spec=spec,
                                     inference=client)
     finally:
         srv.stop()
     inline = bounded_actor_run(_batched_opt("inline", "inference_inline"),
-                               ACTOR_TICKS, spec=spec)
+                               INFER_TICKS, spec=spec)
     if (graph_vs_eager["rows"], graph_vs_eager["roll"]) != (0.0, 0.0) \
             or not graph_vs_eager["roll_stack_equal"]:
         raise AssertionError(f"graph against eager: {graph_vs_eager}")
@@ -1626,7 +1657,7 @@ def inference():
                                                        "_total_ms"))}
     return {"streams": "batched == inline on the card (sha256 of every "
                        "row)", "rows": len(batched["stream"]),
-            "ticks": ACTOR_TICKS, "envs": NATIVE_ENVS,
+            "ticks": INFER_TICKS, "envs": NATIVE_ENVS,
             "server_stats": dict(st), "full_requests": full,
             "graph_vs_eager_max_abs": graph_vs_eager,
             "batched_frames_per_sec":
@@ -1671,6 +1702,22 @@ def train_batched():
         "paced": {k: RESULTS.get("e2e_paced", {}).get(k) for k in keys}})
 
 
+def _kernel_launches(per_update=None, updates: int = 0) -> dict:
+    """The launches of each kernel of the ``kernels`` line: the counters
+    as they stand, or ``per_update`` (``bench_learner``'s counters per
+    update) times ``updates``; the fp32 GEMM's forward and ``dx``/``dw``
+    launches together, as its row counts them."""
+    if per_update is None:
+        per_update = {c.__name__: c.launches for c in (
+            cuda_sampling.hierarchical_sample, *cuda_torso.COUNTERS)}
+        updates = 1
+    n = {k: round(v * updates) for k, v in per_update.items()}
+    return {"per_sample": n["hierarchical_sample"],
+            "torso_gemm_fwd": n["gemm_bf16"],
+            "torso_gemm_bwd": n["gemm_bf16_grad"],
+            "torso_gemm_f32": n["gemm_f32"] + n["gemm_f32_grad"]}
+
+
 def _zero_launches() -> None:
     for fn in (cuda_sampling.hierarchical_sample, *cuda_torso.COUNTERS):
         fn.launches = 0
@@ -1679,10 +1726,7 @@ def _zero_launches() -> None:
 def _launches_per_update(updates: int) -> dict:
     """The launch counters over ``updates``; raises unless each update
     launched 1 draw and 10 + 9 bf16 GEMMs and no fp32 one."""
-    got = {"per_sample": cuda_sampling.hierarchical_sample.launches,
-           "torso_gemm_fwd": cuda_torso.gemm_bf16.launches,
-           "torso_gemm_bwd": cuda_torso.gemm_bf16_grad.launches,
-           "torso_gemm_f32": cuda_torso.gemm_f32.launches}
+    got = _kernel_launches()
     if updates <= 0 or got != expected_launches(updates):
         raise AssertionError(f"launch counts {got} for {updates} updates")
     return got
@@ -1727,7 +1771,7 @@ def _drill_timer(topology, out: dict) -> None:
 
 # leg 1's updates: after the SIGSTOP (about step 1,000 on a fast host)
 # the paced run needs time for the 10 s watchdog and the respawn
-DRILL_STEPS = 3500
+DRILL_STEPS = 3000
 
 
 def _resume_leg_drill() -> dict:
@@ -1896,8 +1940,8 @@ def resume():
 
 FLEET = 32  # config 12's fleet: 2 actors x 16 envs
 # train_anakin's traced windows, in learner steps: a strict window's
-# trace holds every kernel of 40 rollouts
-TRACE_WINDOWS = {"strict": (300, 320), "ratio16": (400, 500)}
+# trace holds every kernel of 20 rollouts
+TRACE_WINDOWS = {"strict": (100, 110), "ratio16": (200, 230)}
 ENV_SIZES = (32, 256, 1024)
 ENV_EARLY_STOP, ENV_STEPS = 100, 350  # 3 truncated episodes and a half
 ROLLOUT_TICKS, ROLLOUT_TIMED = 8, 50
@@ -2608,12 +2652,12 @@ health_phase.__name__ = "health"
 
 MEGABATCHES = (1, 2, 4, 8)
 MB_DISPATCH = 8        # updates a dispatch in the megabatch rates
-MB_UPDATES = 400       # timed updates a rate
+MB_UPDATES = 200       # timed updates a rate
 MB_GROUP = 4           # the group the kernels are held at
 ANAKIN_MB_STEPS = 4000
-HOST_STEPS = 300       # each host row, paced at replay ratio 8
-NATIVE_STEPS = 300
-POISON_AT = 250        # the learner dispatch row 6's poison_grad hits
+HOST_STEPS = 200       # each host row, paced at replay ratio 8
+NATIVE_STEPS = 200
+POISON_AT = 150        # the learner dispatch row 6's poison_grad hits
 ROW1_STEPS = 1500
 
 
@@ -2994,7 +3038,7 @@ def train_host():
     and row 6 (``prioritized``: the learner's sum tree behind the queues)
     paced at the reference's replay ratio (``max_replay_ratio`` 8,
     ``learn_start`` 5,000), HOST_STEPS updates each; row 6 with the
-    ``poison_grad`` drill (``LEARNER_FAULTS=poison_grad@250``): exactly
+    ``poison_grad`` drill (``LEARNER_FAULTS=poison_grad@150``): exactly
     one skipped update, its batch the NaN one, its params unchanged, no
     rollback; then row 4 on ``memory_type=native`` (the C++ ring) once,
     unpaced.  Each update: no draw, 10 + 9 bf16 GEMMs (an eager step);
@@ -3372,7 +3416,7 @@ def planes():
     return dict(out, card=card_name_and_power_limit())
 
 
-WIDE_CPU_TICKS = 5
+WIDE_CPU_TICKS = 2
 
 
 def _wide_actor_child(results, root: str) -> None:
@@ -3456,8 +3500,8 @@ def wide_torso():
         "top_device_ms": r.get("top_device_ms", [])[:8]}
     for name, backend, sets, steps in (
             ("anakin", "process", ("actor_backend=anakin",
-                                   "rollout_ratio=16"), 500),
-            ("thread", "thread", (), 500)):
+                                   "rollout_ratio=16"), 300),
+            ("thread", "thread", (), 200)):
         torch.cuda.reset_peak_memory_stats(DEV)
         run, summary = _train_through_main(
             backend, f"wide_{name}", *sets, "evaluator_nepisodes=0",
@@ -3759,13 +3803,14 @@ def perf_plane():
     missing = [t for t in need if t not in rows]
     if missing:
         raise AssertionError(f"no rows {missing}; have {sorted(rows)}")
-    # every window positive, but for the last partial one, which may hold
-    # no update
+    # every window positive, but for each role's last partial one, which
+    # may hold no update or frame (both actors write one at their end)
     for tag in ("learner/updates_per_s", "learner/achieved_flops_per_s",
                 "learner/mfu", "actor/env_frames_per_s"):
-        vals = [v for _r, v in rows[tag]]
-        if not all(v > 0 for v in vals[:-1]) or vals[-1] < 0:
-            raise AssertionError(f"{tag}: {rows[tag]}")
+        for role in {r for r, _v in rows[tag]}:
+            vals = [v for r, v in rows[tag] if r == role]
+            if not all(v > 0 for v in vals[:-1]) or vals[-1] < 0:
+                raise AssertionError(f"{tag}: {rows[tag]}")
     (_role, flops), = rows["learner/flops_per_update"]
     if abs(flops - analytic) > 0.01 * analytic:
         raise AssertionError(f"flops_per_update {flops} against the "
@@ -3860,8 +3905,11 @@ def perf_plane():
 
 DDPG_BATCH = 64          # the reference's DDPG batch (config.py:410-421)
 DDPG_ENVS = 4            # 2 actors x 4 envs, the reference's reacher test
-DDPG_STEPS = 1000        # updates of (a) and (c)
-DDPG_POISON_AT = 700     # the learner dispatch (a)'s poison_grad hits
+DDPG_STEPS = 600         # updates of (a)
+# (c)'s updates: a shorter run ends before the batched actors write
+# their timer rows
+DDPG_MB_STEPS = 1000
+DDPG_POISON_AT = 400     # the learner dispatch (a)'s poison_grad hits
 DDPG_MB = 4              # (c)'s megabatch group
 # (b): tests/test_topology.py:115-133 of the JAX package
 R16_STEPS, R16_LEARN_START, R16_BAR = 8000, 1000, -20.0
@@ -3965,12 +4013,8 @@ def _ddpg_row16_learns() -> dict:
     t0 = time.monotonic()
     summary = port_main.main(argv)
     wall = time.monotonic() - t0
-    launches = {"per_sample": cuda_sampling.hierarchical_sample.launches,
-                **{c.__name__: c.launches for c in cuda_torso.COUNTERS}}
-    RESULTS["launches_ddpg_row16"] = {"per_sample": launches["per_sample"],
-                                      "torso_gemm_fwd": 0,
-                                      "torso_gemm_bwd": 0,
-                                      "torso_gemm_f32": 0}
+    launches = _kernel_launches()
+    RESULTS["launches_ddpg_row16"] = launches
     if (summary["learner/steps"] < R16_STEPS or any(launches.values())
             or not math.isfinite(summary["learner/critic_loss"])
             or summary["runtime/children_with_cuda"] != 0):
@@ -4007,7 +4051,7 @@ def _ddpg_per_megabatch() -> dict:
         r, summary = _train_through_main(
             "process", refs, "memory_type=device-per",
             f"megabatch={DDPG_MB}", "actor_backend=batched", config=2,
-            steps=DDPG_STEPS, megabatch=DDPG_MB, torso=False,
+            steps=DDPG_MB_STEPS, megabatch=DDPG_MB, torso=False,
             batch=DDPG_BATCH, envs=DDPG_ENVS, learn_start=250)
     finally:
         _clean_plane_env()
@@ -4084,6 +4128,301 @@ def ddpg():
     return dict(out, card=card_name_and_power_limit())
 
 
+# row 14 (r2d2/pong-sim/device-sequence/drqn-cnn) at full width: the
+# family's defaults (64 segments of 80 steps, overlap 40, burn-in 40,
+# n-step 5, LSTM 512, bf16 torso) and a 50,000-step ring of 1,250 packed
+# segments
+R14_STEPS = 200            # (b)'s updates through main
+R14_BENCH_UPDATES = 20     # (a)'s timed window
+# (c): tests/test_sequence.py:265-283 and tests/test_device_sequence.py:
+# 180-200 of the JAX package
+R13_SETS = ("seq_len=16", "seq_overlap=8", "burn_in=4", "nstep=3",
+            "learn_start=8", "actor_sync_freq=20", "param_publish_freq=5",
+            "learner_freq=50", "evaluator_freq=1", "max_replay_ratio=64.0",
+            "lr=2e-3", "target_model_update=100")
+R13_STEPS, R13_BAR_REWARD, R13_BAR_STEPS = 1200, 0.9, 10
+
+
+R14_CHAIN = 3    # (a)'s chained dispatches, at K = 1 and at K = R14_K
+R14_K = 2
+
+
+def _state_leaves(tree) -> list:
+    """Every tensor of a train state (params, optimizer moments, target
+    params, step), in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _state_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _state_leaves(v)]
+    return []
+
+
+def _r2d2_graph_matches_eager() -> dict:
+    """Row 14 at full width: R14_CHAIN dispatches replayed from a CUDA
+    graph (after the wrapper's two eager warm-up calls and the capture)
+    against the same dispatches run eagerly from the same train state,
+    ring priorities and uniforms, once at one update a dispatch and once
+    at R14_K; the largest difference over every leaf of the train state
+    and the ring's priorities and running max, after each dispatch.  Both
+    sides, capture included, run with cuDNN held to deterministic
+    algorithms, so that any difference is the graph's and not a
+    reduction's rounding."""
+    from pytorch_distributed_tpu_torch import bench_learner
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.factory import (
+        build_model, build_train_state_and_step, init_params, probe_env,
+    )
+    from pytorch_distributed_tpu_torch.memory.device_per import (
+        GraphedFusedStep, _clone_tree,
+    )
+
+    opt = build_options(14, device="cuda")
+    spec = probe_env(opt)
+    batch = opt.agent_params.batch_size
+    ring = bench_learner.segment_ring(
+        opt, spec, DEV, torch.Generator(device=DEV).manual_seed(5))
+    st = ring.state
+    model = build_model(opt, spec, init_weights=False)
+    state, step = build_train_state_and_step(
+        opt, model, init_params(opt, spec, seed=0, device=DEV))
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for k in (1, R14_K):
+            fused = ring.build_fused_step(step, batch, steps_per_call=k)
+            graphed = GraphedFusedStep(fused, st)
+
+            def draw():
+                return torch.rand((k, batch), generator=gen, device=DEV)
+
+            for _ in range(3):  # two eager warm-ups, then the capture
+                state, _m = graphed(state, st, draw(), 0.6)
+            torch.cuda.synchronize()
+            start = _clone_tree(state)
+            prio, max_prio = st.priority.clone(), st.max_priority.clone()
+            uniforms = [draw() for _ in range(R14_CHAIN)]
+            replays = []
+            for us in uniforms:
+                state, _m = graphed(state, st, us, 0.6)
+                replays.append(_state_leaves(_clone_tree(state))
+                               + [st.priority.clone(),
+                                  st.max_priority.clone()])
+            torch.cuda.synchronize()
+            st.priority.copy_(prio)
+            st.max_priority.copy_(max_prio)
+            e_state, diffs = start, []
+            for us, g in zip(uniforms, replays):
+                e_state, _m = fused(e_state, st, us, 0.6)
+                e = _state_leaves(e_state) + [st.priority, st.max_priority]
+                if len(e) != len(g):
+                    raise AssertionError("(a) the graph's train state has "
+                                         "other leaves than eager's")
+                diffs.append(max(float((a.float() - b.float()).abs().max())
+                                 for a, b in zip(e, g)))
+            torch.cuda.synchronize()
+            state = e_state
+            out[f"K{k}"] = diffs
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return dict(out, dispatches=R14_CHAIN, leaves=len(replays[0]))
+
+
+def _r2d2_learner_alone() -> dict:
+    """(a) Row 14's learner alone on a full random ring: graph == eager,
+    graphed updates/s with the launch counters zeroed before the window
+    (no B1, no B2), the profiler's device ms an update, the FLOPs of an
+    update and the peak of allocated memory."""
+    from pytorch_distributed_tpu_torch import bench_learner
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.factory import probe_env, update_flops
+
+    chain = _r2d2_graph_matches_eager()
+    diff = max(chain["K1"] + chain[f"K{R14_K}"])
+    if diff != 0.0:  # the same kernels in the same order, deterministic
+        raise AssertionError(f"(a) graph replay differs from eager: "
+                             f"{chain}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    opt = build_options(14, device="cuda")
+    r = bench_learner.run(opt, updates=R14_BENCH_UPDATES, profile=True,
+                          graph=True)
+    emit({"r2d2_learner_alone": r})
+    if any(r["launches_per_update"].values()):
+        raise AssertionError(f"(a) launches per update "
+                             f"{r['launches_per_update']}")
+    RESULTS["launches_r2d2_alone"] = _kernel_launches(
+        r["launches_per_update"], R14_BENCH_UPDATES)
+    flops = update_flops(opt, probe_env(opt))
+    ms = r.get("device_ms_per_update")
+    return dict(graph_vs_eager_max_abs_diff=diff, graph_vs_eager=chain,
+                updates_per_sec=r["updates_per_sec"],
+                wall_ms_per_update=r["wall_ms_per_update"],
+                device_ms_per_update=ms, flops_per_update=flops,
+                achieved_tflops_device=(flops / ms / 1e9 if ms else None),
+                launches_per_update=r["launches_per_update"],
+                peak_allocated_gb=torch.cuda.max_memory_allocated(DEV) / 1e9,
+                top_device_ms=r.get("top_device_ms", [])[:10])
+
+
+def _r2d2_row14_main() -> dict:
+    """(b) Row 14 through ``main`` on the process backend, 2 pipelined CPU
+    actors x 16 envs, unpaced: no B1 or B2 launch, a finite loss, no
+    child with CUDA; then mode 2, one capped episode with inference on
+    the card."""
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    r, summary = _train_through_main(
+        "process", "r2d2_row14", "pallas_torso=false", config=14,
+        steps=R14_STEPS, draws=False, torso=False, batch=64, envs=16,
+        learn_start=64)
+    RESULTS["launches_r2d2_row14"] = r["launches"]
+    if summary["runtime/children_with_cuda"] != 0:
+        raise AssertionError("(b) a child made a CUDA context")
+    model_file = build_options(14, root_dir=RUN_DIR,
+                               refs="r2d2_row14").model_name
+    stats = port_main.main(["--config", "14", "--mode", "2", "--device",
+                            "cuda", "--model-file", model_file, "--set",
+                            "tester_nepisodes=1", "--set",
+                            f"early_stop={E2E_EARLY_STOP}"])
+    if stats["nepisodes"] != 1 or not all(map(math.isfinite,
+                                              stats.values())):
+        raise AssertionError(f"(b) mode 2: {stats}")
+    # the segments' steps drawn per env step stored
+    steps_ratio = r["replay_ratio"] * 80
+    return dict(updates_per_sec=r["updates_per_sec"],
+                frames_per_sec=r["actor_frames_per_sec"],
+                actor_phases_ms=r["actor_phases_ms"],
+                replay_ratio_steps=steps_ratio, host_s=r["host_s"],
+                train_seconds=r["train_seconds"], launches=r["launches"],
+                critic_loss=r["critic_loss"],
+                replay_segments=summary["replay/size"], mode2=stats)
+
+
+def _r2d2_row13_bar(memory_type: str) -> dict:
+    """(c) Row 13's learning bar on ``memory_type`` at the JAX package's
+    geometry, process backend: 1,200 updates, then mode 2 over 5 episodes
+    on the card (``avg_reward`` at least 0.9, ``avg_steps`` at most 10);
+    no B1 or B2 launch."""
+    from pytorch_distributed_tpu_torch import main as port_main
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    refs = f"r2d2_row13_{memory_type}"
+    sets = R13_SETS + (f"memory_type={memory_type}",) + (
+        ("steps_per_dispatch=4",) if memory_type == "device-sequence"
+        else ())
+    argv = ["--config", "13", "--backend", "process", "--device", "cuda",
+            "--num-actors", "2", "--steps", str(R13_STEPS),
+            "--memory-size", "4096", "--batch-size", "16",
+            "--set", f"root_dir={RUN_DIR}", "--set", f"refs={refs}"]
+    for kv in sets:
+        argv += ["--set", kv]
+    _zero_launches()
+    t0 = time.monotonic()
+    summary = port_main.main(argv)
+    wall = time.monotonic() - t0
+    launches = _kernel_launches()
+    RESULTS[f"launches_r2d2_row13_{memory_type}"] = launches
+    if (any(launches.values()) or summary["learner/steps"] < R13_STEPS
+            or summary["runtime/children_with_cuda"] != 0):
+        raise AssertionError(f"(c) {memory_type}: {launches}, {summary}")
+    model_file = build_options(13, root_dir=RUN_DIR, refs=refs).model_name
+    stats = port_main.main(["--config", "13", "--mode", "2", "--device",
+                            "cuda", "--model-file", model_file, "--set",
+                            "tester_nepisodes=5"])
+    if (stats["avg_reward"] < R13_BAR_REWARD
+            or stats["avg_steps"] > R13_BAR_STEPS):
+        raise AssertionError(f"(c) {memory_type} missed row 13's bar: "
+                             f"{stats}")
+    return dict(updates_per_sec=summary["learner/updates_per_sec"],
+                frames_per_sec=summary["actor/steps_per_sec"],
+                train_seconds=summary["learner/train_seconds"],
+                run_seconds=wall, mode2=stats)
+
+
+R14_ACTOR_TICKS = 120  # (e): segments at tick 80, then every 40
+
+
+def _r2d2_actor_on_card() -> dict:
+    """(e) Row 14's actor inferring on the card in this thread, as the
+    thread backend runs it (the carry on the card, pinned staging, the
+    actor's stream), inline and pipelined over the same ticks with a
+    second snapshot published at ``GPU_SWAP_TICK``: identical segment
+    streams, both with the second weights swapped in."""
+    from pytorch_distributed_tpu_torch.agents.actor import bounded_actor_run
+    from pytorch_distributed_tpu_torch.config import build_options
+
+    runs = {}
+    for backend in ("inline", "pipelined"):
+        r = bounded_actor_run(build_options(
+            14, device="cuda", num_actors=2, num_envs_per_actor=NATIVE_ENVS,
+            actor_backend=backend, actor_freq=10 ** 9,
+            root_dir=os.path.join(RUN_DIR, "r2d2_actor"), refs=backend),
+            R14_ACTOR_TICKS, publish_at=GPU_SWAP_TICK)
+        runs[backend] = {"segments": len(r["stream"]),
+                         "digest": _digest(r["stream"]),
+                         "version": r["version"],
+                         "frames_per_sec": r["env_steps"] / r["seconds"]}
+    a, b = runs["inline"], runs["pipelined"]
+    if a["digest"] != b["digest"] or a["segments"] < NATIVE_ENVS:
+        raise AssertionError(f"(e) on the card the pipelined segments "
+                             f"differ from the inline ones: {runs}")
+    if a["version"] != 2 or b["version"] != 2:
+        raise AssertionError(f"(e) the second snapshot was not swapped in: "
+                             f"{runs}")
+    return dict(runs, ticks=R14_ACTOR_TICKS, envs=NATIVE_ENVS)
+
+
+def _r2d2_batched_steps_down() -> dict:
+    """(d) ``actor_backend=batched`` on row 14 steps down to pipelined with
+    the reference's warning (an inference server holds no recurrent
+    state)."""
+    import warnings
+
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.factory import (
+        needs_inference_server, resolve_actor_backend,
+    )
+
+    opt = build_options(14, device="cuda", actor_backend="batched")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        got = resolve_actor_backend(opt, inference=object())
+    said = [str(w.message) for w in seen]
+    if got != "pipelined" or needs_inference_server(opt) or not any(
+            "does not serve agent_type=r2d2" in m for m in said):
+        raise AssertionError(f"(d) batched on row 14: {got}, {said}")
+    return dict(backend=got, warning=said[0])
+
+
+def r2d2():
+    """Rows 13 and 14, the R2D2 family, at the reference's widths: (a) row
+    14's learner alone at full width, (b) row 14 through ``main`` and mode
+    2, (c) row 13's learning bar on the host and the device segment rings,
+    (d) ``batched`` stepping down, (e) row 14's actor on the card, inline
+    against pipelined.  No kernel of ours is on these paths:
+    the DRQN torso is the module's (cuDNN), the LSTM cuBLAS, the segment
+    draw cumsum + searchsorted, as the JAX package's."""
+    out = {}
+    for part, fn in (("learner_alone", _r2d2_learner_alone),
+                     ("row14_process", _r2d2_row14_main),
+                     ("row13_sequence",
+                      lambda: _r2d2_row13_bar("sequence")),
+                     ("row13_device_sequence",
+                      lambda: _r2d2_row13_bar("device-sequence")),
+                     ("batched_steps_down", _r2d2_batched_steps_down),
+                     ("actor_on_card", _r2d2_actor_on_card)):
+        t0 = time.monotonic()
+        out[part] = fn()
+        out[part]["seconds"] = time.monotonic() - t0
+        emit({"r2d2": part, **out[part]})
+    return dict(out, card=card_name_and_power_limit())
+
+
 KERNELS = (
     ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
      "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
@@ -4106,11 +4445,11 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0)})
     phases = (build, per_sample, torso_gemm, torso_apply, learner_alone,
               native_pong, device_env, fused_rollout, actor_tick, actor_gpu,
-              staged_drain, train, train_process, test_mode,
-              train_paced, inference, train_batched, train_anakin,
+              staged_drain, train, train_process, test_mode, train_paced,
+              inference, train_batched, train_anakin,
               train_device, resume, health_phase, megabatch,
               anakin_megabatch, train_uniform, train_host, small_rows,
-              planes, wide_torso, perf_plane, ddpg)
+              planes, wide_torso, perf_plane, ddpg, r2d2)
     only = set(sys.argv[1:])  # phase names to run after build; none: all
     unknown = only - {fn.__name__ for fn in phases}
     if unknown:
@@ -4151,7 +4490,12 @@ def main() -> int:
             ("perf_anakin_ratio16", "launches_perf_anakin"),
             ("ddpg_row2_process", "launches_ddpg_row2"),
             ("ddpg_row16_process", "launches_ddpg_row16"),
-            ("ddpg_per_M4_batched", "launches_ddpg_per_m4"))}
+            ("ddpg_per_M4_batched", "launches_ddpg_per_m4"),
+            ("r2d2_learner_alone", "launches_r2d2_alone"),
+            ("r2d2_row14_process", "launches_r2d2_row14"),
+            ("r2d2_row13_sequence", "launches_r2d2_row13_sequence"),
+            ("r2d2_row13_device_sequence",
+             "launches_r2d2_row13_device-sequence"))}
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=launches.get(name, 0),
                           launches_by_path=by_path,

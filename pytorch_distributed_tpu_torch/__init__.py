@@ -14,6 +14,11 @@ write-back.  Both TPU kernels of that learner are hand-written Hopper
 kernels here (``csrc/per_sample.cu``; the torso GEMM as
 ``csrc/torso_gemm_sm90.cu`` forward and ``csrc/torso_gemm.cu`` backward).
 
+Later slices run the other rows of ``config.PORTED_CONFIGS``: the host
+rings and the small rows, row 19's wide torso, DDPG (rows 2, 9, 10, 16)
+and R2D2 (rows 13 and 14: the recurrent models, the burn-in update and
+both segment rings), each on the same entry point.
+
 Entry point::
 
     python -m pytorch_distributed_tpu_torch.main --config 12 --backend thread

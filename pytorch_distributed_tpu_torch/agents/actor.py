@@ -81,6 +81,12 @@ episode ends.  Collection is in tick order on every schedule, so the
 noise stream, and with it the transition stream, is the same on all
 three (tests/test_torch_ddpg_actor.py).
 
+The R2D2 actor (agents/recurrent_actor.py ``RecurrentActor``) runs the
+same harness and the ``inline`` and ``pipelined`` schedules with a
+recurrent engine whose carry stays on the acting device, and feeds
+episode segments; the run loop hands it each tick's terminals
+(``note_step``) for its next act's per-row reset.
+
 Every row an actor feeds carries its provenance (reference :159-170,
 :275, :734): ``make_prov(actor index, env slot, param version,
 birth_step)``, the version that chose the tick's actions and the learner
@@ -468,6 +474,11 @@ class DqnActor:
         """Per-env exploration state to reset when env ``j``'s episode
         ends (DDPG's OU path); none for the dqn family."""
 
+    def note_step(self, terminals) -> None:
+        """After each env step, before the next dispatch: the tick's
+        terminals, which a recurrent engine's next act resets its carry
+        rows on; nothing for the flat families."""
+
     def tick_sync(self) -> None:
         """Once per tick, after the env step and before the next dispatch:
         count the steps and, on the sync cadence, swap in the prefetched
@@ -504,16 +515,25 @@ class DqnActor:
                 self.memory.feed(t)
             self.episode_reward[j] += float(rewards[j])
             self.episode_steps[j] += 1
-            if terminals[j]:  # reference actor.py:292-299
-                self._acc["nepisodes"] += 1
-                self._acc["nepisodes_solved"] += float(bool(infos[j].get(
-                    "solved", self.episode_reward[j] > 0)))
-                self._acc["total_steps"] += float(self.episode_steps[j])
-                self._acc["total_reward"] += self.episode_reward[j]
-                self.episode_reward[j] = 0.0
-                self.episode_steps[j] = 0
-                self.on_env_reset(j)
+            if terminals[j]:
+                self._record_episode(j, infos[j])
         self._obs = next_obs
+        self._flush_cadence()
+
+    def _record_episode(self, j: int, info: dict) -> None:
+        """Env ``j``'s episode ended: its stats into the accumulators
+        (reference actor.py:292-299), its counters and exploration state
+        reset."""
+        self._acc["nepisodes"] += 1
+        self._acc["nepisodes_solved"] += float(bool(info.get(
+            "solved", self.episode_reward[j] > 0)))
+        self._acc["total_steps"] += float(self.episode_steps[j])
+        self._acc["total_reward"] += self.episode_reward[j]
+        self.episode_reward[j] = 0.0
+        self.episode_steps[j] = 0
+        self.on_env_reset(j)
+
+    def _flush_cadence(self) -> None:
         if self.env_steps >= self._next_flush:
             self._next_flush += self.ap.actor_freq
             self._flush_stats()
@@ -555,6 +575,7 @@ class DqnActor:
                 with timer.phase("env"):
                     next_obs, rewards, terminals, infos = \
                         self.env.step(actions)
+                self.note_step(terminals)
                 self.tick_sync()
                 if pipelined:
                     t0 = time.perf_counter()
@@ -712,8 +733,16 @@ class DdpgActor(DqnActor):
         self.ou.x_prev.reshape(self.num_envs, -1)[j] = self.ou.x0
 
 
-# the actor of each agent family (reference factory.py:22-31)
-ACTORS = {"dqn": DqnActor, "ddpg": DdpgActor}
+def actor_class(agent_type: str):
+    """The actor of each agent family (reference factory.py:78-93).  The
+    recurrent actor builds on ``DqnActor``, so its module is imported
+    here, when the table is read."""
+    from pytorch_distributed_tpu_torch.agents.recurrent_actor import (
+        RecurrentActor,
+    )
+
+    return {"dqn": DqnActor, "ddpg": DdpgActor,
+            "r2d2": RecurrentActor}[agent_type]
 
 
 def run_actor(opt: Options, spec: EnvSpec, process_ind: int, memory: Any,
@@ -722,9 +751,9 @@ def run_actor(opt: Options, spec: EnvSpec, process_ind: int, memory: Any,
     """Collect experience with the run's family's actor until the learner
     clock ends the run; under ``batched`` through the client
     ``inference``.  Returns the env steps this actor took."""
-    return ACTORS[opt.agent_type](opt, spec, process_ind, memory,
-                                  param_store, clock, stats,
-                                  inference).run()
+    return actor_class(opt.agent_type)(opt, spec, process_ind, memory,
+                                       param_store, clock, stats,
+                                       inference).run()
 
 
 class RecordingSink:
@@ -811,8 +840,8 @@ def bounded_actor_run(opt: Options, ticks: int, spec: EnvSpec = None,
                                 spec.state_shape)[0]
     sink = RecordingSink()
     clock = _BoundedClock(ticks)
-    actor = ACTORS[opt.agent_type](opt, spec, process_ind, sink, store,
-                                   clock, ActorStats(), inference)
+    actor = actor_class(opt.agent_type)(opt, spec, process_ind, sink, store,
+                                        clock, ActorStats(), inference)
 
     def publish(k: int) -> None:
         if k == publish_at:

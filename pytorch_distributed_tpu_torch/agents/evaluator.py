@@ -1,6 +1,7 @@
 """Evaluator worker: periodic greedy evaluation and the params
 checkpoints — the port of pytorch_distributed_tpu/agents/evaluator.py
-(``greedy_episodes`` :46-104, its dqn and DDPG branches (:57-65, :80-88),
+(``greedy_episodes`` :46-104, its dqn, DDPG and r2d2 branches (:57-79,
+:80-88),
 with the ``render()`` calls of :93-116, and ``run_evaluator`` :106-248; with
 ``env_params.render`` its env dumps frames, utils/render.py).
 
@@ -16,7 +17,9 @@ and then raises the handshake's ``done``.
 
 Inference is one observation at a time, through the port's ``greedy_act``
 on the module's forward (DDPG: ``ddpg_act``, the policy's action with no
-noise, in [-1, 1]; the env rescales it): on the CPU in the evaluator, as
+noise, in [-1, 1]; the env rescales it; R2D2: ``recurrent_greedy_act``
+from a zero carry at each episode's start, the carry kept across the
+episode's steps): on the CPU in the evaluator, as
 the reference pins its evaluator to the CPU, and on the run's device in
 the tester.
 """
@@ -42,7 +45,7 @@ from pytorch_distributed_tpu_torch.factory import (
     EnvSpec, build_env, build_model, module_apply,
 )
 from pytorch_distributed_tpu_torch.models.policies import (
-    ddpg_act, greedy_act,
+    ddpg_act, greedy_act, recurrent_greedy_act,
 )
 from pytorch_distributed_tpu_torch.utils import checkpoint as ckpt
 from pytorch_distributed_tpu_torch.utils.render import attach_frame_dumper
@@ -57,21 +60,25 @@ def greedy_episodes(opt: Options, spec: EnvSpec, model: torch.nn.Module,
     """Run ``nepisodes`` greedy episodes with inference on ``device`` (the
     evaluator's CPU by default); returns ``(avg_steps, avg_reward,
     solved)``."""
-    if opt.agent_type not in ("dqn", "ddpg"):
-        raise NotImplementedError(f"greedy episodes for agent_type "
-                                  f"{opt.agent_type!r} are not ported yet")
     apply_fn = module_apply(model.to(device))
     params = {k: v.detach().to(device) for k, v in params.items()}
+    carry = None  # the recurrent policy's, zero at each episode's start
 
     def pick(obs):
+        nonlocal carry
         x = torch.from_numpy(obs[None]).to(device)
         if opt.agent_type == "ddpg":
             return ddpg_act(apply_fn, params, x)[0].cpu().numpy()
+        if opt.agent_type == "r2d2":
+            a, carry = recurrent_greedy_act(apply_fn, params, x, carry)
+            return int(a[0])
         a, _ = greedy_act(apply_fn, params, x)
         return int(a[0])
 
     total_steps, total_reward, solved = 0, 0.0, 0
     for _ in range(nepisodes):
+        carry = model.zero_carry(1, device) if opt.agent_type == "r2d2" \
+            else None
         obs = env.reset()
         env.render()  # a no-op unless a FrameDumper is attached
         ep_reward, ep_steps, terminal, info = 0.0, 0, False, {}

@@ -1,8 +1,10 @@
 """The learner loop — the port of pytorch_distributed_tpu/agents/learner.py
 ``run_learner`` (:56-, :166-204, :264-351, :455-485, :474-760, :907-916),
 its device branch (the ``device-per`` and ``device`` rings, with or
-without megabatch) and its host branch (``shared``, ``native`` and
-``prioritized``, :680-760), for the dqn and the DDPG families (the step
+without megabatch, and the ``device-sequence`` segment ring, whose ingest
+has the PER ring's surface, :266-270) and its host branch (``shared``,
+``native``, ``prioritized`` and the ``sequence`` segment ring,
+:680-760), for the dqn, DDPG and r2d2 families (the step
 is the factory's; what is published and checkpointed as params is the
 model's whole state dict, ``factory.published_params``, merged back from
 the decoupled DDPG state's two nets): resume from the newest complete
@@ -21,6 +23,8 @@ generator on a host ring), publish the initial weights, wait for
   the learner's device generator; on a GPU it is replayed from a CUDA
   graph.  With ``megabatch`` M > 1 (``factory.resolve_fused_step``) K is
   rounded up to a multiple of M and the dispatch runs K/M group steps;
+- ``learn_start`` counts segments on a segment ring, and is clamped
+  below the ring's capacity on every ring (reference :489);
 - on a host ring, one update: a batch drawn on the host with the
   learner's numpy generator, uploaded through pinned memory with
   non-blocking copies, the train step, and on the PER ring the |TD|
@@ -128,6 +132,9 @@ from pytorch_distributed_tpu_torch.memory.device_per import GraphedFusedStep
 from pytorch_distributed_tpu_torch.memory.device_replay import (
     DeviceReplayIngest, provenance_sample,
 )
+from pytorch_distributed_tpu_torch.memory.device_sequence import (
+    DeviceSequenceIngest,
+)
 from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
 )
@@ -140,7 +147,6 @@ from pytorch_distributed_tpu_torch.utils import (
     bandwidth, flight_recorder, health, perf, profiling, tracing,
 )
 from pytorch_distributed_tpu_torch.utils.faults import FaultInjector
-from pytorch_distributed_tpu_torch.utils.experience import Batch
 from pytorch_distributed_tpu_torch.utils.metrics import MetricsWriter
 from pytorch_distributed_tpu_torch.utils.perf import resolve_mxu
 
@@ -397,7 +403,7 @@ class DataXray:
         self.memory, self.param_store = memory, param_store
         self.writer = writer
         self.perf = perf.get_monitor("learner", opt.perf_params)
-        self.on_device = isinstance(memory, DeviceReplayIngest)
+        self.on_device = isinstance(memory, DeviceReplayIngest)  # has prov
         # the provenance draw's own generator: the learner's draws stay as
         # they are
         self.rng = np.random.default_rng(role_seed(opt.seed, "telemetry", 0))
@@ -466,15 +472,16 @@ def drain_perf(mon, writer, memory, clock: GlobalClock, lstep: int,
     writer.scalars(mon.drain(step=lstep), step=lstep)
 
 
-def upload_batch(batch: Batch, device) -> Batch:
-    """A host batch (numpy columns) on ``device``: on a GPU each column is
-    staged through pinned memory and copied without blocking, in order on
-    the current stream, before the update that reads it."""
+def upload_batch(batch, device):
+    """A host batch (a ``Batch`` or a ``SegmentBatch`` of numpy columns) on
+    ``device``: on a GPU each column is staged through pinned memory and
+    copied without blocking, in order on the current stream, before the
+    update that reads it."""
     cols = [torch.from_numpy(np.ascontiguousarray(c)) for c in batch]
     if torch.device(device).type == "cuda":
-        return Batch(*(c.pin_memory().to(device, non_blocking=True)
-                       for c in cols))
-    return Batch(*cols)
+        return type(batch)(*(c.pin_memory().to(device, non_blocking=True)
+                             for c in cols))
+    return type(batch)(*cols)
 
 
 def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
@@ -496,7 +503,8 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
     params = initial_params(opt, spec, device)
     state, step_fn = build_train_state_and_step(opt, model, params)
     host_flat = torch.empty(param_store.num_params)
-    on_device = isinstance(memory, DeviceReplayIngest)
+    # the segment ring's ingest has the PER ring's learner surface
+    on_device = isinstance(memory, (DeviceReplayIngest, DeviceSequenceIngest))
     is_device_per = on_device and memory.prioritized
     is_per = not on_device and memory.prioritized  # the host PER ring
     # the perf plane's monitor, on every ring; the FLOPs below on a device

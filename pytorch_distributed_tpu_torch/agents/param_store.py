@@ -3,13 +3,21 @@ pytorch_distributed_tpu/agents/param_store.py (``ParamStore`` :35-102,
 ``ParamPrefetcher`` :104-206, ``make_flattener`` :209).
 
 The learner writes its parameters as one flat fp32 vector into a shared
-array of the spawn context, under a lock, and bumps a version counter: one
-coherent snapshot per publish.  The evaluator polls ``fetch(min_version)``
+array of the spawn context and bumps a version counter: one coherent
+snapshot per publish.  The evaluator polls ``fetch(min_version)``
 on its cadence and unflattens into CPU tensors; an actor's
 ``ParamPrefetcher`` does the fetch and the unflatten on a thread of its
 own, and the actor's tick only swaps in what it finished.
 The thread backend uses the same store, so both backends publish one
 format.
+
+A reader takes no lock: the store is a sequence lock (the writer makes
+the counter odd, writes, makes it even; a reader copies between two
+reads of the counter and copies again when it moved).  A reader stopped
+or killed in the middle of a copy (an actor the hang watchdog kills)
+holds nothing that the learner's next publish waits for.  The scheme
+rests on stores and loads that keep their program order, as x86-64's
+do.
 
 The vector's layout is the reference's: its ``ravel_pytree`` order over
 the flax tree, each leaf in the flax layout (convert.py ``flax_leaves``),
@@ -45,12 +53,13 @@ class ParamStore:
     def __init__(self, num_params: int):
         self.num_params = num_params
         self._buf = _CTX.Array(ctypes.c_float, num_params, lock=False)
-        self._version = _CTX.Value("l", 0, lock=False)
-        self._lock = _CTX.Lock()
+        # twice the version; odd while a publish writes the buffer
+        self._seq = _CTX.Value("q", 0, lock=False)
+        self._lock = _CTX.Lock()  # among writers only
 
     @property
     def version(self) -> int:
-        return self._version.value
+        return self._seq.value // 2
 
     def publish(self, flat: np.ndarray) -> int:
         """Write one coherent snapshot; returns the new version."""
@@ -59,19 +68,25 @@ class ParamStore:
             raise ValueError(f"{flat.size} params for a store of "
                              f"{self.num_params}")
         with self._lock:
+            self._seq.value += 1
             np.frombuffer(self._buf, np.float32)[:] = flat
-            self._version.value += 1
-            return self._version.value
+            self._seq.value += 1
+            return self._seq.value // 2
 
     def fetch(self, min_version: int = 0
               ) -> Optional[Tuple[np.ndarray, int]]:
         """A copy of ``(flat, version)`` if newer than ``min_version``,
         else None (one integer read)."""
-        if self._version.value <= min_version:
-            return None
-        with self._lock:
-            return (np.frombuffer(self._buf, np.float32).copy(),
-                    self._version.value)
+        while True:
+            seq = self._seq.value
+            if seq // 2 <= min_version:
+                return None
+            if seq % 2:  # a publish is writing: let it finish
+                time.sleep(0)
+                continue
+            flat = np.frombuffer(self._buf, np.float32).copy()
+            if self._seq.value == seq:
+                return flat, seq // 2
 
     def wait(self, min_version: int = 0, timeout: float = 300.0,
              poll: float = 0.02, stop=None) -> Tuple[np.ndarray, int]:

@@ -1,7 +1,9 @@
 """The learner's fused PER update at config 12's full width (or another
 row's: ``--config 19``, the wide torso; ``--config 2`` or ``16``, DDPG on
-a ``device-per`` ring of low-dim rows), timed alone or beside busy
-threads, on a ring filled with random rows.
+a ``device-per`` ring of low-dim rows; ``--config 14``, R2D2's fused
+burn-in update on the device segment ring of 1,250 frame-packed
+segments), timed alone or beside busy threads, on a ring filled with
+random rows.
 
     python -m pytorch_distributed_tpu_torch.bench_learner [--config 12] \\
         [--device cuda] [--torso kernel|module] [--updates 100] \\
@@ -16,6 +18,8 @@ threads, on a ring filled with random rows.
         --set megabatch=4 --set steps_per_dispatch=8
     # DDPG (row 16's reacher: 10-d states, 2-d actions, batch 64)
     python -m pytorch_distributed_tpu_torch.bench_learner --config 16
+    # R2D2 (row 14: 64 segments of 80 steps, burn-in 40, LSTM 512)
+    python -m pytorch_distributed_tpu_torch.bench_learner --config 14
 
 The dispatch is resolved as the learner resolves it
 (``factory.resolve_fused_step``): with ``megabatch`` M > 1 it runs K/M
@@ -50,11 +54,14 @@ from pytorch_distributed_tpu_torch.config import (
 )
 from pytorch_distributed_tpu_torch.factory import (
     build_env_vector, build_model, build_train_state_and_step, init_params,
-    compute_dtype, module_apply, probe_env, resolve_device,
-    resolve_fused_step, state_dtype,
+    compute_dtype, lstm_dim_of, module_apply, probe_env, resolve_device,
+    resolve_fused_step, segment_capacity, sequence_pack_frames, state_dtype,
 )
 from pytorch_distributed_tpu_torch.memory.device_per import (
     DevicePerReplay, GraphedFusedStep,
+)
+from pytorch_distributed_tpu_torch.memory.device_sequence import (
+    DeviceSequenceReplay,
 )
 from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
@@ -113,6 +120,39 @@ def fill_ring(ring: DevicePerReplay, num_actions: int,
     st.fill_rows.fill_(float(ring.capacity))
 
 
+def segment_ring(opt, spec, device,
+                 gen: torch.Generator) -> DeviceSequenceReplay:
+    """Row 14's device segment ring at the run's geometry, every row valid:
+    random frames, actions and rewards, a death in about one step in 200,
+    whole masks, small random stored carries and random priorities."""
+    ap = opt.agent_params
+    ring = DeviceSequenceReplay(
+        segment_capacity(opt), ap.seq_len, spec.state_shape,
+        lstm_dim_of(opt),
+        state_dtype=torch.from_numpy(np.zeros(0, state_dtype(opt))).dtype,
+        priority_exponent=opt.memory_params.priority_exponent,
+        importance_weight=opt.memory_params.priority_weight,
+        pack_frames=sequence_pack_frames(opt), device=device)
+    st = ring.state
+    if st.obs.dtype == torch.uint8:
+        st.obs.copy_(torch.randint(0, 255, st.obs.shape, generator=gen,
+                                   device=device, dtype=torch.uint8))
+    else:
+        st.obs.normal_(generator=gen)
+    st.action.copy_(torch.randint(0, spec.num_actions, st.action.shape,
+                                  generator=gen, device=device))
+    st.reward.normal_(generator=gen)
+    st.terminal.copy_((torch.rand(st.terminal.shape, generator=gen,
+                                  device=device) < 0.005).float())
+    st.mask.fill_(1.0)
+    for c in (st.c0, st.h0):
+        c.normal_(generator=gen).mul_(0.1)
+    st.priority.uniform_(0.1, 1.0, generator=gen)
+    st.fill = ring.capacity
+    st.fill_rows.fill_(float(ring.capacity))
+    return ring
+
+
 def _busy(kind: str, opt, spec, device, params, stop: threading.Event,
           ticks: list, index: int) -> None:
     env = build_env_vector(opt, index, 16)
@@ -139,13 +179,20 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     device = resolve_device(opt)
     spec = probe_env(opt)
     ap = opt.agent_params
+    if busy == "actor" and opt.agent_type == "r2d2":
+        raise ValueError("--busy actor runs the flat families' forward")
     gen = torch.Generator(device=device).manual_seed(opt.seed)
-    ring = DevicePerReplay(
-        opt.memory_params.memory_size, spec.state_shape, spec.action_shape,
-        state_dtype=torch.from_numpy(np.zeros(0, state_dtype(opt))).dtype,
-        action_dtype=torch.from_numpy(np.zeros(0, spec.action_dtype)).dtype,
-        device=device)
-    fill_ring(ring, spec.num_actions, gen)
+    if opt.agent_type == "r2d2":
+        ring = segment_ring(opt, spec, device, gen)
+    else:
+        ring = DevicePerReplay(
+            opt.memory_params.memory_size, spec.state_shape,
+            spec.action_shape,
+            state_dtype=torch.from_numpy(np.zeros(0, state_dtype(opt))).dtype,
+            action_dtype=torch.from_numpy(
+                np.zeros(0, spec.action_dtype)).dtype,
+            device=device)
+        fill_ring(ring, spec.num_actions, gen)
     model = build_model(opt, spec, init_weights=False)  # the structure
     state, step = build_train_state_and_step(
         opt, model, init_params(opt, spec, seed=opt.seed, device=device))

@@ -46,7 +46,7 @@ CONFIGS = [
 ]
 
 # the rows this port runs end to end so far
-PORTED_CONFIGS = (1, 2, 3, 4, 6, 8, 9, 10, 12, 16, 19)
+PORTED_CONFIGS = (1, 2, 3, 4, 6, 8, 9, 10, 12, 13, 14, 16, 19)
 
 
 def _default_refs() -> str:
@@ -120,6 +120,9 @@ class ModelParams:
     # dqn-cnn-wide base width: sections of (width, 2 width, 2 width)
     # channels (models/dqn_cnn_wide.py, reference config.py:275-278)
     cnn_wide_width: int = 128
+    # the LSTM core's width (drqn-* models, reference config.py:270); the
+    # drqn-cnn floors it at 512 (factory.lstm_dim_of)
+    lstm_dim: int = 256
 
 
 @dataclass
@@ -177,12 +180,25 @@ class AgentParams:
     # critic, as the original DDPG learner; false: an optimizer a net
     # (ops/losses.build_ddpg_train_step)
     ddpg_coupled_update: bool = False
+    # r2d2 (reference config.py:374-381): segment length and the overlap
+    # of adjacent segments, the stored-state burn-in prefix, the h(x)
+    # value rescaling of the targets, and the max/mean blend of the
+    # sequence priorities.  learn_start and batch_size count segments
+    seq_len: int = 80
+    seq_overlap: int = 40
+    burn_in: int = 40
+    value_rescale: bool = True
+    priority_eta: float = 0.9
 
 
 def build_agent_params(agent_type: str) -> AgentParams:
     """The family's defaults (reference config.py:400-425)."""
     if agent_type == "dqn":
         return AgentParams(agent_type="dqn")
+    if agent_type == "r2d2":
+        return AgentParams(
+            agent_type="r2d2", enable_double=True, nstep=5, batch_size=64,
+            learn_start=64, target_model_update=2500)
     if agent_type == "ddpg":
         return AgentParams(
             agent_type="ddpg", clip_grad=40.0, actor_sync_freq=400,
@@ -492,8 +508,11 @@ def build_options(config: int = 12, **overrides: Any) -> Options:
         config=config, agent_type=agent_type, env_type=env_type, game=game,
         memory_type=memory_type, model_type=model_type,
         env_params=EnvParams(env_type=env_type, game=game, **env_shape),
-        memory_params=MemoryParams(memory_type=memory_type,
-                                   state_dtype=state_dtype),
+        memory_params=MemoryParams(
+            memory_type=memory_type, state_dtype=state_dtype,
+            # the segment rings' R2D2 priorities (reference :1051-1054)
+            **({"priority_exponent": 0.9, "priority_weight": 0.6}
+               if memory_type in ("sequence", "device-sequence") else {})),
         model_params=ModelParams(model_type=model_type),
         agent_params=build_agent_params(agent_type),
     )

@@ -1,5 +1,6 @@
-"""Reference ``DqnCnnModel``, ``DqnCnnWideModel``, ``DqnMlpModel`` and
-``DdpgMlpModel`` params -> the port's ``state_dict``.
+"""Reference ``DqnCnnModel``, ``DqnCnnWideModel``, ``DqnMlpModel``,
+``DdpgMlpModel``, ``DrqnMlpModel`` and ``DrqnCnnModel`` params -> the
+port's ``state_dict``.
 
 Takes the flax param tree of pytorch_distributed_tpu/models/dqn_cnn.py as
 nested dicts of array-likes (numpy, or anything ``np.asarray`` reads) and
@@ -20,6 +21,15 @@ its section convolutions ``Conv_i`` are ``conv{i}``, the residual blocks
 ``_ResBlock_k/Conv_j`` are ``res{k}.conv{j}``, and ``Dense_0`` (rows (h,
 w, c) of the 11 x 11 x 256 activations at 84 x 84) and ``Dense_1`` are
 ``fc`` and ``head``.
+
+The recurrent models (``convert_drqn``, models/drqn.py) keep flax's
+``OptimizedLSTMCell_0`` in one scope of eight: ``ii``, ``if``, ``ig``,
+``io`` (input kernels, (in, H), no bias) and ``hi``, ``hf``, ``hg``,
+``ho`` (recurrent kernels, (H, H), with the bias).  They go into the
+port's stacked ``lstm.weight_ih`` (4H, in), ``lstm.weight_hh`` (4H, H)
+and ``lstm.bias`` (4H,) in gate order (i, f, g, o), each kernel
+transposed.  Their ``Dense_0`` is ``fc`` (for the CNN with the (h, w, c)
+rows permuted as above) and ``Dense_1`` is ``head``.
 
 The transform is linear and per-leaf, so Adam moments (and gradients) of
 the same tree go through it unchanged in meaning.  ``flax_leaves`` is its
@@ -43,6 +53,7 @@ from pytorch_distributed_tpu_torch.models.ddpg_mlp import (
     ACTOR_LAYERS, CRITIC_LAYERS,
 )
 from pytorch_distributed_tpu_torch.models.dqn_mlp import HIDDEN_LAYERS
+from pytorch_distributed_tpu_torch.models.drqn import GATES
 
 # the MLP's flax scopes in order, the head last
 MLP_LAYERS = HIDDEN_LAYERS + ("head",)
@@ -167,6 +178,74 @@ def convert_ddpg_mlp(params: Mapping) -> Dict[str, torch.Tensor]:
             for k, v in out.items()}
 
 
+LSTM_SCOPE = "OptimizedLSTMCell_0"
+
+
+def convert_drqn(params: Mapping, state_shape: Sequence[int] = ()
+                 ) -> Dict[str, torch.Tensor]:
+    """``params`` is ``{"params": {...}}`` or the inner tree of the
+    reference's ``DrqnMlpModel`` or ``DrqnCnnModel`` (the CNN's has
+    ``Conv_0``; its ``state_shape`` (C, H, W) fixes the ``Dense_0``
+    permutation)."""
+    p = params["params"] if "params" in params else params
+    out: Dict[str, np.ndarray] = {}
+    k0 = np.asarray(p["Dense_0"]["kernel"])
+    if "Conv_0" in p:
+        for i, (name, _cout, _k, _s) in enumerate(CONV_LAYERS):
+            out[f"{name}.weight"] = np.asarray(
+                p[f"Conv_{i}"]["kernel"]).transpose(3, 2, 0, 1)
+            out[f"{name}.bias"] = np.asarray(p[f"Conv_{i}"]["bias"])
+        out["fc.weight"] = _dense0_rows_to_cols(
+            k0, *torso_out_hw(*state_shape[1:]))
+    else:
+        out["fc.weight"] = k0.T
+    out["fc.bias"] = np.asarray(p["Dense_0"]["bias"])
+    out["head.weight"] = np.asarray(p["Dense_1"]["kernel"]).T
+    out["head.bias"] = np.asarray(p["Dense_1"]["bias"])
+    cell = p[LSTM_SCOPE]
+    out["lstm.weight_ih"] = np.concatenate(
+        [np.asarray(cell[f"i{g}"]["kernel"]).T for g in GATES])
+    out["lstm.weight_hh"] = np.concatenate(
+        [np.asarray(cell[f"h{g}"]["kernel"]).T for g in GATES])
+    out["lstm.bias"] = np.concatenate(
+        [np.asarray(cell[f"h{g}"]["bias"]) for g in GATES])
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in out.items()}
+
+
+def _flax_leaves_drqn(state_dict, state_shape
+                      ) -> List[Tuple[str, torch.Tensor]]:
+    """A recurrent model's leaves in ``ravel_pytree`` order: ``Conv_*``
+    (the CNN's), ``Dense_0``, ``Dense_1``, then the LSTM's eight gate
+    scopes, sorted (``hf``, ``hg``, ``hi``, ``ho``, ``if``, ``ig``, ``ii``,
+    ``io``)."""
+    leaves = {}
+    fc = state_dict["fc.weight"]
+    if "conv0.weight" in state_dict:
+        for i, (name, _cout, _k, _s) in enumerate(CONV_LAYERS):
+            leaves[f"Conv_{i}/bias"] = state_dict[f"{name}.bias"]
+            leaves[f"Conv_{i}/kernel"] = state_dict[
+                f"{name}.weight"].permute(2, 3, 1, 0)
+        oh, ow = torso_out_hw(*state_shape[1:])
+        c = fc.shape[1] // (oh * ow)
+        leaves["Dense_0/kernel"] = fc.reshape(-1, c, oh, ow).permute(
+            2, 3, 1, 0)
+    else:
+        leaves["Dense_0/kernel"] = fc.t()
+    leaves["Dense_0/bias"] = state_dict["fc.bias"]
+    leaves["Dense_1/bias"] = state_dict["head.bias"]
+    leaves["Dense_1/kernel"] = state_dict["head.weight"].t()
+    H = state_dict["lstm.weight_hh"].shape[1]
+    for k, g in enumerate(GATES):
+        rows = slice(k * H, (k + 1) * H)
+        leaves[f"{LSTM_SCOPE}/h{g}/bias"] = state_dict["lstm.bias"][rows]
+        leaves[f"{LSTM_SCOPE}/h{g}/kernel"] = state_dict[
+            "lstm.weight_hh"][rows].t()
+        leaves[f"{LSTM_SCOPE}/i{g}/kernel"] = state_dict[
+            "lstm.weight_ih"][rows].t()
+    return sorted(leaves.items(), key=lambda kv: kv[0].split("/"))
+
+
 def flax_leaves(state_dict: Mapping[str, torch.Tensor],
                 state_shape: Sequence[int]
                 ) -> List[Tuple[str, torch.Tensor]]:
@@ -177,7 +256,10 @@ def flax_leaves(state_dict: Mapping[str, torch.Tensor],
     orders a flax tree), each a view of the torch tensor in the flax
     layout.  No data is copied.  The wide torso's state_dict (it has
     ``res0.conv0.weight``) and the DDPG model's (``actor_l1.weight``) are
-    laid out the same way."""
+    laid out the same way, and so are the recurrent models' (they have
+    ``lstm.weight_ih``)."""
+    if "lstm.weight_ih" in state_dict:
+        return _flax_leaves_drqn(state_dict, state_shape)
     if "res0.conv0.weight" in state_dict:
         return _flax_leaves_wide(state_dict, state_shape)
     if "actor_l1.weight" in state_dict:

@@ -6,21 +6,25 @@ and ``anakin_active`` (:108-141), the actor backend's gate
 (:239-258) with continuous actions, the gym entry of the env table
 (:35-46), the device-env predicate ``device_backend_active`` (:270-277),
 the actors' env vector and the stepper's prebuild (:280-353),
-``build_model`` for ``dqn-cnn``, ``dqn-cnn-wide``, ``dqn-mlp`` and
-``ddpg-mlp`` (:400-439), ``ddpg_applies`` (:506-510), the dqn and ddpg
-branches of ``build_train_state_and_step`` (:636-669), the learner's
+``sequence_pack_frames`` and ``lstm_dim_of`` (:373-397), ``build_model``
+for ``dqn-cnn``, ``dqn-cnn-wide``, ``dqn-mlp``, ``ddpg-mlp``, ``drqn-mlp``
+and ``drqn-cnn`` (:400-485), ``ddpg_applies`` (:506-510), the r2d2 (its
+DRQN half, :536-633), dqn and ddpg branches of
+``build_train_state_and_step`` (:636-669), the learner's
 train apply gate ``_dqn_train_apply`` (:674-723),
 ``build_megabatch_train_step`` (:726-771), ``resolve_megabatch``
 (:774-791), ``published_params`` (:830-839) and ``build_memory`` for the
-``shared``, ``native``, ``prioritized``, ``device`` and ``device-per``
-rings (:862-940).  ``update_flops`` and ``frame_flops`` are the FLOP
+``shared``, ``native``, ``prioritized``, ``device``, ``device-per``,
+``sequence`` and ``device-sequence`` rings (:862-997).  ``update_flops`` and ``frame_flops`` are the FLOP
 counts the perf plane's MFU divides by (utils/perf.py), where the
 reference reads its compiled programs' cost analysis.
 
-The port runs CONFIGS rows 1, 2, 3, 4, 6, 8, 9, 10, 12, 16 and 19
-(config.PORTED_CONFIGS): the pong-sim, fake-chain, classic (cartpole,
+The port runs CONFIGS rows 1, 2, 3, 4, 6, 8, 9, 10, 12, 13, 14, 16 and
+19 (config.PORTED_CONFIGS): the pong-sim, fake-chain, classic (cartpole,
 pendulum, reacher) and gym envs, the ``dqn-cnn``, ``dqn-cnn-wide``,
-``dqn-mlp`` and ``ddpg-mlp`` models and those five rings.  Row 19's wide
+``dqn-mlp``, ``ddpg-mlp``, ``drqn-mlp`` and ``drqn-cnn`` models and
+those seven rings.  The r2d2 family has no megabatch group step and no
+shared inference server, as the reference's (:165-171, :736-741).  Row 19's wide
 torso trains through the module's own forward, as every model but
 ``dqn-cnn`` does (``_kernel_torso``).  Anything else raises
 ``NotImplementedError`` naming the ROADMAP queue that will bring it.
@@ -57,6 +61,12 @@ from pytorch_distributed_tpu_torch.envs.vector import VectorEnv
 from pytorch_distributed_tpu_torch.memory.device_replay import (
     DevicePerIngest, DeviceReplayIngest,
 )
+from pytorch_distributed_tpu_torch.memory.device_sequence import (
+    DeviceSequenceIngest,
+)
+from pytorch_distributed_tpu_torch.memory.sequence_replay import (
+    SegmentBatch, SequenceReplay,
+)
 from pytorch_distributed_tpu_torch.memory.feeder import QueueOwner
 from pytorch_distributed_tpu_torch.memory.prioritized import (
     PrioritizedReplay,
@@ -68,6 +78,9 @@ from pytorch_distributed_tpu_torch.models.ddpg_mlp import (
     DdpgMlpModel, actor_apply, critic_apply,
 )
 from pytorch_distributed_tpu_torch.models.dqn_mlp import DqnMlpModel
+from pytorch_distributed_tpu_torch.models.drqn import (
+    DrqnCnnModel, DrqnMlpModel,
+)
 from pytorch_distributed_tpu_torch.ops.cuda_torso import (
     build_torso_apply, build_torso_group_apply,
 )
@@ -76,6 +89,9 @@ from pytorch_distributed_tpu_torch.ops.losses import (
     build_ddpg_train_step_coupled, build_dqn_megabatch_step,
     build_dqn_train_step, init_ddpg_train_state, init_train_state,
     make_optimizer, merge_ddpg_params,
+)
+from pytorch_distributed_tpu_torch.ops.sequence_losses import (
+    build_drqn_train_step,
 )
 from pytorch_distributed_tpu_torch.utils import health
 from pytorch_distributed_tpu_torch.utils.native_build import build_library
@@ -91,7 +107,8 @@ def _gym_env(env_params, process_ind: int = 0):
 
 ENVS = {"pong-sim": PongSimEnv, "fake": FakeChainEnv,
         "classic": make_classic_env, "gym": _gym_env}
-MODELS = ("dqn-cnn", "dqn-cnn-wide", "dqn-mlp", "ddpg-mlp")
+MODELS = ("dqn-cnn", "dqn-cnn-wide", "dqn-mlp", "ddpg-mlp", "drqn-mlp",
+          "drqn-cnn")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -138,8 +155,10 @@ def device_backend_active(opt: Options) -> bool:
 def resolve_actor_backend(opt: Options, inference: Any = None) -> str:
     """The actor schedule a worker runs, from ``actor_backend``: one gate
     for the actor and the topology.  Each backend steps down with a
-    warning where the reference's does: ``batched`` without an inference
-    client (``inference``) to ``pipelined``; ``anakin`` on a config that
+    warning where the reference's does: ``batched`` outside the dqn and
+    ddpg families (an r2d2 actor keeps its envs' recurrent state) or
+    without an inference client (``inference``) to ``pipelined``;
+    ``anakin`` on a config that
     cannot run it (``anakin_eligible``) to ``device``; ``device`` outside
     the dqn family, or on an env with no device implementation, to
     ``pipelined``."""
@@ -147,6 +166,12 @@ def resolve_actor_backend(opt: Options, inference: Any = None) -> str:
     if backend not in ACTOR_BACKENDS:
         raise ValueError(f"unknown actor_backend {backend!r} (one of "
                          f"{ACTOR_BACKENDS})")
+    if backend == "batched" and opt.agent_type not in ("dqn", "ddpg"):
+        warnings.warn(f"actor_backend=batched does not serve agent_type="
+                      f"{opt.agent_type} (per-env recurrent state stays "
+                      f"actor-side); falling back to pipelined",
+                      stacklevel=2)
+        return "pipelined"
     if backend == "batched" and inference is None:
         warnings.warn("actor_backend=batched but no InferenceClient was "
                       "wired in (a topology without the server); falling "
@@ -187,8 +212,10 @@ def build_device_env(opt: Options, process_ind: int, num_envs: int,
 
 def needs_inference_server(opt: Options) -> bool:
     """Whether a topology stands up the shared inference server for its
-    actors (runtime.Topology)."""
-    return opt.env_params.actor_backend == "batched"
+    actors (runtime.Topology): ``batched`` in the dqn and ddpg families
+    (reference :228-232)."""
+    return (opt.env_params.actor_backend == "batched"
+            and opt.agent_type in ("dqn", "ddpg"))
 
 
 def resolve_device(opt: Options) -> torch.device:
@@ -214,8 +241,9 @@ def compute_dtype(opt: Options) -> torch.dtype:
     """The dtype the model computes in: ``compute_dtype`` for the dqn-cnn
     torsos; the DDPG MLP computes in fp32 whatever it says, as the
     reference's (its ``Dense`` layers take no compute dtype), so its MFU
-    divides by the fp32 peak."""
-    if opt.model_type == "ddpg-mlp":
+    divides by the fp32 peak; so does the DRQN MLP.  The DRQN CNN's torso
+    computes in ``compute_dtype``, its LSTM in fp32."""
+    if opt.model_type in ("ddpg-mlp", "drqn-mlp"):
         return torch.float32
     return {"bfloat16": torch.bfloat16,
             "float32": torch.float32}[opt.model_params.compute_dtype]
@@ -293,6 +321,35 @@ def probe_env(opt: Options) -> EnvSpec:
                    action_dim=space.dim)
 
 
+def sequence_pack_frames(opt: Options) -> int:
+    """The frame-pack factor C of the segment rings (0: unpacked): the
+    pixel R2D2 row's C-stacked uint8 segments travel and lie in the ring
+    as their (T+C, H, W) frames, and the learner rebuilds the stacks.  One
+    decision for the actors' builders, the ring and the learner's step
+    (reference :373-387)."""
+    if (opt.memory_type in ("sequence", "device-sequence")
+            and opt.model_type == "drqn-cnn"
+            and opt.memory_params.state_dtype == "uint8"):
+        return opt.env_params.state_cha
+    return 0
+
+
+def segment_capacity(opt: Options) -> int:
+    """A segment ring's rows: ``memory_size`` steps of history in windows
+    that advance by ``seq_len - seq_overlap``, at least 16 (reference
+    :957-960)."""
+    ap = opt.agent_params
+    return max(opt.memory_params.memory_size
+               // max(ap.seq_len - ap.seq_overlap, 1), 16)
+
+
+def lstm_dim_of(opt: Options) -> int:
+    """The stored carry's width: ``lstm_dim``, floored at 512 for the CNN
+    (its torso's output width; reference :390-397)."""
+    d = opt.model_params.lstm_dim
+    return max(d, 512) if opt.model_type == "drqn-cnn" else d
+
+
 def build_model(opt: Options, spec: EnvSpec, device=None,
                 generator: Optional[torch.Generator] = None,
                 init_weights: bool = True) -> torch.nn.Module:
@@ -309,6 +366,19 @@ def build_model(opt: Options, spec: EnvSpec, device=None,
         model = DdpgMlpModel(spec.action_dim, int(np.prod(spec.state_shape)),
                              norm_val=spec.norm_val, generator=generator,
                              init_weights=init_weights)
+    elif opt.model_type == "drqn-mlp":
+        model = DrqnMlpModel(spec.num_actions,
+                             int(np.prod(spec.state_shape)),
+                             hidden_dim=opt.model_params.hidden_dim,
+                             lstm_dim=lstm_dim_of(opt),
+                             norm_val=spec.norm_val, generator=generator,
+                             init_weights=init_weights)
+    elif opt.model_type == "drqn-cnn":
+        model = DrqnCnnModel(spec.num_actions, spec.state_shape,
+                             lstm_dim=lstm_dim_of(opt),
+                             norm_val=spec.norm_val,
+                             compute_dtype=compute_dtype(opt),
+                             generator=generator, init_weights=init_weights)
     elif opt.model_type == "dqn-mlp":
         model = DqnMlpModel(spec.num_actions,
                             int(np.prod(spec.state_shape)),
@@ -339,11 +409,19 @@ def init_params(opt: Options, spec: EnvSpec, seed: int,
             for k, v in model.state_dict().items()}
 
 
+def is_recurrent(model: torch.nn.Module) -> bool:
+    return isinstance(model, (DrqnMlpModel, DrqnCnnModel))
+
+
 def module_apply(model: torch.nn.Module) -> Callable:
     """``apply(params, obs) -> q`` through the module's own forward; for
-    the DDPG model the policy's deterministic forward, ``actor_apply``."""
+    the DDPG model the policy's deterministic forward, ``actor_apply``;
+    for a recurrent model one step, ``apply(params, obs, carry=None) ->
+    (q, carry')``."""
     if isinstance(model, DdpgMlpModel):
         return ddpg_applies(model)[0]
+    if is_recurrent(model):
+        return lambda params, obs, carry=None: model.step(params, obs, carry)
     return lambda params, obs: functional_call(model, params, (obs,))
 
 
@@ -403,12 +481,13 @@ def dqn_group_apply(opt: Options, model: torch.nn.Module) -> Callable:
 
 def make_optimizers(opt: Options):
     """The run's optimizers, as the reference's factory makes them
-    (:636-669): one for the dqn family (with ``weight_decay``) and for
+    (:546-549, :636-669): one for the dqn and r2d2 families (with
+    ``weight_decay``) and for
     coupled DDPG, ``(actor_tx, critic_tx)`` for decoupled DDPG (neither
     with weight decay); ``lr_decay`` anneals each over ``steps``."""
     ap = opt.agent_params
     decay = ap.steps if ap.lr_decay else 0
-    if opt.agent_type == "dqn":
+    if opt.agent_type in ("dqn", "r2d2"):
         return make_optimizer(ap.lr, ap.clip_grad, ap.weight_decay, decay)
     actor_tx = make_optimizer(ap.lr, ap.clip_grad, lr_decay_steps=decay)
     if ap.ddpg_coupled_update:
@@ -420,10 +499,24 @@ def make_optimizers(opt: Options):
 def build_train_state_and_step(opt: Options, model: torch.nn.Module,
                                params: Dict[str, torch.Tensor]
                                ) -> Tuple[TrainState, Callable]:
-    if opt.agent_type not in ("dqn", "ddpg"):
+    if opt.agent_type not in ("dqn", "ddpg", "r2d2"):
         raise _not_ported(f"agent_type {opt.agent_type!r}")
     ap = opt.agent_params
     guard = health.resolve(opt.health_params).numeric_guards
+    if opt.agent_type == "r2d2":
+        if not is_recurrent(model):
+            raise _not_ported(f"model_type {opt.model_type!r}")
+        if ap.burn_in >= ap.seq_len:
+            raise ValueError(f"burn_in={ap.burn_in} must leave a train "
+                             f"window inside seq_len={ap.seq_len} (did a "
+                             f"--set seq_len override forget burn_in?)")
+        step = build_drqn_train_step(
+            model, make_optimizers(opt), burn_in=ap.burn_in, nstep=ap.nstep,
+            gamma=ap.gamma, enable_double=ap.enable_double,
+            target_model_update=ap.target_model_update,
+            rescale_values=ap.value_rescale, priority_eta=ap.priority_eta,
+            packed_frames=sequence_pack_frames(opt), guard=guard)
+        return init_train_state(params), step
     if opt.agent_type == "dqn":
         step = build_dqn_train_step(
             dqn_train_apply(opt, model), make_optimizers(opt),
@@ -467,7 +560,9 @@ def update_flops(opt: Options, spec: EnvSpec) -> float:
     tensors lie on the CPU, so the kernel torso's wrappers take their plain
     versions, which run the same products through aten (the CUDA kernels
     are ctypes launches the counter cannot see).  A megabatch group step
-    does the same work an update as the sequential step counted here."""
+    does the same work an update as the sequential step counted here.  The
+    r2d2 step counts on a ``SegmentBatch`` of ``batch_size`` segments of
+    ``seq_len`` steps (frame-packed where the ring packs them)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     B = opt.agent_params.batch_size
@@ -476,6 +571,8 @@ def update_flops(opt: Options, spec: EnvSpec) -> float:
     with FakeTensorMode() as mode:
         model, params = _fake_model_params(opt, spec, mode)
         state, step = build_train_state_and_step(opt, model, params)
+        if opt.agent_type == "r2d2":
+            return flops_of(step, state, _fake_segments(opt, spec, obs))
         batch = Batch(
             state0=torch.zeros((B, *spec.state_shape), dtype=obs),
             action=torch.zeros((B, *spec.action_shape), dtype=act),
@@ -484,6 +581,22 @@ def update_flops(opt: Options, spec: EnvSpec) -> float:
             terminal1=torch.zeros(B), weight=torch.ones(B),
             index=torch.zeros(B, dtype=torch.int64))
         return flops_of(step, state, batch)
+
+
+def _fake_segments(opt: Options, spec: EnvSpec, obs_dtype) -> SegmentBatch:
+    """A ``SegmentBatch`` of zeros at the run's geometry (under a fake
+    tensor mode: nothing is allocated)."""
+    ap = opt.agent_params
+    B, T, C = ap.batch_size, ap.seq_len, sequence_pack_frames(opt)
+    S = spec.state_shape
+    obs_shape = (B, T + C, *S[1:]) if C else (B, T + 1, *S)
+    carry = torch.zeros((B, lstm_dim_of(opt)))
+    return SegmentBatch(
+        obs=torch.zeros(obs_shape, dtype=obs_dtype),
+        action=torch.zeros((B, T), dtype=torch.int32),
+        reward=torch.zeros((B, T)), terminal=torch.zeros((B, T)),
+        mask=torch.ones((B, T)), c0=carry, h0=carry.clone(),
+        weight=torch.ones(B), index=torch.zeros(B, dtype=torch.int64))
 
 
 def frame_flops(opt: Options, spec: EnvSpec) -> float:
@@ -580,7 +693,10 @@ def build_memory(opt: Options, spec: EnvSpec,
     - ``device`` and ``device-per``: the device rings behind their ingest,
       with one queue per actor slot (``learner_side.make_feeder(i)``) or
       one in-process queue when every producer is a thread of the
-      learner's process (``in_process``, the thread backend).
+      learner's process (``in_process``, the thread backend);
+    - ``sequence`` and ``device-sequence``: the host segment ring behind
+      ``QueueOwner`` and the device segment ring behind its ingest, each
+      of ``segment_capacity`` rows (reference :951-997).
 
     ``actor_side`` is slot 0's feeder; the runtime asks ``learner_side``
     for each slot's."""
@@ -610,6 +726,24 @@ def build_memory(opt: Options, spec: EnvSpec,
         owner = QueueOwner(PrioritizedReplay(**rows, **per), **queues)
         return MemoryHandles(actor_side=owner.make_feeder(),
                              learner_side=owner)
+    if opt.memory_type in ("sequence", "device-sequence"):
+        ap = opt.agent_params
+        seqs = dict(
+            capacity=segment_capacity(opt), seq_len=ap.seq_len, state_shape=spec.state_shape,
+            lstm_dim=lstm_dim_of(opt), state_dtype=sdt,
+            priority_exponent=mp_.priority_exponent,
+            importance_weight=mp_.priority_weight,
+            pack_frames=sequence_pack_frames(opt))
+        if opt.memory_type == "sequence":
+            owner = QueueOwner(SequenceReplay(
+                **seqs, importance_anneal_steps=ap.steps * ap.batch_size),
+                **queues)
+            return MemoryHandles(actor_side=owner.make_feeder(),
+                                 learner_side=owner)
+        ingest = DeviceSequenceIngest(
+            **seqs, importance_anneal_steps=ap.steps, **queues)
+        return MemoryHandles(actor_side=ingest.make_feeder(),
+                             learner_side=ingest)
     if opt.memory_type not in ("device", "device-per"):
         raise _not_ported(f"memory_type {opt.memory_type!r}")
     if opt.memory_type == "device":

@@ -83,20 +83,28 @@ def per_sample(state: PerReplayState, u: torch.Tensor, beta,
     """Proportional sample of ``len(u)`` rows plus IS weights.
     ``sample_fn(priority, u) -> (idx, probs)`` is the draw hook; ``beta``
     is a float or a () tensor."""
-    p = state.priority
-    idx, probs = sample_fn(p, u)
-    total = torch.sum(p)
-    fill = torch.clamp(state.fill_rows, min=1.0)
-    weights = (fill * torch.clamp(probs, min=1e-12)) ** (-beta)
-    min_p = (torch.min(torch.where(p > 0, p, torch.full_like(p, torch.inf)))
-             / torch.clamp(total, min=1e-12))
-    max_w = (fill * torch.clamp(min_p, min=1e-12)) ** (-beta)
-    weights = weights / torch.clamp(max_w, min=1e-12)
+    idx, probs = sample_fn(state.priority, u)
     return Batch(
         state0=state.state0[idx], action=state.action[idx],
         reward=state.reward[idx], gamma_n=state.gamma_n[idx],
         state1=state.state1[idx], terminal1=state.terminal1[idx],
-        weight=weights.float(), index=idx)
+        weight=is_weights(state.priority, torch.sum(state.priority), probs,
+                          state.fill_rows, beta),
+        index=idx)
+
+
+def is_weights(p: torch.Tensor, total: torch.Tensor, probs: torch.Tensor,
+               fill_rows: torch.Tensor, beta) -> torch.Tensor:
+    """fp32 IS weights ``(fill * prob) ** -beta`` of drawn rows, divided by
+    the weight of the smallest non-zero priority ``p`` (of mass
+    ``total``): the normalisation of both PER rings and the segment
+    ring."""
+    fill = torch.clamp(fill_rows, min=1.0)
+    weights = (fill * torch.clamp(probs, min=1e-12)) ** (-beta)
+    min_p = (torch.min(torch.where(p > 0, p, torch.full_like(p, torch.inf)))
+             / torch.clamp(total, min=1e-12))
+    max_w = (fill * torch.clamp(min_p, min=1e-12)) ** (-beta)
+    return (weights / torch.clamp(max_w, min=1e-12)).float()
 
 
 PRIORITY_XRAY_LOG10_LO = -6.0   # the log10 grid's floor (p ** alpha)

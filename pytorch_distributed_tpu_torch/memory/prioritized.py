@@ -167,8 +167,7 @@ class PrioritizedReplay(Memory):
         return self.sum_tree.get(np.arange(self.size))
 
     def xray(self) -> dict:
-        return health.priority_xray(self.priority_leaves()) or {
-            "rows": 0, "mass": 0.0, "ess": 0.0, "ess_frac": None}
+        return health.ring_xray(self.priority_leaves())
 
     def update_priorities(self, indices: np.ndarray,
                           priorities: np.ndarray) -> None:

@@ -1,7 +1,9 @@
 """Action selection — the port of pytorch_distributed_tpu/models/policies.py:
 ``apex_epsilon(s)`` (:22-45), epsilon-greedy act (:48-70), the inference
 server's packed acts (``_pack_dqn`` :100-108, ``build_packed_roll_act``
-:140-165, ``build_packed_act_rowkeys`` :168-180), greedy act (:517), and
+:140-165, ``build_packed_act_rowkeys`` :168-180), greedy act (:517), the
+recurrent acts (epsilon-greedy :528, packed with a reset mask :546,
+greedy :584), and
 the fused device rollout (``RolloutCarry``/``RolloutChunk``/
 ``RolloutStats``, ``init_rollout_carry`` :190-274, ``build_fused_rollout``
 :277-491, ``rollout_priorities`` :494-514) and DDPG's deterministic act
@@ -107,6 +109,44 @@ def greedy_act(apply_fn: Callable, params, obs: torch.Tensor
     """Pure-greedy act, for evaluation: ``(action, q_max)``."""
     q = apply_fn(params, obs)
     return q.argmax(-1), q.max(-1).values
+
+
+@torch.no_grad()
+def recurrent_epsilon_greedy_act(apply_fn: Callable, params,
+                                 obs: torch.Tensor, carry,
+                                 eps: torch.Tensor, explore_u: torch.Tensor,
+                                 random_a: torch.Tensor):
+    """Epsilon-greedy over a recurrent Q-network (reference :528-543):
+    ``apply_fn(params, obs, carry) -> (q, carry')``; row i takes
+    ``random_a[i]`` when ``explore_u[i] < eps[i]``.  Returns ``(action,
+    carry')``; the caller owns the carry and resets rows at episode
+    ends."""
+    q, carry = apply_fn(params, obs, carry)
+    return torch.where(explore_u < eps, random_a, q.argmax(-1)), carry
+
+
+@torch.no_grad()
+def recurrent_packed_act(apply_fn: Callable, params, obs: torch.Tensor,
+                         carry, reset_mask: torch.Tensor, eps: torch.Tensor,
+                         explore_u: torch.Tensor, random_a: torch.Tensor):
+    """The pipelined actor's recurrent act (reference :546-581): the carry
+    stays on the acting device across ticks, and row j's carry is zeroed
+    before acting where ``reset_mask[j]`` is set (its episode ended at the
+    last tick), which is the row reset the serial loop makes on the host.
+    Returns ``(action, carry')``."""
+    keep = ~reset_mask.view(-1, 1)
+    carry = tuple(torch.where(keep, c, torch.zeros_like(c)) for c in carry)
+    return recurrent_epsilon_greedy_act(apply_fn, params, obs, carry, eps,
+                                        explore_u, random_a)
+
+
+@torch.no_grad()
+def recurrent_greedy_act(apply_fn: Callable, params, obs: torch.Tensor,
+                         carry):
+    """Greedy recurrent act for the evaluator and the tester (reference
+    :584-591): ``(action, carry')``."""
+    q, carry = apply_fn(params, obs, carry)
+    return q.argmax(-1), carry
 
 
 @torch.no_grad()

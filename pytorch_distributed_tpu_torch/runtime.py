@@ -109,7 +109,11 @@ _CTX = mp.get_context("spawn")
 
 WORKERS: Dict[str, Callable] = {
     "logger": run_logger,
-    "actor": run_actor,  # the run's agent family's (agents/actor.py)
+    # the run's agent family's actor (agents/actor.py ``actor_class``:
+    # dqn, ddpg, and r2d2's agents/recurrent_actor.py); the learner,
+    # evaluator, tester and logger serve every family (reference
+    # factory.py:78-93)
+    "actor": run_actor,
     "evaluator": run_evaluator,
 }
 

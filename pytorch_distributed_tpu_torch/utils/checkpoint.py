@@ -534,11 +534,14 @@ def load_epoch_replay(info: EpochInfo, memory: Any) -> int:
 def validate_snapshot(memory: Any, data: dict,
                       source: str = "snapshot") -> None:
     """Hold a ring snapshot against the live ring's row shape and state
-    dtype and raise a ``CheckpointMismatch`` that names the field.  A
+    dtype and raise a ``CheckpointMismatch`` that names the field: its
+    family (segment or transition rows), and for segment rows the obs
+    window's shape and the carry's width (reference :296-333).  A
     different capacity is legal: a restore keeps the newest rows that
     fit, and a shrink is reported."""
     mem = memory.replay if getattr(memory, "replay", None) is not None \
         else memory
+    mem = getattr(mem, "memory", mem)  # a queue owner's host ring
     name = type(mem).__name__
 
     def bail(msg: str) -> None:
@@ -546,9 +549,36 @@ def validate_snapshot(memory: Any, data: dict,
             f"{source} does not fit the live {name}: {msg} "
             f"(memory/model config changed between save and resume?)")
 
-    if "obs" in data and "mask" in data:
-        bail("snapshot holds segment rows but the memory stores "
-             "transition rows")
+    snap_is_seq = "obs" in data and "mask" in data
+    mem_is_seq = hasattr(mem, "T")  # both segment rings
+    if snap_is_seq != mem_is_seq:
+        kinds = lambda seq: "segment" if seq else "transition"
+        bail(f"snapshot holds {kinds(snap_is_seq)} rows but the memory "
+             f"stores {kinds(mem_is_seq)} rows")
+    if mem_is_seq:
+        obs = np.asarray(data["obs"])
+        want = getattr(mem, "obs_shape", None)
+        if want is None:  # the host ring
+            want = tuple(np.shape(mem.obs)[1:])
+        if len(obs) and tuple(obs.shape[1:]) != tuple(want):
+            bail(f"segment obs rows are {tuple(obs.shape[1:])}, live ring "
+                 f"stores {tuple(want)} (seq_len/pack_frames/state shape "
+                 f"changed)")
+        c0 = np.asarray(data.get("c0", np.zeros((0, 0))))
+        if len(c0) and c0.shape[1] != mem.lstm_dim:
+            bail(f"carry width {c0.shape[1]} != live lstm_dim "
+                 f"{mem.lstm_dim}")
+    else:
+        _validate_transitions(mem, data, bail)
+    cap = getattr(mem, "capacity", None)
+    rows = len(np.asarray(data.get("reward", ())))
+    if cap is not None and rows > cap:
+        print(f"[checkpoint] note: {source} holds {rows} rows, live "
+              f"{name} capacity is {cap} — restoring the newest {cap}",
+              flush=True)
+
+
+def _validate_transitions(mem, data: dict, bail) -> None:
     st = np.asarray(data["state0"])
     want = getattr(mem, "state_shape", None)
     if want is not None and len(st) and tuple(st.shape[1:]) != tuple(want):
@@ -559,12 +589,6 @@ def validate_snapshot(memory: Any, data: dict,
         want_dt = torch.empty(0, dtype=col.dtype).numpy().dtype
         if np.dtype(st.dtype) != want_dt:
             bail(f"state dtype {st.dtype} != live {want_dt}")
-    cap = getattr(mem, "capacity", None)
-    rows = len(np.asarray(data.get("reward", ())))
-    if cap is not None and rows > cap:
-        print(f"[checkpoint] note: {source} holds {rows} rows, live "
-              f"{name} capacity is {cap} — restoring the newest {cap}",
-              flush=True)
 
 
 def gc_epochs(root: str, retain: int = 3,

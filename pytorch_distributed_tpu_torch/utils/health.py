@@ -128,6 +128,12 @@ def priority_xray(leaves, bins: int = 16) -> Optional[Dict[str, Any]]:
     }
 
 
+def ring_xray(leaves) -> Dict[str, Any]:
+    """A host ring's X-ray (``priority_xray``), or the empty one's."""
+    return priority_xray(leaves) or {"rows": 0, "mass": 0.0, "ess": 0.0,
+                                     "ess_frac": None}
+
+
 class _Ewma:
     """Exponentially weighted mean and variance with a sample count."""
 
@@ -266,9 +272,13 @@ class ChunkValidator:
     frames cannot hold NaN and skip the scan); a non-finite float action
     or a discrete action outside ``[0, num_actions)``.
 
-    The six-column ``Transition`` rows only: the R2D2 ``Segment`` rows of
-    the reference's validator wait for the sequence replay's port
-    (ROADMAP Queue A item 8)."""
+    An R2D2 ``Segment`` row (memory/sequence_replay.py, no ``state0``)
+    takes ``_check_segment`` (reference :401-481): finite per-step
+    rewards, terminals and masks, carries and float actions, the obs's
+    shape latched from the first segment (a segment's obs is its whole
+    window, (T+1, *state_shape) or the frame-packed (T+C, H, W), so the
+    per-step ``state_shape`` is never held against it) and its dtype
+    against the expected one."""
 
     def __init__(self, state_shape: Optional[Tuple[int, ...]] = None,
                  state_dtype=None, num_actions: Optional[int] = None):
@@ -277,11 +287,14 @@ class ChunkValidator:
         self.num_actions = num_actions
         self.checked = 0
         self.rejected = 0
+        self._seg_obs_shape: Optional[Tuple[int, ...]] = None
 
     def _check(self, t, priority) -> Optional[str]:
         if priority is not None and (
                 not _finite_scalar(priority) or float(priority) < 0.0):
             return f"invalid priority {priority!r}"
+        if not hasattr(t, "state0"):
+            return self._check_segment(t)
         for name in ("reward", "gamma_n", "terminal1"):
             if not _finite_scalar(getattr(t, name)):
                 return f"non-finite {name}"
@@ -299,6 +312,9 @@ class ChunkValidator:
                         f"expected {self.state_dtype}")
             if arr.dtype.kind == "f" and not np.isfinite(arr).all():
                 return f"non-finite {name}"
+        return self._action_reason(t)
+
+    def _action_reason(self, t) -> Optional[str]:
         a = np.asarray(t.action)
         if a.dtype.kind == "f" and not np.isfinite(a).all():
             return "non-finite action"
@@ -306,6 +322,30 @@ class ChunkValidator:
                 and a.size and not ((a >= 0) & (a < self.num_actions)).all()):
             return f"action out of range [0, {self.num_actions})"
         return None
+
+    def _check_segment(self, t) -> Optional[str]:
+        for name in ("reward", "terminal", "mask"):
+            arr = np.asarray(getattr(t, name, 0.0))
+            if arr.dtype.kind == "f" and not np.isfinite(arr).all():
+                return f"non-finite {name}"
+        obs = np.asarray(t.obs)
+        if self._seg_obs_shape is None:
+            self._seg_obs_shape = obs.shape
+        elif obs.shape != self._seg_obs_shape:
+            return (f"obs shape {obs.shape} != "
+                    f"expected {self._seg_obs_shape}")
+        if self.state_dtype is None:
+            self.state_dtype = obs.dtype
+        elif obs.dtype != self.state_dtype:
+            return (f"obs dtype {obs.dtype} != "
+                    f"expected {self.state_dtype}")
+        if obs.dtype.kind == "f" and not np.isfinite(obs).all():
+            return "non-finite obs"
+        for name in ("c0", "h0"):
+            arr = np.asarray(getattr(t, name, 0.0))
+            if arr.dtype.kind == "f" and not np.isfinite(arr).all():
+                return f"non-finite {name}"
+        return self._action_reason(t)
 
     def filter(self, items) -> Tuple[list, List[Tuple[Any, Optional[float],
                                                       str]]]:
@@ -329,7 +369,8 @@ class ChunkValidator:
 class QuarantineStore:
     """One ingest source's quarantine: rejected rows land in
     ``{log_dir}/quarantine/<source>-<n>.npz`` (the six columns stacked
-    where they stack, ``priority``, ``reason``, ``trace_id``, ``prov``,
+    where they stack, or a ``Segment``'s own columns, reference :555-575;
+    ``priority``, ``reason``, ``trace_id``, ``prov``,
     ``wall`` and the run id) instead of the ring.  The directory is the
     flight recorder's (``configure`` or ``TPU_APEX_BLACKBOX_DIR``).  Past
     ``max_files`` files the store only counts, so a poisoning actor
@@ -360,7 +401,10 @@ class QuarantineStore:
             return None
         target = os.path.join(base, "quarantine")
         cols: Dict[str, np.ndarray] = {}
-        for f in REPLAY_FIELDS:
+        first = rejected[0][0]
+        fields = (REPLAY_FIELDS if hasattr(first, "state0")
+                  else tuple(f for f in first._fields if f != "prov"))
+        for f in fields:
             vals = [np.asarray(getattr(t, f)) for t, _p, _r in rejected]
             try:
                 cols[f] = np.stack(vals)

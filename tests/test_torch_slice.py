@@ -17,7 +17,15 @@ dqn-cnn) against the JAX package:
   size, with the default actors and with ``actor_backend=batched`` on
   both backends, and the refusals (no GPU without ``--device cpu``, rows
   and device envs not ported yet, unknown backends), with ``megabatch``
-  under Anakin and on a host-replay row."""
+  under Anakin and on a host-replay row;
+- rows 13 (``drqn-mlp`` on the host segment ring) and 14 (``drqn-cnn`` on
+  the device segment ring, frame-packed) through ``main`` at a tiny size:
+  train, mode 2, and a ``--resume`` with ``checkpoint_replay`` that
+  restores the segment ring; ``megabatch`` on row 14 runs the sequential
+  step with the reference's line; a segment snapshot refused by a
+  transition ring and a carry of another width refused by a segment
+  ring; row 13's learning bar at the JAX package's geometry (slow: the
+  card runs it in ``chip_smoke.py r2d2``)."""
 
 import functools
 import tempfile
@@ -283,7 +291,7 @@ def test_main_without_a_gpu_refuses_cuda():
 def test_refuses_what_is_not_ported(what, capsys):
     if what == "config":
         with pytest.raises(NotImplementedError):
-            build_options(13)  # r2d2: not ported yet (ROADMAP.md Queue A)
+            build_options(15)  # dtqn: not ported yet (ROADMAP.md Queue A)
     elif what == "backend":
         # both of the reference's backends run; any other is refused
         # before a worker starts
@@ -315,3 +323,113 @@ def test_refuses_what_is_not_ported(what, capsys):
         assert ("[learner] megabatch=4 requires a device replay "
                 "(memory_type device/device-per; got shared); host-path "
                 "learner runs unbatched") in capsys.readouterr().out
+
+
+def _r2d2_run(config: int, root: str, backend: str, *extra):
+    return ["--config", str(config), "--backend", backend, "--device", "cpu",
+            "--num-actors", "1", "--num-envs-per-actor", "2",
+            "--memory-size", "256", "--batch-size", "4", "--steps", "12",
+            "--set", "seq_len=6", "--set", "seq_overlap=3",
+            "--set", "burn_in=2", "--set", "nstep=3",
+            "--set", "learn_start=4", "--set", "learner_freq=6",
+            "--set", "evaluator_nepisodes=1", "--set", "early_stop=60",
+            "--set", "hidden_dim=16", "--set", "lstm_dim=8",
+            "--set", f"root_dir={root}", "--set", "refs=r",
+            "--no-tensorboard", *extra]
+
+
+@pytest.mark.timeout(240)
+@pytest.mark.parametrize("config,backend", [(13, "process"), (14, "thread")])
+def test_main_trains_and_tests_r2d2_rows_on_cpu(config, backend, capsys):
+    root = tempfile.mkdtemp(prefix="port_r2d2_")
+    summary = port_main.main(_r2d2_run(config, root, backend, "--set",
+                                       "checkpoint_replay=true"))
+    assert summary["learner/steps"] == 12
+    assert np.isfinite(summary["learner/critic_loss"])
+    assert summary["learner/skipped"] == 0.0
+    assert summary["replay/size"] > 4
+    assert summary["ingest/validated"] >= summary["replay/size"]
+    stats = port_main.main(["--config", str(config), "--mode", "2",
+                            "--device", "cpu", "--model-file",
+                            f"{root}/models/r", "--set", "early_stop=60",
+                            "--set", "tester_nepisodes=2",
+                            "--set", "hidden_dim=16", "--set",
+                            "lstm_dim=8"])
+    assert stats["nepisodes"] == 2.0 and np.isfinite(stats["avg_reward"])
+    # the same refs resumes: state and segment ring from the final epoch
+    argv = _r2d2_run(config, root, backend, "--set",
+                     "checkpoint_replay=true", "--resume", "r")
+    argv[argv.index("--steps") + 1] = "18"
+    again = port_main.main(argv)
+    out = capsys.readouterr().out
+    assert again["learner/resumed_from_step"] == 12
+    assert again["learner/steps"] == 18
+    assert again["replay/restored_rows"] == summary["replay/size"]
+    assert "replay restored from epoch" in out
+
+
+def test_r2d2_megabatch_runs_the_sequential_step(capsys):
+    root = tempfile.mkdtemp(prefix="port_r2d2_")
+    summary = port_main.main(_r2d2_run(14, root, "thread",
+                                       "--set", "megabatch=2"))
+    assert summary["learner/steps"] == 12
+    assert ("[learner] megabatch=2 is not supported for agent_type=r2d2"
+            in capsys.readouterr().out)
+
+
+def test_segment_snapshots_refuse_the_wrong_ring():
+    from pytorch_distributed_tpu_torch.factory import build_memory, probe_env
+    from pytorch_distributed_tpu_torch.memory.sequence_replay import Segment
+    from pytorch_distributed_tpu_torch.utils.checkpoint import (
+        CheckpointMismatch, validate_snapshot,
+    )
+
+    opt = build_options(13, device="cpu", seq_len=4, seq_overlap=2,
+                        lstm_dim=8, memory_size=64)
+    spec = probe_env(opt)
+    host = build_memory(opt, spec).learner_side
+    host.memory.feed(Segment(
+        obs=np.zeros((5, *spec.state_shape), np.float32),
+        action=np.zeros(4, np.int32), reward=np.zeros(4, np.float32),
+        terminal=np.zeros(4, np.float32), mask=np.ones(4, np.float32),
+        c0=np.zeros(8, np.float32), h0=np.zeros(8, np.float32)))
+    snap = host.snapshot()
+    validate_snapshot(host, snap)
+    flat = build_memory(build_options(1, device="cpu"), spec).learner_side
+    with pytest.raises(CheckpointMismatch, match="segment rows"):
+        validate_snapshot(flat, snap)
+    with pytest.raises(CheckpointMismatch, match="transition rows"):
+        validate_snapshot(host, {"state0": np.zeros((1, 8)),
+                                 "reward": np.zeros(1)})
+    wide = build_memory(build_options(13, device="cpu", seq_len=4,
+                                      seq_overlap=2, lstm_dim=16,
+                                      memory_size=64), spec).learner_side
+    with pytest.raises(CheckpointMismatch, match="carry width 8"):
+        validate_snapshot(wide, snap)
+    for m in (host, flat, wide):
+        m.close()
+
+
+@pytest.mark.slow
+@pytest.mark.timeout(1200)
+def test_r2d2_chain_learns_through_main():
+    """Row 13's bar at the JAX package's own geometry
+    (tests/test_sequence.py:265-283) on the process backend: mode 2 on
+    the trained params reaches the chain's end."""
+    root = tempfile.mkdtemp(prefix="port_r2d2_bar_")
+    port_main.main([
+        "--config", "13", "--backend", "process", "--device", "cpu",
+        "--num-actors", "2", "--steps", "1200", "--memory-size", "4096",
+        "--batch-size", "16", "--set", "seq_len=16", "--set",
+        "seq_overlap=8", "--set", "burn_in=4", "--set", "nstep=3",
+        "--set", "learn_start=8", "--set", "actor_sync_freq=20",
+        "--set", "param_publish_freq=5", "--set", "learner_freq=50",
+        "--set", "evaluator_freq=1", "--set", "max_replay_ratio=64.0",
+        "--set", "lr=2e-3", "--set", "target_model_update=100",
+        "--set", f"root_dir={root}", "--set", "refs=bar",
+        "--no-tensorboard"])
+    stats = port_main.main(["--config", "13", "--mode", "2", "--device",
+                            "cpu", "--model-file", f"{root}/models/bar",
+                            "--set", "tester_nepisodes=5"])
+    assert stats["avg_reward"] >= 0.9
+    assert stats["avg_steps"] <= 10

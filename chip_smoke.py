@@ -117,10 +117,11 @@ Phases, each printed as one JSON line:
    and train_paced's, is not run);
 18. train_anakin: config 12 at full width through ``main`` with
    ``actor_backend=anakin`` (the fleet and the learner in this process,
-   the evaluator and the logger in children), strict and at
-   ``rollout_ratio`` 16: the same launches per update, a finite loss,
-   no actor child and no child with CUDA, evaluator rows; updates/s,
-   frames/s and the duty cycle; then each variant's loop driven here by
+   the evaluator and the logger in children), strict (500 updates) and
+   at ``rollout_ratio`` 16 (1,000): the same launches per update, a
+   finite loss, no actor child and no child with CUDA, evaluator rows;
+   updates/s, frames/s and the duty cycle; then each variant's loop
+   driven here by
    ``AnakinDriver``'s own scheduler and traced by ``torch.profiler`` over a
    window (10 updates strict, 30 at ratio 16, the profiler started and
    stopped between dispatches in the launching thread): the device's
@@ -189,18 +190,19 @@ Phases, each printed as one JSON line:
    ``megabatch=4`` through ``main`` (pipelined actors, 1,000 updates),
    its launches held to one draw and 10 + 24 GEMMs a group;
 23. anakin_megabatch: Anakin through ``main`` at ``rollout_ratio`` 16
-   with ``megabatch=4`` and ``double_buffer=true``, 4,000 updates: the
+   with ``megabatch=4`` and ``double_buffer=true``, 2,400 updates: the
    launches per group, updates/s, frames/s, the duty cycle and the
    device ms a learner update over the run, and the median of its stats
    windows past step 400 (the warm-up and the graphs' captures left
    out), beside train_anakin's ratio-16 run;
 24. train_uniform: CONFIGS row 8 (the uniform device ring) through
-   ``main``, pipelined actors at replay ratio 8 and Anakin at ratio 16
-   (the same ratio at batch 128), as users run it: no draw, 10 + 9
+   ``main``, pipelined actors at replay ratio 8 (500 updates) and Anakin
+   at ratio 16 (the same ratio at batch 128; 1,000), as users run it: no
+   draw, 10 + 9
    GEMMs an update; updates/s, frames/s;
 25. train_host: rows 4 (``shared``) and 6 (``prioritized``) through
-   ``main`` on the process backend at replay ratio 8, 200 updates
-   each, row 6 with ``LEARNER_FAULTS=poison_grad@150`` (exactly one
+   ``main`` on the process backend at replay ratio 8, 120 updates
+   each, row 6 with ``LEARNER_FAULTS=poison_grad@90`` (exactly one
    skipped update, its batch the NaN one, its params unchanged, no
    rollback), then row 4 on ``memory_type=native`` unpaced; no draw, 10
    + 9 GEMMs an update;
@@ -237,9 +239,9 @@ Phases, each printed as one JSON line:
    update against eager, to the bit; the learner alone
    (``bench_learner``): updates/s, device ms an update, the peak of
    allocated memory, 1 draw and no GEMM an update; ``main`` with
-   ``actor_backend=anakin`` at ratio 16 (300 updates: updates/s,
+   ``actor_backend=anakin`` at ratio 16 (200 updates: updates/s,
    frames/s, the duty cycle, a finite loss) and on the thread backend
-   with the actors on the card (200 updates), each with 1 draw and no
+   with the actors on the card (120 updates), each with 1 draw and no
    GEMM an update and no evaluator (a greedy episode of the wide torso on
    the evaluator's CPU takes minutes); one pipelined CPU actor of 16 envs
    in a spawn child, ms a tick over 2 ticks.
@@ -291,7 +293,8 @@ Phases, each printed as one JSON line:
    starves for the GIL on the thread backend: about 6 updates/s); then
    mode 2 over 5 episodes with ``avg_reward`` at least -20. (c) Row 2
    on ``memory_type=device-per`` with ``megabatch=4`` and batched actors
-   through ``main`` (the perf plane on), 1,000 updates: the graphed group
+   through ``main`` (the perf plane on), 1,000 updates, the actors' stats
+   every 500 env steps: the graphed group
    dispatch against its eager twin to the bit, one B1 launch a group and
    no GEMM over the run, finite losses, ``inference/rows`` equal to the
    actors' frames within a tick per actor, ``learner/mfu`` over the fp32
@@ -327,6 +330,30 @@ Phases, each printed as one JSON line:
    the card in this thread (the thread backend's), 120 ticks of 16 envs
    inline and pipelined, a second snapshot published at tick 100: the
    segment streams identical (sha256), both swapped to version 2.
+32. dtqn: rows 15, 17 and 18 (the DTQN family: ``dtqn-mlp``, ``dtqn-moe``
+   with 8 experts, top-2, 26 slots a row, and ``dtqn-pipe``, width 128, 4
+   heads, depth 2, a window of 81, fp32) at the reference's widths; no
+   kernel of ours is on their path (the transformer is ``F.linear``,
+   einsums, softmax and LayerNorm, as the JAX package's is outside
+   Pallas). (a) Each row's learner alone on ``device-sequence`` (64
+   windows an update, a full ring of 1,250 random segments): graph
+   against eager as r2d2 (a) (3 dispatches at K = 1 and 3 at K = 2,
+   every train-state leaf and the priorities identical), graphed
+   updates/s, 0 B1 and B2 launches, device ms an update,
+   ``update_flops`` and the MFU over the fp32 peak. (b) Row 15 through
+   ``main`` on its host ``sequence`` ring, 2 pipelined CPU actors x 16
+   envs, episodes capped at 100 steps, unpaced, 120 updates: no launch,
+   a finite loss, no child with CUDA; then mode 2, one capped episode on
+   the card. (c)
+   Row 15's learning bar at the JAX package's geometry
+   (tests/test_ring_attention.py:132-174: window 17, batch 16, 1,500
+   updates, a second seed allowed), process backend, the health plane's
+   rollback off (its detector reads the loss level that rises when the
+   ring wraps as a divergence streak; ROADMAP.md Queue C): mode 2 solves
+   5 of 5 episodes with ``avg_reward`` 0.9 in at most 10 steps; no
+   launch. (d) Rows 17 and 18 as (b), ``learner/moe_aux`` finite on row
+   17 only. (e) Row 15's actor on the card as r2d2 (e): identical
+   segment streams, both swapped to version 2.
 
 ``python3 chip_smoke.py PHASE ...`` runs ``build`` and the named phases
 only.  Then a ``kernels`` line (the table PERF.md is written from: B1's
@@ -336,8 +363,9 @@ process runs with pipelined, batched and device actors, on the two
 Anakin runs, on the two health drills, on the megabatch learner and
 Anakin runs, on row 8's two runs, on the three host runs, on the
 planes' runs, on row 19's two runs, on the perf plane's three runs and
-on DDPG's three ``main`` runs and R2D2's learner alone and three
-``main`` runs, all 0; B1 and B2 held at a megabatch group
+on DDPG's three ``main`` runs, R2D2's learner alone and three
+``main`` runs and the DTQN rows' three learners alone and five ``main``
+runs, all 0; B1 and B2 held at a megabatch group
 beside their per-update numbers, B1 also at DDPG's draws),
 the
 card's name and power limit, and the verdict as the last line.  Exits non-zero, with no
@@ -1395,6 +1423,9 @@ def _busy_us(trace_path: str) -> tuple:
 
 
 PACED_STEPS = 500
+# row 8's paced run and Anakin's strict alternation (ratio 16 keeps
+# TRAIN_STEPS)
+UNIFORM_PACED_STEPS = ANAKIN_STRICT_STEPS = 500
 
 
 def train_paced():
@@ -2251,7 +2282,8 @@ def train_anakin():
         try:
             r, summary = _train_through_main(
                 "process", f"anakin_{name}", "actor_backend=anakin", *sets,
-                phases=())
+                phases=(), steps=(ANAKIN_STRICT_STEPS if name == "strict"
+                                  else TRAIN_STEPS))
         finally:
             runtime.Topology._spawn = spawn
         RESULTS[f"launches_anakin_{name}"] = r["launches"]
@@ -2654,10 +2686,10 @@ MEGABATCHES = (1, 2, 4, 8)
 MB_DISPATCH = 8        # updates a dispatch in the megabatch rates
 MB_UPDATES = 200       # timed updates a rate
 MB_GROUP = 4           # the group the kernels are held at
-ANAKIN_MB_STEPS = 4000
-HOST_STEPS = 200       # each host row, paced at replay ratio 8
-NATIVE_STEPS = 200
-POISON_AT = 150        # the learner dispatch row 6's poison_grad hits
+ANAKIN_MB_STEPS = 2400
+HOST_STEPS = 120       # each host row, paced at replay ratio 8
+NATIVE_STEPS = 120
+POISON_AT = 90         # the learner dispatch row 6's poison_grad hits
 ROW1_STEPS = 1500
 
 
@@ -2979,12 +3011,14 @@ def train_uniform():
     (the uniform draw is torch ops) and 10 + 9 bf16 GEMMs an update, a
     finite loss, no child with CUDA; updates/s and frames/s."""
     out = {}
-    for name, sets, phases in (
-            ("process", ("max_replay_ratio=8",), ("env", "advance", "tick")),
-            ("anakin", ("actor_backend=anakin", "rollout_ratio=16"), ())):
+    for name, sets, phases, steps in (
+            ("process", ("max_replay_ratio=8",), ("env", "advance", "tick"),
+             UNIFORM_PACED_STEPS),
+            ("anakin", ("actor_backend=anakin", "rollout_ratio=16"), (),
+             TRAIN_STEPS)):
         r, summary = _train_through_main("process", f"uniform_{name}",
                                          *sets, phases=phases, config=8,
-                                         draws=False)
+                                         steps=steps, draws=False)
         RESULTS[f"launches_uniform_{name}"] = r["launches"]
         if summary["runtime/children_with_cuda"] != 0:
             raise AssertionError("a child made a CUDA context")
@@ -3038,7 +3072,7 @@ def train_host():
     and row 6 (``prioritized``: the learner's sum tree behind the queues)
     paced at the reference's replay ratio (``max_replay_ratio`` 8,
     ``learn_start`` 5,000), HOST_STEPS updates each; row 6 with the
-    ``poison_grad`` drill (``LEARNER_FAULTS=poison_grad@150``): exactly
+    ``poison_grad`` drill (``LEARNER_FAULTS=poison_grad@POISON_AT``): exactly
     one skipped update, its batch the NaN one, its params unchanged, no
     rollback; then row 4 on ``memory_type=native`` (the C++ ring) once,
     unpaced.  Each update: no draw, 10 + 9 bf16 GEMMs (an eager step);
@@ -3500,8 +3534,8 @@ def wide_torso():
         "top_device_ms": r.get("top_device_ms", [])[:8]}
     for name, backend, sets, steps in (
             ("anakin", "process", ("actor_backend=anakin",
-                                   "rollout_ratio=16"), 300),
-            ("thread", "thread", (), 200)):
+                                   "rollout_ratio=16"), 200),
+            ("thread", "thread", (), 120)):
         torch.cuda.reset_peak_memory_stats(DEV)
         run, summary = _train_through_main(
             backend, f"wide_{name}", *sets, "evaluator_nepisodes=0",
@@ -3925,15 +3959,20 @@ def _scalar_values(refs: str, tag: str) -> list:
             if r["tag"] == tag]
 
 
-def _ddpg_mode2(config: int, refs: str, episodes: int) -> dict:
+def _mode2(config: int, refs: str, episodes: int, *sets: str) -> dict:
+    """Mode 2 on the card over ``episodes`` episodes of the run ``refs``'s
+    params; ``sets`` are more ``--set`` values."""
     from pytorch_distributed_tpu_torch import main as port_main
     from pytorch_distributed_tpu_torch.config import build_options
 
     model_file = build_options(config, root_dir=RUN_DIR,
                                refs=refs).model_name
-    stats = port_main.main(["--config", str(config), "--mode", "2",
-                            "--device", "cuda", "--model-file", model_file,
-                            "--set", f"tester_nepisodes={episodes}"])
+    argv = ["--config", str(config), "--mode", "2", "--device", "cuda",
+            "--model-file", model_file,
+            "--set", f"tester_nepisodes={episodes}"]
+    for kv in sets:
+        argv += ["--set", kv]
+    stats = port_main.main(argv)
     if stats["nepisodes"] != episodes or not all(
             math.isfinite(v) for v in stats.values()):
         raise AssertionError(f"row {config} mode 2: {stats}")
@@ -3988,7 +4027,7 @@ def _ddpg_row2_process() -> dict:
         last_losses={t: v[-1] for t, v in losses.items()},
         poison_grad=dict(skipped_update=int(hit[0]) + 1,
                          params_unchanged=True, rollbacks=0),
-        mode2=_ddpg_mode2(2, refs, 1))
+        mode2=_mode2(2, refs, 1))
 
 
 def _ddpg_row16_learns() -> dict:
@@ -4019,7 +4058,7 @@ def _ddpg_row16_learns() -> dict:
             or not math.isfinite(summary["learner/critic_loss"])
             or summary["runtime/children_with_cuda"] != 0):
         raise AssertionError(f"(b) {launches} launches, {summary}")
-    stats = _ddpg_mode2(16, refs, 5)
+    stats = _mode2(16, refs, 5)
     if stats["avg_reward"] < R16_BAR:
         raise AssertionError(f"(b) row 16 missed the learning bar "
                              f"{R16_BAR}: {stats}")
@@ -4050,7 +4089,10 @@ def _ddpg_per_megabatch() -> dict:
     try:
         r, summary = _train_through_main(
             "process", refs, "memory_type=device-per",
-            f"megabatch={DDPG_MB}", "actor_backend=batched", config=2,
+            f"megabatch={DDPG_MB}", "actor_backend=batched",
+            # timer rows every 500 env steps (DDPG's 2,500 can outlast a
+            # slow host's run)
+            "actor_freq=500", config=2,
             steps=DDPG_MB_STEPS, megabatch=DDPG_MB, torso=False,
             batch=DDPG_BATCH, envs=DDPG_ENVS, learn_start=250)
     finally:
@@ -4159,8 +4201,9 @@ def _state_leaves(tree) -> list:
     return []
 
 
-def _r2d2_graph_matches_eager() -> dict:
-    """Row 14 at full width: R14_CHAIN dispatches replayed from a CUDA
+def _segment_graph_matches_eager(config: int = 14, **overrides) -> dict:
+    """Row ``config`` (14 unless said; ``overrides`` are build_options
+    keywords) at full width: R14_CHAIN dispatches replayed from a CUDA
     graph (after the wrapper's two eager warm-up calls and the capture)
     against the same dispatches run eagerly from the same train state,
     ring priorities and uniforms, once at one update a dispatch and once
@@ -4178,7 +4221,7 @@ def _r2d2_graph_matches_eager() -> dict:
         GraphedFusedStep, _clone_tree,
     )
 
-    opt = build_options(14, device="cuda")
+    opt = build_options(config, device="cuda", **overrides)
     spec = probe_env(opt)
     batch = opt.agent_params.batch_size
     ring = bench_learner.segment_ring(
@@ -4240,7 +4283,7 @@ def _r2d2_learner_alone() -> dict:
     from pytorch_distributed_tpu_torch.config import build_options
     from pytorch_distributed_tpu_torch.factory import probe_env, update_flops
 
-    chain = _r2d2_graph_matches_eager()
+    chain = _segment_graph_matches_eager()
     diff = max(chain["K1"] + chain[f"K{R14_K}"])
     if diff != 0.0:  # the same kernels in the same order, deterministic
         raise AssertionError(f"(a) graph replay differs from eager: "
@@ -4347,21 +4390,24 @@ def _r2d2_row13_bar(memory_type: str) -> dict:
 R14_ACTOR_TICKS = 120  # (e): segments at tick 80, then every 40
 
 
-def _r2d2_actor_on_card() -> dict:
-    """(e) Row 14's actor inferring on the card in this thread, as the
-    thread backend runs it (the carry on the card, pinned staging, the
-    actor's stream), inline and pipelined over the same ticks with a
-    second snapshot published at ``GPU_SWAP_TICK``: identical segment
-    streams, both with the second weights swapped in."""
+def _r2d2_actor_on_card(config: int = 14) -> dict:
+    """(e) Row ``config``'s actor (14: an LSTM carry; 15: a DTQN window)
+    inferring on the card in this thread, as the thread backend runs it
+    (the carry on the card, pinned staging, the actor's stream), inline
+    and pipelined over the same ticks with a second snapshot published at
+    ``GPU_SWAP_TICK``: identical segment streams, both with the second
+    weights swapped in."""
     from pytorch_distributed_tpu_torch.agents.actor import bounded_actor_run
     from pytorch_distributed_tpu_torch.config import build_options
 
     runs = {}
     for backend in ("inline", "pipelined"):
         r = bounded_actor_run(build_options(
-            14, device="cuda", num_actors=2, num_envs_per_actor=NATIVE_ENVS,
-            actor_backend=backend, actor_freq=10 ** 9,
-            root_dir=os.path.join(RUN_DIR, "r2d2_actor"), refs=backend),
+            config, device="cuda", num_actors=2,
+            num_envs_per_actor=NATIVE_ENVS, actor_backend=backend,
+            actor_freq=10 ** 9,
+            root_dir=os.path.join(RUN_DIR, f"actor_row{config}"),
+            refs=backend),
             R14_ACTOR_TICKS, publish_at=GPU_SWAP_TICK)
         runs[backend] = {"segments": len(r["stream"]),
                          "digest": _digest(r["stream"]),
@@ -4423,6 +4469,166 @@ def r2d2():
     return dict(out, card=card_name_and_power_limit())
 
 
+# rows 15, 17 and 18 (r2d2/fake/chain/sequence/dtqn-*) at full width: the
+# reference's transformer (width 128, 4 heads, depth 2, a window of
+# seq_len + 1 = 81; row 17: 8 experts, top-2, capacity factor 1.25, aux
+# weight 0.01) and the family's defaults (64 segments of 80 steps, n-step
+# 5; burn-in forced 0), the learner alone on a ring of 1,250 segments
+DTQN_ROWS = (15, 17, 18)
+DTQN_BENCH_UPDATES = 20    # (a)'s timed window
+DTQN_STEPS = 120           # (b) and (d)'s updates through main
+# and the cap on their episodes' agent steps: the evaluator's greedy
+# episodes run a full-window forward a step on its CPU
+DTQN_EARLY_STOP = 100
+# (c): the JAX package's tests/test_ring_attention.py:132-174, a second
+# seed allowed as there.  The health plane's rollback is off: its
+# detector never takes a flagged window into its baseline, so the loss
+# level rising when the 1,024-segment ring wraps (about update 800 on
+# the card, after the detector's 8-window warm-up) reads as a streak,
+# and with no epoch the run raises (the reference's detector alike,
+# ROADMAP.md Queue C); the anomalies are still logged
+DTQN_BAR_SETS = ("rollback=false", "learn_start=32", "seq_len=16", "seq_overlap=8",
+                 "nstep=3", "actor_sync_freq=20", "param_publish_freq=5",
+                 "learner_freq=50", "evaluator_freq=2",
+                 "max_replay_ratio=32.0", "lr=1e-3",
+                 "target_model_update=100", "early_stop=200", "eps=0.7",
+                 "eps_alpha=3.0")
+DTQN_BAR_STEPS, DTQN_BAR_SEEDS = 1500, (100, 101)
+
+
+def _dtqn_learner_alone(config: int) -> dict:
+    """(a) One DTQN row's learner alone on a full random device segment
+    ring (``memory_type=device-sequence``): graph == eager over R14_CHAIN
+    dispatches at K = 1 and K = R14_K, graphed updates/s with the
+    counters zeroed before the window (no B1, no B2), the profiler's
+    device ms an update, ``update_flops`` and the MFU over the fp32 peak
+    (the DTQN computes in fp32, TF32 off)."""
+    from pytorch_distributed_tpu_torch import bench_learner
+    from pytorch_distributed_tpu_torch.config import build_options
+    from pytorch_distributed_tpu_torch.factory import probe_env, update_flops
+
+    chain = _segment_graph_matches_eager(config,
+                                      memory_type="device-sequence")
+    diff = max(chain["K1"] + chain[f"K{R14_K}"])
+    if diff != 0.0:
+        raise AssertionError(f"(a) row {config}: graph replay differs from "
+                             f"eager: {chain}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    opt = build_options(config, device="cuda",
+                        memory_type="device-sequence")
+    r = bench_learner.run(opt, updates=DTQN_BENCH_UPDATES, profile=True,
+                          graph=True)
+    if any(r["launches_per_update"].values()):
+        raise AssertionError(f"(a) row {config}: launches per update "
+                             f"{r['launches_per_update']}")
+    RESULTS[f"launches_dtqn_alone_{config}"] = _kernel_launches(
+        r["launches_per_update"], DTQN_BENCH_UPDATES)
+    flops = update_flops(opt, probe_env(opt))
+    ms = r.get("device_ms_per_update")
+    return dict(graph_vs_eager_max_abs_diff=diff, graph_vs_eager=chain,
+                updates_per_sec=r["updates_per_sec"],
+                wall_ms_per_update=r["wall_ms_per_update"],
+                device_ms_per_update=ms, flops_per_update=flops,
+                mfu_fp32=(flops / (ms * 1e-3) / PEAK_FLOPS[torch.float32]
+                          if ms else None),
+                launches_per_update=r["launches_per_update"],
+                peak_allocated_gb=torch.cuda.max_memory_allocated(DEV) / 1e9,
+                top_device_ms=r.get("top_device_ms", [])[:10])
+
+
+def _dtqn_main(config: int) -> dict:
+    """(b), (d) One DTQN row at full width through ``main`` on the process
+    backend with the row's own host ``sequence`` ring (1,250 segments),
+    2 pipelined CPU actors x 16 chain envs, episodes capped at
+    DTQN_EARLY_STOP agent steps, unpaced, DTQN_STEPS updates:
+    no B1 or B2 launch, a finite loss (and a finite ``learner/moe_aux`` on
+    row 17), no child with CUDA; then mode 2, one capped episode with
+    inference on the card."""
+    refs = f"dtqn_row{config}"
+    r, summary = _train_through_main(
+        "process", refs, "pallas_torso=false",
+        f"early_stop={DTQN_EARLY_STOP}", config=config, steps=DTQN_STEPS,
+        draws=False, torso=False, batch=64, envs=16, learn_start=64)
+    RESULTS[f"launches_dtqn_row{config}"] = r["launches"]
+    if summary["runtime/children_with_cuda"] != 0:
+        raise AssertionError(f"row {config}: a child made a CUDA context")
+    aux = summary.get("learner/moe_aux")
+    if (aux is not None) != (config == 17) or (
+            aux is not None and not math.isfinite(aux)):
+        raise AssertionError(f"row {config}: learner/moe_aux {aux}")
+    stats = _mode2(config, refs, 1, f"early_stop={DTQN_EARLY_STOP}")
+    return dict(updates_per_sec=r["updates_per_sec"],
+                frames_per_sec=r["actor_frames_per_sec"],
+                actor_phases_ms=r["actor_phases_ms"], host_s=r["host_s"],
+                train_seconds=r["train_seconds"], launches=r["launches"],
+                critic_loss=r["critic_loss"], moe_aux=aux,
+                moe_aux_logged=_scalar_values(refs, "learner/moe_aux")[-3:],
+                replay_segments=summary["replay/size"], mode2=stats)
+
+
+def _dtqn_row15_bar() -> dict:
+    """(c) Row 15's learning bar at the JAX package's geometry, on the
+    process backend with inference of mode 2 on the card: 5 of 5 episodes
+    solved, ``avg_reward`` at least 0.9 in at most 10 steps, a second seed
+    allowed as the JAX test allows; no B1 or B2 launch."""
+    from pytorch_distributed_tpu_torch import main as port_main
+
+    tries = []
+    for seed in DTQN_BAR_SEEDS:
+        refs = f"dtqn_bar_{seed}"
+        argv = ["--config", "15", "--backend", "process", "--device",
+                "cuda", "--seed", str(seed), "--num-actors", "2",
+                "--steps", str(DTQN_BAR_STEPS), "--memory-size", "8192",
+                "--batch-size", "16", "--set", f"root_dir={RUN_DIR}",
+                "--set", f"refs={refs}"]
+        for kv in DTQN_BAR_SETS:
+            argv += ["--set", kv]
+        _zero_launches()
+        t0 = time.monotonic()
+        summary = port_main.main(argv)
+        wall = time.monotonic() - t0
+        launches = _kernel_launches()
+        RESULTS[f"launches_dtqn_bar_{seed}"] = launches
+        if (any(launches.values())
+                or summary["learner/steps"] < DTQN_BAR_STEPS
+                or summary["runtime/children_with_cuda"] != 0):
+            raise AssertionError(f"(c) {launches}, {summary}")
+        stats = _mode2(15, refs, 5, "seq_len=16", "early_stop=200")
+        tries.append(dict(seed=seed, mode2=stats, run_seconds=wall,
+                          updates_per_sec=summary["learner/updates_per_sec"],
+                          train_seconds=summary["learner/train_seconds"]))
+        if (stats["nepisodes_solved"] == 5.0 and stats["avg_reward"] >= 0.9
+                and stats["avg_steps"] <= 10):
+            return dict(tries=tries)
+    raise AssertionError(f"(c) row 15 missed the bar on both seeds: {tries}")
+
+
+def dtqn():
+    """Rows 15, 17 and 18, the DTQN family, at the reference's widths: (a)
+    each row's learner alone on the device segment ring, graphed, (b) row
+    15 through ``main`` on its host segment ring and mode 2, (c) row 15's
+    learning bar, (d) rows 17 and 18 through ``main`` and mode 2, (e) row
+    15's actor on the card, inline against pipelined.  No kernel of ours
+    is on these paths: the transformer is ``F.linear``, einsums, softmax
+    and LayerNorm (cuBLAS and PyTorch's own kernels), as the JAX
+    package's is outside Pallas."""
+    out = {}
+    parts = [(f"learner_alone_{c}", lambda c=c: _dtqn_learner_alone(c))
+             for c in DTQN_ROWS]
+    parts += [("row15_process", lambda: _dtqn_main(15)),
+              ("row15_bar", _dtqn_row15_bar),
+              ("row17_process", lambda: _dtqn_main(17)),
+              ("row18_process", lambda: _dtqn_main(18)),
+              ("actor_on_card", lambda: _r2d2_actor_on_card(15))]
+    for part, fn in parts:
+        t0 = time.monotonic()
+        out[part] = fn()
+        out[part]["seconds"] = time.monotonic() - t0
+        emit({"dtqn": part, **out[part]})
+    return dict(out, card=card_name_and_power_limit())
+
+
 KERNELS = (
     ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
      "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
@@ -4449,7 +4655,7 @@ def main() -> int:
               inference, train_batched, train_anakin,
               train_device, resume, health_phase, megabatch,
               anakin_megabatch, train_uniform, train_host, small_rows,
-              planes, wide_torso, perf_plane, ddpg, r2d2)
+              planes, wide_torso, perf_plane, ddpg, r2d2, dtqn)
     only = set(sys.argv[1:])  # phase names to run after build; none: all
     unknown = only - {fn.__name__ for fn in phases}
     if unknown:
@@ -4495,7 +4701,15 @@ def main() -> int:
             ("r2d2_row14_process", "launches_r2d2_row14"),
             ("r2d2_row13_sequence", "launches_r2d2_row13_sequence"),
             ("r2d2_row13_device_sequence",
-             "launches_r2d2_row13_device-sequence"))}
+             "launches_r2d2_row13_device-sequence"),
+            ("dtqn15_learner_alone", "launches_dtqn_alone_15"),
+            ("dtqn17_learner_alone", "launches_dtqn_alone_17"),
+            ("dtqn18_learner_alone", "launches_dtqn_alone_18"),
+            ("dtqn15_process", "launches_dtqn_row15"),
+            ("dtqn15_bar_seed100", "launches_dtqn_bar_100"),
+            ("dtqn15_bar_seed101", "launches_dtqn_bar_101"),
+            ("dtqn17_process", "launches_dtqn_row17"),
+            ("dtqn18_process", "launches_dtqn_row18"))}
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=launches.get(name, 0),
                           launches_by_path=by_path,

@@ -703,9 +703,12 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                 # DDPG reports its policy loss where DQN has q_mean
                 second = ("actor_loss" if "learner/actor_loss" in vals
                           else "q_mean")
+                # the MoE's load-balancing loss (reference :759-763)
+                aux = (f" moe_aux {vals['learner/moe_aux']:.5g}"
+                       if "learner/moe_aux" in vals else "")
                 print(f"[learner] step {lstep} "
                       f"loss {vals['learner/critic_loss']:.5g} "
-                      f"{second} {vals['learner/' + second]:.5g} "
+                      f"{second} {vals['learner/' + second]:.5g}{aux} "
                       f"{rate:.1f} updates/s replay {memory.size}", flush=True)
                 if stats is not None:  # reference learner.py:757-766
                     stats.add(counter=1,
@@ -713,6 +716,7 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
                               actor_loss=vals.get("learner/actor_loss", 0.0),
                               q_mean=vals.get("learner/q_mean", 0.0),
                               grad_norm=vals.get("learner/grad_norm", 0.0),
+                              moe_aux=vals.get("learner/moe_aux", 0.0),
                               steps_per_sec=rate)
                 n_skipped = saver.count_skipped(skipped)
                 reason = sentinel.window(lstep, vals, n_skipped, td_mean)

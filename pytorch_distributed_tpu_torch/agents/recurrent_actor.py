@@ -6,18 +6,22 @@ leaves as overlapping episode segments (memory/sequence_replay.py
 ``SegmentBuilder``, one per env) in place of n-step transitions.
 
 - The carry stored with a step is the one the policy held before acting
-  on it: the stored state the learner's burn-in starts from.
+  on it, as the model's ``state_for_segment`` gives it: an LSTM's (c, h)
+  row, the stored state the learner's burn-in starts from, or a
+  transformer's 1-dim placeholder pair (its context is the segment
+  window itself; reference :71-80).
 - A time-limit truncation ends the segment but is not a death: the
   builder gets ``terminal`` False and ``episode_end`` True, so the learner
   bootstraps from the successor obs stored after the tail (reference
   :71-104).
-- The carry lives on the acting device across ticks (no upload of it per
-  tick); an episode's end reaches the next tick's act as a per-row reset
-  mask (models/policies.py ``recurrent_packed_act``), which zeroes the
-  rows before acting.  The host keeps a copy of each tick's post-act
-  carry for the segments and zeroes its rows at the episode's end, so the
-  host copy and the device carry agree at every episode boundary
-  (reference :111-158).
+- The carry (the model's ``zero_carry`` at the start: an LSTM pair, a
+  DTQN's (window, filled) pair) lives on the acting device across ticks
+  (no upload of it per tick); an episode's end reaches the next tick's
+  act as a per-row reset mask (models/policies.py
+  ``recurrent_packed_act``), which zeroes the rows before acting.  The
+  host keeps a copy of each tick's post-act carry for the segments and
+  zeroes its rows at the episode's end, so the host copy and the device
+  carry agree at every episode boundary (reference :111-158).
 
 Schedules: ``inline`` and ``pipelined``, as the flat families' (the next
 tick's act is dispatched before this tick's segments are built; a
@@ -39,7 +43,7 @@ import torch
 
 from pytorch_distributed_tpu_torch.agents.actor import DqnActor
 from pytorch_distributed_tpu_torch.factory import (
-    lstm_dim_of, module_apply, sequence_pack_frames, state_dtype,
+    module_apply, sequence_pack_frames, state_dtype,
 )
 from pytorch_distributed_tpu_torch.memory.sequence_replay import (
     SegmentBuilder,
@@ -56,10 +60,11 @@ class _RecurrentEngine:
     advances the device carry; ``collect`` returns the actions and sets
     ``carry_before`` (the host copy the tick acted from) and
     ``carry_after`` (a new host copy of the post-act carry), which the
-    actor's ``advance`` reads."""
+    actor's ``advance`` reads.  ``zero_carry`` is the model's carry for
+    the actor's envs, each leaf a tensor with a row an env."""
 
     def __init__(self, apply_fn, eps: np.ndarray, gen: torch.Generator,
-                 num_actions: int, lstm_dim: int, obs_shape,
+                 num_actions: int, zero_carry, obs_shape,
                  device: torch.device, stream, pipelined: bool,
                  obs_dtype=np.uint8):
         n = self._n = len(eps)
@@ -67,11 +72,9 @@ class _RecurrentEngine:
         self._num_actions = num_actions
         self._device, self._stream = device, stream
         self._eps = torch.as_tensor(eps, device=device)
-        zeros = lambda: torch.zeros((n, lstm_dim), device=device)
-        self._carry = (zeros(), zeros())
+        self._carry = tuple(c.to(device).clone() for c in zero_carry)
         self.reset_next = np.zeros(n, dtype=bool)
-        self.carry_after = (np.zeros((n, lstm_dim), np.float32),
-                            np.zeros((n, lstm_dim), np.float32))
+        self.carry_after = tuple(c.cpu().numpy().copy() for c in zero_carry)
         self.carry_before = self.carry_after
         self._pool = None
         if device.type == "cuda":
@@ -82,8 +85,8 @@ class _RecurrentEngine:
             self._u, self._a = pin(n, torch.float32), pin(n, torch.int64)
             self._mask = pin(n, torch.bool)
             self._actions = pin(n, torch.int64)
-            self._host_carry = (pin((n, lstm_dim), torch.float32),
-                                pin((n, lstm_dim), torch.float32))
+            self._host_carry = tuple(pin(c.shape, c.dtype)
+                                     for c in zero_carry)
             self._done = torch.cuda.Event()
         elif pipelined:
             self._pool = ThreadPoolExecutor(1, thread_name_prefix="act")
@@ -151,7 +154,6 @@ class RecurrentActor(DqnActor):
     a ``SegmentBuilder`` per env (see the module docstring)."""
 
     def __init__(self, opt, spec, process_ind, *args, **kwargs):
-        self._lstm_dim = lstm_dim_of(opt)
         super().__init__(opt, spec, process_ind, *args, **kwargs)
         ap = self.ap
         self.assemblers = None  # segments replace the n-step windows
@@ -162,9 +164,11 @@ class RecurrentActor(DqnActor):
             for _ in range(self.num_envs)]
 
     def _local_engine(self, opt, spec, model, eps, gen, device, stream):
+        self._state_for_segment = model.state_for_segment
         return _RecurrentEngine(
-            module_apply(model), eps, gen, spec.num_actions, self._lstm_dim,
-            spec.state_shape, device, stream,
+            module_apply(model), eps, gen, spec.num_actions,
+            model.zero_carry(self.num_envs), spec.state_shape, device,
+            stream,
             pipelined=self.backend == "pipelined",
             obs_dtype=state_dtype(opt))
 
@@ -180,7 +184,7 @@ class RecurrentActor(DqnActor):
             for seg in self.builders[j].push(
                     self._obs[j], int(actions[j]), float(rewards[j]),
                     bool(terminals[j]) and not truncated, true_next,
-                    (before[0][j], before[1][j]),
+                    self._state_for_segment(before, j),
                     episode_end=bool(terminals[j]),
                     prov=make_prov(self.process_ind, j, self._feed_version,
                                    self._birth_step)):
@@ -191,8 +195,8 @@ class RecurrentActor(DqnActor):
                 self._record_episode(j, infos[j])
                 # the host copy's rows start the next episode at zero, as
                 # the reset mask zeroes the device rows in the next act
-                after[0][j] = 0.0
-                after[1][j] = 0.0
+                for c in after:
+                    c[j] = 0
                 self.builders[j].reset()
         self._obs = next_obs
         self._flush_cadence()

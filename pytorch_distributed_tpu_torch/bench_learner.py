@@ -2,8 +2,13 @@
 row's: ``--config 19``, the wide torso; ``--config 2`` or ``16``, DDPG on
 a ``device-per`` ring of low-dim rows; ``--config 14``, R2D2's fused
 burn-in update on the device segment ring of 1,250 frame-packed
-segments), timed alone or beside busy threads, on a ring filled with
-random rows.
+segments; ``--config 13``, ``15``, ``17`` or ``18``, the recurrent and
+transformer Q-networks' update on the row's host ``sequence`` ring, as
+the learner runs it there: a draw on the host, the upload through pinned
+memory, the eager update and the priorities' write-back; with ``--set
+memory_type=device-sequence`` the fused update on the device segment
+ring), timed alone or beside busy threads, on a ring filled with random
+rows.
 
     python -m pytorch_distributed_tpu_torch.bench_learner [--config 12] \\
         [--device cuda] [--torso kernel|module] [--updates 100] \\
@@ -20,6 +25,9 @@ random rows.
     python -m pytorch_distributed_tpu_torch.bench_learner --config 16
     # R2D2 (row 14: 64 segments of 80 steps, burn-in 40, LSTM 512)
     python -m pytorch_distributed_tpu_torch.bench_learner --config 14
+    # DTQN (row 15: 64 windows of 81 steps, width 128, 4 heads, depth 2)
+    python -m pytorch_distributed_tpu_torch.bench_learner --config 15 \\
+        --set memory_type=device-sequence
 
 The dispatch is resolved as the learner resolves it
 (``factory.resolve_fused_step``): with ``megabatch`` M > 1 it runs K/M
@@ -62,6 +70,9 @@ from pytorch_distributed_tpu_torch.memory.device_per import (
 )
 from pytorch_distributed_tpu_torch.memory.device_sequence import (
     DeviceSequenceReplay,
+)
+from pytorch_distributed_tpu_torch.memory.sequence_replay import (
+    SequenceReplay,
 )
 from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
     hierarchical_sample,
@@ -153,6 +164,30 @@ def segment_ring(opt, spec, device,
     return ring
 
 
+def host_segment_ring(opt, spec, rng: np.random.Generator
+                      ) -> SequenceReplay:
+    """The row's host segment ring at the run's geometry, every row valid:
+    standard normal observations, random actions and rewards, whole
+    masks, no death, small random stored carries and random
+    priorities."""
+    ap = opt.agent_params
+    ring = SequenceReplay(
+        segment_capacity(opt), ap.seq_len, spec.state_shape,
+        lstm_dim_of(opt), state_dtype=state_dtype(opt),
+        priority_exponent=opt.memory_params.priority_exponent,
+        importance_weight=opt.memory_params.priority_weight,
+        pack_frames=sequence_pack_frames(opt))
+    ring.obs[...] = rng.normal(size=ring.obs.shape)
+    ring.action[...] = rng.integers(0, spec.num_actions, ring.action.shape)
+    ring.reward[...] = rng.normal(size=ring.reward.shape)
+    ring.mask[...] = 1.0
+    for c in (ring.c0, ring.h0):
+        c[...] = 0.1 * rng.normal(size=c.shape)
+    ring.priority[...] = rng.uniform(0.1, 1.0, ring.capacity)
+    ring.full = True
+    return ring
+
+
 def _busy(kind: str, opt, spec, device, params, stop: threading.Event,
           ticks: list, index: int) -> None:
     env = build_env_vector(opt, index, 16)
@@ -182,7 +217,10 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     if busy == "actor" and opt.agent_type == "r2d2":
         raise ValueError("--busy actor runs the flat families' forward")
     gen = torch.Generator(device=device).manual_seed(opt.seed)
-    if opt.agent_type == "r2d2":
+    host_ring = opt.agent_type == "r2d2" and opt.memory_type == "sequence"
+    if host_ring:
+        ring = host_segment_ring(opt, spec, np.random.default_rng(opt.seed))
+    elif opt.agent_type == "r2d2":
         ring = segment_ring(opt, spec, device, gen)
     else:
         ring = DevicePerReplay(
@@ -196,18 +234,33 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     model = build_model(opt, spec, init_weights=False)  # the structure
     state, step = build_train_state_and_step(
         opt, model, init_params(opt, spec, seed=opt.seed, device=device))
-    M, K, mega_step = resolve_fused_step(opt, model, "bench_learner")
-    fused = ring.build_fused_step(step, ap.batch_size, steps_per_call=K,
-                                  megabatch=M, megabatch_step=mega_step)
-    if device.type == "cuda" and graph:
-        fused = GraphedFusedStep(fused, ring.state, counters=COUNTED)
+    if host_ring:
+        from pytorch_distributed_tpu_torch.agents.learner import upload_batch
+
+        M, K, fused = 1, 1, None
+        rng = np.random.default_rng(opt.seed + 1)
+
+        def dispatch(state):
+            batch = ring.sample(ap.batch_size, rng)
+            state, _m, td = step(state, upload_batch(batch, device))
+            ring.update_priorities(batch.index, td.cpu().numpy())
+            return state
+    else:
+        M, K, mega_step = resolve_fused_step(opt, model, "bench_learner")
+        fused = ring.build_fused_step(step, ap.batch_size, steps_per_call=K,
+                                      megabatch=M, megabatch_step=mega_step)
+        if device.type == "cuda" and graph:
+            fused = GraphedFusedStep(fused, ring.state, counters=COUNTED)
+
+        def dispatch(state):
+            us = torch.rand((K, ap.batch_size), generator=gen, device=device)
+            return fused(state, ring.state, us, 0.4)[0]
 
     def updates_of(n: int) -> None:
         """``n`` updates, rounded up to whole dispatches of K."""
         nonlocal state
         for _ in range(-(-n // K)):
-            us = torch.rand((K, ap.batch_size), generator=gen, device=device)
-            state, _m = fused(state, ring.state, us, 0.4)
+            state = dispatch(state)
 
     stop = threading.Event()
     ticks = [0] * busy_threads
@@ -241,7 +294,7 @@ def run(opt, updates: int = 100, busy: str = "none", busy_threads: int = 2,
     busy_ticks = sum(ticks) - ticks0
     kernel_torso = (opt.model_type == "dqn-cnn"
                     and opt.learner_perf_params.pallas_torso)
-    out = {"config": opt.config,
+    out = {"config": opt.config, "memory_type": opt.memory_type,
            "torso": "kernel" if kernel_torso else "module",
            "compute_dtype": str(compute_dtype(opt)).split(".")[-1],
            "cuda_graph": isinstance(fused, GraphedFusedStep),

@@ -46,7 +46,8 @@ CONFIGS = [
 ]
 
 # the rows this port runs end to end so far
-PORTED_CONFIGS = (1, 2, 3, 4, 6, 8, 9, 10, 12, 13, 14, 16, 19)
+PORTED_CONFIGS = (1, 2, 3, 4, 6, 8, 9, 10, 12, 13, 14, 15, 16, 17, 18,
+                  19)
 
 
 def _default_refs() -> str:
@@ -123,6 +124,20 @@ class ModelParams:
     # the LSTM core's width (drqn-* models, reference config.py:270); the
     # drqn-cnn floors it at 512 (factory.lstm_dim_of)
     lstm_dim: int = 256
+    # the transformer Q-networks' (dtqn-*) width, heads and blocks
+    # (reference config.py:271-274); their window is seq_len + 1
+    tf_dim: int = 128
+    tf_heads: int = 4
+    tf_depth: int = 2
+    # dtqn-moe's routing: experts, choices a token, slot headroom a batch
+    # row and the Switch load-balancing loss's weight (reference
+    # config.py:279-285, models/moe.py).  The reference's mesh fields
+    # (its ParallelParams: sp_size, ep_size, pp_size, ...) come with
+    # ROADMAP.md Queue A item 9; a --set of one raises as unknown
+    moe_experts: int = 8
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
 
 @dataclass

@@ -1,5 +1,6 @@
 """Reference ``DqnCnnModel``, ``DqnCnnWideModel``, ``DqnMlpModel``,
-``DdpgMlpModel``, ``DrqnMlpModel`` and ``DrqnCnnModel`` params -> the
+``DdpgMlpModel``, ``DrqnMlpModel``, ``DrqnCnnModel`` and DTQN
+(``DtqnMlpModel``, ``DtqnMoeModel``, ``DtqnPipelineModel``) params -> the
 port's ``state_dict``.
 
 Takes the flax param tree of pytorch_distributed_tpu/models/dqn_cnn.py as
@@ -31,11 +32,25 @@ and ``lstm.bias`` (4H,) in gate order (i, f, g, o), each kernel
 transposed.  Their ``Dense_0`` is ``fc`` (for the CNN with the (h, w, c)
 rows permuted as above) and ``Dense_1`` is ``head``.
 
+The transformer families (``convert_dtqn``, models/dtqn.py, moe.py,
+dtqn_pipeline.py) map scope to module by ``_dtqn_layout``: the dense and
+MoE families' ``Dense_0`` is ``embed``, ``Dense_1`` ``head``,
+``LayerNorm_0`` ``head_ln``, and block i's (``_Block_i`` or
+``_MoeBlock_i``) ``LayerNorm_0``, ``Dense_0``, ``Dense_1``,
+``LayerNorm_1`` are ``blocks.i.ln1``, ``qkv``, ``proj``, ``ln2``, then
+the dense block's ``Dense_2``, ``Dense_3`` ``ffn1``, ``ffn2`` and the MoE
+block's ``moe/router`` and ``moe/{w1,b1,w2,b2}`` (the expert tensors as
+they are, E leading); the stacked family's ``embed_in``, ``head_ln``,
+``head_q`` and ``blocks/*`` (each ``*_k`` transposed layer by layer, the
+depth axis leading).  LayerNorm's ``scale`` is torch's ``weight``.
+
 The transform is linear and per-leaf, so Adam moments (and gradients) of
 the same tree go through it unchanged in meaning.  ``flax_leaves`` is its
 inverse, for either model: the port's state_dict as the reference's
 leaves, in the order ``ravel_pytree`` flattens them, which fixes the
 layout of the published parameter vector (agents/param_store.py).
+Flax sorts its keys as strings at every level: ``Dense_0`` < ``Dense_1``
+< ``LayerNorm_0`` < ``_Block_0`` < ``pos_embed``.
 """
 
 from __future__ import annotations
@@ -54,6 +69,7 @@ from pytorch_distributed_tpu_torch.models.ddpg_mlp import (
 )
 from pytorch_distributed_tpu_torch.models.dqn_mlp import HIDDEN_LAYERS
 from pytorch_distributed_tpu_torch.models.drqn import GATES
+from pytorch_distributed_tpu_torch.models.dtqn_pipeline import stacked_shapes
 
 # the MLP's flax scopes in order, the head last
 MLP_LAYERS = HIDDEN_LAYERS + ("head",)
@@ -246,6 +262,86 @@ def _flax_leaves_drqn(state_dict, state_shape
     return sorted(leaves.items(), key=lambda kv: kv[0].split("/"))
 
 
+def _dense(flax_scope: str, torch_name: str):
+    return [(f"{flax_scope}/kernel", f"{torch_name}.weight", True),
+            (f"{flax_scope}/bias", f"{torch_name}.bias", False)]
+
+
+def _norm(flax_scope: str, torch_name: str):
+    return [(f"{flax_scope}/scale", f"{torch_name}.weight", False),
+            (f"{flax_scope}/bias", f"{torch_name}.bias", False)]
+
+
+def _dtqn_layout(family: str, depth: int) -> List[Tuple[str, str, bool]]:
+    """``(flax path, torch key, transposed)`` of every leaf of a DTQN
+    model of ``family`` ("mlp", "moe" or "pipe") and ``depth`` blocks:
+    a transposed leaf is a kernel whose last two axes swap."""
+    if family == "pipe":
+        out = (_dense("embed_in", "embed") + _norm("head_ln", "head_ln")
+               + _dense("head_q", "head"))
+        out += [(f"blocks/{name}", f"blocks.{name}", name.endswith("_k"))
+                for name in stacked_shapes(depth, 1)]
+    else:
+        out = (_dense("Dense_0", "embed") + _dense("Dense_1", "head")
+               + _norm("LayerNorm_0", "head_ln"))
+        scope = "_MoeBlock" if family == "moe" else "_Block"
+        for i in range(depth):
+            f, t = f"{scope}_{i}", f"blocks.{i}"
+            out += (_norm(f"{f}/LayerNorm_0", f"{t}.ln1")
+                    + _dense(f"{f}/Dense_0", f"{t}.qkv")
+                    + _dense(f"{f}/Dense_1", f"{t}.proj")
+                    + _norm(f"{f}/LayerNorm_1", f"{t}.ln2"))
+            if family == "moe":
+                out += _dense(f"{f}/moe/router", f"{t}.moe.router")
+                out += [(f"{f}/moe/{n}", f"{t}.moe.{n}", False)
+                        for n in ("b1", "b2", "w1", "w2")]
+            else:
+                out += (_dense(f"{f}/Dense_2", f"{t}.ffn1")
+                        + _dense(f"{f}/Dense_3", f"{t}.ffn2"))
+    out.append(("pos_embed", "pos_embed", False))
+    return sorted(out, key=lambda e: e[0].split("/"))
+
+
+def _dtqn_family(state_dict) -> Tuple[str, int]:
+    """``(family, depth)`` of a DTQN state_dict."""
+    if "blocks.ln1_s" in state_dict:
+        return "pipe", state_dict["blocks.ln1_s"].shape[0]
+    family = "moe" if any(".moe." in k for k in state_dict) else "mlp"
+    return family, len({k.split(".")[1] for k in state_dict
+                        if k.startswith("blocks.")})
+
+
+def convert_dtqn(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``params`` is ``{"params": {...}}`` or the inner tree of the
+    reference's ``DtqnMlpModel``, ``DtqnMoeModel`` or
+    ``DtqnPipelineModel`` (models/dtqn.py, moe.py, dtqn_pipeline.py): every
+    kernel transposed to a torch weight (the stacked ``blocks/*_k``
+    layer by layer, the depth axis leading), LayerNorm ``scale`` to
+    ``weight``, the MoE's expert tensors as they are."""
+    p = params["params"] if "params" in params else params
+    if "blocks" in p:
+        family, depth = "pipe", np.asarray(p["blocks"]["ln1_s"]).shape[0]
+    else:
+        family = "moe" if "_MoeBlock_0" in p else "mlp"
+        depth = sum(1 for k in p if k.startswith("_"))
+    out = {}
+    for path, key, transposed in _dtqn_layout(family, depth):
+        leaf = p
+        for part in path.split("/"):
+            leaf = leaf[part]
+        leaf = np.asarray(leaf)
+        out[key] = np.swapaxes(leaf, -1, -2) if transposed else leaf
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in out.items()}
+
+
+def _flax_leaves_dtqn(state_dict) -> List[Tuple[str, torch.Tensor]]:
+    family, depth = _dtqn_family(state_dict)
+    return [(path, state_dict[key].transpose(-1, -2) if transposed
+             else state_dict[key])
+            for path, key, transposed in _dtqn_layout(family, depth)]
+
+
 def flax_leaves(state_dict: Mapping[str, torch.Tensor],
                 state_shape: Sequence[int]
                 ) -> List[Tuple[str, torch.Tensor]]:
@@ -257,9 +353,11 @@ def flax_leaves(state_dict: Mapping[str, torch.Tensor],
     layout.  No data is copied.  The wide torso's state_dict (it has
     ``res0.conv0.weight``) and the DDPG model's (``actor_l1.weight``) are
     laid out the same way, and so are the recurrent models' (they have
-    ``lstm.weight_ih``)."""
+    ``lstm.weight_ih``) and the transformers' (``pos_embed``)."""
     if "lstm.weight_ih" in state_dict:
         return _flax_leaves_drqn(state_dict, state_shape)
+    if "pos_embed" in state_dict:
+        return _flax_leaves_dtqn(state_dict)
     if "res0.conv0.weight" in state_dict:
         return _flax_leaves_wide(state_dict, state_shape)
     if "actor_l1.weight" in state_dict:

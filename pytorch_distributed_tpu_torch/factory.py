@@ -7,9 +7,10 @@ and ``anakin_active`` (:108-141), the actor backend's gate
 (:35-46), the device-env predicate ``device_backend_active`` (:270-277),
 the actors' env vector and the stepper's prebuild (:280-353),
 ``sequence_pack_frames`` and ``lstm_dim_of`` (:373-397), ``build_model``
-for ``dqn-cnn``, ``dqn-cnn-wide``, ``dqn-mlp``, ``ddpg-mlp``, ``drqn-mlp``
-and ``drqn-cnn`` (:400-485), ``ddpg_applies`` (:506-510), the r2d2 (its
-DRQN half, :536-633), dqn and ddpg branches of
+for ``dqn-cnn``, ``dqn-cnn-wide``, ``dqn-mlp``, ``ddpg-mlp``, ``drqn-mlp``,
+``drqn-cnn`` and the three ``dtqn-*`` families (:400-485), ``ddpg_applies``
+(:506-510), the r2d2 (:536-633, on one device: no mesh), dqn and ddpg
+branches of
 ``build_train_state_and_step`` (:636-669), the learner's
 train apply gate ``_dqn_train_apply`` (:674-723),
 ``build_megabatch_train_step`` (:726-771), ``resolve_megabatch``
@@ -19,14 +20,15 @@ train apply gate ``_dqn_train_apply`` (:674-723),
 counts the perf plane's MFU divides by (utils/perf.py), where the
 reference reads its compiled programs' cost analysis.
 
-The port runs CONFIGS rows 1, 2, 3, 4, 6, 8, 9, 10, 12, 13, 14, 16 and
-19 (config.PORTED_CONFIGS): the pong-sim, fake-chain, classic (cartpole,
+The port runs CONFIGS rows 1-4, 6, 8-10 and 12-19
+(config.PORTED_CONFIGS): the pong-sim, fake-chain, classic (cartpole,
 pendulum, reacher) and gym envs, the ``dqn-cnn``, ``dqn-cnn-wide``,
-``dqn-mlp``, ``ddpg-mlp``, ``drqn-mlp`` and ``drqn-cnn`` models and
-those seven rings.  The r2d2 family has no megabatch group step and no
-shared inference server, as the reference's (:165-171, :736-741).  Row 19's wide
-torso trains through the module's own forward, as every model but
-``dqn-cnn`` does (``_kernel_torso``).  Anything else raises
+``dqn-mlp``, ``ddpg-mlp``, ``drqn-mlp``, ``drqn-cnn``, ``dtqn-mlp``,
+``dtqn-moe`` and ``dtqn-pipe`` models and those seven rings.  The r2d2
+family has no megabatch group step and no shared inference server, as
+the reference's (:165-171, :736-741).  Row 19's wide torso trains
+through the module's own forward, as every model but ``dqn-cnn`` does
+(``_kernel_torso``).  Anything else raises
 ``NotImplementedError`` naming the ROADMAP queue that will bring it.
 Where the reference warns and takes the Python ring for a native ring
 that cannot be built (:891-905), the port raises with g++'s stderr.
@@ -81,6 +83,11 @@ from pytorch_distributed_tpu_torch.models.dqn_mlp import DqnMlpModel
 from pytorch_distributed_tpu_torch.models.drqn import (
     DrqnCnnModel, DrqnMlpModel,
 )
+from pytorch_distributed_tpu_torch.models.dtqn import DtqnMlpModel
+from pytorch_distributed_tpu_torch.models.dtqn_pipeline import (
+    DtqnPipelineModel,
+)
+from pytorch_distributed_tpu_torch.models.moe import DtqnMoeModel
 from pytorch_distributed_tpu_torch.ops.cuda_torso import (
     build_torso_apply, build_torso_group_apply,
 )
@@ -91,7 +98,7 @@ from pytorch_distributed_tpu_torch.ops.losses import (
     make_optimizer, merge_ddpg_params,
 )
 from pytorch_distributed_tpu_torch.ops.sequence_losses import (
-    build_drqn_train_step,
+    build_drqn_train_step, build_dtqn_train_step,
 )
 from pytorch_distributed_tpu_torch.utils import health
 from pytorch_distributed_tpu_torch.utils.native_build import build_library
@@ -108,7 +115,10 @@ def _gym_env(env_params, process_ind: int = 0):
 ENVS = {"pong-sim": PongSimEnv, "fake": FakeChainEnv,
         "classic": make_classic_env, "gym": _gym_env}
 MODELS = ("dqn-cnn", "dqn-cnn-wide", "dqn-mlp", "ddpg-mlp", "drqn-mlp",
-          "drqn-cnn")
+          "drqn-cnn", "dtqn-mlp", "dtqn-moe", "dtqn-pipe")
+# the transformer families (reference :447-475)
+DTQN_MODELS = {"dtqn-mlp": DtqnMlpModel, "dtqn-moe": DtqnMoeModel,
+               "dtqn-pipe": DtqnPipelineModel}
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -241,9 +251,10 @@ def compute_dtype(opt: Options) -> torch.dtype:
     """The dtype the model computes in: ``compute_dtype`` for the dqn-cnn
     torsos; the DDPG MLP computes in fp32 whatever it says, as the
     reference's (its ``Dense`` layers take no compute dtype), so its MFU
-    divides by the fp32 peak; so does the DRQN MLP.  The DRQN CNN's torso
+    divides by the fp32 peak; so do the DRQN MLP and the transformer
+    families (flax ``Dense`` and einsums in fp32).  The DRQN CNN's torso
     computes in ``compute_dtype``, its LSTM in fp32."""
-    if opt.model_type in ("ddpg-mlp", "drqn-mlp"):
+    if opt.model_type in ("ddpg-mlp", "drqn-mlp", *DTQN_MODELS):
         return torch.float32
     return {"bfloat16": torch.bfloat16,
             "float32": torch.float32}[opt.model_params.compute_dtype]
@@ -345,7 +356,10 @@ def segment_capacity(opt: Options) -> int:
 
 def lstm_dim_of(opt: Options) -> int:
     """The stored carry's width: ``lstm_dim``, floored at 512 for the CNN
-    (its torso's output width; reference :390-397)."""
+    (its torso's output width), and 1 for a transformer, whose segments
+    store a placeholder (reference :390-397)."""
+    if opt.model_type in DTQN_MODELS:
+        return 1
     d = opt.model_params.lstm_dim
     return max(d, 512) if opt.model_type == "drqn-cnn" else d
 
@@ -373,6 +387,19 @@ def build_model(opt: Options, spec: EnvSpec, device=None,
                              lstm_dim=lstm_dim_of(opt),
                              norm_val=spec.norm_val, generator=generator,
                              init_weights=init_weights)
+    elif opt.model_type in DTQN_MODELS:
+        mp_ = opt.model_params
+        kw = dict(window=opt.agent_params.seq_len + 1, dim=mp_.tf_dim,
+                  heads=mp_.tf_heads, depth=mp_.tf_depth,
+                  norm_val=spec.norm_val, generator=generator,
+                  init_weights=init_weights)
+        if opt.model_type == "dtqn-moe":
+            kw.update(num_experts=mp_.moe_experts, top_k=mp_.moe_top_k,
+                      capacity_factor=mp_.moe_capacity_factor)
+        # the acting window and the learner's T+1-long segments share one
+        # positional table
+        model = DTQN_MODELS[opt.model_type](spec.num_actions,
+                                            spec.state_shape, **kw)
     elif opt.model_type == "drqn-cnn":
         model = DrqnCnnModel(spec.num_actions, spec.state_shape,
                              lstm_dim=lstm_dim_of(opt),
@@ -410,7 +437,8 @@ def init_params(opt: Options, spec: EnvSpec, seed: int,
 
 
 def is_recurrent(model: torch.nn.Module) -> bool:
-    return isinstance(model, (DrqnMlpModel, DrqnCnnModel))
+    """A model with a carry: the DRQN and the DTQN families."""
+    return isinstance(model, (DrqnMlpModel, DrqnCnnModel, DtqnMlpModel))
 
 
 def module_apply(model: torch.nn.Module) -> Callable:
@@ -506,16 +534,33 @@ def build_train_state_and_step(opt: Options, model: torch.nn.Module,
     if opt.agent_type == "r2d2":
         if not is_recurrent(model):
             raise _not_ported(f"model_type {opt.model_type!r}")
+        seq = dict(nstep=ap.nstep, gamma=ap.gamma,
+                   enable_double=ap.enable_double,
+                   target_model_update=ap.target_model_update,
+                   rescale_values=ap.value_rescale,
+                   priority_eta=ap.priority_eta, guard=guard)
+        if isinstance(model, DtqnMlpModel):
+            # burn-in refreshes a stale recurrent state, which a
+            # transformer has not: every window position trains
+            # (reference :561-570)
+            if isinstance(model, DtqnMoeModel):
+                # the (q, aux) apply; the frozen target pass is q only
+                # (reference :613-624)
+                step = build_dtqn_train_step(
+                    model.window_q_with_aux, make_optimizers(opt),
+                    burn_in=0, aux_weight=opt.model_params.moe_aux_weight,
+                    target_window_apply=model.window_q, **seq)
+            else:
+                step = build_dtqn_train_step(
+                    model.window_q, make_optimizers(opt), burn_in=0, **seq)
+            return init_train_state(params), step
         if ap.burn_in >= ap.seq_len:
             raise ValueError(f"burn_in={ap.burn_in} must leave a train "
                              f"window inside seq_len={ap.seq_len} (did a "
                              f"--set seq_len override forget burn_in?)")
         step = build_drqn_train_step(
-            model, make_optimizers(opt), burn_in=ap.burn_in, nstep=ap.nstep,
-            gamma=ap.gamma, enable_double=ap.enable_double,
-            target_model_update=ap.target_model_update,
-            rescale_values=ap.value_rescale, priority_eta=ap.priority_eta,
-            packed_frames=sequence_pack_frames(opt), guard=guard)
+            model, make_optimizers(opt), burn_in=ap.burn_in,
+            packed_frames=sequence_pack_frames(opt), **seq)
         return init_train_state(params), step
     if opt.agent_type == "dqn":
         step = build_dqn_train_step(

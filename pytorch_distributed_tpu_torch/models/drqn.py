@@ -109,6 +109,10 @@ class _Drqn(nn.Module):
         z = torch.zeros((batch, self.lstm_dim), device=device)
         return (z, z.clone())
 
+    def state_for_segment(self, carry, j: int):
+        """The stored state a segment keeps: env j's (c, h) row."""
+        return (carry[0][j], carry[1][j])
+
     def torso(self, params: Params, obs: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 

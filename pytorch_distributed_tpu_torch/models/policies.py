@@ -130,12 +130,15 @@ def recurrent_packed_act(apply_fn: Callable, params, obs: torch.Tensor,
                          carry, reset_mask: torch.Tensor, eps: torch.Tensor,
                          explore_u: torch.Tensor, random_a: torch.Tensor):
     """The pipelined actor's recurrent act (reference :546-581): the carry
-    stays on the acting device across ticks, and row j's carry is zeroed
-    before acting where ``reset_mask[j]`` is set (its episode ended at the
-    last tick), which is the row reset the serial loop makes on the host.
-    Returns ``(action, carry')``."""
-    keep = ~reset_mask.view(-1, 1)
-    carry = tuple(torch.where(keep, c, torch.zeros_like(c)) for c in carry)
+    stays on the acting device across ticks, and row j of every carry
+    leaf (an LSTM's (N, H) pair, a DTQN's (N, W, *S) window and (N,)
+    fill) is reset to the model's zero carry before acting where
+    ``reset_mask[j]`` is set (its episode ended at the last tick), which
+    is the row reset the serial loop makes on the host.  Every model's
+    zero carry is zeros.  Returns ``(action, carry')``."""
+    carry = tuple(torch.where(
+        reset_mask.view(-1, *([1] * (c.ndim - 1))), torch.zeros_like(c), c)
+        for c in carry)
     return recurrent_epsilon_greedy_act(apply_fn, params, obs, carry, eps,
                                         explore_u, random_a)
 

@@ -3,9 +3,8 @@ pytorch_distributed_tpu/ops/sequence_losses.py: ``value_rescale`` /
 ``value_unrescale`` (:48-57), ``unpack_frame_stacks`` (:60-69),
 ``unroll`` (:72-81), ``nstep_window_returns`` (:84-116),
 ``_masked_loss_and_priority`` (:119-130), ``_bootstrap_values``
-(:133-141), ``_apply_update`` (:144-157) and ``build_drqn_train_step``
-(:159-229).  The DTQN step (``build_dtqn_train_step``) comes with the
-transformer family.
+(:133-141), ``_apply_update`` (:144-157), ``build_drqn_train_step``
+(:159-229) and ``build_dtqn_train_step`` (:232-312).
 
 ``step(state, batch) -> (state', metrics, seq_priorities)`` on a
 ``SegmentBatch`` of tensors:
@@ -31,6 +30,13 @@ carry)`` runs the torso over all of a window's frames at once and steps
 only the LSTM cell over time.  ``packed_frames=C``: ``batch.obs`` is the
 frame-packed (B, T+C, H, W) and the stacks are rebuilt here, on the
 batch's device.
+
+The DTQN step has the same contract with one causal pass per segment in
+place of the unrolls: ``window_apply(params, obs (B, T+1, *S))`` gives
+(B, T+1, A), or ``(q, aux)`` for the MoE family, whose load-balancing
+loss joins the TD loss with ``aux_weight`` and is reported as
+``learner/moe_aux``.  The target pass runs ``target_window_apply`` where
+one is given (q only), with no gradient.
 """
 
 from __future__ import annotations
@@ -185,6 +191,71 @@ def build_drqn_train_step(model, tx: Callable, *, burn_in: int = 10,
             metrics = {"learner/critic_loss": loss.detach(),
                        "learner/q_mean": q_mean,
                        "learner/grad_norm": global_norm(grads)}
+            return _guarded(guard, new, state, metrics, seq_pr)
+
+    return step
+
+
+def build_dtqn_train_step(window_apply: Callable, tx: Callable, *,
+                          burn_in: int = 10, nstep: int = 5,
+                          gamma: float = 0.99, enable_double: bool = True,
+                          target_model_update: float = 2500,
+                          rescale_values: bool = True,
+                          priority_eta: float = 0.9, aux_weight: float = 0.0,
+                          target_window_apply: Callable = None,
+                          guard: bool = True) -> Callable:
+    """``step(state, batch) -> (state', metrics, seq_priorities (B,))``.
+    The factory passes ``burn_in`` 0 (reference factory.py:565-570): the
+    positions before ``burn_in`` would be attention context only."""
+    h = value_rescale if rescale_values else (lambda x: x)
+    h_inv = value_unrescale if rescale_values else (lambda x: x)
+
+    def split_apply(params, obs):
+        out = window_apply(params, obs)
+        return out if isinstance(out, tuple) else (out, None)
+
+    def target_apply(params, obs):
+        if target_window_apply is not None:
+            return target_window_apply(params, obs)
+        return split_apply(params, obs)[0]
+
+    def step(state: TrainState, batch):
+        T = batch.action.shape[1]
+        to_tm = lambda q: q.transpose(0, 1)[burn_in:]    # (L+1, B, A)
+        with torch.no_grad():
+            q_target_tm = to_tm(target_apply(state.target_params, batch.obs))
+        a_tm = batch.action.t()[burn_in:].long()          # (L, B)
+        r_tm = batch.reward.t()[burn_in:]
+        d_tm = batch.terminal.t()[burn_in:]
+        m_tm = batch.mask.t()[burn_in:]
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in state.params.items()}
+        q, aux = split_apply(leaves, batch.obs)
+        q_tm = to_tm(q)
+        q_sel = torch.gather(q_tm[:T - burn_in], -1, a_tm[..., None])[..., 0]
+        with torch.no_grad():
+            boot = bootstrap_values(q_tm, q_target_tm, enable_double, h_inv)
+            target = h(nstep_window_returns(boot, r_tm, d_tm, m_tm,
+                                            nstep=nstep, gamma=gamma))
+        loss, seq_pr = masked_loss_and_priority(q_sel, target, m_tm,
+                                                batch.weight, priority_eta)
+        if aux is not None:
+            loss = loss + aux_weight * aux
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        with torch.no_grad():
+            q_mean = q_tm.amax(-1).mean()
+            new_params, opt = tx(grads, state.opt_state, state.params)
+            new_step = state.step + 1
+            new = TrainState(new_params, update_target(
+                state.target_params, new_params, new_step,
+                target_model_update), opt, new_step)
+            metrics = {"learner/critic_loss": loss.detach(),
+                       "learner/q_mean": q_mean,
+                       "learner/grad_norm": global_norm(grads)}
+            if aux_weight:
+                metrics["learner/moe_aux"] = (
+                    aux.detach() if aux is not None else torch.zeros_like(q_mean))
             return _guarded(guard, new, state, metrics, seq_pr)
 
     return step

@@ -114,7 +114,8 @@ def test_gym_adapter_matches_the_references(config, game, obs_dim, act_dim):
 
 @pytest.mark.parametrize("config", [2, 9, 10, 16])
 def test_ddpg_rows_build_with_the_reference_defaults(config):
-    assert PORTED_CONFIGS == (1, 2, 3, 4, 6, 8, 9, 10, 12, 13, 14, 16, 19)
+    assert PORTED_CONFIGS == (1, 2, 3, 4, 6, 8, 9, 10, 12, 13, 14, 15, 16,
+                              17, 18, 19)
     opt, jopt = build_options(config), jax_options(config)
     assert opt.agent_type == "ddpg" and opt.model_type == "ddpg-mlp"
     for f in ("clip_grad", "actor_sync_freq", "actor_freq", "learner_freq",

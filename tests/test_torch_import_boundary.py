@@ -42,15 +42,18 @@ def _port_sources():
 
 # the modules of the planes that are on by default, of row 19, of the
 # planes that are off by default (the perf plane, the profile window and
-# mission control) and of DDPG, each of which copies what it needs of its
-# reference module
+# mission control), of DDPG and of the DTQN family, each of which copies
+# what it needs of its reference module
 PLANE_MODULES = ("utils.metrics", "utils.experience", "utils.tracing",
                  "utils.bandwidth", "utils.flow", "utils.render",
                  "models.dqn_cnn_wide", "convert", "utils.perf",
                  "utils.profiling", "utils.telemetry",
                  # DDPG's: the noise, the envs, the model and its steps
                  "utils.random_process", "envs.classic", "envs.gym_adapter",
-                 "models.ddpg_mlp", "ops.losses")
+                 "models.ddpg_mlp", "ops.losses",
+                 # the DTQN family's: attention, the three models, the step
+                 "ops.ring_attention", "models.dtqn", "models.moe",
+                 "models.dtqn_pipeline", "ops.sequence_losses")
 
 
 @pytest.mark.parametrize("name", PLANE_MODULES)

@@ -3,7 +3,8 @@ against the JAX package's (pytorch_distributed_tpu/utils/perf.py) on the
 CPU: the drain's maths, the recapture detector (fed the same counts the
 reference's jit caches would give) and the knob resolution exactly; the
 FLOPs of an update against XLA's cost analysis of the reference's fused
-step within 10% and against the GEMM count exactly; the peak table; the
+step within 10% and against the GEMM count exactly, and rows 15 and 17's
+DTQN update against XLA's within 10%; the peak table; the
 sync audit's attribution; and a short run of row 1 through the runtime
 that exports the learner's and the actors' rows, as the reference's
 acceptance test does (tests/test_perf.py:642-760), without the gateway."""
@@ -266,6 +267,50 @@ def test_update_flops_match_the_gemm_count_and_xla():
         np.float32(0.4)).compile())
     print(f"flops per update at batch {batch}: port {got:.0f} (GEMMs), "
           f"XLA {xla:.0f} ({xla / got - 1:+.2%})")
+    assert abs(xla - got) <= 0.10 * got
+
+
+@pytest.mark.parametrize("config", [15, 17])
+def test_dtqn_update_flops_match_xla(config):
+    """Rows 15 and 17 at the reference's full width and a batch of 4
+    segments: the port's count (the products and einsums, forward and
+    backward, on fake tensors) is within 10% of XLA's cost analysis of the
+    reference's DTQN step, as config 12's is; row 18 computes row 15's
+    products and counts the same."""
+    from pytorch_distributed_tpu.config import build_options as jax_options
+    from pytorch_distributed_tpu.factory import (
+        EnvSpec as JaxEnvSpec, build_model as jax_build_model,
+        build_train_state_and_step as jax_state_and_step,
+        init_params as jax_init_params,
+    )
+    from pytorch_distributed_tpu.memory.sequence_replay import (
+        SegmentBatch as JaxSegmentBatch,
+    )
+
+    batch, obs = 4, (8,)
+    got = update_flops(build_options(config, device="cpu",
+                                     batch_size=batch), EnvSpec(obs, 2, 1.0))
+    if config == 15:
+        assert got == update_flops(build_options(
+            18, device="cpu", batch_size=batch), EnvSpec(obs, 2, 1.0))
+    jopt = jax_options(config, batch_size=batch)
+    jspec = JaxEnvSpec(state_shape=obs, discrete=True, num_actions=2,
+                       action_dim=0, norm_val=1.0)
+    jmodel = jax_build_model(jopt, jspec)
+    jstate, jstep = jax_state_and_step(
+        jopt, jspec, jmodel, jax_init_params(jopt, jspec, jmodel, seed=0))
+    T = jopt.agent_params.seq_len
+    z = lambda *shape: np.zeros(shape, np.float32)
+    segs = JaxSegmentBatch(
+        obs=z(batch, T + 1, *obs), action=np.zeros((batch, T), np.int32),
+        reward=z(batch, T), terminal=z(batch, T),
+        mask=np.ones((batch, T), np.float32), c0=z(batch, 1),
+        h0=z(batch, 1), weight=np.ones(batch, np.float32),
+        index=np.zeros(batch, np.int32))
+    xla = jperf.flops_of_compiled(jax.jit(jstep).lower(jstate, segs)
+                                  .compile())
+    print(f"row {config} flops per update at batch {batch}: port {got:.0f},"
+          f" XLA {xla:.0f} ({xla / got - 1:+.2%})")
     assert abs(xla - got) <= 0.10 * got
 
 

@@ -203,3 +203,71 @@ def test_segment_quarantine_files_match_jax(tmp_path):
                                           err_msg=k)
     flight_recorder.reset()
     jax_fr.reset()
+
+
+# ---------------------------------------------------------------------------
+# Row 15: the DTQN actor (a (window, filled) carry, placeholder segments)
+# ---------------------------------------------------------------------------
+
+def _dtqn_opt(backend: str):
+    return build_options(
+        15, device="cpu", num_actors=1, num_envs_per_actor=3, seq_len=6,
+        seq_overlap=3, actor_freq=10 ** 9, early_stop=10, tf_dim=32,
+        actor_backend=backend)
+
+
+def test_dtqn_inline_and_pipelined_feed_the_same_segments():
+    runs = {b: bounded_actor_run(_dtqn_opt(b), 80)["stream"]
+            for b in ("inline", "pipelined")}
+    assert len(runs["inline"]) > 20
+    _same_segments(runs["inline"], runs["pipelined"])
+    for seg in runs["inline"]:  # the stored state is the placeholder
+        assert seg.c0.shape == seg.h0.shape == (1,)
+        assert not seg.c0.any() and not seg.h0.any()
+
+
+def test_dtqn_acting_stream_matches_the_jax_actor():
+    """The packed act over 12 ticks of 3 rows with epsilons 0.5, 0.2 and
+    0.8 and per-row resets, on converted weights: the port is handed the
+    uniforms and random actions the JAX actor draws from its row keys
+    (``tick_keys``), and acts the same, with the same (window, filled)
+    carry to the bit."""
+    from pytorch_distributed_tpu.models.dtqn import DtqnMlpModel as JaxDtqn
+    from pytorch_distributed_tpu_torch.convert import convert_dtqn
+
+    B, W = 3, 7
+    jm = JaxDtqn(action_space=2, state_shape=(8,), window=W + 1, dim=32,
+                 heads=4, depth=2)
+    jp = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 8)))
+    rng = np.random.default_rng(1)
+    jp = jax.tree_util.tree_map(lambda x: np.asarray(x) + 0.3 * rng.normal(
+        size=x.shape).astype(np.float32), jp)
+    opt = build_options(15, device="cpu", seq_len=W, tf_dim=32)
+    model = build_model(opt, probe_env(opt), init_weights=False)
+    p = convert_dtqn(jp)
+    eps = np.array([0.5, 0.2, 0.8], np.float32)
+    base = jax.random.PRNGKey(9)
+    jact = jpol.build_recurrent_packed_act(jm.apply, jm.zero_carry(1))
+    jcarry, carry = jm.zero_carry(B), model.zero_carry(B)
+    explored = 0
+    for tick in range(12):
+        obs = (rng.random((B, 8)) < 0.3).astype(np.float32)
+        reset = np.zeros(B, bool)
+        if tick in (4, 9):
+            reset[tick % B] = True
+        a_j, jcarry = jact(jp, obs, jcarry, reset, base, tick, eps)
+        # the JAX actor's draws for this tick, row by row
+        u, ra = [], []
+        for key in jpol.tick_keys(base, tick, B):
+            k_explore, k_choice = jax.random.split(key)
+            ra.append(int(jax.random.randint(k_choice, (), 0, 2)))
+            u.append(float(jax.random.uniform(k_explore)))
+        a_t, carry = recurrent_packed_act(
+            model.step, p, torch.from_numpy(obs), carry,
+            torch.from_numpy(reset), torch.from_numpy(eps), torch.tensor(u),
+            torch.tensor(ra))
+        np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j))
+        for want, got in zip(jcarry, carry):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        explored += int((np.array(u) < eps).sum())
+    assert 0 < explored < 12 * B

@@ -291,7 +291,7 @@ def test_main_without_a_gpu_refuses_cuda():
 def test_refuses_what_is_not_ported(what, capsys):
     if what == "config":
         with pytest.raises(NotImplementedError):
-            build_options(15)  # dtqn: not ported yet (ROADMAP.md Queue A)
+            build_options(5)  # Atari: needs ALE and its ROMs
     elif what == "backend":
         # both of the reference's backends run; any other is refused
         # before a worker starts
@@ -368,6 +368,56 @@ def test_main_trains_and_tests_r2d2_rows_on_cpu(config, backend, capsys):
     assert "replay restored from epoch" in out
 
 
+def _dtqn_run(config: int, root: str, *extra):
+    """A DTQN row at a small size: width 32, segments of 6 steps."""
+    argv = _r2d2_run(config, root, "process", *extra)
+    i = argv.index("hidden_dim=16")
+    argv[i - 1:i + 3] = ["--set", "tf_dim=32", "--set", "moe_experts=4"]
+    return argv
+
+
+@pytest.mark.timeout(240)
+@pytest.mark.parametrize("config", [15, 17, 18])
+def test_main_trains_and_tests_dtqn_rows_on_cpu(config, capsys):
+    root = tempfile.mkdtemp(prefix="port_dtqn_")
+    summary = port_main.main(_dtqn_run(config, root, "--set",
+                                       "checkpoint_replay=true"))
+    assert summary["learner/steps"] == 12
+    assert np.isfinite(summary["learner/critic_loss"])
+    assert summary["learner/skipped"] == 0.0
+    assert summary["replay/size"] > 4
+    # the MoE's load-balancing loss, reported and finite (E sum f P >= 1)
+    assert ("learner/moe_aux" in summary) == (config == 17)
+    if config == 17:
+        assert summary["learner/moe_aux"] >= 1.0 - 1e-6
+    stats = port_main.main(["--config", str(config), "--mode", "2",
+                            "--device", "cpu", "--model-file",
+                            f"{root}/models/r", "--set", "early_stop=60",
+                            "--set", "tester_nepisodes=2", "--set",
+                            "seq_len=6", "--set", "tf_dim=32", "--set",
+                            "moe_experts=4"])
+    assert stats["nepisodes"] == 2.0 and np.isfinite(stats["avg_reward"])
+    # the same refs resumes: state and the width-1 segment ring
+    argv = _dtqn_run(config, root, "--set", "checkpoint_replay=true",
+                     "--resume", "r")
+    argv[argv.index("--steps") + 1] = "18"
+    again = port_main.main(argv)
+    out = capsys.readouterr().out
+    assert again["learner/resumed_from_step"] == 12
+    assert again["learner/steps"] == 18
+    assert again["replay/restored_rows"] == summary["replay/size"]
+    assert "replay restored from epoch" in out
+
+
+@pytest.mark.parametrize("field", ["sp_size", "ep_size", "pp_size",
+                                   "mp_size", "parallel_params.sp_size"])
+def test_mesh_fields_raise_on_the_port(field):
+    """The reference's mesh knobs come with Queue A item 9; a --set of one
+    raises instead of being dropped."""
+    with pytest.raises(ValueError, match="unknown option"):
+        build_options(15, device="cpu", **{field: 2})
+
+
 def test_r2d2_megabatch_runs_the_sequential_step(capsys):
     root = tempfile.mkdtemp(prefix="port_r2d2_")
     summary = port_main.main(_r2d2_run(14, root, "thread",
@@ -408,6 +458,87 @@ def test_segment_snapshots_refuse_the_wrong_ring():
         validate_snapshot(wide, snap)
     for m in (host, flat, wide):
         m.close()
+
+
+def test_dtqn_segment_snapshots_are_width_one():
+    """A DTQN ring stores the 1-dim placeholder carry; its snapshots
+    restore into a DTQN ring, host or device, and an LSTM ring of either
+    kind refuses them."""
+    from pytorch_distributed_tpu_torch.factory import (
+        build_memory, lstm_dim_of, probe_env,
+    )
+    from pytorch_distributed_tpu_torch.memory.sequence_replay import Segment
+    from pytorch_distributed_tpu_torch.utils.checkpoint import (
+        CheckpointMismatch, validate_snapshot,
+    )
+
+    kw = dict(device="cpu", seq_len=4, seq_overlap=2, memory_size=64)
+    opt = build_options(15, **kw)
+    assert lstm_dim_of(opt) == 1
+    spec = probe_env(opt)
+    host = build_memory(opt, spec).learner_side
+    host.memory.feed(Segment(
+        obs=np.zeros((5, *spec.state_shape), np.float32),
+        action=np.zeros(4, np.int32), reward=np.zeros(4, np.float32),
+        terminal=np.zeros(4, np.float32), mask=np.ones(4, np.float32),
+        c0=np.zeros(1, np.float32), h0=np.zeros(1, np.float32)))
+    snap = host.snapshot()
+    assert np.asarray(snap["c0"]).shape == (1, 1)
+    rings = [host]
+    for config, extra in ((15, {}), (13, {"lstm_dim": 8})):
+        for mt in ("sequence", "device-sequence"):
+            ring = build_memory(build_options(config, memory_type=mt, **kw,
+                                              **extra), spec).learner_side
+            if mt == "device-sequence":
+                ring.attach(torch.device("cpu"))
+            rings.append(ring)
+            if config == 15:
+                validate_snapshot(ring, snap)
+            else:
+                with pytest.raises(CheckpointMismatch,
+                                   match="carry width 1"):
+                    validate_snapshot(ring, snap)
+    for m in rings:
+        m.close()
+
+
+@pytest.mark.slow
+@pytest.mark.timeout(2400)
+def test_dtqn_chain_learns_through_main():
+    """Row 15's bar at the JAX package's own geometry
+    (tests/test_ring_attention.py:132-174: width 128, segments of 16,
+    1,500 updates, a second seed allowed), on the process backend: mode 2
+    on the trained params solves 5 of 5 episodes.  The health plane's
+    rollback is off, as in chip_smoke.py's run of this bar: the loss
+    level rises when the ring wraps, after the detector's warm-up, which
+    reads as a divergence streak (ROADMAP.md Queue C)."""
+    last = None
+    for seed in (100, 101):
+        root = tempfile.mkdtemp(prefix="port_dtqn_bar_")
+        port_main.main([
+            "--config", "15", "--backend", "process", "--device", "cpu",
+            "--seed", str(seed), "--num-actors", "2", "--steps", "1500",
+            "--memory-size", "8192", "--batch-size", "16",
+            "--set", "learn_start=32", "--set", "seq_len=16",
+            "--set", "seq_overlap=8", "--set", "nstep=3",
+            "--set", "actor_sync_freq=20", "--set", "param_publish_freq=5",
+            "--set", "learner_freq=50", "--set", "evaluator_freq=2",
+            "--set", "max_replay_ratio=32.0", "--set", "lr=1e-3",
+            "--set", "target_model_update=100", "--set", "early_stop=200",
+            "--set", "eps=0.7", "--set", "eps_alpha=3.0",
+            "--set", "rollback=false",
+            "--set", f"root_dir={root}", "--set", "refs=bar",
+            "--no-tensorboard"])
+        last = port_main.main(["--config", "15", "--mode", "2", "--device",
+                               "cpu", "--model-file", f"{root}/models/bar",
+                               "--set", "tester_nepisodes=5", "--set",
+                               "seq_len=16", "--set", "early_stop=200"])
+        if (last["nepisodes_solved"] == 5.0 and last["avg_reward"] >= 0.9
+                and last["avg_steps"] <= 10):
+            break
+    assert last["nepisodes_solved"] == 5.0
+    assert last["avg_reward"] >= 0.9
+    assert last["avg_steps"] <= 10
 
 
 @pytest.mark.slow

@@ -12,6 +12,9 @@ Phases, each printed as one JSON line:
    TMA loads (``UTMALDG``); every instantiation of the fp32 GEMM must hold
    ``UTMALDG``, ``FFMA`` and 128-bit shared loads (``LDS.128``) and no
    local memory (``LDL``/``STL``); prints the registers per thread;
+   beside the builds, times ``import torch`` in a fresh process as it
+   fills the bytecode cache every later process of the script reads
+   (``share_bytecode_cache``) and as it reads it;
 2. per_sample: kernel B1 (the PER draw, one launch) against its plain
    PyTorch version on the card, at config 12's shapes (a 50,000-row
    priority vector, 128 draws), on random priorities and on a case forced
@@ -53,7 +56,7 @@ Phases, each printed as one JSON line:
    eagerly, every chunk column to the bit; ``emit="replay"`` against
    ``emit="chunk"`` fed into a ring, the rings to the bit; device ms per
    dispatch and frames/s of the rollout alone;
-9. actor_tick: one CPU actor in a spawn child set up as the process
+9. actor_tick: one CPU actor in a child set up as the process
    backend's (the CPU, its thread share), 150 ticks of 16 envs inline and
    pipelined on native and numpy Pong: the StepTimer's phases in ms a
    tick, frames/s, and the inline and pipelined transition streams
@@ -79,8 +82,8 @@ Phases, each printed as one JSON line:
    backward bf16 GEMMs, no fp32 GEMM; the actors' timer phases from
    ``scalars.jsonl``;
 13. train_process: the same run on the process backend (actors, the
-   evaluator and the logger in spawn children on the CPU, the learner in
-   this process), after a check of the learner's publication off the
+   evaluator and the logger in forkserver children on the CPU, the
+   learner in this process), after a check of the learner's publication off the
    loop against the inline flatten: the same launches per update, read
    here; a finite loss;
    no child with a CUDA context; ``scalars.jsonl`` with evaluator and
@@ -201,8 +204,8 @@ Phases, each printed as one JSON line:
    draw, 10 + 9
    GEMMs an update; updates/s, frames/s;
 25. train_host: rows 4 (``shared``) and 6 (``prioritized``) through
-   ``main`` on the process backend at replay ratio 8, 120 updates
-   each, row 6 with ``LEARNER_FAULTS=poison_grad@90`` (exactly one
+   ``main`` on the process backend at replay ratio 8, 80 updates
+   each, row 6 with ``LEARNER_FAULTS=poison_grad@60`` (exactly one
    skipped update, its batch the NaN one, its params unchanged, no
    rollback), then row 4 on ``memory_type=native`` unpaced; no draw, 10
    + 9 GEMMs an update;
@@ -212,7 +215,8 @@ Phases, each printed as one JSON line:
 27. planes: config 12's planes that are on by default (provenance,
    tracing, the bandwidth X-ray, flow control, the histogram, bucket and
    span rows), at full width. (a) ``main`` on the process backend, 1,000
-   updates, the defaults: the ``learner/staleness``,
+   updates, the defaults (train_process's run, or one of the phase's own
+   when it runs without it): the ``learner/staleness``,
    ``learner/sample_age`` and ``replay/actor_share`` histogram rows (no
    negative staleness or age; the provenance the learner's windows read
    has actor ids in [0, 2) and env slots in [0, 16)), ``replay/priority``
@@ -239,12 +243,12 @@ Phases, each printed as one JSON line:
    update against eager, to the bit; the learner alone
    (``bench_learner``): updates/s, device ms an update, the peak of
    allocated memory, 1 draw and no GEMM an update; ``main`` with
-   ``actor_backend=anakin`` at ratio 16 (200 updates: updates/s,
+   ``actor_backend=anakin`` at ratio 16 (120 updates: updates/s,
    frames/s, the duty cycle, a finite loss) and on the thread backend
-   with the actors on the card (120 updates), each with 1 draw and no
+   with the actors on the card (80 updates), each with 1 draw and no
    GEMM an update and no evaluator (a greedy episode of the wide torso on
    the evaluator's CPU takes minutes); one pipelined CPU actor of 16 envs
-   in a spawn child, ms a tick over 2 ticks.
+   in a child of the process backend's context, ms a tick over 2 ticks.
 29. perf_plane: config 12 at full width with the perf plane and mission
    control on as a user turns them on (``TPU_APEX_PERF=1``,
    ``TPU_APEX_METRICS=1``, an OpenMetrics endpoint on a free port and the
@@ -354,6 +358,26 @@ Phases, each printed as one JSON line:
    launch. (d) Rows 17 and 18 as (b), ``learner/moe_aux`` finite on row
    17 only. (e) Row 15's actor on the card as r2d2 (e): identical
    segment streams, both swapped to version 2.
+33. fleet: the DCN fleet at config 12's full width through the fleet
+   CLI over 127.0.0.1 (``pytorch_distributed_tpu_torch.fleet``). (a) The
+   learner host here (``--role learner``, the learner on the card, no
+   local actor, no evaluator) and an actor host subprocess (``--role
+   actors``) of 2 pipelined CPU actors x 16 envs, unpaced, 1,000 updates:
+   the learner reaches its steps, ``gateway/chunks_in`` and the ring's
+   rows above 0, 1 draw and 10 + 9 bf16 GEMMs an update, no child with
+   CUDA. (b) The same run carries ``--faults-client`` (a sever, a 0.5 s
+   blackhole and a corrupt frame on each client, all fired) and a
+   gateway sever: every actor reconnects at least once and exits 0 as
+   the learner stops, the gateway's fault fires, the actor host exits 0
+   with no slot abandoned. (c) The Anakin hybrid: ``--actor-backend anakin`` at
+   ``rollout_ratio`` 16 on the learner host and an actor host of one
+   remote actor on the device schedule (on the CPU), 1,500 updates: ring
+   0 took remote rows (``anakin/ingest_rows``), the same launches per
+   update. (d) A ``T_STATUS`` probe (``fetch_status``) during (a) past
+   a third of its updates: both slots claimed, the ``flow`` block, and
+   its conservation ledger balanced (``minted <= ingested + dropped +
+   quarantined + buffered``). Prints updates/s and the fleet's frames/s
+   beside ``train_process``'s.
 
 ``python3 chip_smoke.py PHASE ...`` runs ``build`` and the named phases
 only.  Then a ``kernels`` line (the table PERF.md is written from: B1's
@@ -365,7 +389,8 @@ Anakin runs, on row 8's two runs, on the three host runs, on the
 planes' runs, on row 19's two runs, on the perf plane's three runs and
 on DDPG's three ``main`` runs, R2D2's learner alone and three
 ``main`` runs and the DTQN rows' three learners alone and five ``main``
-runs, all 0; B1 and B2 held at a megabatch group
+runs, all 0, and on the fleet's two learner hosts; B1 and B2 held at a
+megabatch group
 beside their per-update numbers, B1 also at DDPG's draws),
 the
 card's name and power limit, and the verdict as the last line.  Exits non-zero, with no
@@ -391,8 +416,8 @@ import traceback
 import numpy as np
 import torch
 
-# imported (not run) again by the spawn children of the train_process
-# phase, which must not touch the card: the check for a GPU is in
+# imported (not run) again by the children of the process-backend
+# phases, which must not touch the card: the check for a GPU is in
 # ``__main__`` below
 from pytorch_distributed_tpu_torch.bench_gemm import (
     TORSO_GEMMS, time_ms, update_gemms,
@@ -482,11 +507,31 @@ def card_name_and_power_limit() -> str:
 
 # ---------------------------------------------------------------------------
 
+def _import_torch_s(out: dict) -> None:
+    """Seconds of ``import torch`` in a fresh process, twice: the first
+    writes the shared bytecode cache (``share_bytecode_cache``), the
+    second reads it."""
+    for key in ("compiling", "cached"):
+        t0 = time.monotonic()
+        subprocess.run([sys.executable, "-c", "import torch"], check=True,
+                       timeout=300)
+        out[key] = time.monotonic() - t0
+
+
 def build():
     t0 = time.monotonic()
+    # beside the nvcc builds, and it fills the cache every child reads
+    imports: dict = {}
+    timer = threading.Thread(target=_import_torch_s, args=(imports,),
+                             daemon=True)
+    timer.start()
     took = kernels.build()
+    timer.join(timeout=300)
+    if set(imports) != {"compiling", "cached"}:
+        raise AssertionError(f"a fresh import torch failed: {imports}")
     out = {"build_s": time.monotonic() - t0,
-           "per_source_s": took, "flags": " ".join(kernels.NVCC_FLAGS)}
+           "per_source_s": took, "flags": " ".join(kernels.NVCC_FLAGS),
+           "import_torch_s": imports}
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib = kernels.library_path("torso_gemm_sm90")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
@@ -1097,13 +1142,21 @@ def _publisher_matches_inline() -> int:
 
 def train_process():
     """The same run on the process backend: the learner here, the actors,
-    the evaluator and the logger in spawn children on the CPU."""
+    the evaluator and the logger in forkserver children on the CPU."""
     from pytorch_distributed_tpu_torch.config import build_options
     from pytorch_distributed_tpu_torch.utils import checkpoint, metrics
 
     publisher_writes = _publisher_matches_inline()
-    out, summary = _train_through_main("process")
+    # the run is also the planes phase's process run (every default plane
+    # on): the provenance the learner's windows read is kept for it
+    seen: list = []
+    restore = _spy_provenance(seen)
+    try:
+        out, summary = _train_through_main("process")
+    finally:
+        restore()
     RESULTS["launches"] = out["launches"]
+    RESULTS["prov_seen_process"] = seen
     if summary["runtime/children_with_cuda"] != 0:
         raise AssertionError(f"{summary['runtime/children_with_cuda']} "
                              f"children made a CUDA context")
@@ -1232,9 +1285,10 @@ def _digest(stream) -> str:
 
 
 def _actor_tick_child(results, root: str) -> None:
-    """Spawn child: the process backend's actor set-up (the CPU, the
-    thread share of a 2-actor run with an evaluator), then one bounded actor run of ACTOR_TICKS ticks of 16 envs
-    for each env and schedule."""
+    """Child of the process backend's context: its actor set-up (the CPU,
+    the thread share of a 2-actor run with an evaluator), then one bounded
+    actor run of ACTOR_TICKS ticks of 16 envs for each env and
+    schedule."""
     from pytorch_distributed_tpu_torch import runtime
     from pytorch_distributed_tpu_torch.agents.actor import bounded_actor_run
     from pytorch_distributed_tpu_torch.config import build_options
@@ -1271,12 +1325,13 @@ def _actor_tick_child(results, root: str) -> None:
 
 
 def actor_tick():
-    """One CPU actor in a spawn child pinned to the CPU, inline and
-    pipelined, on native and numpy Pong: the StepTimer's phases in ms a
-    tick, and the inline and pipelined transition streams identical."""
-    import multiprocessing as mp
+    """One CPU actor in a child of the process backend's context
+    (``runtime._CTX``) pinned to the CPU, inline and pipelined, on native
+    and numpy Pong: the StepTimer's phases in ms a tick, and the inline
+    and pipelined transition streams identical."""
+    from pytorch_distributed_tpu_torch import runtime
 
-    ctx = mp.get_context("spawn")
+    ctx = runtime._CTX
     results = ctx.Queue()
     child = ctx.Process(target=_actor_tick_child,
                         args=(results, os.path.join(RUN_DIR, "actor_tick")))
@@ -2257,7 +2312,7 @@ def _anakin_loop_traced(sets, start: int, stop: int, name: str) -> dict:
 def train_anakin():
     """Config 12 at full width through ``main`` with ``actor_backend=
     anakin`` on the process backend (the evaluator and the logger in
-    spawn children, the fleet of 2 x 16 envs and the learner in this
+    forkserver children, the fleet of 2 x 16 envs and the learner in this
     process), at strict alternation and at ``rollout_ratio`` 16 (the
     reference's replay ratio 8 at batch 128): 1 draw and 10 + 9 bf16 GEMMs
     per update and no fp32 GEMM, a finite loss, no actor child and no
@@ -2687,9 +2742,9 @@ MB_DISPATCH = 8        # updates a dispatch in the megabatch rates
 MB_UPDATES = 200       # timed updates a rate
 MB_GROUP = 4           # the group the kernels are held at
 ANAKIN_MB_STEPS = 2400
-HOST_STEPS = 120       # each host row, paced at replay ratio 8
-NATIVE_STEPS = 120
-POISON_AT = 90         # the learner dispatch row 6's poison_grad hits
+HOST_STEPS = 80        # each host row, paced at replay ratio 8
+NATIVE_STEPS = 80
+POISON_AT = 60         # the learner dispatch row 6's poison_grad hits
 ROW1_STEPS = 1500
 
 
@@ -3408,13 +3463,11 @@ def _shed_drill() -> dict:
             "seconds": seconds}
 
 
-def planes():
-    """Config 12's default-on planes at full width (see the module
-    docstring): the process run with every plane on, Anakin's ring
-    provenance, the graphed rollout's stamps and the shed drill."""
+def _spy_provenance(seen: list):
+    """Keep each provenance matrix the learner's windows read in ``seen``;
+    returns the undo."""
     from pytorch_distributed_tpu_torch.utils import health
 
-    seen: list = []
     stats = health.provenance_stats
 
     def spy(prov, *a, **kw):
@@ -3422,17 +3475,35 @@ def planes():
         return stats(prov, *a, **kw)
 
     health.provenance_stats = spy
-    try:
-        on, summary = _train_through_main("process", "planes")
-    finally:
+
+    def restore():
         health.provenance_stats = stats
+    return restore
+
+
+def planes():
+    """Config 12's default-on planes at full width (see the module
+    docstring): the process run with every plane on (train_process's, or
+    one of its own when the phase runs without it), Anakin's ring
+    provenance, the graphed rollout's stamps and the shed drill."""
+    if "prov_seen_process" in RESULTS:
+        refs, seen = "process", RESULTS["prov_seen_process"]
+        on = RESULTS["e2e_process"]
+        summary = on["summary"]
+    else:
+        refs, seen = "planes", []
+        restore = _spy_provenance(seen)
+        try:
+            on, summary = _train_through_main("process", refs)
+        finally:
+            restore()
     RESULTS["launches_planes"] = on["launches"]
     if summary["runtime/children_with_cuda"] != 0:
         raise AssertionError("a child made a CUDA context")
     keys = ("updates_per_sec", "actor_frames_per_sec", "host_s",
             "train_seconds", "launches")
     out = {"planes_on": {k: on[k] for k in keys}}
-    out["rows"] = _planes_rows("planes", seen)
+    out["rows"] = _planes_rows(refs, seen)
     if "wire_thread" not in RESULTS:  # run alone: the train phase first
         train()
     wire = RESULTS["wire_thread"]
@@ -3454,8 +3525,9 @@ WIDE_CPU_TICKS = 2
 
 
 def _wide_actor_child(results, root: str) -> None:
-    """Spawn child: the process backend's actor set-up, then one pipelined
-    actor of 16 envs at row 19 on the CPU for WIDE_CPU_TICKS ticks."""
+    """Child of the process backend's context: its actor set-up, then one
+    pipelined actor of 16 envs at row 19 on the CPU for WIDE_CPU_TICKS
+    ticks."""
     from pytorch_distributed_tpu_torch import runtime
     from pytorch_distributed_tpu_torch.agents.actor import bounded_actor_run
     from pytorch_distributed_tpu_torch.config import build_options
@@ -3483,9 +3555,9 @@ def _wide_actor_child(results, root: str) -> None:
 
 
 def _wide_cpu_actor() -> dict:
-    import multiprocessing as mp
+    from pytorch_distributed_tpu_torch import runtime
 
-    ctx = mp.get_context("spawn")
+    ctx = runtime._CTX
     results = ctx.Queue()
     child = ctx.Process(target=_wide_actor_child,
                         args=(results, os.path.join(RUN_DIR, "wide_actor")))
@@ -3534,8 +3606,8 @@ def wide_torso():
         "top_device_ms": r.get("top_device_ms", [])[:8]}
     for name, backend, sets, steps in (
             ("anakin", "process", ("actor_backend=anakin",
-                                   "rollout_ratio=16"), 200),
-            ("thread", "thread", (), 120)):
+                                   "rollout_ratio=16"), 120),
+            ("thread", "thread", (), 80)):
         torch.cuda.reset_peak_memory_stats(DEV)
         run, summary = _train_through_main(
             backend, f"wide_{name}", *sets, "evaluator_nepisodes=0",
@@ -4358,9 +4430,13 @@ def _r2d2_row13_bar(memory_type: str) -> dict:
     sets = R13_SETS + (f"memory_type={memory_type}",) + (
         ("steps_per_dispatch=4",) if memory_type == "device-sequence"
         else ())
+    # one evaluator episode an evaluation (the default 2, uncapped, held
+    # the run's end 36 s on an H100 80GB HBM3 at 700 W): the evaluator
+    # only writes the params file mode 2 reads; the bar is mode 2's
     argv = ["--config", "13", "--backend", "process", "--device", "cuda",
             "--num-actors", "2", "--steps", str(R13_STEPS),
             "--memory-size", "4096", "--batch-size", "16",
+            "--set", "evaluator_nepisodes=1",
             "--set", f"root_dir={RUN_DIR}", "--set", f"refs={refs}"]
     for kv in sets:
         argv += ["--set", kv]
@@ -4629,6 +4705,218 @@ def dtqn():
     return dict(out, card=card_name_and_power_limit())
 
 
+# the fleet phase: config 12 at full width through the fleet CLI, the
+# learner host here and an actor host in a subprocess over 127.0.0.1
+FLEET_STEPS = 1000
+FLEET_HYBRID_STEPS = 1500
+FLEET_LEARN_START = 2000
+# per client: HELLO is frame 0, and the param waits, chunks, ticks and the
+# prefetcher's polls count on; the gateway counts every session frame in
+FLEET_CLIENT_FAULTS = "sever@10,blackhole@20:0.5,corrupt@30"
+FLEET_GATEWAY_FAULTS = "sever@100"
+
+
+def _fleet_sets(refs: str, steps: int, *more: str) -> list:
+    """The flags every host of one fleet run shares: config 12 at full
+    width, 2 actors x 16 envs over the fleet, no evaluator."""
+    argv = ["--config", "12", "--num-actors", "2", "--seed", "100"]
+    for kv in ("num_envs_per_actor=16", f"memory_size={RING_ROWS}",
+               f"batch_size={BATCH}", f"steps={steps}",
+               f"learn_start={FLEET_LEARN_START}",
+               "pallas_torso=true", "learner_freq=100",
+               "evaluator_nepisodes=0", f"early_stop={E2E_EARLY_STOP}",
+               f"root_dir={RUN_DIR}", f"refs={refs}", *more):
+        argv += ["--set", kv]
+    return argv
+
+
+def _actor_host(port: int, sets: list, base: int, count: int,
+                *extra: str):
+    """``fleet --role actors`` in a subprocess: its actors' policies on
+    the CPU, as an actor host runs them."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        root, os.environ.get("PYTHONPATH")))))
+    return subprocess.Popen(
+        [sys.executable, "-m", "pytorch_distributed_tpu_torch.fleet",
+         "--role", "actors", "--coordinator", f"127.0.0.1:{port}",
+         "--actor-base", str(base), "--actor-count", str(count), *sets,
+         *extra], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _fleet_run(refs: str, sets: list, base: int, count: int,
+               host_extra: tuple = (), learner_extra: tuple = (),
+               probe=None, wait_dial: bool = False) -> tuple:
+    """One fleet run: the actor host first (its clients redial until the
+    gateway is up), then the learner host through ``fleet.main`` here,
+    the launch counters zeroed just before it and read just after; the
+    actor host must exit 0 with every slot done.  ``wait_dial``: the
+    learner host starts only once a client of the actor host has dialled
+    the port (a listener here takes that first connection and closes,
+    and the client redials the gateway), so a short learner run cannot
+    end before a remote actor is up.  Returns the learner's summary, the
+    launches, each actor's reconnects and faults fired, and what the
+    status probe saw."""
+    import socket
+
+    from pytorch_distributed_tpu_torch import fleet
+
+    lsn = socket.create_server(("127.0.0.1", 0))
+    port = lsn.getsockname()[1]
+    if not wait_dial:
+        lsn.close()
+    host = _actor_host(port, sets, base, count, *host_extra)
+    if wait_dial:
+        lsn.settimeout(120.0)
+        try:
+            conn, _addr = lsn.accept()
+            conn.close()
+        finally:
+            lsn.close()
+    stop = threading.Event()
+    probed: dict = {}
+    prober = None
+    if probe is not None:
+        prober = threading.Thread(target=probe, args=(port, stop, probed),
+                                  daemon=True)
+        prober.start()
+    try:
+        _zero_launches()
+        summary = fleet.main(["--role", "learner", "--device", "cuda",
+                              "--port", str(port), "--local-actors", "0",
+                              *sets, *learner_extra])
+        launches = _kernel_launches()
+        stop.set()
+        out, _ = host.communicate(timeout=60)
+    finally:
+        stop.set()
+        if host.poll() is None:
+            host.kill()
+            host.wait()
+        for k in ("DCN_FAULTS_CLIENT", "DCN_FAULTS_GATEWAY"):
+            os.environ.pop(k, None)
+    if prober is not None:
+        prober.join(10)
+    tail = out.splitlines()[-30:]
+    if host.returncode != 0 or "out of restart budget" in out:
+        raise AssertionError(f"{refs}: actor host exit {host.returncode}: "
+                             + "\n".join(tail))
+    done = {int(m[1]): (int(m[2]), int(m[3])) for m in re.finditer(
+        r"actor-(\d+) done \(reconnects (\d+), faults (\d+)\)", out)}
+    if sorted(done) != list(range(base, base + count)):
+        raise AssertionError(f"{refs}: actors done {done}: "
+                             + "\n".join(tail))
+    return summary, launches, done, probed
+
+
+def _fleet_status_probe(port: int, stop, out: dict) -> None:
+    """``fetch_status`` every half second while the run goes: the first
+    snapshot past a third of the run with both remote slots claimed."""
+    from pytorch_distributed_tpu_torch.parallel.dcn import fetch_status
+
+    while not stop.wait(0.5):
+        try:
+            st = fetch_status(("127.0.0.1", port), timeout=5.0)
+        except (ConnectionError, OSError):
+            continue
+        out["probes"] = out.get("probes", 0) + 1
+        if (st.get("learner_step", 0) >= FLEET_STEPS // 3
+                and set(st.get("slots", {})) == {"0", "1"}):
+            out["status"] = st
+            return
+
+
+def fleet():
+    """The DCN fleet at config 12's full width: (a) a learner host (``fleet
+    --role learner``, the learner on the card, no local actor) and an
+    actor host subprocess with 2 pipelined CPU actors x 16 envs over
+    127.0.0.1 for FLEET_STEPS updates: the learner reaches its steps,
+    chunks came in and the ring took rows, 1 draw and 10 + 9 bf16 GEMMs an
+    update; (b) the same run carries scheduled wire faults on every
+    client (a sever, a 0.5 s blackhole, a corrupt frame) and a gateway
+    sever: each actor reconnects at least once, none is abandoned, both
+    hosts exit 0; (c) the Anakin hybrid: ``--actor-backend anakin`` at
+    ``rollout_ratio`` 16 on the learner host and one remote actor on the
+    device schedule (on the CPU), FLEET_HYBRID_STEPS updates: ring 0 took
+    remote rows; (d) a ``T_STATUS`` probe during (a): both slots, the
+    ``flow`` block and its conservation ledger."""
+    out = {}
+    sets = _fleet_sets("fleet", FLEET_STEPS)
+    summary, launches, done, probed = _fleet_run(
+        "fleet", sets, 0, 2,
+        host_extra=("--faults-client", FLEET_CLIENT_FAULTS),
+        learner_extra=("--faults-gateway", FLEET_GATEWAY_FAULTS),
+        probe=_fleet_status_probe)
+    steps = summary["learner/steps"]
+    if steps < FLEET_STEPS or summary["gateway/chunks_in"] <= 0 \
+            or summary["replay/size"] <= 0 or not math.isfinite(
+                summary["learner/critic_loss"]):
+        raise AssertionError(f"fleet (a): {summary}")
+    if launches != expected_launches(steps):
+        raise AssertionError(f"fleet (a): launches {launches} for {steps}")
+    if summary["runtime/children_with_cuda"] != 0:
+        raise AssertionError("fleet (a): a child made a CUDA context")
+    scheduled = len(FLEET_CLIENT_FAULTS.split(","))
+    if any(r < 1 or f != scheduled for r, f in done.values()) \
+            or summary["gateway/faults_injected"] < 1:
+        raise AssertionError(f"fleet (b): reconnects and faults {done}, "
+                             f"gateway {summary['gateway/faults_injected']}")
+    st = probed.get("status")
+    if st is None:
+        raise AssertionError(f"fleet (d): no snapshot with both slots "
+                             f"({probed.get('probes', 0)} probes)")
+    cons = st["flow"]["conservation"]
+    if not cons.get("balanced") or cons["ingested"] <= 0:
+        raise AssertionError(f"fleet (d): conservation {cons}")
+    RESULTS["launches_fleet_process"] = launches
+    out["process"] = {
+        "launches": launches, "steps": steps,
+        "updates_per_sec": summary["learner/updates_per_sec"],
+        "fleet_frames_per_sec": summary["actor/steps_per_sec"],
+        "train_seconds": summary["learner/train_seconds"],
+        "host_s_drain": summary.get("learner/host_s_drain"),
+        "chunks_in": summary["gateway/chunks_in"],
+        "connections": summary["gateway/connections"],
+        "fenced": summary["gateway/fenced"],
+        "gateway_faults": summary["gateway/faults_injected"],
+        "replay_size": summary["replay/size"],
+        "reconnects_and_faults_by_actor": done,
+        "critic_loss": summary["learner/critic_loss"]}
+    out["status"] = {
+        "probes": probed.get("probes"),
+        "learner_step": st["learner_step"], "slots": st["slots"],
+        "flow_state": st["flow"]["state"], "conservation": cons,
+        "learner_steps_per_sec": st.get("learner_steps_per_sec"),
+        "actor_frames_per_sec": st.get("actor_frames_per_sec"),
+        "wire_links": st.get("wire", {}).get("links")}
+    emit({"fleet": "process", **out["process"]})
+    hsets = _fleet_sets("fleet_hybrid", FLEET_HYBRID_STEPS,
+                        "rollout_ratio=16") + ["--actor-backend", "anakin"]
+    summary, launches, done, _ = _fleet_run("fleet_hybrid", hsets, 1, 1,
+                                            wait_dial=True)
+    steps = summary["learner/steps"]
+    if steps < FLEET_HYBRID_STEPS or summary["anakin/ingest_rows"] <= 0:
+        raise AssertionError(f"fleet (c): {summary}")
+    if launches != expected_launches(steps):
+        raise AssertionError(f"fleet (c): launches {launches} for {steps}")
+    RESULTS["launches_fleet_hybrid"] = launches
+    out["anakin_hybrid"] = {
+        "launches": launches, "steps": steps,
+        "updates_per_sec": summary["learner/updates_per_sec"],
+        "ingest_rows": summary["anakin/ingest_rows"],
+        "anakin_frames": summary["anakin/frames"],
+        "fleet_frames_per_sec": summary["actor/steps_per_sec"],
+        "chunks_in": summary["gateway/chunks_in"],
+        "duty_cycle": summary["anakin/duty_cycle"],
+        "train_seconds": summary["learner/train_seconds"],
+        "reconnects_and_faults_by_actor": done}
+    beside = RESULTS.get("e2e_process", {})
+    return dict(out, card=card_name_and_power_limit(), train_process={
+        k: beside.get(k) for k in ("updates_per_sec",
+                                   "actor_frames_per_sec")})
+
+
 KERNELS = (
     ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
      "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
@@ -4641,10 +4929,27 @@ KERNELS = (
 )
 
 
+def share_bytecode_cache(path: str) -> None:
+    """Let every process this script starts from here on (the spawn
+    children of the process backend, the fleet's and the preemption's
+    subprocesses) read one bytecode cache under ``path``.  Where the
+    environment sets PYTHONDONTWRITEBYTECODE and the packages ship no
+    ``__pycache__``, as on the host of the card PERF.md section 7 names,
+    each new process compiles torch's Python anew (``import torch`` 7 s
+    alone, 12 s with four at once there, beside an NVIDIA H100 80GB HBM3,
+    700.00 W) before a run's actors act.  The first process to import a
+    module now writes its bytecode and the rest read it."""
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = path
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = path
+
+
 def main() -> int:
     global RUN_DIR
     t0 = time.monotonic()
     RUN_DIR = tempfile.mkdtemp(prefix="chip_smoke_")
+    share_bytecode_cache(os.path.join(RUN_DIR, "pycache"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4655,7 +4960,7 @@ def main() -> int:
               inference, train_batched, train_anakin,
               train_device, resume, health_phase, megabatch,
               anakin_megabatch, train_uniform, train_host, small_rows,
-              planes, wide_torso, perf_plane, ddpg, r2d2, dtqn)
+              planes, wide_torso, perf_plane, ddpg, r2d2, dtqn, fleet)
     only = set(sys.argv[1:])  # phase names to run after build; none: all
     unknown = only - {fn.__name__ for fn in phases}
     if unknown:
@@ -4709,7 +5014,9 @@ def main() -> int:
             ("dtqn15_bar_seed100", "launches_dtqn_bar_100"),
             ("dtqn15_bar_seed101", "launches_dtqn_bar_101"),
             ("dtqn17_process", "launches_dtqn_row17"),
-            ("dtqn18_process", "launches_dtqn_row18"))}
+            ("dtqn18_process", "launches_dtqn_row18"),
+            ("fleet_process", "launches_fleet_process"),
+            ("fleet_anakin_hybrid", "launches_fleet_hybrid"))}
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=launches.get(name, 0),
                           launches_by_path=by_path,

@@ -299,7 +299,7 @@ class AnakinDriver:
         # previous dispatch's are read after this one is launched
         self._pinned: list = []
         self._pending = None  # (pinned reward, pinned terminal, event)
-        self.counts = dict(rollouts=0, learns=0)
+        self.counts = dict(rollouts=0, learns=0, ingest_rows=0)
         self.timer = StepTimer("anakin")
         # device time on a GPU, host time on the CPU
         self.dispatch_clock = _DeviceClock() if self.cuda else _HostClock()
@@ -553,6 +553,7 @@ class AnakinDriver:
                     if fed:
                         self._fill[0] = min(self._fill[0] + fed,
                                             self.rings[0].capacity)
+                        self.counts["ingest_rows"] += fed
                     spent["drain"] += time.perf_counter() - t0
                 prev = self.lstep
                 if self.want_rollout():
@@ -619,6 +620,8 @@ class AnakinDriver:
             "actor/steps_per_sec": actor_steps / max(seconds, 1e-9),
             "anakin/rollouts": self.counts["rollouts"],
             "anakin/learns": self.counts["learns"],
+            # rows of actors on other hosts drained into ring 0
+            "anakin/ingest_rows": self.counts["ingest_rows"],
             "anakin/frames": self.frames,
             "anakin/duty_cycle": (self.totals["rollout"] / busy
                                   if busy > 0 else 0.0),

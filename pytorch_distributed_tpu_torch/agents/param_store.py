@@ -155,8 +155,12 @@ class ParamPrefetcher:
         while not self._stop.is_set():
             wait = self._poll_secs
             try:
+                # a store with no cheap version read (parallel/dcn.py
+                # RemoteParamStore) is asked directly: its fetch answers
+                # None when nothing is newer
+                ver = getattr(self._store, "version", None)
                 got = (self._store.fetch(self._version)
-                       if self._store.version > self._version else None)
+                       if ver is None or ver > self._version else None)
                 if got is not None:
                     flat, version = got
                     tree, done = self._load(flat)

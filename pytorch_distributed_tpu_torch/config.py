@@ -386,12 +386,13 @@ class AlertParams:
 class FlowParams:
     """Flow control on the local transports (utils/flow.py, reference
     config.py:588-641), each field overridable as ``TPU_APEX_FLOW_<FIELD>``
-    (``TPU_APEX_FLOW=0`` is ``enabled``).  On by default and inert under
-    ``local_policy="block"``.  The reference's DCN fields (the client
-    ring, the gateway's buckets, credits, thresholds and brownout dwell)
-    come with the fleet planes (ROADMAP.md Queue A item 8)."""
+    (``TPU_APEX_FLOW=0`` is ``enabled``).  On by default; inert under
+    ``local_policy="block"`` and, on a gateway, until its pressure
+    crosses ``throttle_at``."""
 
     enabled: bool = True
+    # the chunks a creditless DcnClient parks in its drop-oldest ring
+    client_ring: int = 256
     # "block": a full ingest queue stalls the producer; "shed": bounded
     # drop-oldest buffers, every drop counted and provenance-stamped
     local_policy: str = "block"
@@ -399,6 +400,24 @@ class FlowParams:
     # bound (rows) under "shed"
     feeder_ring: int = 64
     max_pending_rows: int = 65536
+    # the gateway's per-slot token bucket (chunks/s and burst), metering
+    # the throttled grants and the tier-3 shed
+    bucket_rate: float = 200.0
+    bucket_burst: float = 400.0
+    # the credit cap an ack grants while throttled (healthy grants no
+    # credit field, shedding grants 0)
+    credits_throttled: int = 4
+    # the overload governor's thresholds on the 0..1 pressure: sustained
+    # >= throttle_at (then shed_at) for dwell_s climbs one state,
+    # sustained < recover_at for recover_s steps down one
+    throttle_at: float = 0.75
+    shed_at: float = 0.92
+    recover_at: float = 0.50
+    dwell_s: float = 1.0
+    recover_s: float = 3.0
+    # seconds of shedding per brownout rung (1 telemetry, 2 + traces,
+    # 3 + oldest experience)
+    brownout_dwell_s: float = 5.0
 
 
 @dataclass

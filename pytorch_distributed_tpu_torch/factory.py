@@ -171,7 +171,9 @@ def resolve_actor_backend(opt: Options, inference: Any = None) -> str:
     ``anakin`` on a config that
     cannot run it (``anakin_eligible``) to ``device``; ``device`` outside
     the dqn family, or on an env with no device implementation, to
-    ``pipelined``."""
+    ``pipelined``.  A remote actor host (fleet.py) has no server, so its
+    ``batched`` steps down to ``pipelined``; under an ``anakin`` learner
+    its actors run ``device`` (agents/actor.py)."""
     backend = opt.env_params.actor_backend
     if backend not in ACTOR_BACKENDS:
         raise ValueError(f"unknown actor_backend {backend!r} (one of "
@@ -184,8 +186,8 @@ def resolve_actor_backend(opt: Options, inference: Any = None) -> str:
         return "pipelined"
     if backend == "batched" and inference is None:
         warnings.warn("actor_backend=batched but no InferenceClient was "
-                      "wired in (a topology without the server); falling "
-                      "back to pipelined", stacklevel=2)
+                      "wired in (remote actor host, or a topology without "
+                      "the server); falling back to pipelined", stacklevel=2)
         return "pipelined"
     if backend == "anakin":
         ok, why = anakin_eligible(opt)

@@ -23,6 +23,15 @@ reference swaps one in before any worker starts (runtime.py
 ``_use_thread_queue`` :357-372).  ``SlotQueues`` is the transport of both
 owners: ``QueueOwner`` (a host ring, the prioritized one) and
 memory/device_replay.py ``DeviceReplayIngest`` (the device rings).
+
+Remote actors (parallel/dcn.py) reach the same reads: the gateway's
+serve threads, in the learner's process, hand their chunks to
+``put_remote``, which puts them on an in-process queue (the thread
+backend's shared one where there is one) that ``read`` takes with the
+slots' queues.  On the actor's host ``dcn.RemoteMemory`` is a
+``QueueFeeder`` whose queue is the wire, so the flush, its
+``FEEDER_FAULTS`` frames and its traced chunks apply to remote actors
+too.
 """
 
 from __future__ import annotations
@@ -219,6 +228,9 @@ class SlotQueues:
         self._live: Dict[int, object] = {}     # slot -> its queue
         self._retiring: List[object] = []      # replaced, read to the end
         self._producer: Dict[int, object] = {}  # id(queue) -> sentinel
+        # the gateway's chunks, made on the first remote put
+        self._remote: Optional[queue.Queue] = None
+        self._closed = False
         self.torn_reads = 0
         self.quarantine = quarantine
         self.quarantine_max_files = quarantine_max_files
@@ -262,14 +274,37 @@ class SlotQueues:
         ``EOFError`` instead."""
         self._slot_queue(slot)._writer.close()
 
+    def put_remote(self, chunk: list) -> None:
+        """Queue one chunk from the gateway, in this process: on the
+        thread backend's shared queue, else on the remote queue that
+        ``read`` takes with the slots'.  A full queue blocks the serve
+        thread (the gateway's backpressure); raises ValueError once
+        ``close`` ran, as a closed spawn queue does."""
+        if self._shared is not None:
+            q = self._shared
+        else:
+            with self._lock:
+                if self._remote is None:
+                    self._remote = queue.Queue(self.max_queue_chunks)
+                q = self._remote
+        while True:
+            if self._closed:
+                raise ValueError("the ingest is closed")
+            try:
+                q.put(chunk, timeout=0.2)
+                return
+            except queue.Full:
+                continue
+
     def _sources(self) -> list:
-        """(slot or None, queue) of every queue to read: the live slots'
-        and the replaced ones'."""
+        """(slot or None, queue) of every queue to read: the live slots',
+        the gateway's (slot -1) and the replaced ones'."""
         if self._shared is not None:
             return [(0, self._shared)]
         with self._lock:
-            return list(self._live.items()) + [(None, q)
-                                               for q in self._retiring]
+            remote = [(-1, self._remote)] if self._remote is not None else []
+            return (list(self._live.items()) + remote
+                    + [(None, q) for q in self._retiring])
 
     def queue_depth(self) -> Optional[int]:
         """Chunks waiting in every queue (the perf plane's
@@ -299,11 +334,13 @@ class SlotQueues:
     def close(self) -> None:
         """Shut every queue down; pending chunks are dropped (reference
         :339-349)."""
+        self._closed = True
         if self._shared is not None:
             return
         with self._lock:
             qs = list(self._live.values()) + self._retiring
             self._live, self._retiring = {}, []
+            self._remote = None
         for q in qs:
             _close_queue(q)
 

@@ -24,10 +24,16 @@ stops the run and ``run`` raises.  Its counts land in the summary as
 Backends:
 
 - ``process`` (the reference's production topology): each worker is a
-  spawn child that the trampoline pins to the CPU before anything in it
+  child process that the trampoline pins to the CPU before anything in it
   resolves a device, so the learner's process is the only one with a CUDA
-  context.  Each child reports whether CUDA was initialised in it when it
-  exits; the summary's ``runtime/children_with_cuda`` counts them.  Each
+  context.  The reference spawns each child as a fresh interpreter; here
+  each is forked from multiprocessing's forkserver, a fresh interpreter
+  started once that imports torch and this package and never touches
+  CUDA, so no child pays torch's import and none inherits a CUDA context;
+  each child runs under the environment of its own start, as a spawn
+  child does (``_child_main``).  Each child reports whether CUDA was
+  initialised in it when it exits; the summary's
+  ``runtime/children_with_cuda`` counts them.  Each
   actor slot feeds a queue of its own (memory/device_replay.py).  A
   monitor thread supervises the children: a dead actor is respawned with
   the same arguments, a fresh slot queue and, under ``batched``, a fresh
@@ -44,6 +50,12 @@ Backends:
   one in: ``_use_thread_queue`` :357-372), with no restarts.  The threads
   share one GIL with the learner, which is what bounds this backend
   (PERF.md).
+
+The fleet's learner host (fleet.py ``FleetTopology``) builds on this
+class: it runs the actor slots below its ``local_actors`` only
+(``_num_actor_workers``), reads the monitor's ``_restart_budget`` for
+its ``T_STATUS`` and closes its gateway in ``_pre_close``, after the
+workers' join and before the ingest's queues close.
 
 SIGTERM is a preemption notice on either backend when ``run`` is called
 from the main thread: the run drains, the learner commits its final
@@ -105,7 +117,12 @@ from pytorch_distributed_tpu_torch.utils.supervision import (
     EXIT_HUNG, ProgressBoard, RestartBudget, describe_exit,
 )
 
-_CTX = mp.get_context("spawn")
+# A spawn child spent its first seconds importing torch (7-9 s a run,
+# four children at once, on the host of an NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md section 6): the forkserver imports it once
+_CTX = mp.get_context("forkserver")
+_CTX.set_forkserver_preload(
+    ["torch", "pytorch_distributed_tpu_torch.runtime"])
 
 WORKERS: Dict[str, Callable] = {
     "logger": run_logger,
@@ -119,19 +136,23 @@ WORKERS: Dict[str, Callable] = {
 
 
 def enter_child(num_threads: int) -> None:
-    """What every spawn child does before its worker: hide every GPU and
+    """What every worker child does before its worker: hide every GPU and
     take its share of the host's cores."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     torch.set_num_threads(num_threads)
 
 
 def _child_main(role: str, args: tuple, num_threads: int,
-                children_with_cuda) -> None:
-    """Spawn trampoline: ``enter_child``, set the run's device to the CPU
-    before the worker resolves one, run the worker, and count the child in
+                children_with_cuda, environ: Dict[str, str]) -> None:
+    """Child trampoline: take ``environ``, the parent's environment when
+    it started the child (the forkserver's own is that of its first use),
+    ``enter_child``, set the run's device to the CPU before the worker
+    resolves one, run the worker, and count the child in
     ``children_with_cuda`` if CUDA was initialised in it all the same.  A
     worker's exception is recorded and every ring dumped before it
     propagates, so the respawn erases nothing."""
+    os.environ.clear()
+    os.environ.update(environ)
     enter_child(num_threads)
     opt = args[0]  # this child's copy of the Options
     opt.device = "cpu"
@@ -236,6 +257,7 @@ class Topology:
         self._meta: Dict[Any, tuple] = {}  # process -> (role, ind, args)
         self._errors: List[str] = []
         self._threads = 1
+        self._restart_budget: Optional[RestartBudget] = None
 
     def _num_actor_workers(self) -> int:
         return 0 if self.anakin else self.opt.num_actors
@@ -359,6 +381,7 @@ class Topology:
                 self.inference_server.stop()
             if self.mission is not None:
                 self.mission.stop()  # the last tail read and alert pass
+            self._pre_close()
             self.handles.learner_side.close()
             torch.set_num_threads(threads_before)
         if self._errors:
@@ -379,6 +402,10 @@ class Topology:
                             self.inference_server.stats.items()})
         return summary
 
+    def _pre_close(self) -> None:
+        """Runs after the workers' join, before the ingest closes (the
+        fleet's learner host closes its gateway here)."""
+
     def _thread_main(self, role: str, ind: int, args: tuple) -> None:
         try:
             WORKERS[role](*args)
@@ -390,7 +417,7 @@ class Topology:
     def _spawn(self, role: str, ind: int, args: tuple) -> None:
         p = _CTX.Process(target=_child_main,
                          args=(role, args, self._threads,
-                               self.children_with_cuda),
+                               self.children_with_cuda, dict(os.environ)),
                          name=f"{role}-{ind}", daemon=True)
         p.start()
         # the incarnation's start-up grace window starts here
@@ -446,6 +473,7 @@ class Topology:
         children (``_supervise``)."""
         hp = self.health
         budget = RestartBudget(max_restarts=self.max_restarts)
+        self._restart_budget = budget  # the actor slots of this host
         for role, ind, _args in self._meta.values():
             if role == "actor":
                 budget.note_birth(ind)
@@ -486,9 +514,17 @@ class Topology:
         if hp.hang_deadline > 0:
             hung = set(self.progress_board.hung(hp.hang_deadline,
                                                 hp.hang_grace))
-            for p in list(self._workers):
-                if p.name not in hung or p.exitcode is not None:
-                    continue
+            # one kill a pass, the stalest child first, and none within a
+            # deadline of the last: children stalled behind a hung one (a
+            # learner blocked in its pipe stops draining theirs) move again
+            # once it is killed, and a reading taken before that kill is
+            # stale by then
+            stale = sorted((p for p in self._workers
+                            if p.name in hung and p.exitcode is None),
+                           key=lambda p: -self.progress_board.age(p.name))
+            if stale and (time.monotonic() - self._last_kill
+                          > hp.hang_deadline):
+                p = stale[0]
                 age = self.progress_board.age(p.name)
                 print(f"[runtime] {p.name} made no progress for "
                       f"{age:.1f} s; killing it", flush=True)
@@ -505,11 +541,18 @@ class Topology:
                 if not self._replace(p, EXIT_HUNG, budget):
                     return False
             # a learner reading a hung child's pipe goes stale with it,
-            # and reads on once the kill ends the pipe: it is judged only
-            # once a whole deadline has passed since the last kill, so a
-            # busy host's slow wake-up is not taken for a hang
-            if "learner" in hung and (time.monotonic() - self._last_kill
-                                      > hp.hang_deadline):
+            # and reads on once the kill ends the pipe.  Its last mark can
+            # be older than the child's (it marks once a step, the child
+            # once a tick), so it may read as hung before the child does:
+            # it is judged only while no live child has been quiet for
+            # half a deadline (that child is judged first), and once a
+            # whole deadline has passed since the last kill, so a busy
+            # host's slow wake-up is not taken for a hang
+            quiet = set(self.progress_board.hung(
+                hp.hang_deadline / 2, hp.hang_grace)) & {
+                p.name for p in self._workers if p.exitcode is None}
+            if "learner" in hung and not quiet and (
+                    time.monotonic() - self._last_kill > hp.hang_deadline):
                 print(f"[runtime] learner ({describe_exit(EXIT_HUNG)}); "
                       f"ending the process for a resume", flush=True)
                 self.recorder.record("learner-hung")

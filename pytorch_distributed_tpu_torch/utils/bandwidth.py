@@ -2,11 +2,14 @@
 rings — the port of pytorch_distributed_tpu/utils/bandwidth.py's local
 planes: ``resolve_bandwidth`` and ``export_env`` (:81-126), the sizing
 helpers ``payload_nbytes``, ``chunk_nbytes`` and ``replay_nbytes``
-(:149-190), ``LinkAccountant``'s counters and export (``note``,
-``note_transitions``, ``set_gauge``, ``totals``, ``snapshot``,
-``bytes_per_transition``, ``emit_scalars``; :195-354) and the
-process-wide plane with its hooks (:394-525: ``note_spawn``,
-``note_device_replay``, ``note_host_replay``).
+(:149-190), the frame verbs (``register_verbs``, ``verb_name``,
+:137-148), ``LinkAccountant``'s counters and export (``register_socket``,
+``note``, ``note_frame``, ``note_transitions``, ``note_round``,
+``set_gauge``, ``totals``, ``snapshot``, ``bytes_per_transition``,
+``emit_scalars``, ``status_block``; :195-382) and the process-wide plane
+with its hooks (:394-528: ``register_socket``, ``note_frame``,
+``note_spawn``, ``note_device_replay``, ``note_host_replay``,
+``note_round``, ``status_block``).
 
 A ``LinkAccountant`` keeps cumulative ``(bytes, frames)`` per ``link x
 verb x slot x direction`` under a lock never held across I/O.  The port
@@ -28,9 +31,8 @@ device copies of them, ``cursor`` and ``fill_rows``, stand in).
 
 Knobs: ``config.BandwidthParams``, each overridable as
 ``TPU_APEX_WIRE_<FIELD>`` (``TPU_APEX_WIRE=0`` turns the plane off, and
-every hook is then one flag check).  The DCN planes (sockets, frame
-verbs, the replica rounds and ``status_block``) wait for the fleet
-planes (ROADMAP.md Queue A item 8).
+every hook is then one flag check).  ``status_block`` is the gateway's
+``T_STATUS`` ``wire`` block.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import dataclasses
 import os
 import threading
 import time
+import weakref
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 from pytorch_distributed_tpu_torch.config import BandwidthParams
@@ -88,6 +91,19 @@ def export_env(bp: BandwidthParams) -> None:
 
 
 # -- sizing --------------------------------------------------------------
+
+# -- frame verbs: parallel/dcn.py registers its frame types at import ----------
+
+_VERB_NAMES: Dict[int, str] = {}
+
+
+def register_verbs(mapping: Dict[int, str]) -> None:
+    _VERB_NAMES.update({int(k): str(v) for k, v in mapping.items()})
+
+
+def verb_name(ftype: int) -> str:
+    return _VERB_NAMES.get(ftype) or f"t{ftype}"
+
 
 def payload_nbytes(obj, _depth: int = 0) -> int:
     """Array payload bytes of a structured value: ``.nbytes`` summed over
@@ -157,9 +173,29 @@ class LinkAccountant:
         self.params = params if params is not None else resolve_bandwidth()
         self._lock = threading.Lock()
         self._counts: Dict[Tuple[str, str, Optional[int], str], list] = {}
+        # live socket -> (link, slot), weakly: no socket is pinned
+        self._socks: "weakref.WeakKeyDictionary[Any, Tuple[str, Optional[int]]]" \
+            = weakref.WeakKeyDictionary()
         self._gauges: Dict[str, float] = {}
         self.transitions = 0       # rows ingested by a gateway
+        self.rounds = 0            # replica rounds completed
         self._rate: Dict[str, Tuple[float, int]] = {}  # link -> (t, bytes)
+
+    def register_socket(self, sock, link: str,
+                        slot: Optional[int] = None) -> None:
+        """Tag a live socket with its link (and its slot once a HELLO
+        names it)."""
+        try:
+            with self._lock:
+                self._socks[sock] = (link, slot)
+        except TypeError:  # an object that takes no weak reference
+            pass
+
+    def link_of(self, sock) -> Tuple[str, Optional[int]]:
+        try:
+            return self._socks.get(sock) or ("anon", None)
+        except TypeError:
+            return ("anon", None)
 
     def note(self, link: str, verb: str, nbytes: int, direction: str,
              slot: Optional[int] = None, frames: int = 1) -> None:
@@ -171,9 +207,18 @@ class LinkAccountant:
             c[0] += int(nbytes)
             c[1] += int(frames)
 
+    def note_frame(self, sock, ftype: int, nbytes: int,
+                   direction: str) -> None:
+        link, slot = self.link_of(sock)
+        self.note(link, verb_name(ftype), nbytes, direction, slot=slot)
+
     def note_transitions(self, rows: int) -> None:
         with self._lock:
             self.transitions += int(rows)
+
+    def note_round(self) -> None:
+        with self._lock:
+            self.rounds += 1
 
     def set_gauge(self, tag: str, value: float) -> None:
         with self._lock:
@@ -216,6 +261,17 @@ class LinkAccountant:
         nb, _ = self.totals(link="gateway", verb="exp", direction="rx")
         return nb / rows
 
+    def replica_bytes_per_round(self) -> float:
+        """Replica-plane bytes on the gateway link per completed round;
+        0 without rounds."""
+        with self._lock:
+            rounds = self.rounds
+        if rounds <= 0:
+            return 0.0
+        nb = sum(self.totals(link="gateway", verb=v)[0]
+                 for v in ("rlease", "rgrad", "rprio"))
+        return nb / rounds
+
     def emit_scalars(self, now: Optional[float] = None) -> Dict[str, float]:
         """The headline series for ``MetricsWriter.scalars``: each link's
         bytes/s since the previous emit (the first emit only primes the
@@ -238,8 +294,36 @@ class LinkAccountant:
         bpt = self.bytes_per_transition()
         if bpt > 0:
             out["wire/bytes_per_transition"] = bpt
+        bpr = self.replica_bytes_per_round()
+        if bpr > 0:
+            out["wire/replica_bytes_per_round"] = bpr
         out.update(gauges)
         return out
+
+    def status_block(self) -> Dict[str, Any]:
+        """The ``T_STATUS`` ``wire`` block: per-link totals, the ratios
+        and the gauges."""
+        per_link: Dict[str, Dict[str, int]] = {}
+        with self._lock:
+            items = list(self._counts.items())
+            transitions = self.transitions
+            rounds = self.rounds
+            gauges = dict(self._gauges)
+        for (lk, _vb, _slot, dr), (cb, cf) in items:
+            d = per_link.setdefault(lk, {"bytes": 0, "frames": 0,
+                                         "tx_bytes": 0, "rx_bytes": 0})
+            d["bytes"] += cb
+            d["frames"] += cf
+            d["tx_bytes" if dr == "tx" else "rx_bytes"] += cb
+        return {
+            "links": per_link,
+            "transitions": transitions,
+            "rounds": rounds,
+            "bytes_per_transition": round(self.bytes_per_transition(), 2),
+            "replica_bytes_per_round": round(
+                self.replica_bytes_per_round(), 2),
+            "gauges": gauges,
+        }
 
 
 # -- the process's plane (each spawn child resolves its own) -----------------
@@ -274,6 +358,18 @@ def reset_for_tests() -> None:
     with _acct_lock:
         _ACCT = None
         _RESOLVED = False
+
+
+def register_socket(sock, link: str, slot: Optional[int] = None) -> None:
+    acct = get_accountant()
+    if acct is not None:
+        acct.register_socket(sock, link, slot)
+
+
+def note_frame(sock, ftype: int, nbytes: int, direction: str) -> None:
+    acct = get_accountant()
+    if acct is not None:
+        acct.note_frame(sock, ftype, nbytes, direction)
 
 
 def note(link: str, verb: str, nbytes: int, direction: str,
@@ -340,6 +436,12 @@ def note_transitions(rows: int) -> None:
         acct.note_transitions(rows)
 
 
+def note_round() -> None:
+    acct = get_accountant()
+    if acct is not None:
+        acct.note_round()
+
+
 def set_gauge(tag: str, value: float) -> None:
     acct = get_accountant()
     if acct is not None:
@@ -349,3 +451,8 @@ def set_gauge(tag: str, value: float) -> None:
 def emit_scalars() -> Dict[str, float]:
     acct = get_accountant()
     return acct.emit_scalars() if acct is not None else {}
+
+
+def status_block() -> Optional[Dict[str, Any]]:
+    acct = get_accountant()
+    return acct.status_block() if acct is not None else None

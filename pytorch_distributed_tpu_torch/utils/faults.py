@@ -1,8 +1,8 @@
 """Deterministic fault injection — the port of
-pytorch_distributed_tpu/utils/faults.py (:107-305) for the planes the
-port instruments: ``parse_faults`` and ``FaultInjector`` with
-``from_env``, ``frame``, ``data_frame`` and the flight-recorder note
-(``_note``).
+pytorch_distributed_tpu/utils/faults.py (:78-305): ``parse_faults`` and
+``FaultInjector`` with ``scripted``, ``random`` (its ``_RANDOM_RATES``,
+:78-84, :157-175), ``from_env``, ``frame``, ``data_frame`` and the
+flight-recorder note (``_note``).
 
 An instrumented endpoint counts one frame per operation, and an event
 scheduled at that frame fires.  The schedule comes from
@@ -14,10 +14,25 @@ scheduled at that frame fires.  The schedule comes from
   (memory/feeder.py ``QueueFeeder.flush``);
 - ``LEARNER_FAULTS``: the learner, one frame per update dispatch;
 - ``ACTOR_FAULTS``: an actor, one frame per vector tick (one per fused
-  dispatch on the device backend).
+  dispatch on the device backend);
+- ``DCN_FAULTS_CLIENT`` and ``DCN_FAULTS_GATEWAY``: the wire
+  (parallel/dcn.py).  A ``DcnClient`` counts the frames it sends (HELLO
+  is frame 0), a ``DcnGateway`` the frames it receives over every
+  connection; ``fleet --faults-client`` / ``--faults-gateway`` set them.
+
+Each variable holds a scripted spec or ``random:SEED[:HORIZON]``: a
+schedule drawn with numpy from the seed over the first HORIZON (4000)
+frames, in the reference's order, so one seed gives both packages the
+same events.
 
 Actions (``action@frame`` or ``action@frame:arg``):
 
+- ``sever@N``: raise ``InjectedDisconnect`` (a ``ConnectionError``) at
+  frame N: the connection dies and the client's reconnect path recovers;
+- ``blackhole@N:S``: stall S seconds, then sever (a partition that
+  heals);
+- ``corrupt@N``: flip the first and the middle byte of frame N's payload
+  (the peer must drop the frame, never decode it);
 - ``kill@N``: SIGKILL the process at frame N, as a host that loses power;
 - ``crash@N``: raise ``InjectedCrash``, which no handler swallows, so the
   worker dies non-zero and its restart budget engages;
@@ -33,9 +48,7 @@ Actions (``action@frame`` or ``action@frame:arg``):
 
 Every fired event is recorded in the flight recorder, and a fatal one
 (``crash``, ``kill``, ``hang``) dumps every ring of the process first:
-nothing runs after a SIGKILL.  The wire verbs (``sever``, ``blackhole``,
-``corrupt``) and the ``random:SEED`` schedules wait for the fleet planes
-(ROADMAP Queue A item 10).
+nothing runs after a SIGKILL.
 """
 
 from __future__ import annotations
@@ -44,13 +57,25 @@ import os
 import signal
 import threading
 import time
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
 
 from pytorch_distributed_tpu_torch.utils import flight_recorder
 
 FaultEvent = Tuple[int, str, float]  # (frame index, action, arg)
 
-_ACTIONS = ("delay", "crash", "kill", "poison_chunk", "poison_grad", "hang")
+_ACTIONS = ("sever", "delay", "blackhole", "corrupt", "crash", "kill",
+            "poison_chunk", "poison_grad", "hang")
+
+# the random mode's per-frame probabilities, drawn in this order
+_RANDOM_RATES = {"sever": 0.002, "delay": 0.003, "corrupt": 0.001}
+_RANDOM_DELAY_S = 0.05
+
+
+class InjectedDisconnect(ConnectionError):
+    """A fault-injected connection death, handled as a real socket error
+    by the session layer."""
 
 
 class InjectedCrash(RuntimeError):
@@ -99,14 +124,39 @@ class FaultInjector:
         self.injected = 0  # events fired so far
 
     @classmethod
+    def scripted(cls, spec: str, name: str = "") -> "FaultInjector":
+        return cls(parse_faults(spec), name=name)
+
+    @classmethod
+    def random(cls, seed: int, horizon: int = 4000,
+               rates: Optional[Dict[str, float]] = None,
+               name: str = "") -> "FaultInjector":
+        """A reproducible schedule over the first ``horizon`` frames: one
+        ``rng.random(horizon)`` draw per action, in the rates' order.
+        ``crash`` is never drawn: the wire injector only breaks the
+        wire."""
+        rng = np.random.default_rng(seed)
+        events: List[FaultEvent] = []
+        for action, p in (rates if rates is not None
+                          else _RANDOM_RATES).items():
+            hits = np.nonzero(rng.random(horizon) < p)[0]
+            arg = _RANDOM_DELAY_S if action in ("delay", "blackhole") else 0.0
+            events.extend((int(at), action, arg) for at in hits)
+        return cls(events, name=name)
+
+    @classmethod
     def from_env(cls, role: str) -> "FaultInjector":
-        """The schedule in ``{ROLE}_FAULTS``; unset or empty: an injector
-        that fires nothing."""
-        spec = os.environ.get(f"{role.upper()}_FAULTS", "").strip()
+        """The schedule in ``DCN_FAULTS_CLIENT`` / ``DCN_FAULTS_GATEWAY``
+        (roles ``client`` and ``gateway``) or ``{ROLE}_FAULTS``: a
+        scripted spec or ``random:SEED[:HORIZON]``; unset or empty: an
+        injector that fires nothing."""
+        var = (f"DCN_FAULTS_{role.upper()}" if role in ("client", "gateway")
+               else f"{role.upper()}_FAULTS")
+        spec = os.environ.get(var, "").strip()
         if spec.startswith("random:"):
-            raise ValueError(f"{role.upper()}_FAULTS={spec!r}: random "
-                             f"schedules are not ported (ROADMAP Queue A "
-                             f"item 10)")
+            parts = spec.split(":")
+            horizon = int(parts[2]) if len(parts) > 2 else 4000
+            return cls.random(int(parts[1]), horizon=horizon, name=role)
         return cls(parse_faults(spec), name=role)
 
     def _note(self, action: str, frame: int, fatal: bool) -> None:
@@ -118,9 +168,11 @@ class FaultInjector:
             flight_recorder.dump_all(f"injected {action} at frame {frame} "
                                      f"(faults:{self.name})")
 
-    def frame(self) -> None:
-        """Account one operation; fire its scheduled events."""
-        self.data_frame(())
+    def frame(self, payload: bytes = b"") -> bytes:
+        """Account one operation; fire its scheduled events.  Returns the
+        payload, corrupted under ``corrupt``."""
+        payload, _ = self._step(payload, ())
+        return payload
 
     def data_frame(self, want: Tuple[str, ...] = ()
                    ) -> List[Tuple[str, float]]:
@@ -128,6 +180,11 @@ class FaultInjector:
         dispatch, an actor tick): fire the events scheduled at it as
         ``frame`` does, and return the fired ones named in ``want``, which
         the caller applies itself."""
+        _, hits = self._step(b"", tuple(want))
+        return hits
+
+    def _step(self, payload: bytes, want: Tuple[str, ...]
+              ) -> Tuple[bytes, List[Tuple[str, float]]]:
         with self._lock:
             n = self._n
             self._n += 1
@@ -143,6 +200,14 @@ class FaultInjector:
                 hits.append((action, arg))
             elif action == "delay":
                 time.sleep(arg)
+            elif action == "sever":
+                raise InjectedDisconnect(
+                    f"[faults:{self.name}] injected sever at frame {n}")
+            elif action == "blackhole":
+                time.sleep(arg)
+                raise InjectedDisconnect(
+                    f"[faults:{self.name}] blackhole healed after {arg}s "
+                    f"at frame {n}")
             elif action == "crash":
                 raise InjectedCrash(
                     f"[faults:{self.name}] injected crash at frame {n}")
@@ -156,7 +221,17 @@ class FaultInjector:
                     else float("inf")
                 while time.monotonic() < deadline:
                     time.sleep(0.2)
-        return hits
+            elif action == "corrupt":
+                if payload:
+                    # the leading byte (the zip magic) and a middle one: a
+                    # middle flip alone can land in member padding
+                    mutated = bytearray(payload)
+                    for i in {0, len(mutated) // 2}:
+                        mutated[i] ^= 0xFF
+                    payload = bytes(mutated)
+                else:
+                    payload = b"\xff"
+        return payload, hits
 
     @property
     def frames_seen(self) -> int:

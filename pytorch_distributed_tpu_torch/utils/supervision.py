@@ -6,7 +6,8 @@ Per slot: a restart is granted while fewer than ``max_restarts``
 incarnations have crashed *young*; an incarnation that lived longer than
 ``grace`` seconds proves the previous crash was isolated and resets the
 slot's budget, so only genuine crash loops exhaust it.  The runtime's
-monitor (runtime.py ``Topology._monitor``) is the one caller here.
+monitor (runtime.py ``Topology._monitor``) and the fleet's actor host
+(fleet.py ``run_fleet_actors``, with ``backoff``) are its callers.
 """
 
 from __future__ import annotations
@@ -18,11 +19,12 @@ from typing import Dict, Iterable, List, Optional
 _CTX = mp.get_context("spawn")
 
 # Worker exit-code vocabulary, the reference's codes and strings, so logs
-# of either package read alike (EXIT_DISCONNECTED belongs to the fleet
-# plane, which is not ported).  EXIT_HUNG marks a worker the hang
-# watchdog SIGKILLed for making no progress within its deadline
-# (alive-but-stuck: the failure mode that never produces an exit code on
-# its own).
+# of either package read alike.  EXIT_DISCONNECTED is a remote actor's
+# exit on a terminal DCN session loss (fleet.py ``_remote_actor_main``),
+# which its actor host's RestartBudget respawns.  EXIT_HUNG marks a
+# worker the hang watchdog SIGKILLed for making no progress within its
+# deadline (alive-but-stuck: the failure mode that never produces an exit
+# code on its own).
 EXIT_OK = 0
 EXIT_CRASH = 1
 EXIT_DISCONNECTED = 3

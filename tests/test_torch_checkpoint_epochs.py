@@ -254,9 +254,9 @@ def test_fault_specs_and_rng_states_match_the_reference():
     from pytorch_distributed_tpu.utils import faults as jax_faults
     from pytorch_distributed_tpu_torch.utils import faults
 
-    for spec in ("kill@9", " kill@0, kill@17 ,", "kill@3:1.5"):
+    for spec in ("kill@9", " kill@0, kill@17 ,", "kill@3:1.5", "sever@3"):
         assert faults.parse_faults(spec) == jax_faults.parse_faults(spec)
-    for bad in ("kill", "kill@x", "sever@3"):
+    for bad in ("kill", "kill@x", "teleport@3"):
         with pytest.raises(ValueError):
             faults.parse_faults(bad)
     rng = np.random.default_rng(4)

@@ -158,3 +158,110 @@ def test_ingest_pending_bound_sheds_the_oldest(monkeypatch):
     # the newest rows won
     assert sorted(ingest.replay.state.prov[:30, 3].tolist()) == list(
         range(40, 70))
+
+
+# -- the gateway's plane: one injected clock and one pressure trace ----------------
+
+class _Clock:
+    def __init__(self):
+        self.t = 100.0
+
+    def __call__(self):
+        return self.t
+
+
+def _params(mod, **kw):
+    from pytorch_distributed_tpu.config import FlowParams as JFP
+    from pytorch_distributed_tpu_torch.config import FlowParams as PFP
+
+    return (PFP if mod is flow else JFP)(**kw)
+
+
+def test_the_dcn_flow_fields_are_the_reference_defaults():
+    from pytorch_distributed_tpu.config import FlowParams as JFP
+    from pytorch_distributed_tpu_torch.config import FlowParams as PFP
+
+    import dataclasses
+    ref = {f.name: f.default for f in dataclasses.fields(JFP)}
+    ours = {f.name: f.default for f in dataclasses.fields(PFP)}
+    assert ours == ref
+    assert flow.STATE_CODE == jflow.STATE_CODE
+
+
+def test_token_buckets_step_alike():
+    clocks = [_Clock(), _Clock()]
+    buckets = [m.TokenBucket(5.0, 3.0, clock=c)
+               for m, c in zip((flow, jflow), clocks)]
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        dt, n = float(rng.uniform(0, 0.4)), float(rng.choice([0.5, 1, 2]))
+        outs = []
+        for b, c in zip(buckets, clocks):
+            c.t += dt
+            outs.append((b.take(n), b.level()))
+        assert outs[0] == outs[1]
+
+
+# a pressure trace that climbs, holds in the band, sheds long enough for
+# every brownout rung, and recovers
+_TRACE = ([0.2] * 4 + [0.8] * 12 + [0.6] * 6 + [0.95] * 40
+          + [0.7] * 8 + [0.3] * 40)
+
+
+def test_overload_governors_step_alike():
+    kw = dict(dwell_s=1.0, recover_s=3.0, brownout_dwell_s=2.0)
+    clocks = [_Clock(), _Clock()]
+    govs = [m.OverloadGovernor(_params(m, **kw), clock=c)
+            for m, c in zip((flow, jflow), clocks)]
+    seen = set()
+    for p in _TRACE:
+        outs = []
+        for g, c in zip(govs, clocks):
+            c.t += 0.5
+            ret = g.update(p)
+            outs.append((ret, g.state, g.tier, g.transitions))
+        assert outs[0] == outs[1]
+        seen.add((outs[0][1], outs[0][2]))
+    assert {("throttled", 0), ("shedding", 1), ("shedding", 3),
+            ("healthy", 0)} <= seen
+
+
+def test_gateway_flows_step_alike():
+    kw = dict(dwell_s=1.0, recover_s=3.0, brownout_dwell_s=1.0,
+              bucket_rate=4.0, bucket_burst=6.0, credits_throttled=4)
+    pressure = {"p": 0.0}
+    clocks = [_Clock(), _Clock()]
+    flows = [m.GatewayFlow(_params(m, **kw), pressure=lambda: pressure["p"],
+                           clock=c)
+             for m, c in zip((flow, jflow), clocks)]
+    rng = np.random.default_rng(1)
+    minted = {0: 0, 1: 0}
+    for step, p in enumerate(_TRACE * 2):
+        pressure["p"] = p
+        slot = int(rng.integers(0, 2))
+        # a burst of chunks a step outruns the bucket's refill
+        sizes = [int(r) for r in rng.integers(1, 9, int(rng.integers(1, 5)))]
+        minted[slot] += sum(sizes)
+        outs = []
+        for f, c in zip(flows, clocks):
+            c.t += 0.3
+            ok = []
+            for rows in sizes:
+                ok.append(f.admit(slot, rows, nbytes=100 * rows))
+                if ok[-1]:
+                    f.note_ingested_bytes(100 * rows)
+                    f.note_ingested(rows)
+            if step % 5 == 0:
+                f.note_rejected_bytes(7)
+            f.on_client_report(slot, {"minted": minted[slot],
+                                      "acked_bytes": 0, "dropped": 0,
+                                      "buffered": 0})
+            outs.append((ok, f.grant(slot), f.grant(1 - slot),
+                         f.governor.state, f.governor.tier))
+        assert outs[0] == outs[1]
+    blocks = [f.status_block(quarantined=3) for f in flows]
+    assert blocks[0] == blocks[1]
+    cons = blocks[0]["conservation"]
+    assert cons["shed_gateway"] > 0  # tier 3 shed with dry buckets
+    assert cons["minted"] == sum(minted.values())
+    assert cons["ingested"] + cons["shed_gateway"] == sum(minted.values())

@@ -42,8 +42,8 @@ def _port_sources():
 
 # the modules of the planes that are on by default, of row 19, of the
 # planes that are off by default (the perf plane, the profile window and
-# mission control), of DDPG and of the DTQN family, each of which copies
-# what it needs of its reference module
+# mission control), of DDPG, of the DTQN family and of the fleet, each of
+# which copies what it needs of its reference module
 PLANE_MODULES = ("utils.metrics", "utils.experience", "utils.tracing",
                  "utils.bandwidth", "utils.flow", "utils.render",
                  "models.dqn_cnn_wide", "convert", "utils.perf",
@@ -53,7 +53,9 @@ PLANE_MODULES = ("utils.metrics", "utils.experience", "utils.tracing",
                  "models.ddpg_mlp", "ops.losses",
                  # the DTQN family's: attention, the three models, the step
                  "ops.ring_attention", "models.dtqn", "models.moe",
-                 "models.dtqn_pipeline", "ops.sequence_losses")
+                 "models.dtqn_pipeline", "ops.sequence_losses",
+                 # the fleet's: the wire, the fault plane, the CLI
+                 "parallel.dcn", "utils.faults", "fleet")
 
 
 @pytest.mark.parametrize("name", PLANE_MODULES)

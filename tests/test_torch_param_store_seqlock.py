@@ -63,15 +63,23 @@ def test_publish_outlives_a_reader_stopped_and_killed_mid_copy():
             reader.join(10)
 
 
-def _publish_versions(store) -> None:
+def _publish_versions(store, ack) -> None:
     for v in range(1, PUBLISHES + 1):
         store.publish(np.full(store.num_params, v, np.float32))
+        # back to back, a writer can keep every copy of the reader torn
+        # (it retries) until its last publish: wait, at most 5 ms, for the
+        # reader to take this version, then write the next one while it
+        # polls, as a learner's publications go on under an actor's reads
+        until = time.monotonic() + 0.005
+        while ack.value < v and time.monotonic() < until:
+            time.sleep(0)
 
 
 def test_every_fetch_is_one_whole_publish():
     ctx = mp.get_context("spawn")
     store = ParamStore(1 << 18)
-    writer = ctx.Process(target=_publish_versions, args=(store,))
+    ack = ctx.Value("l", 0, lock=False)
+    writer = ctx.Process(target=_publish_versions, args=(store, ack))
     writer.start()
     seen, last = set(), 0
     try:
@@ -84,7 +92,7 @@ def test_every_fetch_is_one_whole_publish():
             assert version > last
             assert flat.min() == flat.max() == version
             seen.add(version)
-            last = version
+            last = ack.value = version
     finally:
         writer.join(60)
     assert writer.exitcode == 0 and last == PUBLISHES and len(seen) > 1

@@ -1,12 +1,13 @@
 """Failure drills of the port's runtime on the process backend (config 12
-at a small size, on the CPU, with spawn children): an actor SIGKILLed
-mid-run is respawned on a fresh slot queue and the run goes on; a spent
-restart budget makes ``run`` raise; an actor SIGSTOPped under the hang
-watchdog is killed and respawned; and ``main`` sent SIGTERM exits 0 with a
-committed epoch, which ``--resume REFS`` continues.  The counts are exact.
+at a small size, on the CPU, with forkserver children): an actor
+SIGKILLed mid-run is respawned on a fresh slot queue and the run goes on;
+a spent restart budget makes ``run`` raise; an actor SIGSTOPped under the
+hang watchdog is killed and respawned, and only it, though the others
+stall behind it; and ``main`` sent SIGTERM exits 0 with a committed
+epoch, which ``--resume REFS`` continues.  The counts are exact.
 
-Each drill carries its own timeout: every child imports torch, so a
-respawn takes some seconds.
+Each drill carries its own timeout: a run's first child waits for the
+forkserver to import torch.
 """
 
 import os
@@ -209,3 +210,85 @@ def test_sigterm_commits_an_epoch_that_resume_continues(tmp_path):
     after = checkpoint.resolve_epoch(name)
     assert after.epoch == 1 and after.learner_step == step + 10
     assert after.extras["actor_step"] >= info.extras["actor_step"]
+
+
+def test_a_learner_stalled_behind_a_quiet_child_is_not_judged_first(
+        tmp_path, monkeypatch):
+    """The learner marks once a step and a child once a tick, so a child
+    stopped mid-put leaves the learner (blocked on that child's pipe)
+    with the older mark: it reads as hung before the child does.  Its
+    verdict waits while a live child has been quiet for half a deadline;
+    the child is judged first, and the learner reads on after the
+    kill."""
+    topo = _topology(tmp_path, "--set", "hang_deadline=3")
+    board, now = topo.progress_board, time.time()
+    for label, age in (("learner", 3.5), ("actor-1", 2.9)):
+        board.note_start(label)
+        board.bump(label)
+        board._last[label].value = now - age
+
+    class _Child:
+        name, exitcode = "actor-1", None
+
+    topo._workers = [_Child()]
+    exits = []
+    monkeypatch.setattr(runtime.os, "_exit", exits.append)
+    from pytorch_distributed_tpu_torch.utils.supervision import (
+        RestartBudget,
+    )
+
+    assert topo._supervise(RestartBudget(), topo.health)
+    assert exits == [] and not topo.clock.stop.is_set()
+    # with no quiet child, a stale learner still ends the process
+    board._last["actor-1"].value = time.time()
+    topo._supervise(RestartBudget(), topo.health)
+    assert exits == [runtime.EXIT_HUNG]
+
+
+def test_the_watchdog_kills_the_stalest_child_and_rereads_the_others(
+        tmp_path, monkeypatch):
+    """A child stopped mid-put leaves the learner blocked in its pipe, so
+    the other actors' queues fill and they go stale with it.  The watchdog
+    kills only the stalest child in a pass and judges the others again a
+    deadline after that kill, by when they have moved on; one still stale
+    then is killed."""
+    from pytorch_distributed_tpu_torch.utils.supervision import (
+        RestartBudget,
+    )
+
+    topo = _topology(tmp_path, "--set", "hang_deadline=3")
+    board, now = topo.progress_board, time.time()
+    for label, age in (("actor-0", 3.2), ("actor-1", 3.6)):
+        board.note_start(label)
+        board.bump(label)
+        board._last[label].value = now - age
+    killed = []
+
+    class _Child:
+        def __init__(self, name):
+            self.name, self.exitcode = name, None
+
+        def kill(self):
+            killed.append(self.name)
+            self.exitcode = -signal.SIGKILL
+
+        def join(self, timeout=None):
+            pass
+
+    kids = [_Child("actor-0"), _Child("actor-1")]
+    topo._workers = list(kids)
+    topo._meta = {k: ("actor", int(k.name[-1]), ()) for k in kids}
+
+    def replace(p, code, budget):
+        topo._workers.remove(p)
+        return True
+
+    monkeypatch.setattr(topo, "_replace", replace)
+    monkeypatch.setattr(runtime.os, "_exit", pytest.fail)
+    assert topo._supervise(RestartBudget(), topo.health)
+    assert killed == ["actor-1"] and topo.hang_kills == 1
+    assert topo._supervise(RestartBudget(), topo.health)
+    assert killed == ["actor-1"]
+    topo._last_kill -= 3.5  # a deadline later, actor-0 still stale
+    assert topo._supervise(RestartBudget(), topo.health)
+    assert killed == ["actor-1", "actor-0"] and topo.hang_kills == 2

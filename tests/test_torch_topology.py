@@ -1,13 +1,14 @@
 """The run topology of the port against the reference: the config fields
 it copies, the evaluator -> logger handshake and the logger's rows, the
 params checkpoints and their ``_best`` tier, and config 12 end to end on
-the process backend (actors, an evaluator and a logger in spawn
-children, the learner here) followed by ``--mode 2`` on its params file,
-and a dead child the run cannot replace (the evaluator, or an actor with
-no restart left), which must make ``run`` raise, not hang.
+the process backend (actors, an evaluator and a logger in children
+forked from the forkserver, the learner here) followed by ``--mode 2`` on
+its params file, each child under the environment of its own start, and
+a dead child the run cannot replace (the evaluator, or an actor with no
+restart left), which must make ``run`` raise, not hang.
 
-The spawn tests carry their own timeout: each child imports torch, so a
-run takes some seconds to start.
+The process-backend tests carry their own timeout: the forkserver imports
+torch once, so a run takes some seconds to start.
 """
 
 import dataclasses
@@ -234,6 +235,25 @@ def test_process_backend_end_to_end_then_mode_2(tmp_path):
     assert stats["nepisodes"] == 1.0
     assert all(math.isfinite(v) for v in stats.values())
     assert 0 < stats["avg_steps"] <= 200
+
+
+@pytest.mark.timeout(180)
+def test_each_child_runs_under_the_environment_of_its_start(tmp_path,
+                                                            monkeypatch):
+    """The forkserver keeps the environment of its first use; a drill set
+    in this process after it started (``FEEDER_FAULTS``, read by each
+    actor child's feeder) still reaches the next run's children, as it
+    would reach spawn children: the poisoned chunks are quarantined."""
+    monkeypatch.delenv("FEEDER_FAULTS", raising=False)
+    clean = port_main.main(_process_run(tmp_path))  # the server is up
+    assert runtime._CTX.get_start_method() == "forkserver"
+    assert clean["ingest/quarantined"] == 0
+    monkeypatch.setenv("FEEDER_FAULTS", "poison_chunk@1")
+    drilled = port_main.main(_process_run(tmp_path, "--set",
+                                          "refs=drilled"))
+    assert drilled["ingest/quarantined"] > 0
+    assert drilled["learner/steps"] == 20
+    assert drilled["runtime/children_with_cuda"] == 0
 
 
 @pytest.mark.timeout(120)

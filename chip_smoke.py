@@ -291,7 +291,8 @@ Phases, each printed as one JSON line:
    B2 launch, exactly one skipped update with its params unchanged and no
    rollback, then mode 2 on the params file with inference on the card.
    (b) Row 16's learning bar at the JAX package's own test's geometry
-   (tests/test_topology.py:115-133): 8,000 updates, ``learn_start``
+   (tests/test_topology.py:115-133), cut from 8,000 to 6,000 updates,
+   ``learn_start``
    1,000, ``max_replay_ratio`` 8, ``early_stop`` 12,500, the row's
    ``shared`` ring, on the process backend (the eager host update
    starves for the GIL on the thread backend: about 6 updates/s); then
@@ -1002,6 +1003,8 @@ def learner_alone():
                 if r["launches_per_update"] != want:
                     raise AssertionError(f"{run}: launches per update "
                                          f"{r['launches_per_update']}")
+                if cd == "bfloat16" and torso == "kernel" and graph:
+                    RESULTS["learner_alone_rate"] = r["updates_per_sec"]
                 if cd == "float32" and torso == "kernel" and graph:
                     RESULTS["f32_launches"] = {
                         "launches": (n + 9 * n // 10) * r["updates"],
@@ -4017,8 +4020,11 @@ DDPG_STEPS = 600         # updates of (a)
 DDPG_MB_STEPS = 1000
 DDPG_POISON_AT = 400     # the learner dispatch (a)'s poison_grad hits
 DDPG_MB = 4              # (c)'s megabatch group
-# (b): tests/test_topology.py:115-133 of the JAX package
-R16_STEPS, R16_LEARN_START, R16_BAR = 8000, 1000, -20.0
+# (b): tests/test_topology.py:115-133 of the JAX package, at 6,000 of its
+# 8,000 updates (the script's time limit): mode 2 gave -12.28 after 8,000
+# and -13.26 after 7,000, the evaluator -17.73 near 3,500 (NVIDIA H100
+# 80GB HBM3, 700.00 W)
+R16_STEPS, R16_LEARN_START, R16_BAR = 6000, 1000, -20.0
 DDPG_BENCH_UPDATES = 200
 
 
@@ -4730,13 +4736,19 @@ def _fleet_sets(refs: str, steps: int, *more: str) -> list:
     return argv
 
 
+def _fleet_env(extra: dict = None) -> tuple:
+    """The checkout's root and a fleet subprocess's environment: this
+    one's, the root on ``PYTHONPATH``, and ``extra``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return root, dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        root, os.environ.get("PYTHONPATH")))), **(extra or {}))
+
+
 def _actor_host(port: int, sets: list, base: int, count: int,
                 *extra: str):
     """``fleet --role actors`` in a subprocess: its actors' policies on
     the CPU, as an actor host runs them."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
-        root, os.environ.get("PYTHONPATH")))))
+    root, env = _fleet_env()
     return subprocess.Popen(
         [sys.executable, "-m", "pytorch_distributed_tpu_torch.fleet",
          "--role", "actors", "--coordinator", f"127.0.0.1:{port}",
@@ -4803,7 +4815,8 @@ def _fleet_run(refs: str, sets: list, base: int, count: int,
         raise AssertionError(f"{refs}: actor host exit {host.returncode}: "
                              + "\n".join(tail))
     done = {int(m[1]): (int(m[2]), int(m[3])) for m in re.finditer(
-        r"actor-(\d+) done \(reconnects (\d+), faults (\d+)\)", out)}
+        r"actor-(\d+) done \(reconnects (\d+), faults (\d+), failovers "
+        r"\d+\)", out)}
     if sorted(done) != list(range(base, base + count)):
         raise AssertionError(f"{refs}: actors done {done}: "
                              + "\n".join(tail))
@@ -4917,6 +4930,541 @@ def fleet():
                                    "actor_frames_per_sec")})
 
 
+# the fleet_planes phase: the learner replicas, the standby gateway and the
+# telemetry verbs at config 12's full width, every host a subprocess
+REPLICA_ROUNDS = 200
+REPLICA_KILL_ROUNDS = 180
+REPLICA_KILL_AT = 150
+# the reference's default leases (config.ReplicaParams and GatewayParams):
+# a profile window of a lead or of an HA primary must not stall it for one
+REPLICA_LEASE_S = 5.0
+HA_LEASE_S = 2.0
+FLEET_PROFILE_WINDOW_S = 0.5
+
+
+def _fleet_cmd(*argv: str) -> list:
+    return [sys.executable, "-m", "pytorch_distributed_tpu_torch.fleet",
+            *argv]
+
+
+def _fleet_proc(argv: list, env: dict = None):
+    """A fleet role in a subprocess of its own process group (a host's
+    SIGKILL takes its workers too: ``os.killpg``), its output on a pipe a
+    thread reads into ``proc.lines``."""
+    root, full = _fleet_env(env)
+    proc = subprocess.Popen(argv, cwd=root, env=full,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    proc.lines = []
+    proc.reader = threading.Thread(
+        target=lambda: proc.lines.extend(proc.stdout), daemon=True)
+    proc.reader.start()
+    return proc
+
+
+def _wait_line(proc, pattern: str, timeout: float) -> "re.Match":
+    """The first line of ``proc`` that ``pattern`` matches."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for line in list(proc.lines):
+            m = re.search(pattern, line)
+            if m:
+                return m
+        if proc.poll() is not None and not proc.reader.is_alive():
+            break
+        time.sleep(0.05)
+    raise AssertionError(f"{pattern!r} never came: "
+                         + "".join(proc.lines[-30:]))
+
+
+def _finish(proc, timeout: float) -> dict:
+    """Wait for ``proc``; its last line as JSON (exit 0 required)."""
+    proc.wait(timeout=timeout)
+    proc.reader.join(10)
+    if proc.returncode != 0:
+        raise AssertionError(f"exit {proc.returncode}: "
+                             + "".join(proc.lines[-30:]))
+    return json.loads(proc.lines[-1])
+
+
+def _stop_all(procs) -> None:
+    """SIGKILL each host's process group that is still there; while a
+    failure unwinds, print each host's exit and the end of its output."""
+    failing = sys.exc_info()[0] is not None
+    for p in procs:
+        try:
+            os.killpg(p.pid, 9)
+        except (ProcessLookupError, PermissionError):
+            pass
+        if p.poll() is None:
+            p.wait()
+        if failing:
+            p.reader.join(5)
+            print(f"--- {' '.join(p.args[3:5])} exit {p.returncode}:\n"
+                  + "".join(p.lines[-40:]), file=sys.stderr, flush=True)
+
+
+def _replica_sets(refs: str, rounds: int, lease_s: float) -> list:
+    argv = ["--config", "12", "--num-actors", "1", "--seed", "100"]
+    for kv in (f"memory_size={RING_ROWS}", f"batch_size={BATCH}",
+               f"steps={rounds}", f"learn_start={FLEET_LEARN_START}",
+               "pallas_torso=true", "learner_freq=100", "replicas=2",
+               f"replica_params.lease_s={lease_s}",
+               "evaluator_nepisodes=0", f"root_dir={RUN_DIR}",
+               f"refs={refs}"):
+        argv += ["--set", kv]
+    return argv
+
+
+def _lead_and_replica(refs: str, rounds: int, lease_s: float,
+                      faults: str = "", lead_env: dict = None):
+    """A learner host with ``replicas=2`` (replica 0, on the card) and a
+    replica host (replica 1, on the card), both subprocesses."""
+    sets = _replica_sets(refs, rounds, lease_s)
+    lead = _fleet_proc(_fleet_cmd("--role", "learner", "--port", "0",
+                                  "--local-actors", "0", *sets), lead_env)
+    port = int(_wait_line(lead, r"gateway on port (\d+)", 180)[1])
+    rep = _fleet_proc(_fleet_cmd(
+        "--role", "learner-replica", "--coordinator", f"127.0.0.1:{port}",
+        "--replica-id", "1", *sets),
+        env={"REPLICA_FAULTS": faults} if faults else None)
+    return lead, rep, port
+
+
+def _compute_apps():
+    """Each process's device memory as ``nvidia-smi`` reads it (a context
+    included), or why it could not."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return repr(e)
+    return (out.stdout.strip().splitlines() if out.returncode == 0
+            else out.stderr.strip())
+
+
+def _trace_kernels(trace_dir: str) -> dict:
+    """The device kernels of a profile window's trace, by B1's and B2's
+    names: ``sample_kernel`` and ``gemm_bf16_sm90``."""
+    import glob
+
+    names = {"per_sample": 0, "torso_gemm": 0, "kernels": 0}
+    for path in glob.glob(os.path.join(trace_dir, "*.pt.trace.json")):
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        for e in events:
+            if e.get("ph") != "X" or e.get("cat") != "kernel":
+                continue
+            names["kernels"] += 1
+            n = e.get("name", "")
+            names["per_sample"] += "sample_kernel" in n
+            names["torso_gemm"] += "gemm_bf16_sm90" in n
+    return names
+
+
+def _profile_latency(port: int,
+                     seconds: float = FLEET_PROFILE_WINDOW_S) -> dict:
+    """One ``fetch_profile`` of a running learner host: the window's
+    reply, its latency past the window's seconds and its kernels."""
+    from pytorch_distributed_tpu_torch.parallel.dcn import fetch_profile
+
+    t0 = time.monotonic()
+    reply = fetch_profile(("127.0.0.1", port), seconds=seconds,
+                          label=f"window_{port}")
+    took = time.monotonic() - t0
+    if "error" in reply:
+        raise AssertionError(f"fetch_profile: {reply}")
+    kern = _trace_kernels(reply["trace_dir"])
+    if not (kern["per_sample"] and kern["torso_gemm"]):
+        raise AssertionError(f"the window holds no B1 or B2: {kern}")
+    return {"reply_s": took, "over_window_s": took - seconds, **kern}
+
+
+def _window_stall() -> dict:
+    """What a profile window costs the other threads of its process, as
+    ``fetch_profile`` asks for one of a learner host: this thread holds the
+    windows over a loop of CUDA graph replays (300 kernels a replay, a
+    poll after each), a heartbeat thread records its longest wait to run
+    again, and a serve thread asks for a FLEET_PROFILE_WINDOW_S window,
+    recorded in slices as the port records it, then in one piece (every
+    slice as long as the window).  Each slice's stop and the seconds it
+    held the GIL are counted; a sliced window must not stall the
+    heartbeat for half the HA lease."""
+    from pytorch_distributed_tpu_torch.utils import perf, profiling
+
+    profiling.init_profiler()
+    x = torch.randn(256, 256, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(150):  # warm the two kernels off the capture
+            x = torch.tanh(x) * 0.5
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = x
+        for _ in range(150):
+            y = torch.tanh(y) * 0.5
+    gaps, done = [], threading.Event()
+
+    def heartbeat():
+        while not done.is_set():
+            t0 = time.perf_counter()
+            time.sleep(0.005)
+            gaps.append(time.perf_counter() - t0)
+
+    held = []
+    real_stop = profiling._stop
+
+    def counted_stop(prof):
+        held.append(real_stop(prof))
+        return held[-1]
+
+    beat = threading.Thread(target=heartbeat, daemon=True)
+    beat.start()
+    out = {}
+    saved = (profiling.SLICE_FIRST_S, profiling.SLICE_MIN_S,
+             profiling.SLICE_MAX_S)
+    profiling._stop = counted_stop
+    try:
+        for mode in ("sliced", "one_piece"):
+            if mode == "one_piece":
+                profiling.SLICE_FIRST_S = profiling.SLICE_MIN_S = \
+                    profiling.SLICE_MAX_S = 60.0
+            replies = []
+            asker = threading.Thread(target=lambda: replies.append(
+                perf.run_profile_window(
+                    os.path.join(RUN_DIR, "window_stall"), mode,
+                    seconds=FLEET_PROFILE_WINDOW_S, max_seconds=10.0)))
+            held.clear()
+            profiling.hold_windows()
+            try:
+                del gaps[:]
+                t0 = time.monotonic()
+                asker.start()
+                replays = 0
+                while asker.is_alive():
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    replays += 1
+                    profiling.poll_window()
+                took = time.monotonic() - t0
+            finally:
+                profiling.release_windows()
+            asker.join(30)
+            (reply,) = replies
+            if "error" in reply:
+                raise AssertionError(f"window stall ({mode}): {reply}")
+            out[mode] = {
+                "reply_s": took, "slices": len(held),
+                "max_stop_held_s": max(held),
+                "max_heartbeat_wait_s": max(gaps),
+                "kernels": _trace_kernels(reply["trace_dir"])["kernels"],
+                "replays": replays}
+    finally:
+        (profiling.SLICE_FIRST_S, profiling.SLICE_MIN_S,
+         profiling.SLICE_MAX_S) = saved
+        profiling._stop = real_stop
+        done.set()
+        beat.join(5)
+    if out["sliced"]["max_heartbeat_wait_s"] >= HA_LEASE_S / 2:
+        raise AssertionError(f"a sliced window stalled its process: {out}")
+    return out
+
+
+def _replicas_run() -> dict:
+    """(a) Two replicas for REPLICA_ROUNDS rounds, a profile window of the
+    lead mid-run (its perf plane on: the profiler is prewarmed before the
+    rounds, since the learner's thread opens a window between two rounds
+    and a cold CUPTI set-up longer than a lease expels the lead for a
+    round stall), the gateway's STATUS."""
+    from pytorch_distributed_tpu_torch.parallel.dcn import fetch_status
+
+    t0 = time.monotonic()
+    lead, rep, port = _lead_and_replica("replicas", REPLICA_ROUNDS,
+                                        REPLICA_LEASE_S,
+                                        lead_env={"TPU_APEX_PERF": "1"})
+    t_rep = time.monotonic()
+    prewarm = float(_wait_line(lead, r"profiler prewarmed in ([0-9.]+) s",
+                               1)[1])
+    first = None
+    try:
+        deadline = time.monotonic() + 240
+        while True:
+            st = fetch_status(("127.0.0.1", port), timeout=10.0)
+            done = st.get("replicas", {}).get("rounds_completed", 0)
+            if done and first is None:
+                first = time.monotonic() - t_rep
+            if done >= REPLICA_ROUNDS // 3:
+                break
+            if time.monotonic() > deadline or lead.poll() is not None:
+                raise AssertionError("(a) rounds never started: "
+                                     + "".join(lead.lines[-20:]))
+            time.sleep(0.1)
+        apps = _compute_apps()
+        window = _profile_latency(port)
+        st = fetch_status(("127.0.0.1", port), timeout=10.0)
+        s_rep = _finish(rep, 240)
+        s_lead = _finish(lead, 120)
+    finally:
+        _stop_all((lead, rep))
+    rounds = s_lead["replica/rounds_completed"]
+    if not (s_lead["replica/rounds"] == s_rep["replica/rounds"]
+            == rounds == REPLICA_ROUNDS):
+        raise AssertionError(f"(a) rounds {s_lead} {s_rep}")
+    if s_lead["replica/params_sha256"] != s_rep["replica/params_sha256"]:
+        raise AssertionError("(a) the replicas' parameters differ")
+    if (s_lead["replica/degraded_completions"] != 0
+            or st["replicas"]["counters"]["leases_expired"] != 0):
+        raise AssertionError(f"(a) a member was expelled at the "
+                             f"{REPLICA_LEASE_S} s lease: {st['replicas']}")
+    launches = {}
+    for who, s in (("replica_lead", s_lead), ("replica_remote", s_rep)):
+        got = {"per_sample": s["kernels/hierarchical_sample"],
+               "torso_gemm_fwd": s["kernels/gemm_bf16"],
+               "torso_gemm_bwd": s["kernels/gemm_bf16_grad"],
+               "torso_gemm_f32": (s["kernels/gemm_f32"]
+                                  + s["kernels/gemm_f32_grad"])}
+        if got != expected_launches(rounds):
+            raise AssertionError(f"(a) {who} launches {got} for {rounds}")
+        launches[who] = got
+        RESULTS[f"launches_{who}"] = got
+    return {
+        "rounds": rounds, "launches": launches,
+        "params_sha256": s_lead["replica/params_sha256"],
+        "rounds_per_s_lead": s_lead["learner/updates_per_sec"],
+        "rounds_per_s_remote": s_rep["learner/updates_per_sec"],
+        "exchange_ms_lead": 1e3 * s_lead["replica/exchange_seconds"]
+        / rounds,
+        "exchange_ms_remote": 1e3 * s_rep["replica/exchange_seconds"]
+        / rounds,
+        "degraded_completions": s_lead["replica/degraded_completions"],
+        "status_replicas": st.get("replicas"),
+        "profile_prewarmed": window, "profiler_prewarm_s": prewarm,
+        "lead_up_s": t_rep - t0,
+        "replica_start_to_first_round_s": first,
+        "peak_allocated_bytes": {who: s["replica/peak_allocated_bytes"]
+                                 for who, s in (("lead", s_lead),
+                                                ("remote", s_rep))},
+        "compute_apps": apps}
+
+
+def _replica_kill_run() -> dict:
+    """(b) The replica host SIGKILLs itself at round REPLICA_KILL_AT
+    (``REPLICA_FAULTS=kill@N``, the production fault plane): the lead's
+    first degraded round within a lease window, STATUS's expiry and the
+    fenced member gone, the learner host's exit 0."""
+    from pytorch_distributed_tpu_torch.parallel.dcn import fetch_status
+
+    lead, rep, port = _lead_and_replica(
+        "replica_kill", REPLICA_KILL_ROUNDS, REPLICA_LEASE_S,
+        f"kill@{REPLICA_KILL_AT}")
+    seen = {}
+    try:
+        rep.wait(timeout=300)
+        t_kill = time.monotonic()
+        if rep.returncode != -9:
+            raise AssertionError(f"(b) replica exit {rep.returncode}: "
+                                 + "".join(rep.lines[-20:]))
+        while time.monotonic() - t_kill < 30:
+            st = fetch_status(("127.0.0.1", port), timeout=10.0)["replicas"]
+            if st["degraded_completions"] >= 1 and "t" not in seen:
+                seen.update(t=time.monotonic() - t_kill, status=st)
+            if "t" in seen:
+                break
+            time.sleep(0.05)
+        s_lead = _finish(lead, 180)
+    finally:
+        _stop_all((lead, rep))
+    st = seen.get("status")
+    if st is None or seen["t"] > REPLICA_LEASE_S + 1.0:
+        raise AssertionError(f"(b) no degraded round within a lease: "
+                             f"{seen}")
+    if (st["counters"]["leases_expired"] != 1 or "1" in st["members"]
+            or not st["degraded"]):
+        raise AssertionError(f"(b) status {st}")
+    if s_lead["replica/rounds_completed"] != REPLICA_KILL_ROUNDS \
+            or s_lead["replica/degraded_completions"] < 1:
+        raise AssertionError(f"(b) lead {s_lead}")
+    return {"degraded_after_kill_s": seen["t"],
+            "status_replicas": st,
+            "rounds": s_lead["replica/rounds_completed"],
+            "degraded_completions": s_lead["replica/degraded_completions"]}
+
+
+def _ha_run() -> dict:
+    """(c) A config-12 learner host on the card with the HA, perf and
+    metrics planes on, a standby and an actor host of 2 pipelined CPU
+    actors on ``P,PS``; a prewarmed profile window, the remote metric
+    batches and STATUS's blocks mid-run; a SIGKILL of the learner host,
+    the standby's promotion, one failover per actor, the standby's spool;
+    a SIGTERM of the standby: both remaining hosts exit 0."""
+    from pytorch_distributed_tpu_torch.parallel.dcn import fetch_status
+
+    env = {"TPU_APEX_GATEWAY_ENABLED": "1",
+           "TPU_APEX_GATEWAY_LEASE_S": str(HA_LEASE_S),
+           "TPU_APEX_GATEWAY_SYNC_S": "0.1", "TPU_APEX_PERF": "1",
+           "TPU_APEX_METRICS": "1", "TPU_APEX_METRICS_PUSH_S": "1.0",
+           "TPU_APEX_METRICS_POLL_S": "1.0"}
+    sets = _fleet_sets("ha", 1_000_000)
+    procs = []
+    try:
+        lead = _fleet_proc(_fleet_cmd("--role", "learner", "--port", "0",
+                                      "--local-actors", "0", *sets), env)
+        procs.append(lead)
+        port = int(_wait_line(lead, r"gateway on port (\d+)", 180)[1])
+        prewarm = float(_wait_line(lead, r"profiler prewarmed in "
+                                         r"([0-9.]+) s", 60)[1])
+        sb = _fleet_proc(_fleet_cmd("--role", "gateway-standby", "--port",
+                                    "0", "--coordinator",
+                                    f"127.0.0.1:{port}", *sets), env)
+        procs.append(sb)
+        sport = int(_wait_line(sb, r"standby up on port (\d+)", 120)[1])
+        act = _fleet_proc(_fleet_cmd(
+            "--role", "actors", "--coordinator",
+            f"127.0.0.1:{port},127.0.0.1:{sport}", "--actor-base", "0",
+            "--actor-count", "2", *sets), env)
+        procs.append(act)
+        deadline = time.monotonic() + 300
+        while True:
+            st = fetch_status(("127.0.0.1", port), timeout=10.0)
+            if st.get("learner_step", 0) >= 300 and st.get(
+                    "telemetry", {}).get("remote_batches", 0) > 0:
+                break
+            if time.monotonic() > deadline or lead.poll() is not None:
+                raise AssertionError("(c) the learner never trained: "
+                                     + "".join(lead.lines[-20:]))
+            time.sleep(0.5)
+        # the standby's age of its last good T_SYNC pull while the
+        # primary's learner thread opens and closes the window
+        ages, probe_errors, stop = [], [], threading.Event()
+
+        def watch_sync():
+            while not stop.is_set():
+                try:
+                    ages.append(fetch_status(("127.0.0.1", sport),
+                                             timeout=5.0)["gateway"]
+                                ["sync_age"])
+                except Exception as e:  # noqa: BLE001 - raised below
+                    probe_errors.append(repr(e))
+                stop.wait(0.05)
+
+        watcher = threading.Thread(target=watch_sync, daemon=True)
+        watcher.start()
+        try:
+            window = _profile_latency(port)
+        finally:
+            stop.set()
+            watcher.join(10)
+        if probe_errors or not ages:
+            raise AssertionError(f"(c) the standby's STATUS failed during "
+                                 f"the window: {probe_errors[:3]}")
+        st = fetch_status(("127.0.0.1", port), timeout=10.0)
+        missing = {"perf", "alerts", "series", "gateway"} - set(st)
+        if missing:
+            raise AssertionError(f"(c) STATUS lacks {missing}")
+        mid = {"learner_step": st["learner_step"],
+               "remote_batches": st["telemetry"]["remote_batches"],
+               "gateway": {k: st["gateway"][k] for k in (
+                   "role", "term", "journal_seq", "sync_served")},
+               "perf_roles": sorted(st["perf"]),
+               "alerts": len(st["alerts"]), "series": sorted(st["series"]),
+               "standby_max_sync_age_in_window_s": max(ages)}
+        sync = fetch_status(("127.0.0.1", sport))["gateway"]
+        if (sync["role"] != "standby" or sync["promotions"] != 0
+                or st["gateway"]["role"] != "primary"
+                or st["gateway"]["term"] != 1):
+            raise AssertionError(f"(c) the window failed over the live "
+                                 f"primary at the {HA_LEASE_S} s lease: "
+                                 f"standby {sync}, primary {st['gateway']}")
+        pre_kill = {k: v["incarnation"] for k, v in st["slots"].items()}
+        if set(pre_kill) != {"0", "1"}:
+            raise AssertionError(f"(c) slots before the kill: {pre_kill}")
+        t_kill = time.monotonic()
+        os.killpg(lead.pid, 9)  # the learner host with its workers
+        lead.wait()
+        while True:
+            g = fetch_status(("127.0.0.1", sport), timeout=5.0)
+            if g["gateway"]["promotions"] >= 1 and "promoted_s" not in mid:
+                mid["promoted_s"] = time.monotonic() - t_kill
+            if ("promoted_s" in mid and g["chunks_in"] > 0
+                    and "first_spooled_chunk_s" not in mid):
+                mid["first_spooled_chunk_s"] = time.monotonic() - t_kill
+            # every actor failed over: its slot re-HELLOed at the standby
+            # with a bumped incarnation (the journal copies the old one)
+            if "first_spooled_chunk_s" in mid and all(
+                    g["slots"].get(k, {}).get("incarnation", inc) != inc
+                    for k, inc in pre_kill.items()):
+                mid["all_failed_over_s"] = time.monotonic() - t_kill
+                break
+            if time.monotonic() - t_kill > 60:
+                raise AssertionError(f"(c) no failover: {g.get('gateway')}")
+            time.sleep(0.05)
+        sb.send_signal(15)
+        s_sb = _finish(sb, 60)
+        try:
+            act.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("(c) the actor host did not leave: "
+                                 + "".join(act.lines[-30:]))
+        act.reader.join(10)
+    finally:
+        _stop_all(procs)
+    out = "".join(act.lines)
+    done = {int(m[1]): (int(m[2]), int(m[3])) for m in re.finditer(
+        r"actor-(\d+) done \(reconnects (\d+), faults \d+, failovers "
+        r"(\d+)\)", out)}
+    if act.returncode != 0 or sorted(done) != [0, 1] or any(
+            f != 1 for _r, f in done.values()):
+        raise AssertionError(f"(c) actor host exit {act.returncode}, "
+                             f"done {done}: " + out[-2000:])
+    if mid["promoted_s"] > HA_LEASE_S + 2.0 or s_sb["gateway/promotions"] \
+            != 1 or s_sb["gateway/spooled_rows"] <= 0:
+        raise AssertionError(f"(c) standby {s_sb} {mid}")
+    return {"mid_run": mid, "profile_prewarmed": window,
+            "profiler_prewarm_s": prewarm, "standby_sync": {
+                k: sync[k] for k in ("role", "sync_seq", "sync_term",
+                                     "sync_age")},
+            "standby": s_sb, "reconnects_and_failovers_by_actor": done}
+
+
+def fleet_planes():
+    """Learner replicas, the standby gateway and the telemetry verbs at
+    config 12's full width, every host a subprocess over 127.0.0.1.
+    First the stall a profile window puts on its process's other threads,
+    sliced and in one piece (``_window_stall``).  (a) A learner host with ``replicas=2`` (replica 0 on the card) and a
+    replica host (replica 1, on the card) for REPLICA_ROUNDS rounds: both
+    reach them, the registry completed each, the published parameters are
+    equal to the bit, 1 draw and 10 + 9 bf16 GEMMs a round on each
+    replica; rounds/s and ms an exchange; a ``fetch_profile`` window of
+    the lead (prewarmed: the first window's cold cost is the prewarm's)
+    holding B1 and B2.  (b) The replica host
+    SIGKILLed at round REPLICA_KILL_AT (``REPLICA_FAULTS``): the lead's
+    first degraded round within a lease, STATUS's expiry, the lead's exit
+    0.  (c) The HA, perf and metrics planes on a config-12 learner host
+    with a standby and 2 CPU actors on ``P,PS``: a prewarmed window
+    holding B1 and B2, remote metric batches, STATUS's ``perf``,
+    ``alerts``, ``series`` and ``gateway`` blocks; a SIGKILL of the
+    learner host: the standby promotes within its lease, each actor fails
+    over once, the standby spools rows; a SIGTERM of the standby: it and
+    the actor host exit 0."""
+    out = {}
+    for part, fn in (("window_stall", _window_stall),
+                     ("replicas", _replicas_run),
+                     ("replica_kill", _replica_kill_run), ("ha", _ha_run)):
+        t0 = time.monotonic()
+        out[part] = fn()
+        out[part]["seconds"] = time.monotonic() - t0
+        emit({"fleet_planes": part, **out[part]})
+    fused = RESULTS.get("learner_alone_rate")
+    return dict(out, card=card_name_and_power_limit(),
+                fused_learner_alone_updates_per_s=fused)
+
+
 KERNELS = (
     ("per_sample", "pytorch_distributed_tpu_torch/csrc/per_sample.cu",
      "pytorch_distributed_tpu/ops/pallas_sampling.py:141"),
@@ -4960,7 +5508,8 @@ def main() -> int:
               inference, train_batched, train_anakin,
               train_device, resume, health_phase, megabatch,
               anakin_megabatch, train_uniform, train_host, small_rows,
-              planes, wide_torso, perf_plane, ddpg, r2d2, dtqn, fleet)
+              planes, wide_torso, perf_plane, ddpg, r2d2, dtqn, fleet,
+              fleet_planes)
     only = set(sys.argv[1:])  # phase names to run after build; none: all
     unknown = only - {fn.__name__ for fn in phases}
     if unknown:
@@ -5016,7 +5565,9 @@ def main() -> int:
             ("dtqn17_process", "launches_dtqn_row17"),
             ("dtqn18_process", "launches_dtqn_row18"),
             ("fleet_process", "launches_fleet_process"),
-            ("fleet_anakin_hybrid", "launches_fleet_hybrid"))}
+            ("fleet_anakin_hybrid", "launches_fleet_hybrid"),
+            ("replica_lead", "launches_replica_lead"),
+            ("replica_remote", "launches_replica_remote"))}
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=launches.get(name, 0),
                           launches_by_path=by_path,

@@ -1,5 +1,5 @@
 """The learner loop — the port of pytorch_distributed_tpu/agents/learner.py
-``run_learner`` (:56-, :166-204, :264-351, :455-485, :474-760, :907-916),
+``run_learner`` (:56-, :72-94, :166-204, :264-351, :455-485, :474-760, :907-916),
 its device branch (the ``device-per`` and ``device`` rings, with or
 without megabatch, and the ``device-sequence`` segment ring, whose ingest
 has the PER ring's surface, :266-270) and its host branch (``shared``,
@@ -101,6 +101,11 @@ flight while it is copied out.  A rollback hands the graph the restored
 state, which its call copies into the static buffers, and restores the
 ring in place, so the graph replays on the restored tensors.
 
+With ``replicas`` > 1 on a fleet's learner host (``dcn.local_registry``)
+or with a ``coordinator``, the dqn family's learner is a replica of the
+replica plane (``run_replica_learner`` below, reference :72-94,
+:945-1381).
+
 Returns a summary of the run (steps, this run's updates per second, the
 last metrics, the skipped-step count, the host seconds spent pacing,
 draining, dispatching and publishing, the actors' env steps over the
@@ -110,6 +115,7 @@ and the ingest's validation counts), which ``main`` prints.
 
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import Dict, Optional, Tuple
 
@@ -497,6 +503,27 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
 
         return run_anakin_learner(opt, spec, process_ind, memory,
                                   param_store, clock, stats)
+    from pytorch_distributed_tpu_torch.factory import replica_active
+
+    if replica_active(opt):
+        # the replica plane (reference :72-94): an unsupported family, or
+        # a topology with no registry and no coordinator, runs the solo
+        # learner and says so
+        from pytorch_distributed_tpu_torch.parallel import dcn as dcn_mod
+
+        rp = dcn_mod.resolve_replica(opt.replica_params)
+        if opt.agent_type != "dqn":
+            print(f"[learner] replicas={rp.replicas} is only supported "
+                  f"for agent_type=dqn (got {opt.agent_type}); running "
+                  f"the solo learner", flush=True)
+        elif dcn_mod.local_registry() is None and not rp.coordinator:
+            print(f"[learner] replicas={rp.replicas} needs the fleet "
+                  f"gateway's ReplicaRegistry (fleet --role learner) or "
+                  f"replica_params.coordinator; running the solo learner",
+                  flush=True)
+        else:
+            return run_replica_learner(opt, spec, process_ind, memory,
+                                       param_store, clock, stats)
     ap = opt.agent_params
     device = resolve_device(opt)
     model = build_model(opt, spec)
@@ -773,3 +800,478 @@ def run_learner(opt: Options, spec: EnvSpec, process_ind: int,
         "actor/steps_per_sec": actor_steps / max(seconds, 1e-9),
     })
     return summary
+
+
+# ---------------------------------------------------------------------------
+# the learner replica plane (reference :930-1381)
+# ---------------------------------------------------------------------------
+
+def _copy_ring_(dst, src) -> None:
+    """Write ``src``'s tensors into ``dst``'s in place (a captured graph
+    keeps reading ``dst``'s), and its host cursors."""
+    import dataclasses
+
+    for f in dataclasses.fields(dst):
+        val = getattr(src, f.name)
+        if isinstance(val, torch.Tensor):
+            getattr(dst, f.name).copy_(val)
+        else:
+            setattr(dst, f.name, val)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device, copy=True)
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return type(tree)(*(_tree_to(v, device) for v in tree))
+
+
+class ReplicaLearnerDriver:
+    """One data-parallel learner replica (reference :945-1296): the
+    grad/apply halves (``factory.build_replica_grad_apply``), a PER ring of
+    its own on its device (``DevicePerReplay``: every replica holds the
+    whole ring, and the merged write-backs keep the N rings one priority
+    plane) and the generation-stamped gradient rounds through ``channel``
+    (parallel/dcn.py).
+
+    - **Params** start from ``opt.seed`` on every replica, and every
+      applied update is the registry's reduced mean, so the replicas'
+      states never part while membership holds.
+    - **Experience** is the shared synthetic stream: rows minted from
+      ``np_rng(seed, "replica-ingest", counter)``, a counter every
+      replica advances alike, so the N rings hold the same rows.
+    - **Draws**: round ``r``'s B uniforms come from a torch generator
+      seeded with ``replica_round_seed(base, r, rank)``, ``rank`` this
+      replica's index in the sorted membership of the last completed
+      round; ``key_log`` holds ``(r, seed)``.  The reference folds a
+      threefry key with ``(r, rank)`` instead (ROADMAP.md, divergences);
+      either way the survivor at rank 0 draws what a solo driver draws,
+      so from the degradation round on it is a solo driver to the bit.
+      ``uniforms(r, rank)`` is the hook a test uses to inject draws.
+    - **Priorities**: each round's |TD| rides the submission, and the
+      reply carries every contributor's in ascending replica order; each
+      replica applies them all in turn (``per_apply_writeback_groups``).
+
+    The draw (kernel B1) and the torso's forward and backward (kernel B2
+    on the ``dqn-cnn`` kernel torso) run through the same wrappers as the
+    fused learner's, on a GPU replayed from CUDA graphs
+    (``GraphedReplicaStep``) with the exchange on the host between the
+    halves.  ``REPLICA_FAULTS`` (utils/faults.py) is read once a round."""
+
+    def __init__(self, opt: Options, spec: EnvSpec, replica_id: int,
+                 channel, writer=None, ingest_rows_per_round: int = 0,
+                 device=None):
+        from pytorch_distributed_tpu_torch.factory import (
+            build_replica_grad_apply,
+        )
+        from pytorch_distributed_tpu_torch.memory.device_per import (
+            DevicePerReplay, GraphedReplicaStep, per_sample,
+        )
+        from pytorch_distributed_tpu_torch.memory.device_replay import (
+            _torch_dtype,
+        )
+        from pytorch_distributed_tpu_torch.parallel.learner import (
+            ReplicaExchange,
+        )
+        from pytorch_distributed_tpu_torch.utils.rngs import process_seed
+
+        self.opt, self.spec = opt, spec
+        self.replica = replica_id
+        self.channel = channel
+        self.writer = writer
+        self.ingest_rows_per_round = ingest_rows_per_round
+        self.device = torch.device(device) if device is not None \
+            else resolve_device(opt)
+        ap, mp_ = opt.agent_params, opt.memory_params
+        model = build_model(opt, spec)
+        params = init_params(opt, spec, seed=opt.seed, device=self.device)
+        # the solo learner's state (its optimizer, interchangeable
+        # checkpoints); its fused step is not used
+        self.state, _ = build_train_state_and_step(opt, model, params)
+        pair = build_replica_grad_apply(opt, model)
+        if pair is None:
+            raise ValueError(f"the replica plane does not serve "
+                             f"agent_type={opt.agent_type}")
+        grad_fn, apply_fn = pair
+        self.replay = DevicePerReplay(
+            mp_.memory_size, spec.state_shape, spec.action_shape,
+            state_dtype=_torch_dtype(np.dtype(mp_.state_dtype)),
+            action_dtype=_torch_dtype(np.dtype(spec.action_dtype)),
+            device=self.device, priority_exponent=mp_.priority_exponent,
+            importance_weight=mp_.priority_weight,
+            importance_anneal_steps=ap.steps)
+
+        def grad_part(ts, rs, us, beta):
+            batch = per_sample(rs, us, beta)
+            grads, ok, metrics, td_abs = grad_fn(ts, batch)
+            return grads, ok, metrics, td_abs, batch.index
+
+        self.halves = GraphedReplicaStep(
+            grad_part, apply_fn, self.replay.state,
+            counters=(hierarchical_sample, *GEMM_COUNTERS))
+        self.exchange = ReplicaExchange(channel, spec.state_shape)
+        # one base stream for every replica: the rank tells them apart
+        self._base_seed = process_seed(opt.seed, "replica-plane", 0)
+        self.round = 0
+        self.members: list = []
+        self.key_log: list = []      # (round, np.uint64 [seed])
+        self.fence_events = 0
+        self.rejoins = 0
+        self.exchange_s = 0.0        # host seconds in the exchanges
+        self._ingest_counter = 0
+        self._recorder = flight_recorder.get_recorder(
+            f"replica-{replica_id}")
+
+    # -- the shared ingest stream ---------------------------------------------
+
+    def _synth_chunk(self, rows: int):
+        """``rows`` transitions of the counter-keyed shared stream: the
+        same bytes on every replica (and in the reference) at the same
+        counter."""
+        from pytorch_distributed_tpu_torch.utils.experience import Transition
+        from pytorch_distributed_tpu_torch.utils.rngs import np_rng
+
+        ap = self.opt.agent_params
+        rng = np_rng(self.opt.seed, "replica-ingest", self._ingest_counter)
+        self._ingest_counter += 1
+        shape = (rows,) + tuple(self.spec.state_shape)
+        sdt = np.dtype(self.opt.memory_params.state_dtype)
+        if sdt.kind == "u":
+            s0 = rng.integers(0, 256, size=shape).astype(sdt)
+            s1 = rng.integers(0, 256, size=shape).astype(sdt)
+        else:
+            s0 = rng.standard_normal(shape).astype(sdt)
+            s1 = rng.standard_normal(shape).astype(sdt)
+        if self.spec.discrete:
+            action = rng.integers(0, max(1, self.spec.num_actions),
+                                  size=(rows,)).astype(np.int32)
+        else:
+            action = rng.standard_normal(
+                (rows, self.spec.action_dim)).astype(np.float32)
+        return Transition(
+            state0=s0, action=action,
+            reward=rng.standard_normal(rows).astype(np.float32),
+            gamma_n=np.full(rows, ap.gamma ** ap.nstep, np.float32),
+            state1=s1,
+            terminal1=(rng.random(rows) < 0.05).astype(np.float32))
+
+    def prefill(self, rows: int) -> None:
+        self.replay.feed_chunk(self._synth_chunk(rows))
+
+    # -- state capture and restore (the parity oracle, the rejoin) -----------
+
+    def snapshot(self) -> dict:
+        """The train state and the ring on the host, the round and the
+        ingest counter."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return {"state": _tree_to(self.state, "cpu"),
+                "ring": _tree_to_ring(self.replay.state),
+                "round": self.round,
+                "ingest_counter": self._ingest_counter}
+
+    def load_snapshot(self, snap: dict) -> None:
+        self.state = _tree_to(snap["state"], self.device)
+        _copy_ring_(self.replay.state, snap["ring"])
+        self.round = snap["round"]
+        self._ingest_counter = snap["ingest_counter"]
+
+    @property
+    def lstep(self) -> int:
+        return int(self.state.step)
+
+    def _commit_epoch(self) -> int:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        ckpt.save_epoch(
+            self.opt.model_name, state=self.state, memory=self.replay,
+            extras=dict(learner_step=self.lstep, replica_round=self.round,
+                        replica_ingest_counter=self._ingest_counter),
+            retain=self.opt.agent_params.checkpoint_retain)
+        return self.lstep
+
+    # -- the round loop --------------------------------------------------------
+
+    def _rank(self) -> int:
+        if not self.members:
+            return 0
+        try:
+            return sorted(self.members).index(self.replica)
+        except ValueError:
+            return 0
+
+    def uniforms(self, round_idx: int, rank: int) -> torch.Tensor:
+        """Round ``round_idx``'s B uniforms at ``rank``, logged."""
+        from pytorch_distributed_tpu_torch.utils.rngs import (
+            replica_round_seed,
+        )
+
+        seed = replica_round_seed(self._base_seed, round_idx, rank)
+        self.key_log.append((round_idx, np.asarray([seed], np.uint64)))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return torch.rand((self.opt.agent_params.batch_size,),
+                          generator=gen, device=self.device)
+
+    def run_rounds(self, until_round: int, *, stop=None, faults=None,
+                   capture=None, on_round=None, rejoin: bool = False,
+                   stats_every: int = 0) -> None:
+        """Rounds ``[self.round, until_round)``.  ``capture(r, driver)``
+        runs once round ``r`` is applied; ``rejoin`` turns a fence into
+        the epoch-barrier rejoin instead of a ``ReplicaFenced``."""
+        from pytorch_distributed_tpu_torch.memory.device_per import (
+            per_apply_writeback_groups,
+        )
+        from pytorch_distributed_tpu_torch.parallel.dcn import (
+            RSTAT_OK, ReplicaFenced,
+        )
+
+        inj = faults if faults is not None \
+            else FaultInjector.from_env("replica")
+        t_win, r_win = time.monotonic(), self.round
+        while self.round < until_round:
+            if stop is not None and stop.is_set():
+                return
+            r = self.round
+            inj.frame(b"")  # kill@N, hang@N, crash@N, delay@N:S fire here
+            profiling.poll_window()
+            if self.ingest_rows_per_round > 0:
+                self.prefill(self.ingest_rows_per_round)
+            us = self.uniforms(r, self._rank())
+            grads, ok, _metrics, td_abs, idx = self.halves.grad(
+                self.state, us, self.replay.beta(self.lstep))
+            t0 = time.perf_counter()
+            pidx = idx.to(torch.int32).cpu().numpy()
+            ptd = td_abs.float().cpu().numpy()
+            ok_host = float(ok) > 0
+            try:
+                reply, reduced = self.exchange.exchange(
+                    r, grads, ok=ok_host, pidx=pidx, ptd=ptd)
+            except (ConnectionError, OSError) as e:
+                raise ReplicaFenced(
+                    f"replica {self.replica} lost the registry: {e}")
+            self.exchange_s += time.perf_counter() - t0
+            if reply["status"] != RSTAT_OK:
+                self.fence_events += 1
+                self._recorder.record("replica-fenced", round=r,
+                                      status=reply["status"])
+                if rejoin:
+                    self.rejoin()
+                    continue
+                raise ReplicaFenced(f"replica {self.replica} fenced at "
+                                    f"round {r} (status {reply['status']})")
+            self.members = list(reply["members"])
+            if reduced is not None:
+                self.state = self.halves.apply(self.state, reduced, 1.0)
+            # every contributor's write-back, in the reply's order, on
+            # every replica: one priority plane over N rings
+            per_apply_writeback_groups(
+                self.replay.state,
+                [(w[1], w[2]) for w in reply["writebacks"]],
+                alpha=self.replay.alpha)
+            self.round = r + 1
+            if reply.get("epoch_due") and self._rank() == 0:
+                self.channel.note_epoch(r, self._commit_epoch())
+            if capture is not None:
+                capture(r, self)
+            if on_round is not None:
+                on_round(r, reply)
+            if stats_every and (r + 1) % stats_every == 0 \
+                    and self.writer is not None:
+                now = time.monotonic()
+                self.writer.scalar(
+                    "learner/updates_per_s",
+                    (self.round - r_win) / max(now - t_win, 1e-9),
+                    step=self.lstep)
+                self.writer.scalar("replica/round", float(self.round),
+                                   step=self.lstep)
+                self.writer.flush()
+                t_win, r_win = now, self.round
+
+    # -- the rejoin ------------------------------------------------------------
+
+    def _load_epoch(self, info) -> None:
+        self.state = ckpt.load_epoch_state(info, self.device)
+        if info.has_replay:
+            ckpt.load_epoch_replay(info, self.replay)
+        self._ingest_counter = int(info.extras.get(
+            "replica_ingest_counter", self._ingest_counter))
+
+    def rejoin(self, timeout: float = 60.0) -> None:
+        """Lease at a new generation; behind live peers, wait for the
+        join barrier's epoch, load it (params, optimizer, ring,
+        counters), take the join round and activate.  With no live peer
+        (a fresh plane or a whole-fleet restart) resume the newest epoch
+        unless ``resume`` is "never", as the solo learner does."""
+        from pytorch_distributed_tpu_torch.parallel.dcn import ReplicaFenced
+
+        reply = self.channel.acquire()
+        self.rejoins += 1
+        self.members = list(reply.get("members", []))
+        self.channel.start_renewer()
+        barrier = reply.get("epoch_barrier")
+        self._recorder.record("rejoin", generation=reply["generation"],
+                              barrier=barrier)
+        if barrier is None:
+            self.round = int(reply.get("round", 0))
+            if self.opt.resume != "never":
+                info = ckpt.resolve_epoch(self.opt.model_name)
+                if info is not None:
+                    self._load_epoch(info)
+                    self.round = max(self.round, int(
+                        info.extras.get("replica_round", 0)))
+                    print(f"[replica] {self.replica} resumed epoch "
+                          f"{info.epoch} (step {info.learner_step}, "
+                          f"round {self.round})", flush=True)
+            return
+        deadline = time.monotonic() + timeout
+        epoch_step = None
+        while time.monotonic() < deadline:
+            j = self.channel.poll_join()
+            if j is None:
+                raise ReplicaFenced(
+                    f"replica {self.replica} join cancelled")
+            if j.get("epoch_step") is not None:
+                epoch_step = int(j["epoch_step"])
+                break
+            time.sleep(0.05)
+        if epoch_step is None:
+            raise ReplicaFenced(
+                f"replica {self.replica} barrier epoch never committed")
+        info = ckpt.await_epoch(self.opt.model_name, epoch_step,
+                                timeout=max(5.0, deadline
+                                            - time.monotonic()))
+        if info is None:
+            raise ReplicaFenced(
+                f"replica {self.replica} could not resolve the barrier "
+                f"epoch (step >= {epoch_step})")
+        self._load_epoch(info)
+        self.round = int(reply.get("round",
+                                   info.extras.get("replica_round", 0)))
+        act = self.channel.activate(epoch_step)
+        self.members = list(act.get("members", self.members))
+        print(f"[replica] {self.replica} rejoined at generation "
+              f"{self.channel.generation}, round {self.round} "
+              f"(epoch step {epoch_step})", flush=True)
+
+
+def _tree_to_ring(rs):
+    """A ring state's copy on the host."""
+    import dataclasses
+
+    return dataclasses.replace(rs, **{
+        f.name: getattr(rs, f.name).detach().to("cpu", copy=True)
+        for f in dataclasses.fields(rs)
+        if isinstance(getattr(rs, f.name), torch.Tensor)})
+
+
+def _discard_ingest(memory) -> None:
+    """Keep an ingest queue from backing up while the replica plane trains
+    on the shared stream: its chunks are read and dropped."""
+    read = getattr(memory, "read", None)
+    if read is not None:
+        read(1024)
+    elif hasattr(memory, "drain"):
+        memory.drain()
+
+
+def run_replica_learner(opt: Options, spec: EnvSpec, process_ind: int,
+                        memory, param_store: ParamStore, clock: GlobalClock,
+                        stats: Optional[LearnerStats] = None,
+                        replica_id: Optional[int] = None
+                        ) -> Dict[str, float]:
+    """The learner of a replicated fleet (reference :1298-1381): replica
+    0, the lead, runs in the gateway's process and joins through a
+    ``LocalReplicaChannel`` on the registry ``FleetTopology`` set
+    (``dcn.local_registry``); replicas >= 1 run on their own hosts
+    (``fleet --role learner-replica``) and dial
+    ``replica_params.coordinator``.  The solo learner's ``memory`` is not
+    trained on: the plane trains from the shared synthetic stream, as the
+    reference's, and the ingest queue is drained and its chunks dropped
+    (a line says so once).  Returns the run's summary."""
+    from pytorch_distributed_tpu_torch.parallel import dcn as dcn_mod
+
+    rp = dcn_mod.resolve_replica(opt.replica_params)
+    rid = int(replica_id if replica_id is not None else process_ind)
+    registry = dcn_mod.local_registry()
+    if registry is not None:
+        channel = dcn_mod.LocalReplicaChannel(registry, rid)
+    else:
+        host, _, port = rp.coordinator.rpartition(":")
+        channel = dcn_mod.ReplicaClient((host, int(port)), rid, params=rp)
+    ap = opt.agent_params
+    writer = MetricsWriter(opt.log_dir, enable_tensorboard=False,
+                           role="learner", run_id=opt.refs)
+    driver = ReplicaLearnerDriver(opt, spec, rid, channel, writer=writer)
+    if memory is not None:
+        print(f"[replica] {rid}: the replica plane trains from the shared "
+              f"synthetic stream; the local ingest queue is drained but "
+              f"not consumed", flush=True)
+    # the first lease goes through the rejoin: a fresh plane grants round
+    # 0, a replacement entering mid-run gets the join barrier
+    driver.rejoin(timeout=max(60.0, 4.0 * rp.join_timeout_s))
+    channel.wait_members(rp.replicas, timeout=4.0 * max(rp.lease_s, 0.5))
+    driver.members = channel.members()
+    if driver.round == 0:
+        driver.prefill(min(max(ap.learn_start, ap.batch_size),
+                           opt.memory_params.memory_size))
+    host_flat = torch.empty(param_store.num_params)
+
+    def publish() -> None:
+        flatten_into({k: v.detach().cpu() for k, v in
+                      published_params(opt, driver.state).items()},
+                     host_flat, spec.state_shape)
+        param_store.publish(host_flat.numpy())
+
+    publish()
+    round0 = driver.round
+
+    def on_round(r: int, reply: dict) -> None:
+        clock.bump_progress("learner")
+        clock.set_learner_step(driver.lstep)
+        if ap.param_publish_freq and (r + 1) % ap.param_publish_freq == 0:
+            publish()
+        if ap.checkpoint_freq and (r + 1) % ap.checkpoint_freq == 0 \
+                and driver._rank() == 0:
+            driver._commit_epoch()
+        if memory is not None:
+            _discard_ingest(memory)
+
+    t0 = time.monotonic()
+    profiling.hold_windows()  # a profile window opens between two rounds
+    try:
+        driver.run_rounds(ap.steps, stop=clock.stop, on_round=on_round,
+                          rejoin=(rid != 0),
+                          stats_every=max(1, ap.learner_freq))
+    finally:
+        profiling.release_windows()
+        if driver.device.type == "cuda":
+            torch.cuda.synchronize(driver.device)
+        seconds = time.monotonic() - t0
+        publish()
+        if driver._rank() == 0 and driver.round > 0:
+            driver._commit_epoch()
+        channel.release()
+        channel.close()
+        writer.close()
+    rounds = driver.round - round0
+    return {
+        # the last published vector's digest: replicas hold one model
+        "replica/params_sha256": hashlib.sha256(
+            host_flat.numpy().tobytes()).hexdigest(),
+        "learner/steps": driver.lstep,
+        "learner/updates": rounds,
+        "learner/updates_per_sec": rounds / max(seconds, 1e-9),
+        "learner/train_seconds": seconds,
+        "replica/id": rid,
+        "replica/rounds": driver.round,
+        "replica/degraded_rounds": driver.exchange.degraded_rounds,
+        "replica/exchange_seconds": driver.exchange_s,
+        "replica/fence_events": driver.fence_events,
+        "replica/rejoins": driver.rejoins,
+        "replica/members": len(driver.members),
+        "replica/peak_allocated_bytes": (
+            torch.cuda.max_memory_allocated(driver.device)
+            if driver.device.type == "cuda" else 0),
+        "actor/steps": clock.actor_step.value,
+    }

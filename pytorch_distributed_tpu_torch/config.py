@@ -340,10 +340,9 @@ class MetricsParams:
     enabled: bool = False
     # the tail and alert cadence, seconds
     poll_s: float = 2.0
-    # the remote hosts' push cadence, seconds: MetricsPusher's, which
-    # comes with the fleet planes (ROADMAP.md Queue A item 8); nothing in
-    # the port reads it until then.  Kept so that resolve_metrics takes
-    # the reference's knobs
+    # the remote hosts' push cadence, seconds: an actor host's
+    # ``telemetry.MetricsPusher`` ships its scalar rows over ``T_METRICS``
+    # this often
     push_s: float = 5.0
     # raw points cover ``raw_span_s`` seconds (at most ``raw_points`` a
     # series); 10 s and 60 s bucket tiers keep the older history
@@ -433,9 +432,68 @@ class BandwidthParams:
     rate_floor_s: float = 0.05
 
 
+@dataclass
+class ReplicaParams:
+    """The learner replica plane (parallel/dcn.py ``ReplicaRegistry``,
+    agents/learner.py ``ReplicaLearnerDriver``; reference config.py:
+    709-755), each field overridable as ``TPU_APEX_REPLICA_<FIELD>``
+    (``parallel.dcn.resolve_replica``).  N data-parallel replicas hold
+    leases with monotonic generations on the lead gateway and train one
+    model through generation-stamped gradient rounds; a missed lease
+    expires the replica and fences its stale writes."""
+
+    # replicas configured (1: the plane is off); fewer live members is
+    # a degraded state, not an error
+    replicas: int = 1
+    # the lease window, seconds; also the round-stall window after which
+    # a silent member is expelled from a started round
+    lease_s: float = 5.0
+    # the renew cadence, seconds (0: lease_s / 3)
+    renew_s: float = 0.0
+    # the cap on one blocking round, seconds (0: 3 lease windows + 1)
+    round_timeout_s: float = 0.0
+    # seconds a rejoiner may take to load the barrier epoch and activate
+    join_timeout_s: float = 30.0
+    # the lead gateway's ``host:port`` a remote replica host dials
+    coordinator: str = ""
+
+
+@dataclass
+class GatewayParams:
+    """The gateway's HA plane (parallel/dcn.py ``GatewayJournal`` and the
+    gateway's standby role; reference config.py:757-801), each field
+    overridable as ``TPU_APEX_GATEWAY_<FIELD>``
+    (``parallel.dcn.resolve_gateway``).  The primary journals its
+    control state to a fsynced WAL under ``{log_dir}/gateway/`` and
+    serves it over ``T_SYNC``; a warm standby promotes once the primary
+    has been silent for a lease window, under a term written to the
+    shared ``TERM.json``.  Off: no journal, no ``gateway`` block in
+    STATUS, the wire as without the plane."""
+
+    enabled: bool = False
+    # the primary's lease, seconds: the standby promotes after failing to
+    # sync this long
+    lease_s: float = 2.0
+    # the standby's sync cadence, seconds
+    sync_s: float = 0.25
+    # the standby's bind ``host:port`` ("": 0.0.0.0 on the --port given)
+    standby: str = ""
+    # the ordered dial list ``host:port,host:port``, primary first
+    endpoints: str = ""
+
+
 _SUBS = ("env_params", "memory_params", "model_params", "agent_params",
          "health_params", "perf_params", "metrics_params", "alert_params",
-         "learner_perf_params", "anakin_params", "flow_params")
+         "learner_perf_params", "anakin_params", "flow_params",
+         "replica_params", "gateway_params")
+# the fields of the reference's option groups the port does not carry
+# (ShardParams, the sharded replay plane, reference config.py:804-861): a
+# bare key only they own raises as unknown, and one they share with a
+# ported group raises as ambiguous, as the reference's router does
+_UNPORTED_FIELDS = {
+    "shard_params": ("shards", "lease_s", "renew_s", "mass_refresh_s",
+                     "join_timeout_s", "coordinator"),
+}
 # the CONFIGS columns a run may not override; ``memory_type`` and
 # ``model_type`` may (``--set memory_type=native``, ``--set
 # model_type=dqn-cnn-wide``), as the reference's selectors
@@ -480,6 +538,8 @@ class Options:
         default_factory=LearnerPerfParams)
     anakin_params: AnakinParams = field(default_factory=AnakinParams)
     flow_params: FlowParams = field(default_factory=FlowParams)
+    replica_params: ReplicaParams = field(default_factory=ReplicaParams)
+    gateway_params: GatewayParams = field(default_factory=GatewayParams)
 
     @property
     def model_dir(self) -> str:
@@ -569,6 +629,8 @@ def build_options(config: int = 12, **overrides: Any) -> Options:
         owners = [s for s in _SUBS if hasattr(getattr(opt, s), key)]
         if not owners:
             raise ValueError(f"unknown option: {key}")
+        owners += [g for g, names in _UNPORTED_FIELDS.items()
+                   if key in names]
         if len(owners) > 1:
             # ``enabled`` is on several planes: a bare override would flip
             # them all (reference :1071-1081)

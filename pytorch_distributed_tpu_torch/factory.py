@@ -14,7 +14,8 @@ branches of
 ``build_train_state_and_step`` (:636-669), the learner's
 train apply gate ``_dqn_train_apply`` (:674-723),
 ``build_megabatch_train_step`` (:726-771), ``resolve_megabatch``
-(:774-791), ``published_params`` (:830-839) and ``build_memory`` for the
+(:774-791), the replica plane's ``build_replica_grad_apply`` and
+``replica_active`` (:793-828), ``published_params`` (:830-839) and ``build_memory`` for the
 ``shared``, ``native``, ``prioritized``, ``device``, ``device-per``,
 ``sequence`` and ``device-sequence`` rings (:862-997).  ``update_flops`` and ``frame_flops`` are the FLOP
 counts the perf plane's MFU divides by (utils/perf.py), where the
@@ -93,8 +94,8 @@ from pytorch_distributed_tpu_torch.ops.cuda_torso import (
 )
 from pytorch_distributed_tpu_torch.ops.losses import (
     TrainState, build_ddpg_megabatch_step, build_ddpg_train_step,
-    build_ddpg_train_step_coupled, build_dqn_megabatch_step,
-    build_dqn_train_step, init_ddpg_train_state, init_train_state,
+    build_ddpg_train_step_coupled, build_dqn_grad_and_apply,
+    build_dqn_megabatch_step, build_dqn_train_step, init_ddpg_train_state, init_train_state,
     make_optimizer, merge_ddpg_params,
 )
 from pytorch_distributed_tpu_torch.ops.sequence_losses import (
@@ -431,9 +432,17 @@ def build_model(opt: Options, spec: EnvSpec, device=None,
 
 def init_params(opt: Options, spec: EnvSpec, seed: int,
                 device=None) -> Dict[str, torch.Tensor]:
-    """A fresh parameter dict (the model's state_dict) from ``seed``."""
+    """A fresh parameter dict (the model's state_dict) from ``seed``, on one
+    CPU thread: the orthogonal init's QR gives other bits on another
+    thread count, and learner replicas in processes of different thread
+    counts must start from the same params."""
     gen = torch.Generator().manual_seed(seed)
-    model = build_model(opt, spec, generator=gen)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        model = build_model(opt, spec, generator=gen)
+    finally:
+        torch.set_num_threads(threads)
     return {k: v.to(device) if device is not None else v
             for k, v in model.state_dict().items()}
 
@@ -580,6 +589,31 @@ def build_train_state_and_step(opt: Options, model: torch.nn.Module,
         actor_fn, critic_fn, *make_optimizers(opt),
         target_model_update=ap.target_model_update, guard=guard)
     return init_ddpg_train_state(params), step
+
+
+def build_replica_grad_apply(opt: Options, model: torch.nn.Module
+                             ) -> Optional[Tuple[Callable, Callable]]:
+    """The dqn update cut at the gradient for the replica plane
+    (``ops/losses.build_dqn_grad_and_apply``; reference :793-818), on the
+    train apply and optimizer ``build_train_state_and_step`` builds, so a
+    replica's train state is a solo learner's and the other way round.
+    None for a family the plane does not serve."""
+    if opt.agent_type != "dqn":
+        return None
+    ap = opt.agent_params
+    return build_dqn_grad_and_apply(
+        dqn_train_apply(opt, model), make_optimizers(opt),
+        enable_double=ap.enable_double,
+        target_model_update=ap.target_model_update)
+
+
+def replica_active(opt: Options) -> bool:
+    """Is the replica plane on (reference :821-828)?  One resolution,
+    with the ``TPU_APEX_REPLICA_*`` knobs, for the runtime, the learner's
+    delegation and the fleet."""
+    from pytorch_distributed_tpu_torch.parallel.dcn import resolve_replica
+
+    return resolve_replica(opt.replica_params).replicas > 1
 
 
 def published_params(opt: Options, state: TrainState

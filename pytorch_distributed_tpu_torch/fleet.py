@@ -1,10 +1,11 @@
-"""The fleet: one learner host and actor hosts over the DCN wire — the
-port of pytorch_distributed_tpu/fleet.py's single-gateway part:
-``FleetTopology`` (:77-363, without the profile and metrics providers,
-the replica registry and the HA plane), ``run_fleet_learner``
-(:365-372), ``_remote_actor_main`` (:640-725), ``run_fleet_actors``
-(:728-956, without its ``MetricsPusher``) and ``main`` (:963-1093) with
-the roles ``learner`` and ``actors``.
+"""The fleet: one learner host, learner replica hosts, a standby gateway
+and actor hosts over the DCN wire — the port of
+pytorch_distributed_tpu/fleet.py: ``FleetTopology`` (:77-363, with the
+replica registry, the profile and metrics providers and the HA plane),
+``run_fleet_learner`` (:365-372), ``run_replica_host`` (:375-429),
+``run_gateway_standby`` (:431-513), ``_remote_actor_main`` (:640-725),
+``run_fleet_actors`` (:728-956, with its ``MetricsPusher``) and ``main``
+(:963-1093) with every role but ``replay-shard``.
 
     python -m pytorch_distributed_tpu_torch.fleet --role learner \\
         --config 12 --port 5555 --local-actors 0 [--device cpu]
@@ -31,15 +32,39 @@ backoff); a slot out of budget fails the host with exit 1.  The
 learner's stop ends every actor with exit 0.  ``--faults-client`` and
 ``--faults-gateway`` schedule wire faults (utils/faults.py).
 
-The roles ``learner-replica``, ``gateway-standby`` and ``replay-shard``,
-and the reference's ``ReplicaParams``, ``GatewayParams`` and
-``ShardParams`` fields, are not ported (ROADMAP.md Queue A item 8).
+Learner replicas (``--set replicas=N``): the learner host's gateway
+carries the ``ReplicaRegistry``, and its learner is replica 0, the lead,
+joined in process; each ``--role learner-replica --replica-id i
+--coordinator H:P`` host is another replica, on the card unless
+``--device cpu``.  They train one model in generation-stamped rounds
+(parallel/dcn.py, agents/learner.py ``run_replica_learner``) on the
+shared synthetic stream, as the reference's; a killed replica leaves the
+others training in degraded rounds, and a replacement rejoins through
+the epoch barrier.  A replica host that loses its lease exits
+``EXIT_DISCONNECTED``.
+
+The gateway's HA plane (``TPU_APEX_GATEWAY_ENABLED=1`` or ``--set
+gateway_params.enabled=true``): the learner host's gateway journals
+under ``{log_dir}/gateway/``; ``--role gateway-standby --coordinator
+H:P`` runs a warm standby on the CPU (it trains nothing: a param store, a
+clock and a bounded spool of the experience it takes once promoted),
+which promotes when the primary stops answering for a lease; actor hosts
+given ``--coordinator H:P,H:PS`` fail over to it.  With the metrics plane
+on (``TPU_APEX_METRICS=1``) an actor host's ``MetricsPusher`` pushes its
+scalar rows into the learner host's mission control over ``T_METRICS``;
+``parallel.dcn.fetch_profile`` opens a profile window in the learner
+host's process (``T_PROFILE``), warmed at start when the perf plane is
+on.
+
+The role ``replay-shard`` and the reference's ``ShardParams`` fields are
+not ported (ROADMAP.md Queue A item 8 (iii)).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import multiprocessing as mp
 import os
 import signal
@@ -86,6 +111,32 @@ class FleetTopology(Topology):
             self._actor_backend = resolve_actor_backend(
                 opt, self.inference_server)
         self._host = host
+        # the profiler's one-time set-up, paid before the gateway binds:
+        # seconds of a held GIL here starve no peer or standby, and the
+        # first T_PROFILE then opens at window speed
+        self.profiler_prewarm_s: Optional[float] = None
+        if self.perf.enabled:
+            from pytorch_distributed_tpu_torch.utils import perf
+
+            if threading.current_thread() is threading.main_thread():
+                self.profiler_prewarm_s = perf.prewarm_profiler()
+                print(f"[fleet] profiler prewarmed in "
+                      f"{self.profiler_prewarm_s:.2f} s", flush=True)
+            else:
+                print("[fleet] profiler not prewarmed: the topology was "
+                      "not built on the main thread", flush=True)
+        # the replica registry rides this gateway; the lead learner (this
+        # process) joins through the module's handle, not over loopback
+        if self.replica.replicas > 1:
+            from pytorch_distributed_tpu_torch.parallel.dcn import (
+                ReplicaRegistry, set_local_registry,
+            )
+
+            self.replica_registry = ReplicaRegistry(
+                self.replica,
+                writer=(self.mission._writer
+                        if self.mission is not None else None))
+            set_local_registry(self.replica_registry)
         self.gateway = self._make_gateway(port)
         self.port = self.gateway.port
 
@@ -104,10 +155,42 @@ class FleetTopology(Topology):
             put_chunk=feed_queue_of(self.handles), host=self._host,
             port=port, local_actors=self.local_actors,
             health=self._health_snapshot,
+            profiler=self._profile_request,
+            metrics_sink=self._metrics_sink,
             flow_params=self.flow,
             pressure=self._flow_pressure,
             flow_writer=(self.mission._writer
-                         if self.mission is not None else None))
+                         if self.mission is not None else None),
+            replicas=self.replica_registry,
+            gateway_params=self.gateway_ha,
+            log_dir=(self.opt.log_dir if self.gateway_ha.enabled else None),
+            ha_writer=(self.mission._writer
+                       if self.mission is not None else None))
+
+    def _metrics_sink(self, payload: dict) -> int:
+        """``T_METRICS``: a remote host's rows into mission control; with
+        the plane off nothing is absorbed (the reply says accepted 0)."""
+        if self.mission is None:
+            return 0
+        return self.mission.ingest_remote(payload)
+
+    def _profile_request(self, msg: dict) -> dict:
+        """``T_PROFILE``: a bounded profile window of this process, the
+        learner host's, which owns the card; the learner's thread opens
+        and closes it between two updates (utils/profiling.py).  Another
+        role is refused: its process is not this one."""
+        from pytorch_distributed_tpu_torch.utils import perf
+
+        role = str(msg.get("role", "learner"))
+        if role != "learner":
+            return {"error": f"role {role!r} not profilable over "
+                             f"T_PROFILE: only the learner host process "
+                             f"(the card's owner) captures traces"}
+        label = msg.get("label") or time.strftime("tprofile_%H%M%S")
+        return perf.run_profile_window(
+            os.path.join(self.opt.log_dir, "profiles"), label=str(label),
+            seconds=msg.get("seconds", 3.0),
+            max_seconds=self.perf.profile_window_max)
 
     def _flow_pressure(self) -> float:
         """The governor's input: the ingest queues' fill; 0.0 where it
@@ -205,6 +288,15 @@ class FleetTopology(Topology):
         while self.gateway.active_slots and time.monotonic() < deadline:
             time.sleep(0.05)
         self.gateway.close()
+        if self.replica_registry is not None:
+            # a later topology of this process must not join this run's
+            # closed registry
+            from pytorch_distributed_tpu_torch.parallel.dcn import (
+                local_registry, set_local_registry,
+            )
+
+            if local_registry() is self.replica_registry:
+                set_local_registry(None)
 
     def restart_gateway(self) -> None:
         """Close the gateway and bind a new one on the same port: the
@@ -233,7 +325,182 @@ def run_fleet_learner(opt: Options, local_actors: int = 0, port: int = 5555,
     summary["gateway/connections"] = topo.gateway.connections
     summary["gateway/fenced"] = topo.gateway.fenced
     summary["gateway/faults_injected"] = topo.gateway.faults_injected
+    summary["gateway/metrics_batches"] = topo.gateway.metrics_batches
+    summary["gateway/profiles_served"] = topo.gateway.profiles_served
+    if topo.profiler_prewarm_s is not None:
+        summary["perf/profiler_prewarm_s"] = topo.profiler_prewarm_s
+    if topo.replica_registry is not None:
+        reg = topo.replica_registry
+        summary.update({"replica/rounds_completed": reg.rounds_completed,
+                        "replica/degraded_completions":
+                            reg.degraded_completions,
+                        "replica/leases_expired": reg.leases_expired})
+    summary.update(kernel_launches())
     return summary
+
+
+def kernel_launches() -> dict:
+    """This process's launches of each kernel (B1's draws, B2's products)
+    since it started or the counters were last zeroed."""
+    from pytorch_distributed_tpu_torch.ops.cuda_sampling import (
+        hierarchical_sample,
+    )
+    from pytorch_distributed_tpu_torch.ops.cuda_torso import COUNTERS
+
+    return {f"kernels/{c.__name__}": c.launches
+            for c in (hierarchical_sample, *COUNTERS)}
+
+
+# -- the replica host ---------------------------------------------------------------
+
+def run_replica_host(opt: Options, coordinator: str,
+                     replica_id: int) -> dict:
+    """One learner replica on its own host (reference :375-429): it dials
+    the lead gateway's replica plane and trains the shared model
+    (agents/learner.py ``run_replica_learner``) on ``opt.device``.  The
+    run's end returns the summary (exit 0); a fence whose rejoin failed
+    exits ``EXIT_DISCONNECTED`` for an outer supervisor, whose respawn
+    leases at a new generation and loads the join barrier's epoch.
+    SIGTERM drains the rounds, commits, releases and exits 0."""
+    from pytorch_distributed_tpu_torch.agents.clocks import (
+        GlobalClock, LearnerStats,
+    )
+    from pytorch_distributed_tpu_torch.agents.learner import (
+        run_replica_learner,
+    )
+    from pytorch_distributed_tpu_torch.agents.param_store import (
+        ParamStore, num_params,
+    )
+    from pytorch_distributed_tpu_torch.factory import (
+        build_model, probe_env, resolve_device,
+    )
+    from pytorch_distributed_tpu_torch.parallel.dcn import ReplicaFenced
+    from pytorch_distributed_tpu_torch.utils import flight_recorder
+    from pytorch_distributed_tpu_torch.utils.supervision import (
+        EXIT_DISCONNECTED,
+    )
+
+    resolve_device(opt)  # fail before anything dials
+    opt.replica_params.coordinator = coordinator
+    flight_recorder.configure(opt.log_dir, run_id=opt.refs)
+    spec = probe_env(opt)
+    store = ParamStore(num_params(
+        build_model(opt, spec, init_weights=False).state_dict()))
+    clock = GlobalClock()
+    # the handler only sets an event; a watcher sets the shared stop,
+    # whose lock the interrupted thread may hold
+    term = threading.Event()
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, lambda s, f: term.set())
+
+        def watch() -> None:
+            term.wait()
+            clock.stop.set()
+
+        threading.Thread(target=watch, name="replica-sigterm",
+                         daemon=True).start()
+    print(f"[fleet] replica host up: replica {replica_id} -> "
+          f"{coordinator}", flush=True)
+    try:
+        summary = run_replica_learner(opt, spec, replica_id, None, store,
+                                      clock, LearnerStats(),
+                                      replica_id=replica_id)
+    except (ReplicaFenced, ConnectionError, OSError) as e:
+        print(f"[fleet] replica-{replica_id} lost its lease or session "
+              f"({e}); exiting {EXIT_DISCONNECTED} for the supervisor",
+              flush=True)
+        flight_recorder.dump_all(
+            f"replica-{replica_id} fenced or disconnected")
+        sys.exit(EXIT_DISCONNECTED)
+    summary["runtime/preempted"] = int(term.is_set())
+    summary.update(kernel_launches())
+    return summary
+
+
+# -- the standby gateway --------------------------------------------------------------
+
+def run_gateway_standby(opt: Options, coordinator: str,
+                        port: int = 0) -> dict:
+    """``--role gateway-standby`` (reference :431-513): a warm standby of
+    the HA plane on the CPU.  It pulls the primary's journal over
+    ``T_SYNC``, refuses session verbs (counted) until the primary has
+    been silent for a lease, then promotes on the shared ``TERM.json``
+    and serves.  It trains nothing: a param store, a clock and a bounded
+    drop-oldest spool of the experience it takes once promoted, which
+    keeps the actors alive and counted while a learner host is brought
+    back from the checkpoints.  SIGTERM sets its clock's stop, gives the
+    remote actors ``_PART_S`` to take it from an ack and leave, as the
+    learner host does, and exits 0 (the reference's standby closes at
+    once).  Returns the counts."""
+    import collections
+
+    from pytorch_distributed_tpu_torch.agents.clocks import (
+        ActorStats, GlobalClock,
+    )
+    from pytorch_distributed_tpu_torch.agents.param_store import (
+        ParamStore, num_params,
+    )
+    from pytorch_distributed_tpu_torch.factory import build_model, probe_env
+    from pytorch_distributed_tpu_torch.parallel.dcn import (
+        DcnGateway, parse_endpoints, resolve_gateway,
+    )
+    from pytorch_distributed_tpu_torch.utils import flight_recorder
+
+    gp = resolve_gateway(opt.gateway_params)
+    if not gp.enabled:
+        raise SystemExit(
+            "--role gateway-standby needs the HA plane on: set "
+            "TPU_APEX_GATEWAY_ENABLED=1 (or --set "
+            "gateway_params.enabled=true)")
+    flight_recorder.configure(opt.log_dir, run_id=opt.refs)
+    spec = probe_env(opt)
+    store = ParamStore(num_params(
+        build_model(opt, spec, init_weights=False).state_dict()))
+    clock = GlobalClock()
+    spool: collections.deque = collections.deque(maxlen=4096)
+    spooled = [0]
+
+    def _spool(items: list) -> None:
+        spool.append(items)
+        spooled[0] += len(items)
+
+    bind_host, bind_port = "0.0.0.0", port
+    if gp.standby:
+        eps = parse_endpoints(gp.standby)
+        if eps:
+            bind_host, bind_port = eps[0]
+    primary = parse_endpoints(coordinator)[0]
+    gw = DcnGateway(store, clock, ActorStats(), put_chunk=_spool,
+                    host=bind_host, port=bind_port, gateway_params=gp,
+                    log_dir=opt.log_dir, ha_role="standby",
+                    sync_from=primary)
+    # the handler sets a plain event polled below: it must not take the
+    # clock's lock the main thread could hold
+    host_stop = threading.Event()
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, lambda s, f: host_stop.set())
+    print(f"[fleet] gateway standby up on port {gw.port}, syncing "
+          f"{primary[0]}:{primary[1]} (lease {gp.lease_s:g}s)", flush=True)
+    try:
+        while not host_stop.wait(0.5) and not clock.stop.is_set():
+            pass
+    finally:
+        # as the learner host parts: the stop rides the next acks, and
+        # the remote actors get a bounded wait to take it and leave
+        clock.stop.set()
+        deadline = time.monotonic() + _PART_S
+        while gw.active_slots and time.monotonic() < deadline:
+            time.sleep(0.05)
+        role = gw.status_snapshot().get("gateway", {})
+        gw.close()
+        print(f"[fleet] gateway standby exiting: role "
+              f"{role.get('role')!r} term {role.get('term')} "
+              f"(spooled {spooled[0]} rows post-promotion)", flush=True)
+    return {"gateway/role": role.get("role"), "gateway/term": role.get("term"),
+            "gateway/promotions": role.get("promotions"),
+            "gateway/standby_refused": role.get("standby_refused"),
+            "gateway/spooled_rows": spooled[0],
+            "gateway/chunks_in": gw.chunks_in}
 
 
 # -- the actor host ----------------------------------------------------------------
@@ -297,8 +564,8 @@ def _remote_actor_main(opt: Options, coordinator: str, process_ind: int,
         sys.exit(EXIT_DISCONNECTED)
     recorder.record("run-complete", reconnects=client.reconnects)
     print(f"[fleet] actor-{process_ind} done (reconnects "
-          f"{client.reconnects}, faults {client.faults_injected})",
-          flush=True)
+          f"{client.reconnects}, faults {client.faults_injected}, "
+          f"failovers {client.failovers})", flush=True)
 
 
 def _remote_actor_child(opt: Options, coordinator: str, process_ind: int,
@@ -325,12 +592,26 @@ def run_fleet_actors(opt: Options, coordinator: str, actor_base: int,
             f"actor slots [{actor_base}, {actor_base + actor_count}) exceed "
             f"fleet num_actors={opt.num_actors}")
     from pytorch_distributed_tpu_torch.factory import prebuild_native
-    from pytorch_distributed_tpu_torch.utils import flight_recorder, health
+    from pytorch_distributed_tpu_torch.parallel.dcn import parse_endpoints
+    from pytorch_distributed_tpu_torch.utils import (
+        flight_recorder, health, telemetry,
+    )
     from pytorch_distributed_tpu_torch.utils.supervision import (
         EXIT_CRASH, EXIT_HUNG, ProgressBoard, RestartBudget, describe_exit,
     )
 
     prebuild_native(opt)  # once, before the workers race one g++
+    # the push leg of mission control: with the metrics plane on, a
+    # MetricsPusher tails this host's scalars.jsonl and ships its rows to
+    # the learner host over T_METRICS, offset onto its clock.  It dials
+    # the first endpoint; each push has its own timeout and one retry, so
+    # a failover costs dropped batches, not a stuck thread
+    pusher = None
+    mparams = telemetry.resolve_metrics(opt.metrics_params)
+    if mparams.enabled:
+        pusher = telemetry.MetricsPusher(parse_endpoints(coordinator)[0],
+                                         opt.log_dir, mparams)
+        pusher.start()
     hp = health.resolve(opt.health_params)
     board = ProgressBoard([f"actor-{actor_base + i}"
                            for i in range(actor_count)])
@@ -368,6 +649,8 @@ def run_fleet_actors(opt: Options, coordinator: str, actor_base: int,
         for w in workers.values():
             w.join()
         bad = {ind: code for ind, code in thread_exits.items() if code}
+        if pusher is not None:
+            pusher.stop()  # its last drain rides the stop
         if bad:
             raise RuntimeError(
                 f"actor host FAILED (thread backend): worker exit codes "
@@ -466,12 +749,17 @@ def run_fleet_actors(opt: Options, coordinator: str, actor_base: int,
         pending.clear()
     if prev_term is not None:
         signal.signal(signal.SIGTERM, prev_term)
+    if pusher is not None:
+        pusher.stop()  # its last drain rides the stop
+        print(f"[fleet] metrics pusher: {pusher.pushed_rows} rows pushed, "
+              f"{pusher.push_errors} push errors, {pusher.dropped_rows} "
+              f"dropped", flush=True)
     return abandoned
 
 
 # -- the CLI -----------------------------------------------------------------------
 
-_UNPORTED_ROLES = ("learner-replica", "gateway-standby", "replay-shard")
+_UNPORTED_ROLES = ("replay-shard",)
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -479,34 +767,46 @@ def parse_args(argv: Optional[List[str]] = None):
         prog="pytorch_distributed_tpu_torch.fleet",
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--role", choices=("learner", "actors")
+    ap.add_argument("--role", choices=("learner", "actors",
+                                       "learner-replica", "gateway-standby")
                     + _UNPORTED_ROLES, required=True,
                     help="learner: the learner host (the learner on the "
                          "card unless --device cpu, its gateway, its local "
-                         "actors); actors: an actor host, whose actors run "
-                         "their policies on the CPU (a remote actor host "
-                         "is a CPU-only host, as in the reference); the "
-                         "other roles are not ported")
+                         "actors; with --set replicas=N replica 0); "
+                         "learner-replica: one more learner replica, on "
+                         "the card unless --device cpu; gateway-standby: "
+                         "a warm standby gateway of the HA plane, on the "
+                         "CPU by its placement (it trains nothing); "
+                         "actors: an actor host, whose actors run their "
+                         "policies on the CPU (a remote actor host is a "
+                         "CPU-only host, as in the reference); "
+                         "replay-shard is not ported")
+    ap.add_argument("--replica-id", type=int, default=1,
+                    help="[learner-replica] this host's replica id (0 is "
+                         "the learner host's; ids are unique in the fleet)")
     ap.add_argument("--config", type=int, default=1)
     ap.add_argument("--num-actors", type=int, default=None,
                     help="the fleet's actor count over every host "
                          "(default: the config's)")
     ap.add_argument("--port", type=int, default=5555,
-                    help="[learner] the gateway's port (0: any free one)")
+                    help="[learner|gateway-standby] the gateway's port (0: "
+                         "any free one)")
     ap.add_argument("--local-actors", type=int, default=0,
                     help="[learner] actors on the learner host")
     ap.add_argument("--coordinator", type=str, default=None,
-                    help="[actors] the learner host as host:port (or an "
-                         "ordered list h1:p1,h2:p2)")
+                    help="[actors|learner-replica|gateway-standby] the "
+                         "learner host as host:port; an actor host may give "
+                         "an ordered list h1:p1,h2:p2 (primary first, "
+                         "standby after) and fails over along it")
     ap.add_argument("--actor-base", type=int, default=0,
                     help="[actors] the first global actor slot here")
     ap.add_argument("--actor-count", type=int, default=8,
                     help="[actors] the actors to run here")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="[learner] where the learner, the evaluator and "
-                         "local actors with a device backend run; raises "
-                         "without a GPU unless cpu")
+                    help="[learner|learner-replica] where the learner, the "
+                         "evaluator and local actors with a device backend "
+                         "run; raises without a GPU unless cpu")
     ap.add_argument("--backend", choices=("process", "thread"),
                     default="process",
                     help="workers as spawn children or threads")
@@ -557,7 +857,10 @@ def main(argv: Optional[List[str]] = None):
         if val is not None:
             os.environ[env] = str(val)
     overrides = parse_set_overrides(args.set)
-    overrides["device"] = args.device if args.role == "learner" else "cpu"
+    # the roles' placement: the learners on --device, the actor hosts and
+    # the standby on the CPU
+    overrides["device"] = (args.device if args.role in (
+        "learner", "learner-replica") else "cpu")
     if args.num_actors is not None:
         overrides["num_actors"] = args.num_actors
     if args.seed is not None:
@@ -572,14 +875,20 @@ def main(argv: Optional[List[str]] = None):
         overrides["resume"] = "must"
     opt = build_options(args.config, **overrides)
     if args.role == "learner":
-        import json
-
         summary = run_fleet_learner(opt, local_actors=args.local_actors,
                                     port=args.port, backend=args.backend)
         print(json.dumps(summary), flush=True)
         return summary
     if not args.coordinator:
-        ap.error("--role actors needs --coordinator host:port")
+        ap.error(f"--role {args.role} needs --coordinator host:port")
+    if args.role == "learner-replica":
+        summary = run_replica_host(opt, args.coordinator, args.replica_id)
+        print(json.dumps(summary), flush=True)
+        return summary
+    if args.role == "gateway-standby":
+        summary = run_gateway_standby(opt, args.coordinator, args.port)
+        print(json.dumps(summary), flush=True)
+        return summary
     abandoned = run_fleet_actors(opt, args.coordinator, args.actor_base,
                                  args.actor_count, backend=args.backend)
     if abandoned:

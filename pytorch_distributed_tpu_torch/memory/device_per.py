@@ -323,6 +323,43 @@ def _clone_tree(tree):
     return type(tree)(*(_clone_tree(v) for v in tree))
 
 
+def _on_side_stream(device, fn, *args):
+    """``fn(*args)`` eagerly on a side stream of ``device``, waited for
+    (a warm-up call: lazy initialisation must not happen under capture,
+    and no side-stream block may outlive the call)."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn(*args)
+    cur.wait_stream(side)
+    torch.cuda.synchronize(device)
+    return out
+
+
+def _capture_counted(counters: Sequence, fn: Callable) -> tuple:
+    """``(graph, fn's result, launches)``: ``fn()`` captured into a CUDA
+    graph.  Capture records the kernel wrappers' launches without running
+    them, so each counter is put back, and ``launches`` holds what a
+    replay of the graph adds to each (``_replay_counted``)."""
+    before = [c.launches for c in counters]
+    graph = torch.cuda.CUDAGraph()
+    # thread_local: actor threads go on launching work on their own
+    # streams and synchronising with it while this thread captures
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = fn()
+    deltas = tuple(c.launches - b for c, b in zip(counters, before))
+    for c, b in zip(counters, before):
+        c.launches = b
+    return graph, out, deltas
+
+
+def _replay_counted(graph, counters: Sequence, deltas: tuple) -> None:
+    graph.replay()
+    for c, d in zip(counters, deltas):
+        c.launches += d
+
+
 class GraphedFusedStep:
     """A fused step (``build_fused_step`` of the PER ring or of the uniform
     ring, whose ``beta`` is None) replayed from a CUDA graph, with the
@@ -356,34 +393,20 @@ class GraphedFusedStep:
         self._static = self._metrics = self._us = self._beta = None
         self.captures = 0
 
-    def _eager(self, ts, us, beta):
-        cur = torch.cuda.current_stream(us.device)
-        side = torch.cuda.Stream(us.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            out = self._fused(ts, self._ring, us, beta)
-        cur.wait_stream(side)
-        torch.cuda.synchronize(us.device)  # no side-stream block outlives
-        return out
-
     def _capture(self, ts, us, beta) -> None:
         self._static = _clone_tree(ts)
         self._us = us.clone()
         self._beta = (None if beta is None
                       else torch.full((), float(beta), device=us.device))
-        before = [c.launches for c in self._counters]
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: actor threads go on launching work on their own
-        # streams and synchronising with it while this thread captures
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            new_ts, self._metrics = self._fused(self._static, self._ring,
-                                                self._us, self._beta)
+
+        def step():
+            new_ts, metrics = self._fused(self._static, self._ring,
+                                          self._us, self._beta)
             _copy_tree_(self._static, new_ts)
-        self._deltas = tuple(c.launches - b
-                             for c, b in zip(self._counters, before))
-        for c, b in zip(self._counters, before):
-            c.launches = b
-        self._graph = graph
+            return metrics
+
+        self._graph, self._metrics, self._deltas = _capture_counted(
+            self._counters, step)
         self.captures += 1
 
     def __call__(self, ts, rs: ReplayState, us: torch.Tensor, beta=None):
@@ -391,7 +414,8 @@ class GraphedFusedStep:
             raise ValueError("the graph replays the ring it was captured on")
         if self._warmup > 0:
             self._warmup -= 1
-            return self._eager(ts, us, beta)
+            return _on_side_stream(us.device, self._fused, ts, self._ring,
+                                   us, beta)
         if self._graph is None:
             self._capture(ts, us, beta)
         else:
@@ -400,7 +424,83 @@ class GraphedFusedStep:
             self._us.copy_(us)
             if self._beta is not None:
                 self._beta.fill_(float(beta))
-        self._graph.replay()
-        for c, d in zip(self._counters, self._deltas):
-            c.launches += d
+        _replay_counted(self._graph, self._counters, self._deltas)
         return self._static, self._metrics
+
+
+class GraphedReplicaStep:
+    """A learner replica's two halves, each replayed from a CUDA graph: on
+    the replica's ring ``ring``, ``grad_part(ts, rs, us (B,), beta) ->
+    (grads, ok, metrics, td_abs, idx)`` (the draw and the forward and
+    backward) and ``apply_part(ts, grads, ok) -> ts'`` (the optimizer),
+    with the gradient exchange on the host between them.
+
+    As ``GraphedFusedStep``: the first ``warmup`` rounds run eagerly on a
+    side stream; the next one captures both halves on one set of static
+    train-state buffers (the apply graph writes its result back into
+    them) and replays; ``counters`` have the launches the captured grad
+    half holds put back and added on every replay.  On the CPU the halves
+    run as they are.  The returned tensors are the static buffers,
+    overwritten by the next call."""
+
+    def __init__(self, grad_part: Callable, apply_part: Callable,
+                 ring: ReplayState, counters: Sequence = (),
+                 warmup: int = 2):
+        self._grad_part, self._apply_part = grad_part, apply_part
+        self._ring = ring
+        self._counters = tuple(counters)
+        self._warmup = warmup
+        self._graphs = None
+        self._deltas = ()
+        self._static = self._out = None
+        self._us = self._beta = self._grads = self._ok = None
+        self.captures = 0
+
+    def _capture(self, ts, us, beta) -> None:
+        self._static = _clone_tree(ts)
+        self._us = us.clone()
+        self._beta = torch.full((), float(beta), device=us.device)
+        grad_graph, self._out, self._deltas = _capture_counted(
+            self._counters, lambda: self._grad_part(
+                self._static, self._ring, self._us, self._beta))
+        self._grads = {k: torch.zeros_like(g)
+                       for k, g in self._out[0].items()}
+        self._ok = torch.ones((), device=us.device)
+        apply_graph, _, _ = _capture_counted((), lambda: _copy_tree_(
+            self._static, self._apply_part(self._static, self._grads,
+                                           self._ok)))
+        self._graphs = (grad_graph, apply_graph)
+        self.captures += 1
+
+    def grad(self, ts, us: torch.Tensor, beta: float):
+        if us.device.type != "cuda":
+            return self._grad_part(ts, self._ring, us, beta)
+        if self._warmup > 0:
+            self._warmup -= 1
+            return _on_side_stream(us.device, self._grad_part, ts,
+                                   self._ring, us,
+                                   torch.full((), float(beta),
+                                              device=us.device))
+        if self._graphs is None:
+            self._capture(ts, us, beta)
+        else:
+            if ts is not self._static:
+                _copy_tree_(self._static, ts)
+            self._us.copy_(us)
+            self._beta.fill_(float(beta))
+        _replay_counted(self._graphs[0], self._counters, self._deltas)
+        return self._out
+
+    def apply(self, ts, grads, ok: float = 1.0):
+        if self._graphs is None:
+            if next(iter(grads.values())).device.type != "cuda":
+                return self._apply_part(ts, grads, ok)
+            return _on_side_stream(ts.step.device, self._apply_part, ts,
+                                   grads, torch.full((), float(ok),
+                                                     device=ts.step.device))
+        if ts is not self._static:
+            _copy_tree_(self._static, ts)
+        _copy_tree_(self._grads, grads)
+        self._ok.fill_(float(ok))
+        self._graphs[1].replay()
+        return self._static

@@ -1,6 +1,8 @@
 """The learner's updates as plain tensor functions — the port of
 pytorch_distributed_tpu/ops/losses.py: ``make_optimizer`` (:67-82),
-``_value_loss`` (:85-95), the DQN update (:98-150) and its megabatch group
+``_value_loss`` (:85-95), the DQN update (:98-150), its cut at the
+gradient for learner replicas (``build_dqn_grad_and_apply`` :153-228)
+and its megabatch group
 step (``_per_minibatch_ok`` and ``build_dqn_megabatch_step``, :231-343),
 the DDPG updates (``build_ddpg_megabatch_step`` :346-470,
 ``init_ddpg_train_state`` :473, ``build_ddpg_train_step`` :491,
@@ -197,18 +199,15 @@ def _guarded(guard: bool, new, old, metrics: dict, td_abs: torch.Tensor):
             torch.where(ok, td_abs, torch.zeros_like(td_abs)))
 
 
-def build_dqn_train_step(apply_fn: Callable[[Params, torch.Tensor],
-                                            torch.Tensor],
-                         tx: Callable, *, enable_double: bool = False,
-                         target_model_update: float = 250,
-                         guard: bool = True) -> Callable:
-    """``apply_fn(params, obs) -> q (B, A) fp32``, ``tx`` from
-    ``make_optimizer``; returns ``step(state, batch) -> (state', metrics,
-    td_abs)``."""
+def _dqn_grads(apply_fn: Callable[[Params, torch.Tensor], torch.Tensor],
+               enable_double: bool) -> Callable:
+    """``grads_of(state, batch) -> (grads, loss, metrics, td_abs)``: the
+    DQN loss (reference :98-150), its gradient at ``state.params`` and
+    the update's metrics; the one loss of the fused step and of the
+    replicas' grad half."""
 
-    def step(state: TrainState, batch: Batch):
-        params = {k: v.detach().requires_grad_(True)
-                  for k, v in state.params.items()}
+    def grads_of(state: TrainState, batch: Batch):
+        params = _grad_leaves(state.params)
         q = apply_fn(params, batch.state0)
         q_sel = q.gather(1, batch.action.long().view(-1, 1))[:, 0]
         with torch.no_grad():
@@ -225,18 +224,87 @@ def build_dqn_train_step(apply_fn: Callable[[Params, torch.Tensor],
         grads = dict(zip(params, torch.autograd.grad(loss,
                                                      list(params.values()))))
         with torch.no_grad():
-            q_mean = q.max(-1).values.mean()
-            new_params, opt = tx(grads, state.opt_state, state.params)
-            new_step = state.step + 1
-            new_target = update_target(state.target_params, new_params,
-                                       new_step, target_model_update)
-            new = TrainState(new_params, new_target, opt, new_step)
             metrics = {"learner/critic_loss": loss.detach(),
-                       "learner/q_mean": q_mean,
+                       "learner/q_mean": q.max(-1).values.mean(),
                        "learner/grad_norm": global_norm(grads)}
-            return _guarded(guard, new, state, metrics, td.detach().abs())
+            return grads, loss.detach(), metrics, td.detach().abs()
+
+    return grads_of
+
+
+def _dqn_apply(tx: Callable, target_model_update: float) -> Callable:
+    """``apply(state, grads) -> state'``: the optimizer, the step and the
+    target cadence, chained once for the fused step and the replicas'
+    apply half."""
+
+    def apply(state: TrainState, grads: Params) -> TrainState:
+        new_params, opt = tx(grads, state.opt_state, state.params)
+        new_step = state.step + 1
+        new_target = update_target(state.target_params, new_params,
+                                   new_step, target_model_update)
+        return TrainState(new_params, new_target, opt, new_step)
+
+    return apply
+
+
+def build_dqn_train_step(apply_fn: Callable[[Params, torch.Tensor],
+                                            torch.Tensor],
+                         tx: Callable, *, enable_double: bool = False,
+                         target_model_update: float = 250,
+                         guard: bool = True) -> Callable:
+    """``apply_fn(params, obs) -> q (B, A) fp32``, ``tx`` from
+    ``make_optimizer``; returns ``step(state, batch) -> (state', metrics,
+    td_abs)``."""
+    grads_of = _dqn_grads(apply_fn, enable_double)
+    apply = _dqn_apply(tx, target_model_update)
+
+    def step(state: TrainState, batch: Batch):
+        grads, _loss, metrics, td_abs = grads_of(state, batch)
+        with torch.no_grad():
+            return _guarded(guard, apply(state, grads), state, metrics,
+                            td_abs)
 
     return step
+
+
+def build_dqn_grad_and_apply(apply_fn: Callable[[Params, torch.Tensor],
+                                                torch.Tensor],
+                             tx: Callable, *, enable_double: bool = False,
+                             target_model_update: float = 250
+                             ) -> Tuple[Callable, Callable]:
+    """The DQN update of ``build_dqn_train_step`` cut at the gradient
+    (reference :153-228), so learner replicas can reduce their gradients
+    between the halves:
+
+    - ``grad_fn(state, batch) -> (grads, ok, metrics, td_abs)``: the
+      fused step's loss, double-DQN and |TD| at the current params, and
+      ``ok`` (() fp32, 1.0 when the loss, every |TD| and every gradient
+      are finite: a replica's non-finite gradient is left out of the
+      reduce instead of reaching every member);
+    - ``apply_grads(state, grads, ok) -> state'``: the optimizer, the
+      step and the target cadence chained as the fused step chains them;
+      ``ok <= 0`` passes the input state through, per tensor.
+
+    With the same gradient the halves give the fused step's state to the
+    bit (a round of one member divides by 1.0)."""
+    grads_of = _dqn_grads(apply_fn, enable_double)
+    apply = _dqn_apply(tx, target_model_update)
+
+    def grad_fn(state: TrainState, batch: Batch):
+        grads, loss, metrics, td_abs = grads_of(state, batch)
+        with torch.no_grad():
+            ok = torch.isfinite(loss) & torch.isfinite(td_abs).all()
+            for g in grads.values():
+                ok = ok & torch.isfinite(g).all()
+            return grads, ok.float(), metrics, td_abs
+
+    def apply_grads(state: TrainState, grads: Params, ok) -> TrainState:
+        with torch.no_grad():
+            ok = torch.as_tensor(ok, dtype=torch.float32,
+                                 device=state.step.device)
+            return _select(ok > 0, apply(state, grads), state)
+
+    return grad_fn, apply_grads
 
 
 def _per_minibatch_ok(*arrays: torch.Tensor, grads=()) -> torch.Tensor:

@@ -73,8 +73,9 @@ watchdog reads ``HealthParams`` through ``health.resolve``, so
 
 The flow plane (utils/flow.py) is resolved from ``opt.flow_params`` and
 exported to the environment before any child starts (reference
-:138-147), and so is the perf plane (utils/perf.py, ``opt.perf_params``,
-reference :147-154) when it is on; the evaluator's child lowers its
+:138-147), and so are the perf plane (utils/perf.py, ``opt.perf_params``,
+reference :147-154), the replica plane (``opt.replica_params``) and the
+gateway's HA plane (``opt.gateway_params``, reference :155-180) when on; the evaluator's child lowers its
 priority by ``evaluator_nice`` (reference :80-92).  With
 ``MetricsParams.enabled`` the runtime builds mission control
 (utils/telemetry.py, reference :178-188), starts its poll thread once the
@@ -211,7 +212,24 @@ class Topology:
         self.perf = perf.resolve(opt.perf_params)
         if self.perf.enabled:
             perf.export_env(self.perf)
-        # mission control, built here and started by run()
+        # the replica and HA planes, resolved once and exported on the
+        # same contract (reference :155-180): the registry itself rides
+        # the fleet's gateway (fleet.FleetTopology), so a plain Topology
+        # with replicas > 1 has none and the learner runs solo, saying so
+        from pytorch_distributed_tpu_torch.parallel.dcn import (
+            export_gateway_env, export_replica_env, resolve_gateway,
+            resolve_replica,
+        )
+
+        self.replica = resolve_replica(opt.replica_params)
+        if self.replica.replicas > 1:
+            export_replica_env(self.replica)
+        self.replica_registry = None
+        self.gateway_ha = resolve_gateway(opt.gateway_params)
+        if self.gateway_ha.enabled:
+            export_gateway_env(self.gateway_ha)
+        # mission control, built here (unstarted, so the fleet gateway's
+        # T_METRICS sink has a writer from the start) and started by run()
         self.metrics_params = telemetry.resolve_metrics(opt.metrics_params)
         self.mission = None
         if self.metrics_params.enabled:

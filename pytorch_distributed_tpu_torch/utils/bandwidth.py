@@ -18,6 +18,13 @@ the feeder's flush, ``drain`` at the learner's read; memory/feeder.py),
 and the rings' occupancy gauges ``replay/hbm_bytes`` (device rings, one
 shot at attach) and ``replay/host_bytes`` (host rings, at construction).
 ``ckpt/epoch_bytes`` is the checkpoint saver's (utils/checkpoint.py).
+The DCN wire (parallel/dcn.py) tags its sockets by link: ``gateway``
+(accepted connections, the slot known at HELLO), ``client`` (actor
+sessions), ``replica`` (a ``ReplicaClient``'s lease and round sockets,
+slot the replica id), ``sync`` (a standby's ``T_SYNC`` pulls) and
+``probe`` (the sessionless ``T_STATUS``, ``T_PROFILE`` and ``T_METRICS``
+calls); the verbs are the frame types' names, and each completed
+replica round is a ``note_round`` (``wire/replica_bytes_per_round``).
 The learner writes ``emit_scalars`` on its stats cadence:
 ``wire/<link>/bytes_per_s`` from the previous emit, and the gauges.
 

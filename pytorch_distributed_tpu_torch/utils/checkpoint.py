@@ -2,7 +2,10 @@
 the params tier (``save_params``, ``load_params``, ``params_path``,
 ``save_best_score``, ``load_best_score``, :108-160) and the tier of
 crash-consistent checkpoint epochs (:396-848, with ``CheckpointMismatch``
-and ``validate_snapshot`` :79, :282-349 and the RNG helpers :356-365).
+and ``validate_snapshot`` :79, :282-349, the RNG helpers :356-365 and
+``await_epoch`` :717-733, which a rejoining learner replica polls for its
+barrier epoch; a replica's epoch carries ``replica_round`` and
+``replica_ingest_counter`` in its extras).
 The reference's legacy single-snapshot tier is not ported.
 
 The files are the port's own: ``torch.save`` of the model's state_dict
@@ -506,6 +509,22 @@ def resolve_epoch(model_name: str,
             print(f"[checkpoint] skipping corrupt epoch {path}: "
                   + "; ".join(bad), flush=True)
     return None
+
+
+def await_epoch(model_name: str, min_step: int, timeout: float = 30.0,
+                poll: float = 0.1) -> Optional[EpochInfo]:
+    """Poll ``resolve_epoch`` until a complete epoch with ``learner_step >=
+    min_step`` appears, or None after ``timeout`` (reference :717-733):
+    a rejoining replica loads the barrier epoch its lead commits, and the
+    manifest's atomic rename means the poll never sees a torn one."""
+    deadline = time.monotonic() + timeout
+    while True:
+        info = resolve_epoch(model_name)
+        if info is not None and info.learner_step >= min_step:
+            return info
+        if time.monotonic() >= deadline:
+            return None
+        time.sleep(poll)
 
 
 def load_epoch_state(info: EpochInfo, device="cpu") -> TrainState:

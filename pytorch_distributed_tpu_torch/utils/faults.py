@@ -15,6 +15,9 @@ scheduled at that frame fires.  The schedule comes from
 - ``LEARNER_FAULTS``: the learner, one frame per update dispatch;
 - ``ACTOR_FAULTS``: an actor, one frame per vector tick (one per fused
   dispatch on the device backend);
+- ``REPLICA_FAULTS``: a learner replica, one frame per round
+  (agents/learner.py ``ReplicaLearnerDriver.run_rounds``; ``kill@N`` is
+  the replica host's SIGKILL at round N);
 - ``DCN_FAULTS_CLIENT`` and ``DCN_FAULTS_GATEWAY``: the wire
   (parallel/dcn.py).  A ``DcnClient`` counts the frames it sends (HELLO
   is frame 0), a ``DcnGateway`` the frames it receives over every

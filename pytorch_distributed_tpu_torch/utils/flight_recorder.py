@@ -15,7 +15,15 @@ wins, on the paths where a run ends abnormally or recovers:
   or fatal, a worker or the learner hung (before the SIGKILL);
 - an injected fatal fault (utils/faults.py ``crash``, ``kill``, ``hang``):
   nothing runs after a SIGKILL, so the dump comes first;
-- a learner rollback or a fatal divergence (agents/learner.py).
+- a learner rollback or a fatal divergence (agents/learner.py);
+- the DCN planes (parallel/dcn.py) record without dumping: the gateway's
+  claims, fences, promotions (``gateway-promoted``), term fences
+  (``gateway-fenced``, ``stale-term-write``) and failover losses, a
+  client's failovers and reconnects, and the replica registry's leases,
+  expiries, fences, degraded rounds, joins and barrier epochs (role
+  ``replica-registry``); a replica records its fences and rejoins (role
+  ``replica-<id>``); a replica host that loses its lease dumps before
+  its exit (fleet.py).
 
 The dump directory is set once per process by ``configure(log_dir)``;
 the topology also exports ``TPU_APEX_BLACKBOX_DIR`` (and the run id as

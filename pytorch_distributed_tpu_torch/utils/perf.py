@@ -1,8 +1,8 @@
 """The perf plane — the port of pytorch_distributed_tpu/utils/perf.py
-(:1-715, without the gateway's ``prewarm_profiler``, ROADMAP.md Queue A
-item 8): live updates/s, FLOPs per update and MFU, env frames/s, memory
-watermarks, a recapture detector, a host-sync audit and bounded profile
-windows, on the roles' own stats cadences.
+(:1-715, ``prewarm_profiler`` included): live updates/s, FLOPs per
+update and MFU, env frames/s, memory watermarks, a recapture detector, a
+host-sync audit and bounded profile windows, on the roles' own stats
+cadences.
 
 - **Peaks** (``PEAK_FLOPS``, ``peak_flops_of``): dense FLOP/s per card,
   keyed by the prefix of ``torch.cuda.get_device_name()`` and by the
@@ -47,6 +47,8 @@ windows, on the roles' own stats cadences.
   ``utils/profiling.trace`` at a time, asked for from any thread; while
   the learner's (or the Anakin) loop runs, its own thread opens and
   closes the window between two dispatches (``profiling.hold_windows``).
+  The window is recorded in slices, so no stop of the profiler holds the
+  GIL for long (utils/profiling.py).
 
 ``get_monitor`` keeps one monitor per role in the process.  Knobs:
 ``config.PerfParams``, each overridable as ``TPU_APEX_PERF_<FIELD>`` (the
@@ -631,6 +633,31 @@ def reset() -> None:
 _profile_lock = threading.Lock()
 
 
+def prewarm_profiler() -> float:
+    """Pay the profiler's one-time set-up now (reference :646-681): a
+    throwaway window of 50 ms into a temp dir, under the one-window lock,
+    so a window asked for later (``T_PROFILE``) opens at window speed.
+    The reference warms on a background thread; the port's first trace
+    must begin on the thread that imported torch (utils/profiling.py), so
+    it warms on the calling thread, which must be the main one, and
+    returns the seconds it took."""
+    import shutil
+    import tempfile
+
+    from pytorch_distributed_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    with _profile_lock:
+        tmp = tempfile.mkdtemp(prefix="perf_profiler_warm_")
+        try:
+            profiling.init_profiler()
+            with profiling.trace("_warmup", log_dir=tmp):
+                time.sleep(0.05)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return time.perf_counter() - t0
+
+
 def run_profile_window(trace_dir: str, label: str = "tprofile",
                        seconds: float = 3.0,
                        max_seconds: Optional[float] = None
@@ -660,7 +687,7 @@ def run_profile_window(trace_dir: str, label: str = "tprofile",
             if path is None:
                 return {"error": "profiler unavailable (a trace is "
                                  "already active in this process)"}
-            time.sleep(seconds)
+            profiling.sleep_sliced(seconds)
         return {"trace_dir": path, "seconds": seconds}
     except Exception as e:  # noqa: BLE001 - reported to the caller
         return {"error": f"profile capture failed: {e!r}"}

@@ -21,6 +21,23 @@ one it records the host's ops.  The trace is written on exit as
 ``{host}.{pid}.pt.trace.json`` in that directory, a Chrome trace that
 ``chrome://tracing`` and TensorBoard's profile plugin open.
 
+A window is recorded in slices.  Kineto's stop and its Chrome-trace
+writer are each one C++ call that holds the GIL for the whole of it, in
+proportion to the events (torch 2.11 beside an NVIDIA H100 80GB HBM3,
+700.00 W, ``chip_smoke.py fleet_planes``: a 0.5 s window of 140,600
+kernels in one piece, its stop held the GIL 1.73 s and another thread
+of the process waited 2.79 s; in slices, 0.20 s and 0.30 s).  In one
+piece a window starves every other thread of its process for seconds, a
+learner host's gateway with it, and its standby or its replica registry
+takes it for dead.  So the window's profiler is stopped
+and started again once a slice is ``slice_s`` long, each slice is
+written by Kineto on its own, and the slices' events are joined into
+the one file in Python, a few events at a time.  A slice's stop sets the
+next slice's length so that a stop holds the GIL about ``SLICE_HOLD_S``.
+The kernels that run while a slice is cut are not recorded.  The holder
+(below) cuts its windows at its polls, and a window opened on the asking
+thread is cut while that thread waits in ``sleep_sliced``.
+
 Where the profiler starts and stops matters on the H100.  Its first trace
 in a process initialises Kineto's client, which only the thread that
 imported torch may do: begun on another thread it prints "External init
@@ -116,6 +133,9 @@ HOST_WAIT_S = 60.0
 _host_lock = threading.Lock()
 _host: Optional[int] = None
 _request: Optional["_Window"] = None
+# the window the asking thread opened itself (no holder), cut into slices
+# while it waits in sleep_sliced
+_own_recorder: Optional["_Recorder"] = None
 
 
 def _activity():
@@ -156,11 +176,93 @@ def _open():
     return prof
 
 
+def _stop(prof) -> float:
+    """Stop the started profiler ``prof``; the seconds its stop held the
+    GIL (the wait for the card before it does not)."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()  # releases the GIL while it waits
+    t0 = time.monotonic()
+    prof.__exit__(None, None, None)
+    return time.monotonic() - t0
+
+
+# a slice's stop holds the GIL about SLICE_HOLD_S (module docstring); a
+# window's first slice is SLICE_FIRST_S long, and every slice between
+# SLICE_MIN_S and SLICE_MAX_S
+SLICE_HOLD_S = 0.2
+SLICE_FIRST_S, SLICE_MIN_S, SLICE_MAX_S = 0.02, 0.005, 1.0
+
+
+class _Recorder:
+    """One window's profiler on the thread that opened it, stopped and
+    started again in slices (module docstring)."""
+
+    def __init__(self):
+        self.thread = threading.get_ident()
+        self.slices: list = []
+        self.slice_s = SLICE_FIRST_S
+        self._prof = _open()
+        self._t0 = time.monotonic()
+
+    def poll(self) -> None:
+        """Begin the next slice once this one is ``slice_s`` long."""
+        if time.monotonic() - self._t0 >= self.slice_s:
+            self._cut()
+            self._prof = _open()
+            self._t0 = time.monotonic()
+
+    def stop(self) -> list:
+        """The window's stopped profilers, one a slice."""
+        if self._prof is not None:
+            self._cut()
+        return self.slices
+
+    def _cut(self) -> None:
+        prof, self._prof = self._prof, None
+        held = _stop(prof)
+        self.slices.append(prof)
+        self.slice_s = min(max(self.slice_s * SLICE_HOLD_S
+                               / max(held, 1e-3), SLICE_MIN_S), SLICE_MAX_S)
+
+
+def _write(slices: list, path: str) -> None:
+    """The slices' events as one Chrome trace at ``path``: Kineto writes
+    each slice, and its events are copied one at a time (each a short
+    hold of the GIL), after the first slice's other keys."""
+    import json
+
+    if len(slices) == 1:
+        slices[0].export_chrome_trace(path)
+        return
+    part = path + ".slice"
+    with open(path, "w") as out:
+        n = 0
+        for k, prof in enumerate(slices):
+            prof.export_chrome_trace(part)
+            with open(part) as f:
+                doc = json.load(f)
+            os.remove(part)
+            events = doc.pop("traceEvents", [])
+            if k == 0:
+                out.write("{")
+                for key, value in doc.items():
+                    out.write(f"{json.dumps(key)}: {json.dumps(value)}, ")
+                out.write('"traceEvents": [')
+            for e in events:
+                out.write((",\n" if n else "\n") + json.dumps(e))
+                n += 1
+            del doc, events
+        out.write("\n]}")
+
+
 class _Window:
     """A window one thread asked the holder for."""
 
     def __init__(self):
-        self.prof = None
+        self.recorder: Optional[_Recorder] = None
+        self.slices: list = []
         self.error: Optional[BaseException] = None
         self.opened = threading.Event()
         self.close = threading.Event()
@@ -199,14 +301,15 @@ def _serve(req: _Window, final: bool = False) -> None:
     global _request
     try:
         done = final or req.close.is_set()
-        if req.prof is None and not done:
-            req.prof = _open()
+        if req.recorder is None and not done:
+            req.recorder = _Recorder()
             req.opened.set()
             return
         if not done:
+            req.recorder.poll()
             return
-        if req.prof is not None:
-            req.prof.__exit__(None, None, None)
+        if req.recorder is not None:
+            req.slices = req.recorder.stop()
         else:
             req.error = RuntimeError("the holder's loop ended, or the asker "
                                      "gave up, before the window opened")
@@ -242,7 +345,7 @@ def trace(label: str, log_dir: Optional[str] = None
           ) -> Iterator[Optional[str]]:
     """A ``torch.profiler`` trace of the enclosed block (module
     docstring); yields its directory, or None."""
-    global _trace_active
+    global _trace_active, _own_recorder
     target = log_dir or os.environ.get("TPU_APEX_PROFILE")
     if not target:
         yield None
@@ -264,12 +367,14 @@ def trace(label: str, log_dir: Optional[str] = None
         path = os.path.join(target, sanitize_label(label))
         os.makedirs(path, exist_ok=True)
         req = _ask_holder()
-        prof = req.prof if req is not None else _open()
+        own = _Recorder() if req is None else None
+        _own_recorder = own
         try:
             yield path
         finally:
+            _own_recorder = None
             if req is None:
-                prof.__exit__(None, None, None)
+                slices = own.stop()
             else:
                 req.close.set()
                 if not req.closed.wait(HOST_WAIT_S):
@@ -277,8 +382,26 @@ def trace(label: str, log_dir: Optional[str] = None
                                        f"{HOST_WAIT_S:g} s")
                 if req.error is not None:
                     raise req.error
-        prof.export_chrome_trace(os.path.join(
+                slices = req.slices
+        _write(slices, os.path.join(
             path, f"{socket.gethostname()}.{os.getpid()}.pt.trace.json"))
     finally:
         with _trace_lock:
             _trace_active = False
+
+
+def sleep_sliced(seconds: float) -> None:
+    """Sleep ``seconds`` in a ``trace`` block; a window the calling thread
+    opened itself is cut into slices meanwhile (a holder cuts the windows
+    it holds at its polls)."""
+    end = time.monotonic() + seconds
+    while True:
+        left = end - time.monotonic()
+        if left <= 0:
+            return
+        rec = _own_recorder
+        if rec is None or rec.thread != threading.get_ident():
+            time.sleep(left)
+            return
+        rec.poll()
+        time.sleep(min(left, 0.005))

@@ -1,5 +1,5 @@
 """Mission control on one host — the port of
-pytorch_distributed_tpu/utils/telemetry.py (:1-750, :890-1035): bounded
+pytorch_distributed_tpu/utils/telemetry.py (:1-1035): bounded
 time series of the run's scalar rows, an alert engine over them and an
 OpenMetrics endpoint.
 
@@ -20,9 +20,10 @@ OpenMetrics endpoint.
 
 ``MissionControl`` composes them and owns the poll thread; the runtime
 builds one when ``MetricsParams.enabled`` and starts and stops it around
-the run.  ``ingest_remote`` takes a pushed batch of rows; the pushers and
-the gateway's verbs that carry them (``MetricsPusher``, ``T_METRICS``)
-come with the fleet planes (ROADMAP.md Queue A item 8).  Knobs:
+the run.  ``ingest_remote`` takes a pushed batch of rows: the fleet's
+gateway hands it each ``T_METRICS`` batch, which an actor host's
+``MetricsPusher`` (reference :748-893) ships every ``push_s`` from its
+own ``scalars.jsonl`` with its NTP-style clock offset.  Knobs:
 ``config.MetricsParams`` and ``config.AlertParams``, each overridable as
 ``TPU_APEX_METRICS_<FIELD>`` (the bare ``TPU_APEX_METRICS=1`` is
 ``enabled``) and ``TPU_APEX_ALERT_<FIELD>`` (``TPU_APEX_ALERT_RULES``
@@ -702,6 +703,154 @@ class OpenMetricsServer:
 
 
 # ---------------------------------------------------------------------------
+# remote push (the T_METRICS client side)
+# ---------------------------------------------------------------------------
+
+class MetricsPusher:
+    """Fleet-host leg of the aggregator: tails THIS host's
+    ``scalars.jsonl`` (the same ``ScalarsTail`` cursor the local ingest
+    uses) and pushes each poll's scalar deltas to the learner-host
+    gateway over the sessionless ``T_METRICS`` verb on the
+    ``push_s`` cadence.
+
+    Wall-clock alignment: the T_METRICS reply carries the gateway's
+    wall clock; the pusher estimates its offset to it NTP-style off the
+    RPC midpoint (EWMA-smoothed — the same estimator DcnClient uses for
+    ``clock_sync``) and ships the estimate with every batch, so the
+    gateway-side aggregator lands this host's points on the learner
+    host's time axis.  The FIRST push is an empty offset-estimation
+    handshake: rows only travel once an offset estimate exists, so a
+    badly skewed host never pollutes the fleet series with unaligned
+    points.  Push failures are counted and retried next cadence — the
+    telemetry plane must never backpressure the host it watches."""
+
+    # rows buffered across failed pushes before the OLDEST are shed
+    # (counted as ``dropped_rows``, never silent): an actor host whose
+    # coordinator is down for days must not hoard its whole metrics
+    # backlog in memory — telemetry is a lossy-tolerable plane, the
+    # host it watches is not
+    MAX_PENDING = 10_000
+
+    def __init__(self, address: Tuple[str, int], log_dir: str,
+                 params=None, host: Optional[str] = None,
+                 clock: Callable[[], float] = time.time):
+        self.address = address
+        self.params = resolve_metrics(params)
+        self._tail = ScalarsTail(log_dir, max_bytes=1 << 20)
+        self._host = host or os.uname().nodename
+        self._clock = clock
+        self.offset: Optional[float] = None
+        self.pushed_rows = 0
+        self.push_errors = 0
+        self.dropped_rows = 0
+        # brownout tier 1 (the telemetry rung): the gateway's
+        # T_METRICS reply carries ``brownout`` while the ladder is
+        # engaged; this pusher then sheds its pending rows (counted
+        # here) until a reply clears it — metrics traffic yields to
+        # the experience plane first, and never silently.
+        self.brownout = 0
+        self.brownout_shed_rows = 0
+        self._warned_drop = False
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._pending: List[dict] = []
+
+    def _rpc(self, rows: List[dict]) -> dict:
+        from pytorch_distributed_tpu_torch.parallel.dcn import push_metrics
+
+        t0 = self._clock()
+        reply = push_metrics(self.address, rows, offset=self.offset,
+                             host=self._host)
+        mid = (t0 + self._clock()) / 2.0
+        gw_wall = reply.get("wall")
+        if isinstance(gw_wall, (int, float)):
+            sample = float(gw_wall) - mid
+            self.offset = (sample if self.offset is None
+                           else 0.9 * self.offset + 0.1 * sample)
+        try:
+            self.brownout = int(reply.get("brownout", 0) or 0)
+        except (TypeError, ValueError):
+            self.brownout = 0
+        return reply
+
+    def push_once(self) -> int:
+        """One cadence: tail new rows, (re)estimate the offset, push.
+        Returns rows accepted by the gateway.  A failed push RETAINS
+        its batch for the next cadence (re-prepended, order kept) up
+        to ``MAX_PENDING`` rows; beyond that the oldest are shed and
+        counted."""
+        self._pending.extend(r for r in self._tail.poll()
+                             if is_scalar_row(r))
+        if self.brownout >= 1 and self._pending:
+            # the telemetry rung of the brownout ladder: shed this
+            # cadence's rows (counted), then ping with an empty batch
+            # so recovery — a reply without ``brownout`` — is observed
+            self.brownout_shed_rows += len(self._pending)
+            self._pending = []
+            try:
+                self._rpc([])
+            except (ConnectionError, OSError):
+                self.push_errors += 1
+            return 0
+        if len(self._pending) > self.MAX_PENDING:
+            shed = len(self._pending) - self.MAX_PENDING
+            del self._pending[:shed]
+            self.dropped_rows += shed
+            if not self._warned_drop:
+                self._warned_drop = True
+                print(f"[telemetry] pusher backlog over "
+                      f"{self.MAX_PENDING} rows (gateway unreachable?);"
+                      f" shedding oldest (counted, not silent)",
+                      flush=True)
+        batch: List[dict] = []
+        try:
+            if self.offset is None:
+                self._rpc([])  # offset handshake before any row travels
+            if not self._pending:
+                return 0
+            batch, self._pending = self._pending, []
+            reply = self._rpc(batch)
+            if reply.get("error"):
+                self.push_errors += 1
+                self._pending = batch + self._pending
+                return 0
+            n = int(reply.get("accepted", 0))
+            self.pushed_rows += n
+            return n
+        except (ConnectionError, OSError):
+            # the batch survives the blip: next cadence retries it
+            # ahead of newer rows (the gateway-restart soak scenario)
+            self.push_errors += 1
+            self._pending = batch + self._pending
+            return 0
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+
+        def _loop() -> None:
+            while not self._stop.wait(self.params.push_s):
+                self.push_once()
+            self.push_once()  # final drain on stop
+
+        self._thread = threading.Thread(target=_loop,
+                                        name="metrics-pusher",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(5.0)
+            self._thread = None
+
+
+# ---------------------------------------------------------------------------
+# mission control: the composed plane
+# ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
 # mission control: the composed plane
 # ---------------------------------------------------------------------------
 
@@ -711,8 +860,8 @@ class MissionControl:
 
     - local ingest: tails ``{log_dir}/scalars.jsonl`` (every co-located
       role's writer appends there) via ScalarsTail;
-    - remote ingest: ``ingest_remote`` takes a pushed batch (its
-      carrier comes with the fleet planes);
+    - remote ingest: ``ingest_remote`` takes a pushed batch (the
+      gateway's ``T_METRICS`` sink);
     - alert transitions land in the flight recorder (role
       ``missionctl``) and — when a log dir exists — as
       ``alert/<rule>`` rows in the same scalar stream;

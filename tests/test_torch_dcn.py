@@ -10,6 +10,9 @@ against the JAX package's (pytorch_distributed_tpu/parallel/dcn.py).
   the gateway's wall clock: equal but for ``wall``.
 - The port's gateway and client round trips, as tests/test_dcn.py's
   ``TestGateway`` and ``TestSlotLifecycle``.
+- ``T_PROFILE`` and ``T_METRICS`` with a profiler and a metrics sink
+  wired: the same replies, provider calls and counters, and each
+  package's ``fetch_profile`` and ``push_metrics`` against each gateway.
 - Cross-wire over 127.0.0.1: the JAX package's ``DcnClient`` against the
   port's ``DcnGateway`` and the reverse, through HELLO, EXP, GETP, TICK,
   PING, STATUS and BYE, with the same replies (credits, learner step,
@@ -503,3 +506,72 @@ def test_feed_queue_of_a_slot_ingest_carries_bare_rows():
     ingest.close()
     with pytest.raises(ValueError):
         put(items)
+
+
+# -- the telemetry verbs with their providers wired ---------------------------------
+
+def test_the_telemetry_verbs_with_providers_answer_as_the_reference():
+    """``T_PROFILE`` and ``T_METRICS`` on gateways whose ``profiler`` and
+    ``metrics_sink`` are wired (a provider that answers, one that raises,
+    a sink that counts rows): the same replies but for the wall clock,
+    the same messages handed to the providers, and the same STATUS
+    counters; ``fetch_profile`` and ``push_metrics`` of each package
+    against each gateway."""
+    replies, seen, counts = {}, {}, {}
+    for name, mod, ps, ck in (("port", dcn, ParamStore, GlobalClock),
+                              ("jax", jax_dcn, jax_ps.ParamStore,
+                               jax_clocks.GlobalClock)):
+        calls = seen[name] = []
+
+        def profiler(msg, calls=calls):
+            calls.append(("profile", msg))
+            if msg.get("label") == "boom":
+                raise RuntimeError("no window")
+            return {"trace_dir": f"/traces/{msg.get('label')}",
+                    "seconds": msg.get("seconds")}
+
+        def sink(batch, calls=calls):
+            calls.append(("metrics", batch))
+            return len(batch.get("rows", []))
+
+        stats = (ActorStats if name == "port" else jax_clocks.ActorStats)()
+        gw = mod.DcnGateway(ps(4), ck(), stats, put_chunk=lambda items: None,
+                            host=LOCAL, port=0, profiler=profiler,
+                            metrics_sink=sink)
+        try:
+            out = []
+            s = socket.create_connection((LOCAL, gw.port))
+            for ft, msg in ((dcn.T_PROFILE, {"seconds": 0.5, "label": "a",
+                                              "role": "learner"}),
+                            (dcn.T_PROFILE, {"label": "boom"}),
+                            (dcn.T_METRICS, {"rows": [{"tag": "t",
+                                                       "value": 1.0}],
+                                             "offset": 0.25, "host": "h"}),
+                            (dcn.T_METRICS, {})):
+                t, p = _raw_rpc(s, ft, json.dumps(msg).encode())
+                reply = json.loads(p)
+                reply.pop("wall", None)
+                out.append((t, reply))
+            dcn._send_frame(s, dcn.T_BYE, b"")
+            s.close()
+            addr = (LOCAL, gw.port)
+            for helper in (dcn, jax_dcn):
+                out.append(helper.fetch_profile(addr, seconds=0.25,
+                                                label="h"))
+                r = helper.push_metrics(addr, [{"tag": "u", "value": 2.0}],
+                                        offset=1.0, host="x")
+                assert r.pop("wall") > 0
+                out.append(r)
+            st = mod.fetch_status(addr)
+            counts[name] = (st["metrics_batches"], st["metrics_rows"],
+                            gw.profiles_served)
+        finally:
+            gw.close()
+        replies[name] = out
+    assert replies["port"] == replies["jax"]
+    assert replies["port"][0] == (dcn.T_PROFILE, {"trace_dir": "/traces/a",
+                                                  "seconds": 0.5})
+    assert replies["port"][1][1]["error"].startswith("profiler failed")
+    assert replies["port"][2] == (dcn.T_METRICS, {"accepted": 1})
+    assert seen["port"] == seen["jax"]
+    assert counts["port"] == counts["jax"] == (4, 3, 4)

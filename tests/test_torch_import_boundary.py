@@ -76,6 +76,35 @@ def test_plane_modules_are_walked_and_import_without_jax(name):
     assert not bad, bad
 
 
+# the modules of the replica and HA planes and the telemetry verbs, new
+# or grown, each with its own copy of what it needs of the reference
+REPLICA_HA_MODULES = ("parallel.learner", "utils.rngs", "parallel.dcn",
+                      "agents.learner", "ops.losses", "factory",
+                      "memory.device_per", "utils.checkpoint", "utils.perf",
+                      "utils.telemetry", "utils.bandwidth",
+                      "utils.flight_recorder", "runtime", "config", "fleet")
+
+
+def test_replica_and_ha_modules_are_walked_and_import_without_jax():
+    """One fresh interpreter imports them all (one process, not one each)."""
+    mods = [f"{PORT}.{name}" for name in REPLICA_HA_MODULES]
+    walked = set(_port_modules())
+    assert all(m in walked for m in mods), sorted(set(mods) - walked)
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert all(m in loaded for m in mods)
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad
+
+
 def test_forbidden_name_matching():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("jaxlib.xla_client")

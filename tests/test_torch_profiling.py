@@ -144,8 +144,45 @@ def test_the_holder_opens_and_closes_other_threads_windows(tmp_path,
     (reply,) = replies
     assert reply["trace_dir"] == os.path.join(str(tmp_path), "held")
     assert _trace_events(reply["trace_dir"])
-    assert opened_on == [threading.get_ident()]
+    # each slice of the window (utils/profiling.py) opens on the holder
+    assert opened_on and set(opened_on) == {threading.get_ident()}
     assert profiling._request is None and profiling._host is None
+
+
+@pytest.mark.parametrize("held", [True, False], ids=["holder", "asker"])
+def test_a_window_is_recorded_in_slices_joined_in_one_trace(
+        tmp_path, monkeypatch, held):
+    """A window is cut into slices, each stopped on the thread that opened
+    it (the holder at its polls, or the asking thread while it waits), and
+    the slices' events are joined in the one Chrome trace."""
+    profiling.init_profiler()
+    monkeypatch.setattr(profiling, "SLICE_FIRST_S", 0.02)
+    monkeypatch.setattr(profiling, "SLICE_MIN_S", 0.02)
+    monkeypatch.setattr(profiling, "SLICE_MAX_S", 0.05)
+    stopped_on = []
+    real_stop = profiling._stop
+    monkeypatch.setattr(profiling, "_stop", lambda prof: (
+        stopped_on.append(threading.get_ident()), real_stop(prof))[1])
+    if held:
+        profiling.hold_windows()
+    try:
+        t, replies = _ask_in_thread(tmp_path, "sliced", seconds=0.3)
+        x = torch.ones(32, 32)
+        deadline = time.monotonic() + 60
+        while t.is_alive() and time.monotonic() < deadline:
+            x = (x @ x).clamp(max=1.0)
+            profiling.poll_window()
+        t.join(30)
+    finally:
+        profiling.release_windows()
+    (reply,) = replies
+    assert reply["seconds"] == 0.3
+    assert len(stopped_on) >= 2
+    assert len(set(stopped_on)) == 1
+    assert (stopped_on[0] == threading.get_ident()) == held
+    events = _trace_events(reply["trace_dir"])
+    if held:  # the asker only sleeps: the holder's matmuls are recorded
+        assert sum(e.get("name") == "aten::mm" for e in events) > 4
 
 
 def test_a_holder_that_ends_refuses_the_window(tmp_path, monkeypatch):

@@ -3,12 +3,16 @@ telemetry.py and utils/metrics.ScalarsTail) against the JAX package's on
 the CPU: knob resolution, the tail reader's four cases, the rule
 language, the time series, the alert engine's transitions and the
 OpenMetrics text, each on the same inputs and clock; the HTTP scrape;
-``MissionControl`` over a run dir; and the runtime's hook in a short run
-of row 1."""
+``MissionControl`` over a run dir; the runtime's hook in a short run of
+row 1; and an actor host's ``MetricsPusher`` against the reference's, on
+either package's gateway: the handshake, the offset on an injected clock
+2.5 s behind (within 0.5 s, the reference's bound), ``MAX_PENDING``
+shedding, brownout shedding and ``ingest_remote`` of a pushed batch."""
 
 import dataclasses
 import json
 import os
+import time
 import urllib.request
 
 import pytest
@@ -388,3 +392,143 @@ def test_runtime_runs_mission_control(tmp_path, monkeypatch):
     assert alerts[:2] == [(1.0, "missionctl"), (2.0, "missionctl")]
     assert topology.mission.metrics.latest("learner/mfu") is not None
     assert topology.mission._thread is None  # stopped with the run
+
+
+# ---------------------------------------------------------------------------
+# MetricsPusher against the reference's (an actor host's push leg)
+# ---------------------------------------------------------------------------
+
+def _push_gateway(pkg: str, sink=None, tier: int = 0):
+    """A gateway of ``pkg`` on 127.0.0.1 port 0 whose ``T_METRICS`` goes to
+    ``sink``; ``tier`` > 0 sets its flow governor's brownout tier."""
+    if pkg == "port":
+        from pytorch_distributed_tpu_torch.agents.clocks import (
+            ActorStats, GlobalClock,
+        )
+        from pytorch_distributed_tpu_torch.agents.param_store import (
+            ParamStore,
+        )
+        from pytorch_distributed_tpu_torch.parallel.dcn import DcnGateway
+    else:
+        from pytorch_distributed_tpu.agents.clocks import (
+            ActorStats, GlobalClock,
+        )
+        from pytorch_distributed_tpu.agents.param_store import ParamStore
+        from pytorch_distributed_tpu.parallel.dcn import DcnGateway
+    gw = DcnGateway(ParamStore(4), GlobalClock(), ActorStats(),
+                    put_chunk=lambda items: None, host="127.0.0.1", port=0,
+                    metrics_sink=sink)
+    if tier:
+        gw.flow.governor.tier = tier
+    return gw
+
+
+def _pusher(pkg: str, addr, log_dir, clock=None):
+    cls = telemetry.MetricsPusher if pkg == "port" else jtel.MetricsPusher
+    params = (MetricsParams if pkg == "port" else JaxMetricsParams)(
+        enabled=True)
+    kw = {} if clock is None else {"clock": clock}
+    return cls(addr, str(log_dir), params, host="actor-host", **kw)
+
+
+def _write_rows(log_dir, n, clock=None, start=0):
+    w = MetricsWriter(str(log_dir), enable_tensorboard=False,
+                      role="actor-0")
+    for i in range(start, start + n):
+        w.scalar("actor/env_frames_per_s", float(i), step=i,
+                 wall=None if clock is None else clock())
+    w.close()
+
+
+@pytest.mark.parametrize("pusher_pkg,gateway_pkg", [
+    ("port", "port"), ("port", "jax"), ("jax", "port")])
+def test_pusher_handshake_and_offset_on_an_injected_clock(
+        tmp_path, pusher_pkg, gateway_pkg):
+    """A host whose clock runs 2.5 s behind: the first push is the empty
+    handshake, the rows follow with the offset (about +2.5 s) and land on
+    the gateway's clock in mission control; either package's pusher
+    against either's gateway, the port's ingest as the sink."""
+    clock = lambda: time.time() - 2.5  # noqa: E731
+    mission = telemetry.MissionControl(
+        None, MetricsParams(enabled=True), AlertParams(enabled=False))
+    gw = _push_gateway(gateway_pkg, sink=mission.ingest_remote)
+    try:
+        _write_rows(tmp_path, 3, clock)
+        p = _pusher(pusher_pkg, ("127.0.0.1", gw.port), tmp_path, clock)
+        assert p.offset is None
+        assert p.push_once() == 3
+        assert p.offset == pytest.approx(2.5, abs=0.5)
+        assert mission.metrics.remote_batches == 2  # handshake + rows
+        wall, value = mission.metrics.latest("actor/env_frames_per_s")
+        assert value == 2.0 and abs(wall - time.time()) < 0.5
+        assert (p.pushed_rows, p.push_errors) == (3, 0)
+    finally:
+        gw.close()
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def test_pusher_sheds_past_max_pending_as_the_reference(tmp_path):
+    """A dead gateway: rows buffer, the oldest past ``MAX_PENDING`` are
+    shed and counted, the rest kept in order — both packages alike."""
+    _write_rows(tmp_path, 30)
+    seen = []
+    for pkg in ("port", "jax"):
+        p = _pusher(pkg, ("127.0.0.1", _free_port()), tmp_path)
+        p.MAX_PENDING = 10
+        assert p.push_once() == 0
+        seen.append((p.dropped_rows, p.push_errors,
+                     [r["value"] for r in p._pending]))
+    assert seen[0] == seen[1] == (20, 1, [float(i) for i in range(20, 30)])
+
+
+@pytest.mark.parametrize("gateway_pkg", ["port", "jax"])
+def test_pusher_sheds_at_brownout_tier_1_as_the_reference(tmp_path,
+                                                          gateway_pkg):
+    """A gateway at brownout tier 1 answers ``brownout`` on T_METRICS: the
+    next cadence's rows are shed (counted) and an empty ping goes; the
+    reference's pusher does the same against the same gateway."""
+    got = []
+    for pkg in ("port", "jax"):
+        d = tmp_path / pkg
+        d.mkdir()
+        mission = telemetry.MissionControl(
+            None, MetricsParams(enabled=True), AlertParams(enabled=False))
+        gw = _push_gateway(gateway_pkg, sink=mission.ingest_remote, tier=1)
+        try:
+            p = _pusher(pkg, ("127.0.0.1", gw.port), d)
+            _write_rows(d, 2)
+            first = p.push_once()  # handshake, then the rows are accepted
+            _write_rows(d, 5, start=2)
+            second = p.push_once()  # the reply said brownout: shed
+            got.append((first, second, p.brownout, p.brownout_shed_rows,
+                        p.pushed_rows, mission.metrics.ingested_rows))
+        finally:
+            gw.close()
+    assert got[0] == got[1] == (2, 0, 1, 5, 2, 2)
+
+
+def test_ingest_remote_of_a_pushed_batch_matches_the_reference():
+    """The same pushed batch (rows, an offset, a host) into both packages'
+    mission control: the same rows absorbed, batches counted and walls
+    shifted."""
+    rows = [{"tag": "a/b", "value": 1.5, "wall": 100.0, "role": "actor-1"},
+            {"tag": "h", "kind": "histogram", "wall": 0.0},
+            {"tag": "a/b", "value": 2.5, "wall": 101.0}]
+    batch = {"rows": rows, "offset": 3.25, "host": "h1"}
+    port = telemetry.MissionControl(None, MetricsParams(enabled=True),
+                                    AlertParams(enabled=False))
+    ref = jtel.MissionControl(None, JaxMetricsParams(enabled=True),
+                              JaxAlertParams(enabled=False))
+    assert port.ingest_remote(batch) == ref.ingest_remote(batch) == 2
+    assert port.metrics.remote_batches == ref.metrics.remote_batches == 1
+    assert port.metrics.latest("a/b") == ref.metrics.latest("a/b") == (
+        104.25, 2.5)
